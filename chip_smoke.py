@@ -20,9 +20,26 @@ Phases, each reported on its own lines:
      bf16 activations, fp32 params, fused route on, remat as the recipe sets it)
      takes 3 train steps on a seeded synthetic batch of 2 samples
      (two views, two texts each, augmentation on), with the kernel launch
-     counters read around the run.
-The line before the last is a JSON object with one entry per kernel; the last
-line is {"ok": true, "device": {...}}. Without a CUDA device, or outside a
+     counters read around the run;
+  6. the standalone ``fused_mbconv_e1`` kernel (csrc/mbconv1.cu) against its
+     plain version at the two B5 e=1 shapes (block 0: 48->24; blocks 1-2:
+     24->24 with the residual; 760x456, N=2, delta [1.25, 0]), forward and
+     backward, fp32 and bf16; its path driven once through the public wrapper
+     with the counters read around it; then its times beside the plain
+     version's, its bound, the e6 kernel's e=1 form at the same shape, the
+     device memory each holds from forward to backward, and its device time
+     per pass (torch.profiler);
+  7. the pretraining entry point: ``cli/pretrain.main`` at full width (the
+     default B5 config made into the compat recipe by dotted overrides, a CSV
+     of 8 rows in a temporary directory, ``synthetic://`` images), 1 epoch of 3
+     steps at batch 2 with 1 validation batch, then ``--resume`` for a second
+     epoch; it checks the checkpoints, best/, the step count, finite losses,
+     14+14 e6 calls per step and that no thread is left behind, and prints the
+     per-step ms, the checkpoint write and read seconds, and the kernel time and
+     device busy share of its second step, profiled by ``train.profile_at_step``.
+The line before the last is a JSON object with one entry per kernel (e6 entries
+counted on the CLI slice, e1 entries on its own path); the last line is
+{"ok": true, "device": {...}}. Without a CUDA device, or outside a
 checkout of the repository, the script exits non-zero and prints no result.
 Long logs go to chiprun_out/.
 """
@@ -140,15 +157,26 @@ def pad_max(t, case):
     return max(rows, cols)
 
 
-def check_case(case, dtype_name):
-    """Phase 3 for one case and dtype; returns the max abs error of out and dx."""
+def e1_fns():
+    """fused_mbconv_e1 and its plain version under the Case.run call signature
+    (the e1 block has no pad region: vh, vw are the full height and width)."""
+    from mammo_clip_tpu_torch.ops.mbconv import fused_mbconv_e1, plain_fused_mbconv_e1
+
+    return (lambda x, p, d, vh, vw: fused_mbconv_e1(x, p, d),
+            lambda x, p, d, vh, vw: plain_fused_mbconv_e1(x, p, d))
+
+
+def check_case(case, dtype_name, fns=None):
+    """Phase 3 (e6 kernel) or 6 (``fns`` = e1_fns()) for one case and dtype;
+    returns the max abs error of out and dx."""
     import torch
 
     from mammo_clip_tpu_torch.ops.mbconv6 import fused_mbconv_e6, plain_fused_mbconv_e6
 
+    kernel_fn, plain_fn = fns or (fused_mbconv_e6, plain_fused_mbconv_e6)
     dtype = getattr(torch, dtype_name)
-    ok, sk, dxk, gk = case.run(fused_mbconv_e6, dtype)
-    op, sp, dxp, gp = case.run(plain_fused_mbconv_e6, dtype)
+    ok, sk, dxk, gk = case.run(kernel_fn, dtype)
+    op, sp, dxp, gp = case.run(plain_fn, dtype)
     bf16 = dtype_name == "bfloat16"
     rows = [("out", max_rel(ok, op), 1e-2 if bf16 else 1e-4),
             ("dx", max_rel(dxk, dxp), 1e-2 if bf16 else 1e-3)]
@@ -213,9 +241,25 @@ def time_case(case):
     return k_fwd, k_bwd, p_fwd, p_bwd
 
 
+def held_bytes(fn, case):
+    """Device bytes that one bf16 forward of ``fn`` keeps allocated for its
+    backward, beyond its inputs and outputs (the saved intermediates)."""
+    import torch
+
+    x = case.x.to(torch.bfloat16).requires_grad_(True)
+    p = type(case.params)(*[t.detach().clone().requires_grad_(True) for t in case.params])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    out, stats = fn(x, p, case.delta, case.vh, case.vw)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    return held - sum(t.numel() * t.element_size() for t in (out, *stats))
+
+
 def kernel_phases(seed):
     """Phases 3 and 4 for each main-path shape. Returns one row per case and
-    direction; the cases' device tensors are freed on return, so the slice's
+    direction, and for the e=1 cases the e6 kernel's (forward, backward) ms and
+    held bytes; the cases' device tensors are freed on return, so the slice's
     peak memory counts only the slice."""
     cases = [Case("block4_e6", "e6", BATCH, 40, 40, 380, 228, seed),
              Case("block0_e1", "e1", BATCH, 48, 24, 760, 456, seed + 1),
@@ -227,6 +271,7 @@ def kernel_phases(seed):
     kernels = []
     for case in cases:  # times in bf16, the main path's type
         k_fwd, k_bwd, p_fwd, p_bwd = time_case(case)
+        case.times = (k_fwd, k_bwd)
         for direction, ms, plain in (("forward", k_fwd, p_fwd), ("backward", k_bwd, p_bwd)):
             bound_ms, bound_by = case.bound(direction)
             say(f"[time] {case.name} {direction} bf16 N={case.N} {case.H}x{case.W}: kernel "
@@ -234,7 +279,11 @@ def kernel_phases(seed):
             kernels.append(dict(case=case.name, form=case.form, direction=direction,
                                 err=errs[case.name, "bfloat16"], ms=ms, plain_ms=plain,
                                 bound_ms=bound_ms, bound_by=bound_by))
-    return kernels
+    from mammo_clip_tpu_torch.ops.mbconv6 import fused_mbconv_e6
+
+    e6_e1_form = {c.name: (c.times, held_bytes(fused_mbconv_e6, c)) for c in cases
+                  if c.form == "e1"}
+    return kernels, e6_e1_form
 
 
 # --------------------------------------------------------------------------
@@ -269,7 +318,7 @@ def reference_check(seed):
     from mammo_clip_tpu_torch.core.config import tiny_test_config
     from mammo_clip_tpu_torch.losses import build_loss
     from mammo_clip_tpu_torch.models import build_model
-    from mammo_clip_tpu_torch.ops.mbconv6 import launches
+    from mammo_clip_tpu_torch.ops.mbconv import launches
 
     cfg = tiny_test_config()
     cfg.model.image_encoder.fused_mbconv = True
@@ -283,13 +332,13 @@ def reference_check(seed):
         batch = {k: v.to(device) for k, v in synthetic_batch(cfg, 4, seed, "cpu").items()}
         for k in ("images", "image_views"):
             batch[k] = (batch[k] - 128.0) / 64.0
-        before = launches.total("forward")
+        before = launches.total("mbconv6", "forward")
         out = model(batch, train=True)
         loss = loss_fn(out, batch, True)["total"]
         loss.backward()
         grads = torch.cat([p.grad.flatten().cpu() for p in model.parameters()])
         results.append((loss.item(), out["image_embeddings"].detach().cpu(), grads,
-                        launches.total("forward") - before))
+                        launches.total("mbconv6", "forward") - before))
     (lk, ek, gk, nk), (lp, ep, gp, npl) = results
     err_e = float((ek - ep).abs().max())
     err_g = float((gk - gp).norm() / gp.norm())
@@ -304,7 +353,7 @@ def reference_check(seed):
 def run_slice(seed):
     import torch
 
-    from mammo_clip_tpu_torch.ops.mbconv6 import launches
+    from mammo_clip_tpu_torch.ops.mbconv import launches
     from mammo_clip_tpu_torch.train.recipes import bench_recipe_config, build_bench_train
 
     cfg = bench_recipe_config(compat=True)
@@ -322,7 +371,7 @@ def run_slice(seed):
     per_step, rows = [], []
     for i in range(STEPS):
         torch.cuda.reset_peak_memory_stats()
-        f0, b0 = launches.total("forward"), launches.total("backward")
+        f0, b0 = launches.total("mbconv6", "forward"), launches.total("mbconv6", "backward")
         torch.cuda.synchronize()
         t = time.perf_counter()
         state, loss = train_step(state, batch, gen)
@@ -330,7 +379,8 @@ def run_slice(seed):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t) * 1e3
         mem = torch.cuda.max_memory_allocated()
-        nf, nb = launches.total("forward") - f0, launches.total("backward") - b0
+        nf = launches.total("mbconv6", "forward") - f0
+        nb = launches.total("mbconv6", "backward") - b0
         per_step.append((nf, nb))
         rows.append({"step": i, "loss": total, "ms": ms, "peak_bytes": mem})
         say(f"[slice] step {i}: loss {total:.6f}, {ms:.1f} ms, peak memory {mem} B "
@@ -351,6 +401,269 @@ def run_slice(seed):
     say(f"[slice] eval image embeddings {tuple(emb.shape)} finite, unit norm "
         f"{float(emb.norm(dim=-1).min()):.6f}..{float(emb.norm(dim=-1).max()):.6f}")
     return rows
+
+
+# --------------------------------------------------------------------------
+# phase 6: the standalone e1 kernel
+# --------------------------------------------------------------------------
+
+
+def e1_phases(seed, e6_e1_form):
+    """The e1 kernel against its plain version at B5 blocks 0 and 1-2, its own
+    path through the public wrapper (counters at 0 before, read after), then its
+    times and held memory beside the e6 kernel's e=1 form at the same shape."""
+    import torch
+
+    from mammo_clip_tpu_torch.ops import cuda_lib
+    from mammo_clip_tpu_torch.ops.mbconv import (
+        E1Passes,
+        _e1_backward,
+        _e1_forward,
+        fused_mbconv_e1,
+        launches,
+        plain_fused_mbconv_e1,
+    )
+
+    # named apart from phase 3's e6 cases of the same shapes (block0_e1, block1_e1)
+    cases = [Case("block0", "e1", BATCH, 48, 24, 760, 456, seed + 1),
+             Case("block1", "e1", BATCH, 24, 24, 760, 456, seed + 2)]
+    for c in cases:  # one image kept and scaled, one dropped
+        c.delta = torch.tensor([1.25, 0.0], device="cuda")
+    fns = e1_fns()
+    errs = {(c.name, dt): check_case(c, dt, fns) for c in cases
+            for dt in ("float32", "bfloat16")}
+
+    bf16 = torch.bfloat16
+    launches.reset()
+    for c in cases:
+        x = c.x.to(bf16).requires_grad_(True)
+        p = type(c.params)(*[t.detach().clone().requires_grad_(True) for t in c.params])
+        out, _ = fused_mbconv_e1(x, p, c.delta)
+        out.backward(c.gout.to(bf16))
+        torch.cuda.synchronize()
+        if not (torch.isfinite(out).all() and torch.isfinite(x.grad).all()):
+            raise SmokeFailure(f"e1 path {c.name}: non-finite output or gradient")
+    counts = dict(launches.counts)
+    say(f"[e1 path] fused_mbconv_e1 forward+backward at {[c.name for c in cases]} (bf16): "
+        f"counters {counts}")
+    if (counts["mbconv1.forward"], counts["mbconv1.backward"]) != (len(cases), len(cases)):
+        raise SmokeFailure(f"e1 path: expected {len(cases)} e1 kernel calls each way, "
+                           f"got {counts}")
+
+    lib = cuda_lib.load()
+    rows = []
+    for c in cases:
+        x, g, p = c.x.to(bf16), c.gout.to(bf16), c.params
+        k = E1Passes(lib, x, c.C2)
+        _, stats, (s_mean, gate) = _e1_forward(k, x, p, c.delta, 1e-3)
+        with torch.no_grad():
+            k_fwd = time_ms(lambda: _e1_forward(k, x, p, c.delta, 1e-3))
+            k_bwd = time_ms(lambda: _e1_backward(k, x, p, c.delta, stats, s_mean, gate, g, 1e-3))
+            p_fwd = time_ms(lambda: plain_fused_mbconv_e1(x, p, c.delta))
+        xr = x.clone().requires_grad_(True)
+        pr = type(p)(*[t.clone().requires_grad_(True) for t in p])
+        out, _ = plain_fused_mbconv_e1(xr, pr, c.delta)
+        p_bwd = time_ms(lambda: torch.autograd.grad(out, [xr, *pr], g, retain_graph=True))
+        del out
+
+        def forward_backward():
+            _, st, (sm, gt) = _e1_forward(k, x, p, c.delta, 1e-3)
+            _e1_backward(k, x, p, c.delta, st, sm, gt, g, 1e-3)
+
+        say(f"[e1 passes] {c.name} bf16, device us per forward+backward: "
+            + pass_breakdown(forward_backward))
+        held = held_bytes(fns[0], c)
+        (e6_fwd, e6_bwd), e6_held = e6_e1_form[c.name + "_e1"]
+        for direction, ms, plain, e6_ms in (("forward", k_fwd, p_fwd, e6_fwd),
+                                            ("backward", k_bwd, p_bwd, e6_bwd)):
+            bound_ms, bound_by = c.bound(direction)
+            say(f"[e1 time] {c.name} {direction} bf16 N={c.N} {c.H}x{c.W}: kernel {ms:.3f} ms, "
+                f"plain {plain:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                f"e6 kernel's e=1 form {e6_ms:.3f} ms")
+            rows.append(dict(case=c.name, direction=direction, err=errs[c.name, "bfloat16"],
+                             ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
+                             launches=counts[f"mbconv1.{direction}"]))
+        say(f"[e1 memory] {c.name}: held from forward to backward beyond x and the outputs: "
+            f"e1 kernel {held} B, e6 kernel's e=1 form {e6_held} B")
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 7: the pretraining entry point
+# --------------------------------------------------------------------------
+
+
+def kernel_times(events):
+    """{kernel name: (calls, total device us)} from profiler trace events."""
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            n, t = out.get(e["name"], (0, 0.0))
+            out[e["name"]] = (n + 1, t + e["dur"])
+    return out
+
+
+def short_name(name):
+    """A kernel's function name without its namespace and template arguments."""
+    m = re.search(r"(\w+_kernel)", name)
+    return m.group(1) if m else name[:40]
+
+
+def pass_breakdown(fn, reps=3):
+    """Device time per call of each kernel ``fn`` launches, from torch.profiler."""
+    import tempfile
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        prof.export_chrome_trace(f"{d}/trace.json")
+        events = json.loads(Path(f"{d}/trace.json").read_text())["traceEvents"]
+    times = {}
+    for name, (n, t) in kernel_times(events).items():
+        key = short_name(name)
+        times[key] = times.get(key, 0.0) + t / reps
+    total = sum(times.values())
+    top = sorted(times.items(), key=lambda kv: -kv[1])
+    return f"total {total:.1f}: " + ", ".join(f"{k} {v:.1f}" for k, v in top[:8])
+
+
+def step_trace_summary(path):
+    """Kernel time of a profiled train step: device busy share between its first
+    and last kernel, and the kernels that take the most time."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    start = min(e["ts"] for e in kernels)
+    span = max(e["ts"] + e["dur"] for e in kernels) - start
+    busy = sum(e["dur"] for e in kernels)
+    top = sorted(kernel_times(kernels).items(), key=lambda kv: -kv[1][1])
+    return span, busy, top
+
+
+def write_pretrain_csv(path, n):
+    """n patient rows with two views and two reports each; fold = i % 4."""
+    import csv
+
+    cols = ["patient_id", "laterality", "image", "view", "CC", "MLO", "text",
+            "text_augment", "fold"]
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(cols)
+        for i in range(n):
+            w.writerow([f"p{i}", "L", str([f"i{i}a.png", f"i{i}b.png"]), str(["CC", "MLO"]),
+                        str([f"i{i}a.png"]), str([f"i{i}b.png"]),
+                        str([f"there is a mass in sample {i}.", f"impression {i}."]),
+                        str([f"a mass in sample {i}.", f"imp {i}."]), i % 4])
+
+
+def run_cli(seed):
+    """``cli/pretrain.main`` at full width: 1 epoch of 3 steps (6 train rows, batch
+    2; 2 validation rows in fold 0), then ``--resume`` for a second epoch."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from mammo_clip_tpu_torch.cli import pretrain
+    from mammo_clip_tpu_torch.ops.mbconv import launches
+    from mammo_clip_tpu_torch.train import trainer as trainer_mod
+    from mammo_clip_tpu_torch.train.recipes import bench_recipe_config
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    seconds = {"write": [], "read": []}
+    save0, restore0 = trainer_mod.save_checkpoint, trainer_mod.restore_checkpoint
+
+    def timed(fn, key):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            seconds[key].append(time.perf_counter() - t)
+            return out
+        return wrapped
+
+    trainer_mod.save_checkpoint = timed(save0, "write")
+    trainer_mod.restore_checkpoint = timed(restore0, "read")
+    try:
+        csv_path = tmp / "pretrain.csv"
+        write_pretrain_csv(csv_path, 8)
+        entry = json.dumps([{"csv": str(csv_path), "image_dir": "synthetic://",
+                             "data_type": "imagetext"}])
+        workdir = tmp / "run"
+        flags = ["--workdir", str(workdir), "--device", "cuda"]
+        overrides = ["model.image_encoder.remat=true", "model.image_encoder.fused_mbconv=true",
+                     f"data.train={entry}", f"data.valid={entry}",
+                     f"data.batch_size_per_device={BATCH}", "scheduler.warmup_epochs=0",
+                     "train.log_every=1", f"seed={seed}"]
+        # run 1 records a torch.profiler trace of its second step (train.profile_at_step)
+        profile = ["train.profile_at_step=1", "train.profile_num_steps=1"]
+        launches.reset()
+        for epochs in (1, 2):
+            f0, b0 = launches.total("mbconv6", "forward"), launches.total("mbconv6", "backward")
+            t = time.perf_counter()
+            state = pretrain.main(flags + (["--resume"] if epochs == 2 else profile)
+                                  + overrides + [f"scheduler.epochs={epochs}"])
+            torch.cuda.synchronize()
+            nf = launches.total("mbconv6", "forward") - f0
+            nb = launches.total("mbconv6", "backward") - b0
+            say(f"[cli] run {epochs}: {time.perf_counter() - t:.1f} s, step {state.step}, "
+                f"e6 kernel calls fwd {nf} bwd {nb}")
+            if state.step != STEPS * epochs:
+                raise SmokeFailure(f"cli run {epochs}: step {state.step}, expected "
+                                   f"{STEPS * epochs}")
+            if (nf, nb) != (14 * STEPS, 14 * STEPS):
+                raise SmokeFailure(f"cli run {epochs}: expected 14 forward and 14 backward "
+                                   f"e6 calls per train step, got {nf} and {nb} in {STEPS}")
+        counts = dict(launches.counts)
+        del state
+        span, busy, top = step_trace_summary(workdir / "profile" / "trace_step1.json")
+        say(f"[cli trace] step 2 of run 1 (profiled): kernels from first to last {span / 1e3:.1f} "
+            f"ms, kernel time {busy / 1e3:.1f} ms, device busy share {busy / span:.3f}; top: "
+            + ", ".join(f"{short_name(k)} x{n} {t / 1e3:.1f} ms" for k, (n, t) in top[:10]))
+
+        cfg = json.loads((workdir / "config.json").read_text())
+        ref = bench_recipe_config(compat=True).to_dict()
+        for key in ("model", "loss", "optimizer", "augment"):
+            if cfg[key] != ref[key]:
+                raise SmokeFailure(f"cli config.{key} is not the compat recipe's")
+        for step in (STEPS, 2 * STEPS):
+            d = workdir / "checkpoints" / str(step)
+            missing = [f for f in ("meta.json", "config.json", "state.pt") if not (d / f).exists()]
+            if missing:
+                raise SmokeFailure(f"checkpoint {d} lacks {missing}")
+        best = [d.name for d in (workdir / "best").iterdir()] if (workdir / "best").is_dir() else []
+        if not best:
+            raise SmokeFailure("cli wrote no best/ checkpoint")
+        rows = [json.loads(line) for line in (workdir / "metrics.jsonl").read_text().splitlines()]
+        train = [r for r in rows if r["prefix"] == "train"]
+        valid = [r for r in rows if r["prefix"] == "valid"]
+        if [r["step"] for r in train] != list(range(1, 2 * STEPS + 1)) or len(valid) != 2:
+            raise SmokeFailure(f"metrics: train steps {[r['step'] for r in train]}, "
+                               f"{len(valid)} validation rows")
+        if not all(math.isfinite(r["loss/total"]) for r in train + valid):
+            raise SmokeFailure("cli: a loss is not finite")
+        step_ms = [1e3 * BATCH / r["perf/images_per_sec"] for r in train]
+        left = [t.name for t in threading.enumerate() if t is not threading.main_thread()
+                and (not t.daemon or t.name == "prefetch_to_device")]
+        if left:
+            raise SmokeFailure(f"threads left behind: {left}")
+        say(f"[cli] losses {[round(r['loss/total'], 6) for r in train]}, validation "
+            f"{[round(r['loss/total'], 6) for r in valid]}, best/ at step {best}")
+        say(f"[cli] per-step ms (host clock, data wait included) "
+            f"{[round(m, 1) for m in step_ms]}")
+        say(f"[cli] checkpoint write s {[round(t, 2) for t in seconds['write']]}, "
+            f"read s {[round(t, 2) for t in seconds['read']]}, no thread left behind")
+        return dict(counts=counts, step_ms=step_ms, write_s=seconds["write"],
+                    read_s=seconds["read"], losses=[r["loss/total"] for r in train])
+    finally:
+        trainer_mod.save_checkpoint, trainer_mod.restore_checkpoint = save0, restore0
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # --------------------------------------------------------------------------
@@ -398,14 +711,17 @@ def main(argv=None) -> int:
     cuda_lib.load()
 
     # 3-4. kernel against plain version at the main path's shapes, then times
-    kernels = kernel_phases(args.seed)
+    kernels, e6_e1_form = kernel_phases(args.seed)
 
     # 5. reference on a small input, then the slice
     reference_check(args.seed)
     rows = run_slice(args.seed)
-    (OUT_DIR / "chip_smoke_steps.json").write_text(json.dumps(rows, indent=1))
 
-    from mammo_clip_tpu_torch.ops.mbconv6 import launches
+    # 6. the standalone e1 kernel; 7. the pretraining entry point
+    e1_rows = e1_phases(args.seed, e6_e1_form)
+    cli = run_cli(args.seed)
+    (OUT_DIR / "chip_smoke_steps.json").write_text(json.dumps(dict(slice=rows, cli=cli),
+                                                              indent=1))
 
     lines = []
     for k in kernels:
@@ -417,7 +733,21 @@ def main(argv=None) -> int:
             "source": "mammo_clip_tpu_torch/csrc/mbconv6.cu",
             "replaces": "mammo_clip_tpu/ops/mbconv6_pallas.py:"
                         + ("535" if direction == "forward" else "702"),
-            "launches": launches.counts[f"{k['form']}_{direction}"],
+            "launches": cli["counts"][f"mbconv6.{k['form']}.{direction}"],
+            "max_abs_err": err_out if direction == "forward" else err_dx,
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": None,
+        })
+    for k in e1_rows:
+        direction = k["direction"]
+        err_out, err_dx = k["err"]
+        lines.append({
+            "name": f"fused_mbconv_e1[{k['case']}].{direction}",
+            "route": "cuda",
+            "source": "mammo_clip_tpu_torch/csrc/mbconv1.cu",
+            "replaces": "mammo_clip_tpu/ops/mbconv_pallas.py:"
+                        + ("476" if direction == "forward" else "577"),
+            "launches": k["launches"],
             "max_abs_err": err_out if direction == "forward" else err_dx,
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,

@@ -1,0 +1,75 @@
+"""Pretraining CLI (port of ``mammo_clip_tpu/cli/pretrain.py``).
+
+    python -m mammo_clip_tpu_torch.cli.pretrain [--config cfg.yaml] \
+        [--workdir outputs/pretrain] [--resume] [--device cuda] [key.path=value ...]
+
+The flags and dotted overrides are the JAX CLI's, plus ``--device`` (default
+``cuda``; ``cpu`` runs the plain versions of the kernels). One process trains
+on one device, so the global batch is ``data.batch_size_per_device``. Without
+``--config`` the run starts from the default config of ``--variant``; reading
+a YAML config needs PyYAML, the defaults and the overrides do not (an
+override's value is parsed as YAML when PyYAML is present, else as JSON, so
+JSON values read the same everywhere). The run's config is written to
+``<workdir>/config.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+from ..core.config import default_pretrain_config, load_config
+from ..data.datamodule import DataModule
+from ..data.pipeline import group_batches, prefetch_to_device, stack_batches
+from ..train.trainer import WARM_START_QUEUED, Trainer
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="Mammo-CLIP pretraining on one device")
+    ap.add_argument("--config", default=None, help="YAML config; defaults to the b5 recipe")
+    ap.add_argument("--variant", default="b5", choices=["b2", "b5"])
+    ap.add_argument("--workdir", default="outputs/pretrain")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--warm-start-from", default=None,
+                    help="not ported: seeds the flagship recipe (ROADMAP queue item 6)")
+    ap.add_argument("--fold", type=int, default=0)
+    ap.add_argument("--data-frac", type=float, default=1.0)
+    ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    ap.add_argument("overrides", nargs="*", help="dotted-path config overrides (a.b=c)")
+    args = ap.parse_args(argv)
+    if args.warm_start_from:
+        raise NotImplementedError(WARM_START_QUEUED)
+
+    cfg = load_config(args.config) if args.config else default_pretrain_config(args.variant)
+    if args.overrides:
+        cfg = cfg.apply_overrides(args.overrides)
+
+    dm = DataModule(cfg, cur_fold=args.fold, data_frac=args.data_frac)
+    batch_size = cfg.data.batch_size_per_device
+    train_b = dm.batcher("train", batch_size=batch_size)
+    valid_b = dm.batcher("valid", batch_size=batch_size) if cfg.data.get("valid") else None
+    os.makedirs(args.workdir, exist_ok=True)
+    with open(os.path.join(args.workdir, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+
+    k_steps = int(cfg.train.get("steps_per_call", 1))
+
+    def train_batches(epoch):
+        train_b.set_epoch(epoch)
+        it = iter(train_b)
+        if k_steps > 1:
+            it = (stack_batches(g) for g in group_batches(it, k_steps))
+        return prefetch_to_device(it, args.device, stacked=k_steps > 1)
+
+    valid_batches = None
+    if valid_b is not None:
+        def valid_batches(epoch):  # noqa: F811
+            return prefetch_to_device(iter(valid_b), args.device)
+
+    trainer = Trainer(cfg, workdir=args.workdir, device=args.device)
+    return trainer.fit(train_batches, valid_batches, steps_per_epoch=len(train_b),
+                       resume=args.resume)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,9 @@
 """Unified configuration system (port of ``mammo_clip_tpu/core/config.py``).
 
 A plain-Python copy: ``yaml`` is imported only inside the functions that read or
-write YAML, so the port imports on a machine without it.
+write YAML, so the port imports on a machine without it. Overrides parse their
+values as YAML scalars when PyYAML is present (as the JAX package does) and as
+JSON otherwise, so a JSON value reads the same on both machines.
 
 The reference uses two disjoint config systems — Hydra/OmegaConf for pretraining
 (/root/reference/src/codebase/train.py:13) and argparse for downstream
@@ -87,14 +89,24 @@ class Config(dict):
         return out
 
     def apply_overrides(self, overrides: Iterator[str]) -> "Config":
-        """Apply `a.b.c=value` CLI-style overrides (values parsed as YAML scalars)."""
-        import yaml
-
+        """Apply `a.b.c=value` CLI-style overrides (see the module docstring)."""
         out = Config(copy.deepcopy(self.to_dict()))
         for ov in overrides:
             key, _, raw = ov.partition("=")
-            out.set_path(key.strip(), yaml.safe_load(raw))
+            out.set_path(key.strip(), _parse_value(raw))
         return out
+
+
+def _parse_value(raw: str) -> Any:
+    """An override's value: YAML when PyYAML is importable, else JSON, else the text."""
+    try:
+        import yaml
+    except ImportError:
+        try:
+            return json.loads(raw)
+        except ValueError:
+            return raw
+    return yaml.safe_load(raw)
 
 
 def _deep_merge(dst: Config, src: Mapping) -> None:

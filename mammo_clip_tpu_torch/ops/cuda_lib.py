@@ -48,6 +48,16 @@ SIGNATURES: Dict[str, List] = {
     "mbc_red_chunk": [],
     "mbc_pg_chunk": [],
     "mbc_dw_rows": [],
+    # csrc/mbconv1.cu
+    "mb1_p1": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
+    "mb1_p2": [_P, _I, *[_P] * 5, _I, _I, _I, _I, _P],
+    "mb1_p3": [_P, _I, *[_P] * 10, _I, _P, *[_I] * 5, _P],
+    "mb1_b1": [_P, _P, _I, *[_P] * 10, *[_I] * 5, _P],
+    "mb1_b2": [_P, _P, _I, *[_P] * 15, *[_I] * 5, _P],
+    "mb1_b3": [_P, _P, _I, *[_P] * 16, _I, _P, *[_I] * 5, _P],
+    "mb1_reduce_tiles": [_P, _P, _P, _I, _I, _I, _P],
+    "mb1_rows": [],
+    "mb1_max_channels": [],
 }
 
 

@@ -15,7 +15,8 @@ depthwise directly on x and returns 4 stats instead of 6.
 On a CUDA tensor the forward and the backward are the hand-written kernels of
 ``csrc/mbconv6.cu``, sequenced here; a CPU tensor takes the plain PyTorch
 version of the same function (``plain_fused_mbconv_e6``), and any other device
-raises. ``launches`` counts the kernel path's forward and backward calls.
+raises. ``launches`` (ops/mbconv.py) counts the kernel path's forward and backward
+calls under ``mbconv6.<form>.<direction>``.
 """
 
 from __future__ import annotations
@@ -29,10 +30,12 @@ from .mbconv import (
     BN_EPS,
     MBConvParams,
     _bn,
+    _lib,
     _se_gate,
     _tail,
     batch_stats,
     depthwise3x3,
+    launches,
     mbconv_e1_reference,
 )
 
@@ -63,25 +66,6 @@ class MBConv6Params(NamedTuple):
     gamma2: torch.Tensor
     beta2: torch.Tensor
 
-
-class LaunchCounter:
-    """Calls of the kernel path, by block form and direction."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self.counts = {"e6_forward": 0, "e6_backward": 0,
-                       "e1_forward": 0, "e1_backward": 0}
-
-    def add(self, key: str):
-        self.counts[key] += 1
-
-    def total(self, direction: str) -> int:
-        return sum(v for k, v in self.counts.items() if k.endswith(direction))
-
-
-launches = LaunchCounter()
 
 PAD_MULTIPLE = 8
 
@@ -352,7 +336,7 @@ class _FusedMBConv(torch.autograd.Function):
         p = form(*flat)
         with torch.cuda.device(x.device):
             out, stats, saved = _forward_kernels(_lib(), x, p, delta, valid_h, valid_w, eps)
-        launches.add(("e6" if form is MBConv6Params else "e1") + "_forward")
+        launches.add(f"mbconv6.{_form_name(form)}.forward")
         # The fp32 intermediates go through save_for_backward too, so saved-tensor
         # hooks (checkpointing, offload) see them.
         ctx.meta = (valid_h, valid_w, form, len(flat))
@@ -368,14 +352,12 @@ class _FusedMBConv(torch.autograd.Function):
         saved = dict(zip(_SAVED, rest[nflat + 3:]), bn0=tuple(rest[nflat:nflat + 3]))
         with torch.cuda.device(x.device):
             dx, dp = _backward_kernels(_lib(), x, p, delta, valid_h, valid_w, g, saved)
-        launches.add(("e6" if form is MBConv6Params else "e1") + "_backward")
+        launches.add(f"mbconv6.{_form_name(form)}.backward")
         return (dx, None, None, None, None, None, *dp)
 
 
-def _lib():
-    from .cuda_lib import load
-
-    return load()
+def _form_name(form) -> str:
+    return "e6" if form is MBConv6Params else "e1"
 
 
 def _validate(x, p, delta, valid_h, valid_w):

@@ -8,8 +8,15 @@ global-norm clip (``grad_clip_norm``) applied to the gradients first. The
 update math is ``torch.optim.AdamW``'s, which equals optax.adamw's:
 p <- p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p).
 
-``flatten``, ``flatten_small_bytes`` and ``grad_accum_steps`` are TPU dispatch
-or large-batch knobs of the JAX package and belong to a later slice.
+``grad_accum_steps`` = k has ``optax.MultiSteps``' semantics: each micro-step
+folds its gradient into a running mean, ``acc += (g - acc) / (mini_step + 1)``;
+the k-th applies the inner update (clip, schedule, AdamW) to that mean and
+resets it, the others leave the parameters as they are. The update count, and
+so the schedule, advances once per k micro-steps.
+
+``flatten`` and ``flatten_small_bytes`` regroup the optimizer's leaves into
+flat vectors to cut per-leaf launch overhead on a TPU; they do not change the
+update's values, so the port accepts them and ignores them.
 """
 
 from __future__ import annotations
@@ -21,12 +28,14 @@ import torch
 
 
 class Optimizer:
-    """AdamW over named parameters with a schedule and an optional global-norm clip."""
+    """AdamW over named parameters with a schedule, an optional global-norm
+    clip and optional gradient accumulation."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                  schedule: Callable[[int], float], b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 1e-4,
-                 no_decay_patterns: Sequence[str] = (), grad_clip_norm: Optional[float] = None):
+                 no_decay_patterns: Sequence[str] = (), grad_clip_norm: Optional[float] = None,
+                 accum_steps: int = 1):
         regexes = [re.compile(p) for p in no_decay_patterns]
         decay, no_decay = [], []
         for name, p in named_params:
@@ -37,7 +46,10 @@ class Optimizer:
         self.params: List[torch.nn.Parameter] = decay + no_decay
         self.schedule = schedule
         self.grad_clip_norm = grad_clip_norm
-        self.count = 0
+        self.accum_steps = max(1, int(accum_steps))
+        self.count = 0  # inner updates applied
+        self.mini_step = 0  # micro-steps folded into the running mean since the last update
+        self._acc: Optional[List[torch.Tensor]] = None
         self.inner = torch.optim.AdamW(groups, lr=0.0, betas=(b1, b2), eps=eps)
 
     def clip_(self) -> None:
@@ -49,7 +61,27 @@ class Optimizer:
         for g in grads:
             g.mul_(factor)
 
+    def _accumulate(self) -> bool:
+        """Fold this micro-step's gradients into the running mean; True when it
+        is the k-th, with the mean left in the parameters' ``.grad``."""
+        if self._acc is None:
+            self._acc = [torch.zeros_like(p) for p in self.params]
+        m = self.mini_step
+        for p, acc in zip(self.params, self._acc):
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            acc.add_((g - acc) / (m + 1))
+        self.inner.zero_grad(set_to_none=True)
+        if m < self.accum_steps - 1:
+            self.mini_step += 1
+            return False
+        for p, acc in zip(self.params, self._acc):
+            p.grad = acc
+        self._acc, self.mini_step = None, 0
+        return True
+
     def step(self) -> None:
+        if self.accum_steps > 1 and not self._accumulate():
+            return
         if self.grad_clip_norm:
             self.clip_()
         lr = self.schedule(self.count)
@@ -59,19 +91,27 @@ class Optimizer:
         self.inner.zero_grad(set_to_none=True)
         self.count += 1
 
+    def state_dict(self) -> dict:
+        return {"inner": self.inner.state_dict(), "count": self.count,
+                "mini_step": self.mini_step, "acc": self._acc}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.inner.load_state_dict(sd["inner"])
+        self.count, self.mini_step = int(sd["count"]), int(sd["mini_step"])
+        self._acc = (None if sd["acc"] is None else
+                     [a.to(p.device) for a, p in zip(sd["acc"], self.params)])
+
 
 def build_optimizer(config: dict, schedule, named_params,
                     no_decay_patterns: Optional[Sequence[str]] = None) -> Optimizer:
     name = config.get("name", "adamw").lower()
     if name != "adamw":
         raise KeyError(f"optimizer not ported yet: {name}")
-    for knob in ("flatten", "flatten_small_bytes"):
-        if config.get(knob):
-            raise NotImplementedError(f"optimizer.{knob} is not ported yet")
-    if int(config.get("grad_accum_steps", 1) or 1) > 1:
-        raise NotImplementedError("optimizer.grad_accum_steps is not ported yet")
+    # config["flatten"] / config["flatten_small_bytes"]: TPU dispatch layouts
+    # that leave the update's values unchanged; ignored here (module docstring)
     return Optimizer(named_params, schedule, b1=config.get("beta1", 0.9),
                      b2=config.get("beta2", 0.999), eps=config.get("eps", 1e-8),
                      weight_decay=config.get("weight_decay", 1e-4),
                      no_decay_patterns=no_decay_patterns or (),
-                     grad_clip_norm=config.get("grad_clip_norm"))
+                     grad_clip_norm=config.get("grad_clip_norm"),
+                     accum_steps=int(config.get("grad_accum_steps", 1) or 1))

@@ -15,6 +15,19 @@ import math
 from typing import Callable
 
 
+def schedule_horizon(epochs: int, warmup_epochs: int, steps_per_epoch: int,
+                     grad_accum_steps: int = 1) -> tuple:
+    """(total, warmup) in OPTIMIZER updates. With gradient accumulation the
+    schedule advances once per k micro-steps, so the horizon is divided by k."""
+    total = epochs * steps_per_epoch
+    warmup = warmup_epochs * steps_per_epoch
+    k = max(1, int(grad_accum_steps or 1))
+    if k > 1:
+        total = max(1, total // k)
+        warmup = min(warmup // k, total - 1)
+    return total, warmup
+
+
 def warmup_cosine_sq_schedule(base_lr: float, total_steps: int,
                               warmup_steps: int) -> Callable[[int], float]:
     if warmup_steps >= total_steps:
