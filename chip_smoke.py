@@ -36,9 +36,28 @@ Phases, each reported on its own lines:
      epoch; it checks the checkpoints, best/, the step count, finite losses,
      14+14 e6 calls per step and that no thread is left behind, and prints the
      per-step ms, the checkpoint write and read seconds, and the kernel time and
-     device busy share of its second step, profiled by ``train.profile_at_step``.
+     device busy share of its second step, profiled by ``train.profile_at_step``;
+  8. the hand-written flash attention (csrc/flash_attention.cu) against its plain
+     version at the probe's (16, 12, 256, 64) and a ragged (4, 12, 200, 32), fp32
+     and bf16, out, dq, dk, dv; its path, the port of
+     ``benchmarks/probe_flash_attention.py``, driven once with the counters read
+     around it (its einsum-vs-flash loss within 1e-2); then its forward, backward
+     and forward+backward times (CUDA events, and device time with the host's
+     enqueue hidden behind a sleep kernel) beside the plain version's, the port's ``amp_attn_scores``
+     einsum attention, ``scaled_dot_product_attention`` (the library yardstick)
+     and the bound; the kernels line's ``ms``, ``plain_ms`` and ``library_ms``
+     of these rows are all device times, ``event_ms`` the kernel's CUDA-event time;
+  9. the probe kernels (csrc/probes.cu): the four grid kernels at the probe's
+     (16, 40, 232, 384) bf16 (the const kernel also with its bank cancelled, so
+     that the x part is held alone) and the three layout kernels at the JAX
+     script's shapes, each through its wrapper against its plain version (the
+     grid kernels are timed through their raw launchers, uncounted), the layout sums beside what the JAX
+     script prints; their path, the port of ``benchmarks/probe_mosaic.py`` (all
+     probes), driven once with the counters read around it; then their times,
+     us per grid block, and bounds.
 The line before the last is a JSON object with one entry per kernel (e6 entries
-counted on the CLI slice, e1 entries on its own path); the last line is
+counted on the CLI slice, e1, flash and probe entries on their own paths); the
+last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
 checkout of the repository, the script exits non-zero and prints no result.
 Long logs go to chiprun_out/.
@@ -59,6 +78,7 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # dense tensor-core bf16
+FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 BATCH = 2
 STEPS = 3
 
@@ -209,6 +229,34 @@ def time_ms(fn, reps=10, warmup=2):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_ms(fn, reps=10):
+    """ms per call of ``fn`` on the device alone: a sleep kernel holds the stream
+    while the host enqueues all the calls, so the events around them time the
+    device's back-to-back work, not the host's enqueue (which bounds an
+    autograd call at small sizes). Fails if the enqueue outlasts the sleep."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    for _ in range(4):
+        s0, s1, t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(4))
+        s0.record()
+        torch.cuda._sleep(cycles)
+        s1.record()
+        t0.record()
+        start = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - start) * 1e3
+        t1.record()
+        torch.cuda.synchronize()
+        if host_ms < 0.8 * s0.elapsed_time(s1):
+            return t0.elapsed_time(t1) / reps
+        cycles *= 4
+    raise SmokeFailure(f"device_ms: the host's enqueue ({host_ms:.1f} ms) outlasted the sleep")
 
 
 def time_case(case):
@@ -666,6 +714,256 @@ def run_cli(seed):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+
+# --------------------------------------------------------------------------
+# phase 8: flash attention
+# --------------------------------------------------------------------------
+
+
+def bound(nbytes, flops, peak=BF16_FLOPS):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_inputs(shape, dtype, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [(s * torch.randn(*shape, generator=g, device="cuda")).to(dtype)
+            for s in (0.3, 0.3, 0.3, 0.1)]
+
+
+def check_flash(shape, dtype_name, seed):
+    """The kernel (through its wrapper) against the plain version: out, dq, dk,
+    dv, each max |diff| relative to the largest entry beside its tolerance.
+    Returns the max abs error of out and of the gradients."""
+    import torch
+
+    from mammo_clip_tpu_torch.ops.flash_attention import flash_attention, plain_flash_attention
+
+    dtype = getattr(torch, dtype_name)
+    q0, k0, v0, g = flash_inputs(shape, dtype, seed)
+    scale = shape[-1] ** -0.5
+    runs = []
+    for fn in (flash_attention, plain_flash_attention):
+        q, k, v = (t.clone().requires_grad_(True) for t in (q0, k0, v0))
+        out = fn(q, k, v, scale)
+        out.backward(g)
+        torch.cuda.synchronize()
+        runs.append([out.detach().float(), q.grad.float(), k.grad.float(), v.grad.float()])
+    tol = 1e-2 if dtype_name == "bfloat16" else 1e-4
+    rows = [(n, max_rel(a, b)) for n, a, b in zip(("out", "dq", "dk", "dv"), *runs)]
+    say(f"[flash check] {shape} {dtype_name}: " + ", ".join(f"{n} {e:.2e}/{tol:.0e}"
+                                                           for n, e in rows))
+    if not all(e <= tol for _, e in rows):
+        raise SmokeFailure(f"flash attention {shape} {dtype_name} disagrees with plain: {rows}")
+    abs_err = [float((a - b).abs().max()) for a, b in zip(*runs)]
+    return abs_err[0], max(abs_err[1:])
+
+
+def flash_phases(seed):
+    """Phase 8. Returns the forward and backward rows of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from mammo_clip_tpu_torch.benchmarks import probe_flash_attention as probe
+    from mammo_clip_tpu_torch.models.bert import attention
+    from mammo_clip_tpu_torch.ops import cuda_lib
+    from mammo_clip_tpu_torch.ops.flash_attention import (
+        flash_backward,
+        flash_forward,
+        launches,
+        plain_flash_attention,
+    )
+
+    shape = (probe.B, probe.N, probe.S, probe.D)
+    errs = {}
+    for name, shp in (("probe", shape), ("ragged", (4, 12, 200, 32))):
+        for dt in ("float32", "bfloat16"):
+            errs[name, dt] = check_flash(shp, dt, seed)
+
+    launches.reset()
+    res = probe.main(["--iters", "10"])
+    counts = dict(launches.counts)
+    say(f"[flash path] probe_flash_attention (einsum, flash, sdpa): counters {counts}, "
+        f"loss rel diff einsum vs flash {res['rel']:.2e} (tol 1e-2)")
+    if not (res["rel"] < 1e-2 and all(math.isfinite(v) for v in res["loss"].values())):
+        raise SmokeFailure(f"flash probe numerics: {res}")
+    if min(counts.values()) < 1:
+        raise SmokeFailure(f"flash path launched no kernel in one direction: {counts}")
+
+    lib = cuda_lib.load()
+    q, k, v, g = flash_inputs(shape, torch.bfloat16, seed)
+    scale = probe.D ** -0.5
+    mask = torch.ones(shape[0], shape[2], dtype=torch.bool, device="cuda")
+    fns = {
+        "plain": lambda q, k, v: plain_flash_attention(q, k, v, scale),
+        "einsum": lambda q, k, v: attention(q * scale, k, v, mask, amp_scores=True),
+        "sdpa": lambda q, k, v: F.scaled_dot_product_attention(q, k, v, scale=scale),
+    }
+    o, lse = flash_forward(lib, q, k, v, scale)
+    calls = {"kernel": (  # the launches alone, uncounted
+        lambda: flash_forward(lib, q, k, v, scale),
+        lambda: flash_backward(lib, q, k, v, o, lse, g, scale),
+        lambda: flash_backward(lib, q, k, v, *flash_forward(lib, q, k, v, scale), g, scale))}
+    for name, fn in fns.items():
+        qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+        out = fn(qr, kr, vr)
+        calls[name] = (lambda fn=fn: fn(q, k, v).detach(),
+                       lambda out=out, qr=qr, kr=kr, vr=vr: torch.autograd.grad(
+                           out, (qr, kr, vr), g, retain_graph=True),
+                       lambda fn=fn, qr=qr, kr=kr, vr=vr: torch.autograd.grad(
+                           fn(qr, kr, vr), (qr, kr, vr), g))
+    times, device = {}, {}
+    for name, (fwd, bwd, both) in calls.items():
+        times[name] = tuple(time_ms(c) for c in (fwd, bwd, both))
+        device[name] = tuple(device_ms(c) for c in (fwd, bwd, both))
+    elems, s2 = q.numel(), shape[0] * shape[1] * shape[2] ** 2 * shape[3]
+    stats = 4 * shape[0] * shape[1] * shape[2]
+    bounds = [bound(4 * 2 * elems + stats, 4 * s2),             # q, k, v in; o, lse out
+              bound(8 * 2 * elems + stats, 10 * s2),            # q, k, v, o, dO, lse in; dq, dk, dv out
+              bound(8 * 2 * elems, 14 * s2)]                    # q, k, v, dO in; o, dq, dk, dv out
+    for i, what in enumerate(("forward", "backward", "forward+backward")):
+        say(f"[flash time] {shape} bf16 {what}, ms (CUDA events | device time): " + ", ".join(
+            f"{name} {times[name][i]:.4f} | {device[name][i]:.4f}"
+            for name in ("kernel", "plain", "einsum", "sdpa"))
+            + f"; bound {bounds[i][0]:.4f} ms ({bounds[i][1]})")
+    rows = []
+    for i, direction in enumerate(("forward", "backward")):
+        rows.append({
+            "name": f"flash_attention.{direction}", "route": "cuda",
+            "source": "mammo_clip_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "benchmarks/probe_flash_attention.py:45",
+            "launches": counts[f"flash_attention.{direction}"],
+            "max_abs_err": errs["probe", "bfloat16"][i], "ms": device["kernel"][i],
+            "plain_ms": device["plain"][i], "bound_ms": bounds[i][0], "bound_by": bounds[i][1],
+            "library_ms": device["sdpa"][i], "event_ms": times["kernel"][i]})
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 9: the probe kernels
+# --------------------------------------------------------------------------
+
+# What benchmarks/probe_mosaic.py prints for its layout probes (the same seeded
+# inputs; run on the CPU under pltpu.force_tpu_interpret_mode(), checked against
+# the port by tests/test_torch_probes.py). dot_3d fails there (R6).
+JAX_LAYOUT_SUMS = {"concat_aligned": 49139.430, "reshape_collapse": 48681.105,
+                   "reshape_split": 16.198, "sublane_stack": 16.198,
+                   "reshape_collapse_rows10": 60836.828, "reshape_split_rows10": 102.065}
+
+
+def probe_phases():
+    """Phase 9. Returns the grid and layout rows of the kernels line."""
+    import numpy as np
+    import torch
+
+    from mammo_clip_tpu_torch.benchmarks import probe_mosaic as probe
+    from mammo_clip_tpu_torch.ops import cuda_lib, probes
+
+    lib = cuda_lib.load()
+    x, k, vec, we = probe.grid_inputs("cuda")
+    N, C, H, W = x.shape
+    E, blocks = k.shape[0], N * H // probes.ROWS
+    # At the probe's inputs the const output is the bank term (~3e8 per channel)
+    # to fp32's ~30 of resolution, which hides the x part (~1e3); so the const
+    # kernel is checked twice: as is (the bank term), and with vec = -k[:, 0:1, :],
+    # which cancels the bank exactly and leaves the x part alone.
+    vec0 = (-k[:, 0:1, :]).contiguous()
+    # name: wrapper (checked), raw launch (timed, uncounted), plain, tol, bytes, flops
+    grid = {
+        "base": (lambda: probes.grid_base(x), lambda: probes.grid_sum_kernel(lib, 0, x),
+                 lambda: probes.plain_grid_base(x), 1e-4, x.numel() * 2, x.numel()),
+        "halo": (lambda: probes.grid_halo(x), lambda: probes.grid_sum_kernel(lib, 1, x),
+                 lambda: probes.plain_grid_halo(x), 1e-4, x.numel() * 2, x.numel() * 1.25),
+        "const": (lambda: probes.grid_const(x, k, vec),
+                  lambda: probes.grid_sum_kernel(lib, 2, x, k, vec),
+                  lambda: probes.plain_grid_const(x, k, vec), 1e-4,
+                  x.numel() * 2 + 2 * E * W * 2, x.numel() + 2 * E * W),
+        "compute": (lambda: probes.grid_compute(x, we, k),
+                    lambda: probes.grid_compute_kernel(lib, x, we, k),
+                    lambda: probes.plain_grid_compute(x, we, k), 1e-3,
+                    x.numel() * 2 + we.numel() * 2 + k.numel() * 2,
+                    2 * N * H * W * C * E + 2 * 9 * N * H * W * E),
+    }
+    r = np.random.default_rng(0)
+    xl = {"rows8": torch.from_numpy(r.standard_normal((16, 8, 384)).astype(np.float32)).cuda()}
+    wl = torch.from_numpy(np.random.default_rng(1).standard_normal((16, 16)).astype(np.float32)).cuda()
+    flat10 = xl["rows8"].new_tensor(np.random.default_rng(0).standard_normal((16, 3840))
+                                     .astype(np.float32))
+    n8 = xl["rows8"].numel()
+    layout = {
+        "gram": (lambda: probes.gram_rows(xl["rows8"]), lambda: probes.plain_gram_rows(xl["rows8"]),
+                 1e-5, 4 * (n8 + 256), 2 * 16 * n8),
+        "copy_scale": (lambda: probes.copy_scale(flat10, (16, 10, 384), 2.0),
+                       lambda: probes.plain_copy_scale(flat10, (16, 10, 384), 2.0), 0.0,
+                       8 * flat10.numel(), flat10.numel()),
+        "channel_mix": (lambda: probes.channel_mix(xl["rows8"], wl),
+                        lambda: probes.plain_channel_mix(xl["rows8"], wl), 1e-5,
+                        8 * n8 + 4 * 256, 2 * 16 * n8),
+    }
+    checks = [("grid", name, wrap, plain, tol) for name, (wrap, _, plain, tol, _, _)
+              in grid.items()]
+    checks.insert(3, ("grid", "const (bank cancelled, x part alone)",
+                      lambda: probes.grid_const(x, k, vec0), lambda: probes.plain_grid_base(x),
+                      1e-4))
+    checks += [("layout", name, wrap, plain, tol) for name, (wrap, plain, tol, _, _)
+               in layout.items()]
+    errs = {}
+    for kind, name, wrap, plain, tol in checks:
+        a, b = wrap(), plain()
+        torch.cuda.synchronize()
+        errs[name] = (max_rel(a, b), float((a - b).abs().max()))
+        say(f"[probe check] {kind} {name}: {errs[name][0]:.2e}/{tol:.0e}, "
+            f"max |diff| {errs[name][1]:.3e}")
+        if not errs[name][0] <= tol:
+            raise SmokeFailure(f"probe kernel {name} disagrees with plain: {errs[name]}")
+    x3, w3 = xl["rows8"].cpu().numpy(), wl.cpu().numpy()
+    want = np.einsum("chw,cd->hdw", x3, w3)
+    mix_err = float(np.abs(probes.channel_mix(xl["rows8"], wl).cpu().numpy() - want).max())
+    say(f"[probe check] dot_3d intended function (R6) vs numpy einsum: max |diff| {mix_err:.2e}")
+    if not mix_err <= 1e-4 * np.abs(want).max():
+        raise SmokeFailure(f"channel_mix disagrees with numpy: {mix_err}")
+
+    probes.launches.reset()
+    res = probe.main([])
+    counts = dict(probes.launches.counts)
+    say(f"[probe path] probe_mosaic (all probes): counters {counts}")
+    if min(counts.values()) < 1:
+        raise SmokeFailure(f"probe path launched no kernel of some probe: {counts}")
+    for name, want_sum in JAX_LAYOUT_SUMS.items():
+        got = float(res[name].sum())
+        say(f"[probe sums] {name}: card {got:.3f}, JAX script (interpret mode) {want_sum:.3f}")
+        if abs(got - want_sum) > 1e-5 * abs(want_sum) + 2e-3:
+            raise SmokeFailure(f"layout probe {name}: sum {got} vs the JAX script's {want_sum}")
+    timed = {("grid", name): (raw, plain, nbytes, flops)
+             for name, (_, raw, plain, _, nbytes, flops) in grid.items()}
+    timed.update({("layout", name): (wrap, plain, nbytes, flops)
+                  for name, (wrap, plain, _, nbytes, flops) in layout.items()})
+    rows = []
+    for (kind, name), (kern, plain, nbytes, flops) in timed.items():
+        ms, plain_ms = time_ms(kern), time_ms(plain, reps=3)
+        peak = BF16_FLOPS if kind == "grid" else FP32_FLOPS
+        bound_ms, bound_by = bound(nbytes, flops, peak)
+        per_block = f", {ms * 1e3 / blocks:.3f} us per block" if kind == "grid" else ""
+        say(f"[probe time] {kind} {name}: kernel {ms:.4f} ms{per_block}, plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        line = {"grid": {"base": "193", "halo": "209", "const": "231", "compute": "259"},
+                "layout": dict.fromkeys(layout, "27")}[kind][name]
+        err = errs[name][1]
+        if name == "const":
+            err = max(err, errs["const (bank cancelled, x part alone)"][1])
+        rows.append({
+            "name": f"probe_{kind}[{name}]", "route": "cuda",
+            "source": "mammo_clip_tpu_torch/csrc/probes.cu",
+            "replaces": f"benchmarks/probe_mosaic.py:{line}",
+            "launches": counts[f"probe_{kind}.{name}"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None})
+    return rows
+
 # --------------------------------------------------------------------------
 
 
@@ -723,6 +1021,10 @@ def main(argv=None) -> int:
     (OUT_DIR / "chip_smoke_steps.json").write_text(json.dumps(dict(slice=rows, cli=cli),
                                                               indent=1))
 
+    # 8. flash attention; 9. the probe kernels
+    flash_rows = flash_phases(args.seed)
+    probe_rows = probe_phases()
+
     lines = []
     for k in kernels:
         direction = k["direction"]
@@ -752,6 +1054,7 @@ def main(argv=None) -> int:
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
         })
+    lines += flash_rows + probe_rows
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": lines}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,11 @@
 """Unified configuration system (port of ``mammo_clip_tpu/core/config.py``).
 
 A plain-Python copy: ``yaml`` is imported only inside the functions that read or
-write YAML, so the port imports on a machine without it. Overrides parse their
-values as YAML scalars when PyYAML is present (as the JAX package does) and as
-JSON otherwise, so a JSON value reads the same on both machines.
+write YAML, so the port imports on a machine without it. Override values are
+read by the module's own YAML 1.1 scalar and flow parser (``_parse_value``), so
+a value means the same with or without PyYAML: what ``yaml.safe_load`` gives,
+except that ``1e-4`` is a float (PyYAML leaves it as text) and that binary,
+sexagesimal (``1:30``) and ``_``-grouped numbers stay text.
 
 The reference uses two disjoint config systems — Hydra/OmegaConf for pretraining
 (/root/reference/src/codebase/train.py:13) and argparse for downstream
@@ -18,6 +20,8 @@ from __future__ import annotations
 
 import copy
 import json
+import math
+import re
 from typing import Any, Dict, Iterator, Mapping, Optional
 
 
@@ -97,16 +101,129 @@ class Config(dict):
         return out
 
 
-def _parse_value(raw: str) -> Any:
-    """An override's value: YAML when PyYAML is importable, else JSON, else the text."""
-    try:
-        import yaml
-    except ImportError:
+_BOOLS = {w: v for v, words in ((True, ("yes", "true", "on")), (False, ("no", "false", "off")))
+          for word in words for w in (word, word.capitalize(), word.upper())}
+_NULLS = ("", "~", "null", "Null", "NULL")
+_INT = re.compile(r"[-+]?(0x[0-9a-fA-F]+|0[0-7]+|0|[1-9][0-9]*)")
+# YAML 1.1's floats without "_", plus exponents without a dot or a sign ("1e-4", "5E3")
+_FLOAT = re.compile(r"[-+]?([0-9]+(\.[0-9]*)?|\.[0-9]+)([eE][-+]?[0-9]+)?")
+_SPECIAL_FLOATS = {f"{s}.{w}": v for w, v in (("inf", math.inf), ("Inf", math.inf),
+                                               ("INF", math.inf)) for s, v in
+                   (("", v), ("+", v), ("-", -v))}
+_SPECIAL_FLOATS.update({".nan": math.nan, ".NaN": math.nan, ".NAN": math.nan})
+
+
+def _plain_scalar(text: str) -> Any:
+    """YAML 1.1 resolution of an unquoted scalar, as ``yaml.safe_load`` does it,
+    except that an exponent needs no dot or sign (PyYAML reads ``1e-4`` as text)
+    and that binary, sexagesimal (``1:30``) and ``_``-grouped numbers stay text."""
+    text = text.strip()
+    if text in _NULLS:
+        return None
+    if text in _BOOLS:
+        return _BOOLS[text]
+    if text in _SPECIAL_FLOATS:
+        return _SPECIAL_FLOATS[text]
+    if _INT.fullmatch(text):
+        sign, digits = (-1 if text[0] == "-" else 1), text.lstrip("+-")
+        if digits.startswith("0x"):
+            return sign * int(digits[2:], 16)
+        return sign * int(digits, 8 if digits[0] == "0" and len(digits) > 1 else 10)
+    if _FLOAT.fullmatch(text) and any(c.isdigit() for c in text) and (
+            "." in text or "e" in text.lower()):
+        return float(text)
+    return text
+
+
+class _FlowParser:
+    """Quoted scalars and (nested) flow sequences and mappings: ``[1, a]``,
+    ``{"k": [true, ~]}``, ``{k: v}``."""
+
+    def __init__(self, text: str):
+        self.s, self.i = text, 0
+
+    def _ws(self):
+        while self.i < len(self.s) and self.s[self.i] in " \t\r\n":
+            self.i += 1
+
+    def _peek(self) -> str:
+        self._ws()
+        return self.s[self.i] if self.i < len(self.s) else ""
+
+    def _expect(self, ch: str):
+        if self._peek() != ch:
+            raise ValueError(f"expected {ch!r} at {self.i} in {self.s!r}")
+        self.i += 1
+
+    def value(self, in_flow: bool, is_key: bool = False) -> Any:
+        ch = self._peek()
+        if ch == "[":
+            return self._sequence()
+        if ch == "{":
+            return self._mapping()
+        if ch and ch in "\"'":
+            return self._quoted(ch)
+        start = self.i
+        while self.i < len(self.s):
+            c = self.s[self.i]
+            nxt = self.s[self.i + 1] if self.i + 1 < len(self.s) else " "
+            if in_flow and c in ",]}":
+                break
+            if is_key and c == ":" and (nxt in " \t,]}" or not in_flow):
+                break
+            self.i += 1
+        return _plain_scalar(self.s[start:self.i])
+
+    def _quoted(self, q: str) -> str:
+        j = self.i + 1
         try:
-            return json.loads(raw)
-        except ValueError:
-            return raw
-    return yaml.safe_load(raw)
+            while self.s[j] != q or (q == "'" and self.s[j + 1:j + 2] == "'"):
+                j += 2 if self.s[j] in ("\\" if q == '"' else "'") else 1
+        except IndexError:
+            raise ValueError(f"unterminated quote in {self.s!r}") from None
+        body, self.i = self.s[self.i + 1:j], j + 1
+        return body.replace("''", "'") if q == "'" else json.loads(f'"{body}"')
+
+    def _sequence(self) -> list:
+        self._expect("[")
+        out = []
+        while self._peek() != "]":
+            out.append(self.value(in_flow=True))
+            if self._peek() != ",":
+                break
+            self.i += 1
+        self._expect("]")
+        return out
+
+    def _mapping(self) -> dict:
+        self._expect("{")
+        out = {}
+        while self._peek() != "}":
+            key = self.value(in_flow=True, is_key=True)
+            self._expect(":")
+            out[key] = (None if self._peek() in (",", "}") else self.value(in_flow=True))
+            if self._peek() != ",":
+                break
+            self.i += 1
+        self._expect("}")
+        return out
+
+
+def _parse_value(raw: str) -> Any:
+    """An override's value with YAML 1.1's meaning of a plain or quoted scalar or
+    a flow collection (what ``yaml.safe_load`` gives), with or without PyYAML:
+    ``True/yes/on`` and ``false/No/OFF`` are bools, ``~``, ``null`` and the empty
+    string None, ``010`` octal, ``0x1F`` hex. Exponents need no dot or sign
+    (``1e-4`` is a float; PyYAML leaves it as text). Anything else is the text."""
+    text = raw.strip()
+    if not text or text[0] not in "[{\"'":
+        return _plain_scalar(text)
+    p = _FlowParser(text)
+    try:
+        value = p.value(in_flow=False)
+    except ValueError:
+        return text
+    return value if p._peek() == "" else text
 
 
 def _deep_merge(dst: Config, src: Mapping) -> None:

@@ -8,9 +8,12 @@ the Flax tree (``layer_3.attention.query.kernel`` is (H, heads, head_dim)), so
 Mixed precision follows Flax's ``dtype``: parameters stay fp32 and are cast to
 the activation dtype at use; LayerNorm statistics and the attention softmax run
 in fp32. Dropout masks come from an explicit ``torch.Generator``. Attention is
-plain ``torch.matmul`` + softmax (the JAX package runs it through XLA, not a
-Pallas kernel). The ``fused_qkv``, ``amp_attn_scores`` and ``seq_parallel``
-options belong to later slices.
+plain ``torch.matmul`` + softmax (``attention``; the JAX package runs it through
+XLA, not a Pallas kernel). ``fused_qkv`` computes Q/K/V as one (H, 3H) product
+of the three kernels concatenated at run time (same parameter tree);
+``amp_attn_scores`` stores the scores in the activation dtype with the softmax
+in fp32. ``seq_parallel`` (sequence-sharded activations over a tensor-parallel
+mesh) belongs to the distribution slice (ROADMAP queue 9) and raises.
 """
 
 from __future__ import annotations
@@ -35,6 +38,9 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     dropout_rate: float = 0.1
     remat: bool = False
+    fused_qkv: bool = False
+    amp_attn_scores: bool = False
+    seq_parallel: bool = False
 
     @classmethod
     def tiny(cls) -> "BertConfig":
@@ -91,6 +97,25 @@ class Embed(nn.Module):
         return F.embedding(ids, self.embedding.to(dtype))
 
 
+def attention(q, k, v, mask, amp_scores: bool, dropout_rate: float = 0.0, train: bool = False,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Softmax attention of (B, N, S, D) ``q`` (already scaled), ``k``, ``v`` over
+    the keys where the (B, S) bool ``mask`` holds; returns (B, N, S, D) in v's
+    dtype. The scores are fp32, or with ``amp_scores`` and a non-fp32 dtype kept
+    in that dtype (masked keys at its most negative value) with the softmax
+    itself in fp32 (JAX ``models/bert.py:133-151``)."""
+    logits = q @ k.transpose(-1, -2)
+    keep = mask[:, None, None, :]
+    if amp_scores and q.dtype != torch.float32:
+        logits = logits.masked_fill(~keep, torch.finfo(q.dtype).min)
+        probs = torch.softmax(logits.float(), dim=-1).to(v.dtype)
+    else:
+        logits = logits.float().masked_fill(~keep, torch.finfo(torch.float32).min)
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    probs = dropout(probs, dropout_rate, train, generator)
+    return probs @ v
+
+
 class BertSelfAttention(nn.Module):
     def __init__(self, cfg: BertConfig):
         super().__init__()
@@ -102,19 +127,25 @@ class BertSelfAttention(nn.Module):
         self.value = Dense((h,), (n, d))
         self.output = Dense((n, d), (h,))
 
+    def _qkv(self, x):
+        """(B, S, N, D) query, key and value: three products, or with
+        ``fused_qkv`` one (H, 3H) product of the kernels concatenated at run
+        time (JAX ``models/bert.py:118-131``)."""
+        if not self.cfg.fused_qkv:
+            return self.query(x), self.key(x), self.value(x)
+        dense = (self.query, self.key, self.value)
+        w = torch.cat([m.kernel.reshape(x.shape[-1], -1) for m in dense], dim=1).to(x.dtype)
+        b = torch.cat([m.bias.reshape(-1) for m in dense]).to(x.dtype)
+        qkv = x @ w + b
+        return [t.reshape(*x.shape[:-1], *self.query.out_shape) for t in qkv.chunk(3, dim=-1)]
+
     def forward(self, x, mask, train: bool, generator=None):
         cfg = self.cfg
         d = cfg.hidden_size // cfg.num_heads
-        q = (self.query(x) * d ** -0.5).transpose(1, 2)  # (B, N, S, D)
-        k = self.key(x).transpose(1, 2)
-        v = self.value(x).transpose(1, 2)
-        logits = (q @ k.transpose(-1, -2)).float()
-        neg = torch.finfo(torch.float32).min
-        logits = logits.masked_fill(~mask[:, None, None, :], neg)
-        probs = torch.softmax(logits, dim=-1).to(x.dtype)
-        probs = dropout(probs, cfg.dropout_rate, train, generator)
-        ctx = (probs @ v).transpose(1, 2)  # (B, S, N, D)
-        return self.output(ctx)
+        q, k, v = self._qkv(x)
+        ctx = attention((q * d ** -0.5).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        mask, cfg.amp_attn_scores, cfg.dropout_rate, train, generator)
+        return self.output(ctx.transpose(1, 2))  # ctx (B, S, N, D)
 
 
 class BertLayer(nn.Module):
@@ -141,6 +172,9 @@ class BertEncoder(nn.Module):
 
     def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
+        if cfg.seq_parallel:
+            raise NotImplementedError("text encoder option seq_parallel is not ported yet "
+                                      "(ROADMAP queue 9, distribution)")
         self.cfg, self.dtype = cfg, dtype
         self.word_embeddings = Embed(cfg.vocab_size, cfg.hidden_size)
         self.position_embeddings = Embed(cfg.max_position_embeddings, cfg.hidden_size)

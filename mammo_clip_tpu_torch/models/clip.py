@@ -22,6 +22,11 @@ from .projection import make_projection_head
 
 
 def bert_config_from_model_config(model_config: Dict) -> BertConfig:
+    """The text encoder's options, as the JAX package's function of the same name
+    reads them. One knob is the port's own: ``dropout_rate``, which the JAX
+    function ignores (its BERT always uses ``BertConfig``'s 0.1); the parity
+    tests set it to compare without dropout. ``seq_parallel`` is carried over,
+    and ``BertEncoder`` raises for it."""
     t = model_config["text_encoder"]
     return BertConfig(
         vocab_size=t.get("vocab_size", 28996),
@@ -32,6 +37,9 @@ def bert_config_from_model_config(model_config: Dict) -> BertConfig:
         max_position_embeddings=t.get("max_position_embeddings", 512),
         dropout_rate=t.get("dropout_rate", 0.1),
         remat=t.get("gradient_checkpointing", False),
+        fused_qkv=t.get("fused_qkv", False),
+        amp_attn_scores=t.get("amp_attn_scores", False),
+        seq_parallel=t.get("seq_parallel", False),
     )
 
 

@@ -28,7 +28,7 @@ BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # launcher name -> argument types (pointers and the stream as c_void_p)
 SIGNATURES: Dict[str, List] = {
     "mbc_mix": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -58,6 +58,15 @@ SIGNATURES: Dict[str, List] = {
     "mb1_reduce_tiles": [_P, _P, _P, _I, _I, _I, _P],
     "mb1_rows": [],
     "mb1_max_channels": [],
+    # csrc/flash_attention.cu
+    "fa_forward": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _P],
+    "fa_backward": [*[_P] * 6, _I, *[_P] * 4, _I, _I, _I, _F, _P],
+    # csrc/probes.cu
+    "pr_grid_sum": [_I, *[_P] * 5, *[_I] * 5, _P],
+    "pr_grid_compute": [*[_P] * 5, *[_I] * 5, _P],
+    "pr_gram": [_P, _P, _I, _I, _I, _I, _P],
+    "pr_copy_scale": [_P, _P, _LL, _F, _P],
+    "pr_channel_mix": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -100,13 +100,16 @@ def mbconv_e1_reference(x, p: MBConvParams, delta, eps: float = BN_EPS):
 
 
 class LaunchCounter:
-    """Calls of the kernel paths: ``mbconv6.<form>.<direction>`` for the e6
-    kernel in each block form, ``mbconv1.<direction>`` for the e1 kernel."""
+    """Calls of the kernel paths, by key; here ``mbconv6.<form>.<direction>`` for
+    the e6 kernel in each block form and ``mbconv1.<direction>`` for the e1
+    kernel (``ops/flash_attention.py`` and ``ops/probes.py`` keep their own)."""
 
     KEYS = ("mbconv6.e6.forward", "mbconv6.e6.backward", "mbconv6.e1.forward",
             "mbconv6.e1.backward", "mbconv1.forward", "mbconv1.backward")
 
-    def __init__(self):
+    def __init__(self, keys=None):
+        if keys is not None:
+            self.KEYS = tuple(keys)
         self.reset()
 
     def reset(self):

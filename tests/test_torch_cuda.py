@@ -161,3 +161,137 @@ def test_cuda_e1_wrapper_rejects_what_the_kernel_does_not_take():
     wide, pw, _, _ = _e1_case(72, 8, 16, 12)
     with pytest.raises(ValueError):
         fused_mbconv_e1(wide, pw, delta)  # more channels than the kernel takes
+
+
+# ----------------------------------------------------------------------------
+# flash attention (csrc/flash_attention.cu) and the probe kernels (csrc/probes.cu)
+# ----------------------------------------------------------------------------
+
+
+def _qkv(shape, dtype, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(*shape, generator=g).to(dtype).cuda() for _ in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 3, 128, 64), (1, 2, 200, 32), (2, 2, 77, 64),
+                                   (1, 1, 70, 128), (1, 2, 33, 48)])
+def test_cuda_flash_attention_matches_plain(shape, dtype):
+    """Output and dq, dk, dv of the kernel against the plain version: fp32 within
+    1e-4 (same math, other summation order); bf16 within 1e-2 (one bf16 rounding
+    of each output, and the backward's rowsum(dO * o) taken from the rounded o)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from mammo_clip_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        launches as fa_launches,
+        plain_flash_attention,
+    )
+
+    dt = getattr(torch, dtype)
+    q0, k0, v0, go = _qkv(shape, dt)
+    scale = shape[-1] ** -0.5
+    runs = []
+    for fn in (flash_attention, plain_flash_attention):
+        before = dict(fa_launches.counts)
+        q, k, v = [t.clone().requires_grad_(True) for t in (q0, k0, v0)]
+        out = fn(q, k, v, scale)
+        out.backward(go)
+        torch.cuda.synchronize()
+        runs.append((out.detach().float(), q.grad.float(), k.grad.float(), v.grad.float(),
+                     {key: fa_launches.counts[key] - before[key] for key in before}))
+        assert out.dtype == dt and q.grad.dtype == dt
+    tol = 1e-2 if dtype == "bfloat16" else 1e-4
+    for name, a, b in zip(("out", "dq", "dk", "dv"), runs[0][:4], runs[1][:4]):
+        assert _rel(a, b) < tol, (name, _rel(a, b))
+    assert list(runs[0][4].values()) == [1, 1] and list(runs[1][4].values()) == [0, 0]
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from mammo_clip_tpu_torch.ops.flash_attention import flash_attention
+
+    q, k, v, _ = _qkv((1, 2, 16, 64), torch.float32)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half(), 0.125)
+    with pytest.raises(TypeError):
+        flash_attention(q, k.bfloat16(), v, 0.125)
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(2, 3), k, v, 0.125)  # (B, N, D, S) view: wrong shape
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, 0.125)
+    with pytest.raises(ValueError):
+        flash_attention(q, k.cpu(), v, 0.125)
+    wide = [torch.zeros(1, 1, 8, 160, device="cuda") for _ in range(3)]
+    with pytest.raises(ValueError):
+        flash_attention(*wide, 0.1)
+
+
+def _grid_inputs(N=2, C=8, E=24, H=32, W=70, seed=0):
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(r.standard_normal(s)).to(torch.bfloat16).cuda()
+    return f(N, C, H, W), f(E, 9, W), f(E, 1, W), f(C, E)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 8, 24, 32, 70), (1, 40, 240, 16, 384)])
+def test_cuda_probe_kernels_match_plain(shape):
+    """The four grid kernels and the three layout kernels against their plain
+    versions: sums of many bf16 values in fp32 in another order, within 1e-4 of
+    the largest entry; the compute chain's bf16 roundings may flip an ulp where
+    z or SiLU sits on a rounding tie, hence 1e-3 there. The const output is
+    mostly its bank term, which fp32 holds to far less than the x part, so the
+    const kernel is also held with vec = -k[:, 0:1, :]: the bank cancels exactly
+    and the x part must match the base sum alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from mammo_clip_tpu_torch.ops import probes
+
+    x, k, vec, we = _grid_inputs(*shape)
+    before = dict(probes.launches.counts)
+    pairs = [(probes.grid_base(x), probes.plain_grid_base(x), 1e-4),
+             (probes.grid_halo(x), probes.plain_grid_halo(x), 1e-4),
+             (probes.grid_const(x, k, vec), probes.plain_grid_const(x, k, vec), 1e-4),
+             (probes.grid_const(x, k, (-k[:, 0:1, :]).contiguous()), probes.plain_grid_base(x),
+              1e-4),
+             (probes.grid_compute(x, we, k), probes.plain_grid_compute(x, we, k), 1e-3)]
+    g = torch.Generator(device="cpu").manual_seed(1)
+    xl = torch.randn(16, 8, 380, generator=g).cuda()
+    wl = torch.randn(16, 16, generator=g).cuda()
+    pairs += [(probes.gram_rows(xl), probes.plain_gram_rows(xl), 1e-5),
+              (probes.gram_rows(xl, 300), probes.plain_gram_rows(xl, 300), 1e-5),
+              (probes.copy_scale(xl, (16, 8 * 380), 2.0), probes.plain_copy_scale(xl, (16, 3040), 2.0),
+               0.0),
+              (probes.channel_mix(xl, wl), probes.plain_channel_mix(xl, wl), 1e-5)]
+    torch.cuda.synchronize()
+    for i, (got, want, tol) in enumerate(pairs):
+        assert got.shape == want.shape and got.dtype == torch.float32, i
+        assert _rel(got, want) <= tol, (i, _rel(got, want))
+    counts = {key: probes.launches.counts[key] - before[key] for key in before}
+    assert counts == {**dict.fromkeys(counts, 1), "probe_grid.const": 2, "probe_layout.gram": 2}
+
+
+@pytest.mark.cuda
+def test_cuda_probe_wrappers_reject_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from mammo_clip_tpu_torch.ops import probes
+
+    x, k, vec, we = _grid_inputs()
+    with pytest.raises(TypeError):
+        probes.grid_base(x.float())
+    with pytest.raises(ValueError):
+        probes.grid_halo(x[:, :, :12].contiguous())  # H % 8 != 0
+    with pytest.raises(TypeError):
+        probes.grid_const(x, k.float(), vec)
+    with pytest.raises(ValueError):
+        probes.grid_compute(x, we[:, :4].contiguous(), k)  # E < C
+    with pytest.raises(TypeError):
+        probes.gram_rows(x[0].float().bfloat16())
+    with pytest.raises(TypeError):
+        probes.channel_mix(x[0].float(), we.float().cpu()[:, :8])

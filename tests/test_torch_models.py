@@ -142,6 +142,76 @@ def test_bert_matches_jax_forward_gradient_and_pooling():
             np.asarray(jax_pool_text(h, mask, pooling)), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("options", [("fused_qkv",), ("amp_attn_scores",),
+                                     ("fused_qkv", "amp_attn_scores")])
+def test_bert_options_match_jax_in_bf16(options, monkeypatch):
+    """``fused_qkv`` and ``amp_attn_scores`` with bf16 activations (fp32
+    parameters) against the JAX BERT with the same options and weights: the
+    hidden states within the JAX package's own bf16 bounds for these options
+    (tests/test_convert.py: atol 0.15, mean |diff| < 0.02), every parameter
+    gradient within 2e-2 of the largest (a few bf16 roundings, 2^-8 each, on
+    either side). With ``fused_qkv`` the three separate products must not run."""
+    opts = dict.fromkeys(options, True)
+    jcfg = dataclasses.replace(JaxBertConfig.tiny(), **opts)
+    rng = np.random.default_rng(1)
+    ids = rng.integers(1, jcfg.vocab_size, size=(3, 16)).astype(np.int32)
+    mask = (np.arange(16)[None, :] < np.array([[16], [9], [3]])).astype(np.int32)
+    jm = JaxBert(jcfg, dtype=jnp.bfloat16)
+    v = jm.init({"params": jax.random.PRNGKey(2)}, ids, mask)
+
+    def f(params):
+        h = jm.apply({"params": params}, ids, mask)
+        return jnp.sum(jax_pool_text(h, mask, "eos").astype(jnp.float32) ** 2), h
+
+    (l, h), g = jax.value_and_grad(f, has_aux=True)(v["params"])
+    tm = BertEncoder(dataclasses.replace(BertConfig.tiny(), **opts), dtype=torch.bfloat16)
+    load_jax_variables(tm, _np_tree(v))
+    if "fused_qkv" in options:
+        for i in range(2):
+            for name in ("query", "key", "value"):
+                dense = getattr(getattr(tm, f"layer_{i}").attention, name)
+                monkeypatch.setattr(dense, "forward", lambda x: pytest.fail("unfused Q/K/V"))
+    ht = tm(torch.from_numpy(ids).long(), torch.from_numpy(mask))
+    assert ht.dtype == torch.bfloat16
+    lt = (pool_text(ht, torch.from_numpy(mask), "eos").float() ** 2).sum()
+    lt.backward()
+    diff = np.abs(ht.detach().float().numpy() - np.asarray(h, np.float32))
+    assert diff.max() < 0.15 and diff.mean() < 0.02, (diff.max(), diff.mean())
+    np.testing.assert_allclose(lt.item(), float(l), rtol=1e-2)
+    _grads_close(tm.named_parameters(), g, tol=2e-2)
+
+
+def test_bert_amp_scores_keep_masked_keys_out_in_bf16():
+    """``attention`` with bf16 scores gives masked keys zero weight and the
+    fp32-score result to bf16 resolution; in fp32 the option changes nothing."""
+    from mammo_clip_tpu_torch.models.bert import attention
+
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 3, 8, 16, generator=g) for _ in range(3))
+    mask = torch.ones(2, 8, dtype=torch.bool)
+    mask[1, 5:] = False
+    v_masked = v.clone()
+    v_masked[1, :, 5:] = 1e4  # would dominate the output if a masked key leaked in
+    for dtype in (torch.float32, torch.bfloat16):
+        base = attention(q.to(dtype), k.to(dtype), v.to(dtype), mask, amp_scores=False)
+        amp = attention(q.to(dtype), k.to(dtype), v_masked.to(dtype), mask, amp_scores=True)
+        assert amp.dtype == dtype
+        torch.testing.assert_close(amp.float(), base.float(), atol=2e-2 if dtype != torch.float32
+                                   else 0.0, rtol=0.0)
+
+
+def test_bert_seq_parallel_raises_and_options_follow_the_model_config():
+    from mammo_clip_tpu_torch.models.clip import bert_config_from_model_config
+
+    mc = tiny_test_config().model.to_dict()
+    for key in ("fused_qkv", "amp_attn_scores", "seq_parallel"):
+        t = dict(mc["text_encoder"], **{key: True})
+        assert getattr(bert_config_from_model_config(dict(mc, text_encoder=t)), key) is True
+    mc["text_encoder"]["seq_parallel"] = True
+    with pytest.raises(NotImplementedError, match="queue 9"):
+        build_model(mc, device="cpu")
+
+
 def _clip_batch(cfg, n=4, seed=3):
     rng = np.random.default_rng(seed)
     h, w, s = cfg.data.image_size_h, cfg.data.image_size_w, cfg.data.text_max_length

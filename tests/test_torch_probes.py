@@ -1,0 +1,170 @@
+"""The functions of benchmarks/probe_mosaic.py's TPU probes in the port
+(mammo_clip_tpu_torch/ops/probes.py and benchmarks/probe_mosaic.py).
+
+Layout probes: the JAX script runs here under
+``pltpu.force_tpu_interpret_mode()`` (about 2 s) and prints one line per probe;
+the port's script on the CPU prints the same names and shapes and the same
+sums, to the print's resolution (3 decimals) and 1e-5 relative (fp32 sums in
+another order). The JAX ``dot_3d`` probe fails (fault R6: it contracts w's
+channels with x's rows); the port's ``channel_mix`` computes what its docstring
+means and is held to a numpy einsum.
+
+Grid probes: the four functions of ``probe_grid_overhead`` against numpy
+versions of their formulas at a small shape (N=2, C=4, E=8, H=32, W=24): sums in
+float64 against the port's fp32, within 1e-5 of the largest entry; the compute
+chain rounds z, SiLU and each tap product to bf16 on both sides (numpy through
+float32 bit rounding), within 1e-3 (a rounding tie may flip one ulp).
+"""
+
+import importlib.util
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from mammo_clip_tpu_torch.benchmarks import probe_mosaic as port_probe
+from mammo_clip_tpu_torch.ops import probes
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LAYOUT = ["concat_aligned", "reshape_collapse", "reshape_split", "sublane_stack", "dot_3d",
+          "reshape_collapse_rows10", "reshape_split_rows10"]
+LINE = re.compile(r"PROBE (\w+): (OK|FAIL) ?(\([\d, ]+\))? ?(?:sum=(-?[\d.]+))?")
+
+
+def _load_jax_probe():
+    spec = importlib.util.spec_from_file_location(
+        "_jax_probe_mosaic", os.path.join(ROOT, "benchmarks", "probe_mosaic.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _lines(text):
+    out = {}
+    for line in text.splitlines():
+        m = LINE.match(line)
+        assert m, line
+        out[m.group(1)] = m.groups()[1:]
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_lines():
+    """What the JAX script prints for the layout probes (interpret mode)."""
+    import contextlib
+    import io
+
+    jax_probe = _load_jax_probe()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), pltpu.force_tpu_interpret_mode():
+        for name in LAYOUT:
+            jax_probe.PROBES[name]()
+    return _lines(buf.getvalue())
+
+
+def test_layout_probes_print_what_the_jax_script_prints(jax_lines, capsys):
+    res = port_probe.main(LAYOUT + ["--device", "cpu"])
+    ours = _lines(capsys.readouterr().out)
+    assert list(ours) == list(jax_lines)
+    for name, (status, shape, total) in ours.items():
+        assert status == "OK", name
+        if name == "dot_3d_rank3rhs":
+            continue
+        assert jax_lines[name][:2] == (status, shape), name
+        assert abs(float(total) - float(jax_lines[name][2])) <= 1e-5 * abs(float(total)) + 2e-3
+    assert set(res) == set(LAYOUT)
+
+
+def test_jax_dot_3d_probe_fails_and_the_port_computes_its_intended_function(jax_lines):
+    """R6: the JAX probe contracts w's axis 0 (C=16) with x's axis 1 (H=8)."""
+    status, _, _ = jax_lines["dot_3d_rank3rhs"]
+    assert status == "FAIL"
+    x = np.random.default_rng(0).standard_normal((16, 8, 384)).astype(np.float32)
+    w = np.random.default_rng(1).standard_normal((16, 16)).astype(np.float32)
+    got = port_probe.probe_dot_3d_batch("cpu")
+    assert tuple(got.shape) == (8, 16, 384)
+    np.testing.assert_allclose(got.numpy(), np.einsum("chw,cd->hdw", x, w), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(probes.channel_mix(torch.from_numpy(x), torch.from_numpy(w)).numpy(),
+                               np.einsum("chw,cd->hdw", x, w), rtol=1e-5, atol=1e-5)
+
+
+def test_layout_functions_match_numpy():
+    r = np.random.default_rng(4)
+    x = r.standard_normal((5, 3, 12)).astype(np.float32)
+    flat = x[..., :10].reshape(5, -1).astype(np.float64)
+    np.testing.assert_allclose(probes.gram_rows(torch.from_numpy(x), 10).numpy(), flat @ flat.T,
+                               rtol=1e-5, atol=1e-5)
+    got = probes.copy_scale(torch.from_numpy(x), (5, 36), 2.0)
+    np.testing.assert_array_equal(got.numpy(), (2 * x).reshape(5, 36))
+    with pytest.raises(ValueError):
+        probes.copy_scale(torch.from_numpy(x), (5, 35))
+    with pytest.raises(ValueError):
+        probes.gram_rows(torch.from_numpy(x), 13)
+
+
+def _bf16(a):
+    """Round float32 values to bfloat16 (to nearest even), kept as float32."""
+    u = np.asarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _np_grid(x, k, vec, we):
+    """Rows 4-7 of the probe table in numpy (float64 sums, bf16 roundings in the chain)."""
+    N, C, H, W = x.shape
+    ntl = H // 8
+    xd = x.astype(np.float64)
+    base = xd.sum((0, 2, 3))
+    i = np.arange(ntl)
+    top, bot = 8 * np.maximum(i - 1, 0) + 7, 8 * np.minimum(i + 1, ntl - 1)
+    halo = base + 8 * (xd[:, :, top].sum((0, 2, 3)) + xd[:, :, bot].sum((0, 2, 3)))
+    const = base + N * ntl * 8 * W * (k[:, 0, :].astype(np.float64).sum() + vec.sum())
+    z = _bf16(np.einsum("ce,nchw->nehw", we.astype(np.float64), xd))
+    s = _bf16(z.astype(np.float64) / (1 + np.exp(-z.astype(np.float64))))
+    pad = np.pad(s, ((0, 0), (0, 0), (0, 0), (1, 1)))
+    d = np.zeros(z.shape, np.float32)
+    for a in range(3):
+        for b in range(3):
+            d = d + _bf16(pad[..., b:b + W] * k[None, :, 3 * a + b, None, :])
+    compute = d[:, :C].astype(np.float64).sum((0, 2, 3))
+    return base, halo, const, compute
+
+
+def test_grid_functions_match_numpy_formulas():
+    N, C, E, H, W = 2, 4, 8, 32, 24
+    r = np.random.default_rng(5)
+    arrays = [_bf16(r.standard_normal(s)) for s in ((N, C, H, W), (E, 9, W), (E, 1, W), (C, E))]
+    x, k, vec, we = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
+    got = [probes.grid_base(x), probes.grid_halo(x), probes.grid_const(x, k, vec),
+           probes.grid_compute(x, we, k)]
+    for name, g, want, tol in zip(("base", "halo", "const", "compute"), got, _np_grid(*arrays),
+                                  (1e-5, 1e-5, 1e-5, 1e-3)):
+        assert g.shape == (C, 1, 1) and g.dtype == torch.float32, name
+        err = np.abs(g.numpy().ravel() - want).max() / np.abs(want).max()
+        assert err <= tol, (name, err)
+    # vec = -k[:, 0:1, :] cancels the bank: the x part alone is the base sum
+    cancelled = probes.grid_const(x, k, -k[:, 0:1, :])
+    base = _np_grid(*arrays)[0]
+    assert np.abs(cancelled.numpy().ravel() - base).max() <= 1e-5 * np.abs(base).max()
+    assert all(v == 0 for v in probes.launches.counts.values())  # no kernel on the CPU
+    with pytest.raises(ValueError):
+        probes.grid_base(x[:, :, :12])  # H % 8 != 0
+    with pytest.raises(ValueError):
+        probes.grid_compute(x, we[:, :2], k)  # E < C
+
+
+def test_grid_probe_script_times_each_kernel_on_the_cpu(monkeypatch, capsys):
+    small = [torch.randn(2, 4, 16, 24), torch.randn(8, 9, 24), torch.randn(8, 1, 24),
+             torch.randn(4, 8)]
+    monkeypatch.setattr(port_probe, "grid_inputs",
+                        lambda device: [t.bfloat16().to(device) for t in small])
+    res = port_probe.main(["grid_overhead", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert [line.split(":")[0] for line in lines] == [
+        "PROBE grid_base(main only)", "PROBE grid_halo(min/max maps)",
+        "PROBE grid_const(resident bank)", "PROBE grid_compute(z+silu+dw, no halo)"]
+    assert set(res["grid_overhead"]) == {"base", "halo", "const", "compute"}
+    assert all("us per block" in line for line in lines)
