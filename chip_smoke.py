@@ -37,24 +37,35 @@ Phases, each reported on its own lines:
      14+14 e6 calls per step and that no thread is left behind, and prints the
      per-step ms, the checkpoint write and read seconds, and the kernel time and
      device busy share of its second step, profiled by ``train.profile_at_step``;
-  8. the hand-written flash attention (csrc/flash_attention.cu) against its plain
-     version at the probe's (16, 12, 256, 64) and a ragged (4, 12, 200, 32), fp32
-     and bf16, out, dq, dk, dv; its path, the port of
+  8. the hand-written flash attention (csrc/flash_attention.cu): first a look
+     into the built library, each flash kernel's registers, shared and local
+     memory (``cuobjdump --dump-resource-usage``), spill stores (ptxas) and its
+     count of HMMA and atomic instructions in the SASS (it fails if a bf16
+     tensor-core kernel has no HMMA or a flash kernel has an atomic; the SASS
+     goes to chiprun_out/); then the kernel against its plain version at the
+     probe's (16, 12, 256, 64) and a ragged (4, 12, 200, 32), fp32 and bf16,
+     out, dq, dk, dv, with SDPA's own distance from the plain version printed
+     beside the bf16 rows as a yardstick; its path, the port of
      ``benchmarks/probe_flash_attention.py``, driven once with the counters read
-     around it (its einsum-vs-flash loss within 1e-2); then its forward, backward
-     and forward+backward times (CUDA events, and device time with the host's
-     enqueue hidden behind a sleep kernel) beside the plain version's, the port's ``amp_attn_scores``
-     einsum attention, ``scaled_dot_product_attention`` (the library yardstick)
-     and the bound; the kernels line's ``ms``, ``plain_ms`` and ``library_ms``
-     of these rows are all device times, ``event_ms`` the kernel's CUDA-event time;
+     around it (its einsum-vs-flash loss within 1e-2); the bf16 backward run
+     twice on the same inputs, which must give the same bits; then its forward,
+     backward and forward+backward times (CUDA events, and device time with the
+     host's enqueue hidden behind a sleep kernel) beside the plain version's,
+     the port's ``amp_attn_scores`` einsum attention,
+     ``scaled_dot_product_attention`` (the library yardstick) and the bound;
+     the kernels line's ``ms``, ``plain_ms`` and ``library_ms`` of these rows
+     are all device times, ``event_ms`` the kernel's CUDA-event time;
   9. the probe kernels (csrc/probes.cu): the four grid kernels at the probe's
      (16, 40, 232, 384) bf16 (the const kernel also with its bank cancelled, so
      that the x part is held alone) and the three layout kernels at the JAX
      script's shapes, each through its wrapper against its plain version (the
-     grid kernels are timed through their raw launchers, uncounted), the layout sums beside what the JAX
-     script prints; their path, the port of ``benchmarks/probe_mosaic.py`` (all
-     probes), driven once with the counters read around it; then their times,
-     us per grid block, and bounds.
+     grid kernels are timed through their raw launchers, uncounted), the layout
+     sums beside what the JAX script prints; their path, the port of
+     ``benchmarks/probe_mosaic.py`` (all probes), driven once with the counters
+     read around it; then their times, us per grid block, and bounds, and for
+     the grid base and the three layout kernels the time of one PyTorch call of
+     the same function (``torch.sum``, ``torch.mm``, ``torch.mul``,
+     ``torch.einsum``; each first checked against the plain version).
 The line before the last is a JSON object with one entry per kernel (e6 entries
 counted on the CLI slice, e1, flash and probe entries on their own paths); the
 last line is
@@ -735,32 +746,117 @@ def flash_inputs(shape, dtype, seed):
             for s in (0.3, 0.3, 0.3, 0.1)]
 
 
-def check_flash(shape, dtype_name, seed):
-    """The kernel (through its wrapper) against the plain version: out, dq, dk,
-    dv, each max |diff| relative to the largest entry beside its tolerance.
-    Returns the max abs error of out and of the gradients."""
+def flash_outputs(fn, inputs, scale):
+    """out, dq, dk, dv of ``fn`` (fp32 copies) through its loss sum(out * g)."""
     import torch
+
+    q0, k0, v0, g = inputs
+    q, k, v = (t.clone().requires_grad_(True) for t in (q0, k0, v0))
+    out = fn(q, k, v, scale)
+    out.backward(g)
+    torch.cuda.synchronize()
+    return [out.detach().float(), q.grad.float(), k.grad.float(), v.grad.float()]
+
+
+def check_flash(shape, dtype_name, seed, yardstick=False):
+    """The kernel (through its wrapper) against the plain version: out, dq, dk,
+    dv, each max |diff| relative to the largest entry beside its tolerance; with
+    ``yardstick``, SDPA's own distance from the plain version beside it (what a
+    library tensor-core attention gives at these inputs). Returns the max abs
+    error of out and of the gradients."""
+    import torch
+    import torch.nn.functional as F
 
     from mammo_clip_tpu_torch.ops.flash_attention import flash_attention, plain_flash_attention
 
-    dtype = getattr(torch, dtype_name)
-    q0, k0, v0, g = flash_inputs(shape, dtype, seed)
+    inputs = flash_inputs(shape, getattr(torch, dtype_name), seed)
     scale = shape[-1] ** -0.5
-    runs = []
-    for fn in (flash_attention, plain_flash_attention):
-        q, k, v = (t.clone().requires_grad_(True) for t in (q0, k0, v0))
-        out = fn(q, k, v, scale)
-        out.backward(g)
-        torch.cuda.synchronize()
-        runs.append([out.detach().float(), q.grad.float(), k.grad.float(), v.grad.float()])
+    runs = [flash_outputs(fn, inputs, scale) for fn in (flash_attention, plain_flash_attention)]
     tol = 1e-2 if dtype_name == "bfloat16" else 1e-4
     rows = [(n, max_rel(a, b)) for n, a, b in zip(("out", "dq", "dk", "dv"), *runs)]
     say(f"[flash check] {shape} {dtype_name}: " + ", ".join(f"{n} {e:.2e}/{tol:.0e}"
                                                            for n, e in rows))
+    if yardstick:
+        sdpa = flash_outputs(lambda q, k, v, scale: F.scaled_dot_product_attention(
+            q, k, v, scale=scale), inputs, scale)
+        say(f"[flash check] {shape} {dtype_name}, SDPA against the plain version (yardstick, "
+            "no bound): " + ", ".join(f"{n} {max_rel(a, b):.2e}" for n, a, b in
+                                      zip(("out", "dq", "dk", "dv"), sdpa, runs[1])))
     if not all(e <= tol for _, e in rows):
         raise SmokeFailure(f"flash attention {shape} {dtype_name} disagrees with plain: {rows}")
     abs_err = [float((a - b).abs().max()) for a, b in zip(*runs)]
     return abs_err[0], max(abs_err[1:])
+
+
+def flash_label(mangled):
+    """'fwd_tc<64>', 'dkdv<float,128>', 'dot<bf16>', 'dot_v8' for a kernel of
+    csrc/flash_attention.cu, from its mangled name; None for any other kernel."""
+    m = re.search(r"\d(fwd_tc|dkdv_tc|dq_tc|dot_v8|fwd|dkdv|dq|dot)_kernel(I.*?EE)?", mangled)
+    if not m:
+        return None
+    targs = m.group(2) or ""
+    args = (["float"] if targs.startswith("If") else ["bf16"] if "bfloat16" in targs else [])
+    args += re.findall(r"Li(\d+)E", targs)
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def flash_kernel_report(lib_path, ptxas_log):
+    """Phase 8's look into the built library: each flash kernel's registers,
+    static shared memory, stack and local memory (``cuobjdump
+    --dump-resource-usage``), spill stores (the build's ptxas log, when it
+    compiled now), its dynamic shared memory per block (the tile layout of the
+    source), and its count of HMMA (tensor-core) and atomic instructions in the
+    SASS. Fails if a bf16 tensor-core kernel has no HMMA, or any flash kernel has
+    an atomic."""
+    from mammo_clip_tpu_torch.ops import cuda_lib
+
+    tool = str(Path(cuda_lib._nvcc()).parent / "cuobjdump")
+
+    def run(*args):
+        res = subprocess.run([tool, *args, str(lib_path)], capture_output=True, text=True,
+                             timeout=300)
+        if res.returncode != 0:
+            raise SmokeFailure(f"cuobjdump {' '.join(args)} failed: {res.stderr[-2000:]}")
+        return res.stdout
+
+    usage, name = {}, None
+    for line in run("--dump-resource-usage").splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            name = flash_label(m.group(1))
+        elif name and "REG:" in line:
+            usage[name] = dict(re.findall(r"([A-Z]+):(\d+)", line))
+            name = None
+    sass = run("-sass")
+    (OUT_DIR / "flash_attention.sass").write_text("\n".join(
+        chunk for chunk in re.split(r"\n(?=\s*Function : )", sass)
+        if flash_label(chunk.split("\n", 1)[0])))
+    counts = {}
+    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
+        label = flash_label(chunk.split("\n", 1)[0])
+        if label:
+            counts[label] = (len(re.findall(r"\bHMMA\.", chunk)),
+                             len(re.findall(r"\b(?:ATOMS|ATOMG|ATOM|RED)\.", chunk)))
+    spills = {flash_label(n): b for n, b in re.findall(
+        r"Function properties for (\S+)\n\s*\d+ bytes stack frame, (\d+) bytes spill stores",
+        ptxas_log or "") if flash_label(n)}
+    tc = [k for k in counts if k.split("<")[0] in ("fwd_tc", "dkdv_tc", "dq_tc")]
+    for label in sorted(counts):
+        u = usage.get(label, {})
+        dyn = ""
+        if label in tc:  # fwd_tc_smem / bwd_tc_smem of the source
+            dmax, fwd = int(label[label.index("<") + 1:-1]), label.startswith("fwd")
+            smem = (5 if fwd else 6) * 64 * (dmax + 8) * 2 + (0 if fwd else 4 * 64 * 4)
+            dyn = f", dynamic shared {smem} B"
+        say(f"[flash kernels] {label}: REG {u.get('REG')}, SHARED {u.get('SHARED')}, STACK "
+            f"{u.get('STACK')}, LOCAL {u.get('LOCAL')}{dyn}, spill stores "
+            f"{spills.get(label, 'not read (built earlier)')} B, HMMA {counts[label][0]}, "
+            f"atomics {counts[label][1]}")
+    missing = [k for k in tc if counts[k][0] == 0]
+    atomics = [k for k, (_, a) in counts.items() if a]
+    if len(tc) != 9 or missing or atomics:
+        raise SmokeFailure(f"flash SASS: tensor-core kernels {tc}, without HMMA {missing}, "
+                           f"with atomics {atomics}")
 
 
 def flash_phases(seed):
@@ -779,10 +875,11 @@ def flash_phases(seed):
     )
 
     shape = (probe.B, probe.N, probe.S, probe.D)
+    flash_kernel_report(cuda_lib.build_info.path, cuda_lib.build_info.ptxas)
     errs = {}
     for name, shp in (("probe", shape), ("ragged", (4, 12, 200, 32))):
         for dt in ("float32", "bfloat16"):
-            errs[name, dt] = check_flash(shp, dt, seed)
+            errs[name, dt] = check_flash(shp, dt, seed, yardstick=dt == "bfloat16")
 
     launches.reset()
     res = probe.main(["--iters", "10"])
@@ -804,6 +901,13 @@ def flash_phases(seed):
         "sdpa": lambda q, k, v: F.scaled_dot_product_attention(q, k, v, scale=scale),
     }
     o, lse = flash_forward(lib, q, k, v, scale)
+    first, second = (flash_backward(lib, q, k, v, o, lse, g, scale) for _ in range(2))
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(first, second)]
+    say(f"[flash check] {shape} bf16 backward twice on the same inputs: dq, dk, dv "
+        f"bit-identical {same}")
+    if not all(same):
+        raise SmokeFailure(f"flash backward is not deterministic: {same}")
     calls = {"kernel": (  # the launches alone, uncounted
         lambda: flash_forward(lib, q, k, v, scale),
         lambda: flash_backward(lib, q, k, v, o, lse, g, scale),
@@ -904,6 +1008,14 @@ def probe_phases():
                         lambda: probes.plain_channel_mix(xl["rows8"], wl), 1e-5,
                         8 * n8 + 4 * 256, 2 * 16 * n8),
     }
+    # one PyTorch call of the same function, where there is one (timed as library_ms)
+    flat8 = xl["rows8"].reshape(16, -1)
+    library = {
+        "base": lambda: torch.sum(x, (0, 2, 3), dtype=torch.float32).view(-1, 1, 1),
+        "gram": lambda: torch.mm(flat8, flat8.t()),
+        "copy_scale": lambda: torch.mul(flat10, 2.0).view(16, 10, 384),
+        "channel_mix": lambda: torch.einsum("chw,cd->hdw", xl["rows8"], wl),
+    }
     checks = [("grid", name, wrap, plain, tol) for name, (wrap, _, plain, tol, _, _)
               in grid.items()]
     checks.insert(3, ("grid", "const (bank cancelled, x part alone)",
@@ -920,6 +1032,12 @@ def probe_phases():
             f"max |diff| {errs[name][1]:.3e}")
         if not errs[name][0] <= tol:
             raise SmokeFailure(f"probe kernel {name} disagrees with plain: {errs[name]}")
+    for name, call in library.items():
+        plain = grid[name][2] if name in grid else layout[name][1]
+        err = max_rel(call(), plain())
+        say(f"[probe check] library call for {name} against the plain version: {err:.2e}")
+        if not err <= 1e-5:
+            raise SmokeFailure(f"the library call for {name} computes another function: {err}")
     x3, w3 = xl["rows8"].cpu().numpy(), wl.cpu().numpy()
     want = np.einsum("chw,cd->hdw", x3, w3)
     mix_err = float(np.abs(probes.channel_mix(xl["rows8"], wl).cpu().numpy() - want).max())
@@ -945,11 +1063,13 @@ def probe_phases():
     rows = []
     for (kind, name), (kern, plain, nbytes, flops) in timed.items():
         ms, plain_ms = time_ms(kern), time_ms(plain, reps=3)
+        library_ms = time_ms(library[name]) if name in library else None
         peak = BF16_FLOPS if kind == "grid" else FP32_FLOPS
         bound_ms, bound_by = bound(nbytes, flops, peak)
         per_block = f", {ms * 1e3 / blocks:.3f} us per block" if kind == "grid" else ""
+        lib_txt = f"{library_ms:.4f} ms" if library_ms is not None else "none"
         say(f"[probe time] {kind} {name}: kernel {ms:.4f} ms{per_block}, plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"{plain_ms:.4f} ms, library {lib_txt}, bound {bound_ms:.4f} ms ({bound_by})")
         line = {"grid": {"base": "193", "halo": "209", "const": "231", "compute": "259"},
                 "layout": dict.fromkeys(layout, "27")}[kind][name]
         err = errs[name][1]
@@ -961,7 +1081,7 @@ def probe_phases():
             "replaces": f"benchmarks/probe_mosaic.py:{line}",
             "launches": counts[f"probe_{kind}.{name}"], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None})
+            "library_ms": library_ms})
     return rows
 
 # --------------------------------------------------------------------------

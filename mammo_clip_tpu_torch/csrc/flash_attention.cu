@@ -8,38 +8,63 @@
 // dq, dk, dv in the input dtype. ops/flash_attention.py wraps it in a
 // torch.autograd.Function beside its plain PyTorch version.
 //
-// Design. One thread block of 256 threads (16 x 16) owns a 64-row tile and walks
-// the other side's 64-row tiles, so the (S, S) scores never reach device memory:
+// Which kernels serve which dtype (FA_DISPATCH, at the end of the file):
+//   bf16  tensor-core kernels, fwd_tc_kernel / dot_v8_kernel (or dot_kernel) /
+//         dkdv_tc_kernel / dq_tc_kernel;
+//   fp32  fp32-FMA kernels, fwd_kernel / dot_kernel / dkdv_kernel / dq_kernel,
+//         kept for fp32 because TF32 tensor cores would not hold 1e-4.
+// Both paths have the same structure: a block owns a 64-row tile and walks the
+// other side's 64-row tiles, so the (S, S) scores never reach device memory:
 //   forward   block per (b, n, query tile): online softmax over the key tiles
 //             (running max m and sum l in fp32, O accumulated in fp32), then
-//             o = O / l and lse = m + log l (fp32, (B, N, S)) for the backward;
-//   backward  three launches and no float atomics, so every run gives the same
-//             bits: Dvec = rowsum(dO * o); a block per key tile that loops over
-//             the query tiles, recomputes P = exp(S * scale - lse) and sums
-//             dV += P^T dO, dK += scale * dS^T Q with dS = P * (dO V^T - Dvec);
-//             a block per query tile that loops over the key tiles for
-//             dQ += scale * dS K.
-// Each thread holds a 4 x 4 patch of the 64 x 64 score tile (rows ty*4+i,
-// columns tx+16j) and the matching 4 x (D/16) patch of its accumulators; rows
-// of a tile are reduced over the 16 threads that share them with warp shuffles.
-// Tiles sit in shared memory as fp32, row-major with a row stride of Dmax+1 or
-// transposed with a stride of 65, so every inner-loop read is a broadcast or
-// hits 32 distinct banks. Head sizes up to 128 are compiled for Dmax 32, 64 and
-// 128 (a D below Dmax is zero-padded); any S is taken, the ragged last tile is
-// masked inside the kernels.
+//             o = O / l and lse = m + log l (fp32, (B, N, S), natural log);
+//   backward  three launches and no float atomics, each output element has one
+//             writer, so every run gives the same bits: Dvec = rowsum(dO * o);
+//             a block per key tile that loops over the query tiles, recomputes
+//             P = exp(S * scale - lse) and sums dV += P^T dO,
+//             dK += (scale * dS)^T Q with dS = P * (dO V^T - Dvec); a block per
+//             query tile that loops over the key tiles for dQ += (scale * dS) K.
+//
+// bf16 design (FlashAttention-2's shape, on mma.sync, ldmatrix and cp.async).
+// A block is 4 warps; each warp owns 16 rows of the block's 64-row tile. Every
+// product is mma.sync.m16n8k16 (bf16 in, fp32 sums). Tiles are copied into
+// shared memory as bf16 by 16-byte cp.async.cg (rows past S and columns past D
+// zero-filled with a source size of 0), row-major with a row stride of Dmax + 8
+// elements, so the 8 row addresses of each ldmatrix fall on 8 distinct 16-byte
+// bank groups. The streamed side's tiles sit in a 2-stage ring: the copy of
+// tile i+1 is issued before tile i's products and waited for after them.
+//   forward   Q lives in registers as A fragments (ldmatrix once); S = Q K^T
+//             with K's rows as the "col" B operand; the online softmax runs in
+//             registers (exp2 with scale * log2 e folded in, row max and sum
+//             reduced over the 4 threads of a quad); the fp32 C fragments of P
+//             are packed to bf16 as the A fragments of P V (the TPU kernel's
+//             rounding point, p.astype(v.dtype)), V read by ldmatrix.trans; the
+//             epilogue writes o through shared memory as 16-byte stores.
+//   dK, dV    K and V resident in shared memory; Q, dO and their lse and Dvec
+//             slices streamed: S^T = K Q^T, dP^T = V dO^T, then
+//             dV += bf16(P^T) dO and dK += bf16(scale * dS^T) Q (the TPU
+//             kernel's p.T.astype and ds.T.astype), dO and Q by ldmatrix.trans.
+//   dQ        Q and dO resident; K and V streamed; S, P, dP, dS as above, then
+//             dQ += bf16(scale * dS) K with K by ldmatrix.trans.
+// Keys past S get a score of -inf (forward) or P = 0 (backward); rows past S
+// are never stored. D up to 128 is compiled for Dmax 32, 64 and 128 (zero-padded
+// columns); a D that is not a multiple of 8 (or a pointer that is not 16-byte
+// aligned) makes the same kernels copy their tiles one element at a time.
 //
 // What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16): at the probe's shape
 // (16, 12, 256, 64) bf16 the forward must move ~26 MB (q, k, v, o, lse) for
 // 3.2 GFLOP and the backward ~51 MB for 8.1 GFLOP, so both are bound by bytes
-// (~8 and ~15 us). These kernels multiply in fp32 FMA from shared memory, one
-// block at a time per SM for Dmax 128, so they are far from that; bf16 tensor
-// cores (mma.sync or wgmma) with TMA-fed tiles are the redesign's work.
+// (~8 and ~15 us); the work at mma.sync's rate is a few microseconds. Each
+// streamed tile is read once per block of the other side (4 x the minimal bytes
+// at S = 256, mostly from L2), and the softmax's exponentials run on the SFU.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include <initializer_list>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 typedef __nv_bfloat16 bf16;
 
@@ -383,39 +408,585 @@ int backward(const void* q, const void* k, const void* v, const void* o, const v
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16: tensor-core kernels
+// ---------------------------------------------------------------------------
+
+constexpr int kTcThreads = 128;   // 4 warps, 16 rows of a 64-row tile each
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Asynchronous copies to shared memory; a source size of 0 writes zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of row
+// l % 8 of matrix l / 8 and gets row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1
+// of each (of its transpose with .trans).
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a b for one m16n8k16 tile: a 16 x 16 bf16 (row-major), b 16 x 8 bf16
+// (column-major), d 16 x 8 fp32. Lane l = 4 g + t holds d rows g and g + 8,
+// columns 2t and 2t + 1.
+__device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&h);
+}
+
+// ldmatrix addresses in a [rows][kS] tile. A fragment: rows r0..r0+15, columns
+// c0..c0+15. B fragments, two n8 tiles: from n-major rows (n0..n0+15, k c0..+15;
+// r[0..1] for n0, r[2..3] for n0 + 8), or with .trans from k-major rows
+// (k r0..r0+15, n c0..c0+15).
+template <int kS>
+__device__ __forceinline__ const bf16* a_addr(const bf16* t, int r0, int c0, int lane) {
+  return t + (r0 + (lane & 15)) * kS + c0 + (lane >> 4) * 8;
+}
+template <int kS>
+__device__ __forceinline__ const bf16* b_addr(const bf16* t, int n0, int c0, int lane) {
+  return t + (n0 + (lane & 7) + ((lane >> 4) << 3)) * kS + c0 + ((lane >> 3) & 1) * 8;
+}
+template <int kS>
+__device__ __forceinline__ const bf16* bt_addr(const bf16* t, int r0, int c0, int lane) {
+  return t + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kS + c0 + (lane >> 4) * 8;
+}
+
+// The A fragments of a 16 x 64 product operand from the C fragments of eight
+// n8 tiles, rounded to bf16: k step kk takes tiles 2 kk and 2 kk + 1.
+__device__ __forceinline__ void c_to_a(unsigned (&a)[4], const float (&c)[8][4], int kk) {
+  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
+// Rows [row0, row0 + 64) of a (S, D) bf16 matrix into a [64][Dmax + 8] tile,
+// zero past S and D. With `vec` (D % 8 == 0, 16-byte aligned) by cp.async in
+// 16-byte pieces, which the caller commits and waits for; otherwise element by
+// element, synchronously.
+template <int Dmax>
+__device__ __forceinline__ void tile_load(bf16* dst, const bf16* src, int row0, int S, int D,
+                                          bool vec) {
+  constexpr int kS = Dmax + 8, kC = Dmax / 8;
+  if (vec) {
+#pragma unroll
+    for (int n = 0; n < kTile * kC / kTcThreads; ++n) {
+      const int i = threadIdx.x + n * kTcThreads, r = i / kC, c = i % kC;
+      const bool in = row0 + r < S && c * 8 < D;
+      cp_async16(dst + r * kS + c * 8, in ? src + (size_t)(row0 + r) * D + c * 8 : src,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTile * Dmax; i += kTcThreads) {
+      const int r = i / Dmax, d = i % Dmax;
+      dst[r * kS + d] = (row0 + r < S && d < D) ? src[(size_t)(row0 + r) * D + d]
+                                                : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// Entries [row0, row0 + 64) of a length-S fp32 vector, zero past S.
+__device__ __forceinline__ void stat_load(float* dst, const float* src, int row0, int S) {
+  if (threadIdx.x < kTile) {
+    const bool in = row0 + (int)threadIdx.x < S;
+    cp_async4(dst + threadIdx.x, in ? src + row0 + threadIdx.x : src, in ? 4 : 0);
+  }
+}
+
+// A warp's 16 x Dmax fp32 C fragments, times s0 (row g) and s1 (row g + 8),
+// into 16 rows of a [..][Dmax + 8] bf16 tile.
+template <int Dmax>
+__device__ __forceinline__ void frag_store(bf16* dst, const float (&c)[Dmax / 8][4], float s0,
+                                           float s1, int lane) {
+  constexpr int kS = Dmax + 8;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < Dmax / 8; ++n) {
+    *reinterpret_cast<unsigned*>(dst + g * kS + 8 * n + 2 * t) =
+        pack_bf16(c[n][0] * s0, c[n][1] * s0);
+    *reinterpret_cast<unsigned*>(dst + (g + 8) * kS + 8 * n + 2 * t) =
+        pack_bf16(c[n][2] * s1, c[n][3] * s1);
+  }
+}
+
+// 16 rows of a [..][Dmax + 8] tile to rows [row0, row0 + 16) of a (S, D)
+// matrix, by one warp: coalesced 16-byte stores with `vec`, else element-wise.
+template <int Dmax>
+__device__ __forceinline__ void warp_store(bf16* dst, const bf16* src, int row0, int S, int D,
+                                           bool vec, int lane) {
+  constexpr int kS = Dmax + 8, kC = Dmax / 8;
+  if (vec) {
+#pragma unroll
+    for (int n = 0; n < 16 * kC / 32; ++n) {
+      const int i = lane + 32 * n, r = i / kC, c = i % kC;
+      if (row0 + r < S && c * 8 < D)
+        *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * D + c * 8) =
+            *reinterpret_cast<const uint4*>(src + r * kS + c * 8);
+    }
+  } else {
+    for (int i = lane; i < 16 * Dmax; i += 32) {
+      const int r = i / Dmax, d = i % Dmax;
+      if (row0 + r < S && d < D) dst[(size_t)(row0 + r) * D + d] = src[r * kS + d];
+    }
+  }
+}
+
+template <int Dmax>
+constexpr size_t fwd_tc_smem() {  // Q, 2 stages of K and V
+  return sizeof(bf16) * 5 * kTile * (Dmax + 8);
+}
+template <int Dmax>
+constexpr size_t bwd_tc_smem() {  // 2 resident tiles, 2 stages of 2 streamed tiles, their stats
+  return sizeof(bf16) * 6 * kTile * (Dmax + 8) + sizeof(float) * 4 * kTile;
+}
+
+// grid (query tiles, B * N); o (B, N, S, D) bf16, lse (B, N, S) fp32.
+template <int Dmax>
+__global__ void __launch_bounds__(kTcThreads) fwd_tc_kernel(const bf16* q, const bf16* k,
+                                                            const bf16* v, bf16* o, float* lse,
+                                                            int S, int D, float scale, int vec) {
+  constexpr int kS = Dmax + 8, kKd = Dmax / 16, kNd = Dmax / 8, kT = kTile * kS;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_tc);  // [64][kS]
+  bf16* ks = qs + kT;                            // [2][64][kS]
+  bf16* vs = ks + 2 * kT;                        // [2][64][kS]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane & 3;
+  const size_t head = (size_t)blockIdx.y * S * D;
+  const int q0 = blockIdx.x * kTile, nk = (S + kTile - 1) / kTile;
+  const float sl2 = scale * kLog2e;
+  tile_load<Dmax>(qs, q + head, q0, S, D, vec);
+  tile_load<Dmax>(ks, k + head, 0, S, D, vec);
+  tile_load<Dmax>(vs, v + head, 0, S, D, vec);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  unsigned qf[kKd][4];
+#pragma unroll
+  for (int kk = 0; kk < kKd; ++kk) ldsm_x4(qf[kk], a_addr<kS>(qs, warp * 16, kk * 16, lane));
+
+  float acc[kNd][4] = {};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this thread's partial sums
+  for (int it = 0; it < nk; ++it) {
+    const bf16* kt = ks + (it & 1) * kT;
+    const bf16* vt = vs + (it & 1) * kT;
+    if (it + 1 < nk) {  // the other stage was released by the last iteration's barrier
+      tile_load<Dmax>(ks + ((it + 1) & 1) * kT, k + head, (it + 1) * kTile, S, D, vec);
+      tile_load<Dmax>(vs + ((it + 1) & 1) * kT, v + head, (it + 1) * kTile, S, D, vec);
+    }
+    cp_async_commit();
+    float s[8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kKd; ++kk)
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2) {
+        unsigned b[4];
+        ldsm_x4(b, b_addr<kS>(kt, 16 * j2, 16 * kk, lane));
+        mma16816(s[2 * j2], qf[kk], b[0], b[1]);
+        mma16816(s[2 * j2 + 1], qf[kk], b[2], b[3]);
+      }
+    // online softmax in log2 units; this thread holds rows g (e < 2) and g + 8
+    const int key = it * kTile + 2 * t;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = key + 8 * j + (e & 1) < S ? s[j][e] * sl2 : -INFINITY;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));  // finite: key it*64 < S
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[j][e] - m[e >> 1]);
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int n = 0; n < kNd; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      unsigned a[4];
+      c_to_a(a, s, kk);
+#pragma unroll
+      for (int n2 = 0; n2 < kNd / 2; ++n2) {
+        unsigned b[4];
+        ldsm_x4_t(b, bt_addr<kS>(vt, 16 * kk, 16 * n2, lane));
+        mma16816(acc[2 * n2], a, b[0], b[1]);
+        mma16816(acc[2 * n2 + 1], a, b[2], b[3]);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  bf16* os = qs + warp * 16 * kS;  // this warp's Q rows, read by no other warp
+  frag_store<Dmax>(os, acc, 1.f / l[0], 1.f / l[1], lane);
+  __syncwarp();
+  warp_store<Dmax>(o + head, os, q0 + warp * 16, S, D, vec, lane);
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + warp * 16 + (lane >> 2) + 8 * r;
+      if (row < S) lse[(size_t)blockIdx.y * S + row] = (m[r] + log2f(l[r])) * kLn2;
+    }
+  }
+}
+
+// Dvec = rowsum(dO * o) of bf16 rows with D % 8 == 0 and 16-byte aligned rows:
+// `lanes` threads per row (a power of two >= D / 8), 16-byte loads, shuffles
+// within each group of lanes.
+__global__ void __launch_bounds__(kThreads) dot_v8_kernel(const bf16* o, const bf16* g,
+                                                          float* dvec, int rows, int D,
+                                                          int lanes) {
+  const int tid = blockIdx.x * kThreads + threadIdx.x;
+  const int row = tid / lanes, c = tid % lanes, chunks = D / 8;
+  float sum = 0.f;
+  if (row < rows)
+    for (int i = c; i < chunks; i += lanes) {
+      const uint4 a = reinterpret_cast<const uint4*>(o + (size_t)row * D)[i];
+      const uint4 b = reinterpret_cast<const uint4*>(g + (size_t)row * D)[i];
+      const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 fa = __bfloat1622float2(pa[j]), fb = __bfloat1622float2(pb[j]);
+        sum = fmaf(fa.x, fb.x, sum);
+        sum = fmaf(fa.y, fb.y, sum);
+      }
+    }
+  for (int off = lanes / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (row < rows && c == 0) dvec[row] = sum;
+}
+
+// grid (key tiles, B * N): dK and dV of one key tile over all query tiles.
+// Each warp owns 16 keys; C fragments have keys as rows and queries as columns.
+template <int Dmax>
+__global__ void __launch_bounds__(kTcThreads) dkdv_tc_kernel(const bf16* q, const bf16* k,
+                                                             const bf16* v, const bf16* g,
+                                                             const float* lse, const float* dvec,
+                                                             bf16* dk, bf16* dv, int S, int D,
+                                                             float scale, int vec) {
+  constexpr int kS = Dmax + 8, kKd = Dmax / 16, kNd = Dmax / 8, kT = kTile * kS;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_tc);   // [64][kS]
+  bf16* vs = ks + kT;                            // [64][kS]
+  bf16* qs = vs + kT;                            // [2][64][kS]
+  bf16* gs = qs + 2 * kT;                        // [2][64][kS]
+  float* ls = reinterpret_cast<float*>(gs + 2 * kT);  // [2][64]
+  float* dvs = ls + 2 * kTile;                        // [2][64]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane & 3;
+  const size_t head = (size_t)blockIdx.y * S * D, stats = (size_t)blockIdx.y * S;
+  const int k0 = blockIdx.x * kTile, nq = (S + kTile - 1) / kTile;
+  const float sl2 = scale * kLog2e;
+  tile_load<Dmax>(ks, k + head, k0, S, D, vec);
+  tile_load<Dmax>(vs, v + head, k0, S, D, vec);
+  tile_load<Dmax>(qs, q + head, 0, S, D, vec);
+  tile_load<Dmax>(gs, g + head, 0, S, D, vec);
+  stat_load(ls, lse + stats, 0, S);
+  stat_load(dvs, dvec + stats, 0, S);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  float dka[kNd][4] = {}, dva[kNd][4] = {};
+  for (int it = 0; it < nq; ++it) {
+    const int st = it & 1, nx = (it + 1) & 1;
+    const bf16* qt = qs + st * kT;
+    const bf16* gt = gs + st * kT;
+    const float* lt = ls + st * kTile;
+    const float* dt = dvs + st * kTile;
+    if (it + 1 < nq) {
+      tile_load<Dmax>(qs + nx * kT, q + head, (it + 1) * kTile, S, D, vec);
+      tile_load<Dmax>(gs + nx * kT, g + head, (it + 1) * kTile, S, D, vec);
+      stat_load(ls + nx * kTile, lse + stats, (it + 1) * kTile, S);
+      stat_load(dvs + nx * kTile, dvec + stats, (it + 1) * kTile, S);
+    }
+    cp_async_commit();
+    float s[8][4] = {}, dp[8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kKd; ++kk) {
+      unsigned ka[4], va[4];
+      ldsm_x4(ka, a_addr<kS>(ks, warp * 16, 16 * kk, lane));
+      ldsm_x4(va, a_addr<kS>(vs, warp * 16, 16 * kk, lane));
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2) {
+        unsigned bq[4], bg[4];
+        ldsm_x4(bq, b_addr<kS>(qt, 16 * j2, 16 * kk, lane));
+        ldsm_x4(bg, b_addr<kS>(gt, 16 * j2, 16 * kk, lane));
+        mma16816(s[2 * j2], ka, bq[0], bq[1]);
+        mma16816(s[2 * j2 + 1], ka, bq[2], bq[3]);
+        mma16816(dp[2 * j2], va, bg[0], bg[1]);
+        mma16816(dp[2 * j2 + 1], va, bg[2], bg[3]);
+      }
+    }
+    // P^T and scale * dS^T; columns are queries it*64 + c
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1);
+        const float p = it * kTile + c < S ? exp2f(s[j][e] * sl2 - lt[c] * kLog2e) : 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - dt[c]) * scale;
+      }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      unsigned ap[4], ad[4];
+      c_to_a(ap, s, kk);
+      c_to_a(ad, dp, kk);
+#pragma unroll
+      for (int n2 = 0; n2 < kNd / 2; ++n2) {
+        unsigned b[4];
+        ldsm_x4_t(b, bt_addr<kS>(gt, 16 * kk, 16 * n2, lane));
+        mma16816(dva[2 * n2], ap, b[0], b[1]);
+        mma16816(dva[2 * n2 + 1], ap, b[2], b[3]);
+        ldsm_x4_t(b, bt_addr<kS>(qt, 16 * kk, 16 * n2, lane));
+        mma16816(dka[2 * n2], ad, b[0], b[1]);
+        mma16816(dka[2 * n2 + 1], ad, b[2], b[3]);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  bf16* kw = ks + warp * 16 * kS;  // this warp's K and V rows, read by no other warp
+  bf16* vw = vs + warp * 16 * kS;
+  frag_store<Dmax>(kw, dka, 1.f, 1.f, lane);
+  frag_store<Dmax>(vw, dva, 1.f, 1.f, lane);
+  __syncwarp();
+  warp_store<Dmax>(dk + head, kw, k0 + warp * 16, S, D, vec, lane);
+  warp_store<Dmax>(dv + head, vw, k0 + warp * 16, S, D, vec, lane);
+}
+
+// grid (query tiles, B * N): dQ of one query tile over all key tiles.
+// Each warp owns 16 queries; C fragments have queries as rows and keys as columns.
+template <int Dmax>
+__global__ void __launch_bounds__(kTcThreads) dq_tc_kernel(const bf16* q, const bf16* k,
+                                                           const bf16* v, const bf16* g,
+                                                           const float* lse, const float* dvec,
+                                                           bf16* dq, int S, int D, float scale,
+                                                           int vec) {
+  constexpr int kS = Dmax + 8, kKd = Dmax / 16, kNd = Dmax / 8, kT = kTile * kS;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_tc);  // [64][kS]
+  bf16* gs = qs + kT;                            // [64][kS]
+  bf16* ks = gs + kT;                            // [2][64][kS]
+  bf16* vs = ks + 2 * kT;                        // [2][64][kS]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t = lane & 3;
+  const size_t head = (size_t)blockIdx.y * S * D;
+  const int q0 = blockIdx.x * kTile, nk = (S + kTile - 1) / kTile;
+  const float sl2 = scale * kLog2e;
+  float lse2[2], dvr[2];  // rows g and g + 8 of this warp
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + (lane >> 2) + 8 * r;
+    lse2[r] = row < S ? lse[(size_t)blockIdx.y * S + row] * kLog2e : 0.f;
+    dvr[r] = row < S ? dvec[(size_t)blockIdx.y * S + row] : 0.f;
+  }
+  tile_load<Dmax>(qs, q + head, q0, S, D, vec);
+  tile_load<Dmax>(gs, g + head, q0, S, D, vec);
+  tile_load<Dmax>(ks, k + head, 0, S, D, vec);
+  tile_load<Dmax>(vs, v + head, 0, S, D, vec);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  float dqa[kNd][4] = {};
+  for (int it = 0; it < nk; ++it) {
+    const bf16* kt = ks + (it & 1) * kT;
+    const bf16* vt = vs + (it & 1) * kT;
+    if (it + 1 < nk) {
+      tile_load<Dmax>(ks + ((it + 1) & 1) * kT, k + head, (it + 1) * kTile, S, D, vec);
+      tile_load<Dmax>(vs + ((it + 1) & 1) * kT, v + head, (it + 1) * kTile, S, D, vec);
+    }
+    cp_async_commit();
+    float s[8][4] = {}, dp[8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kKd; ++kk) {
+      unsigned qa[4], ga[4];
+      ldsm_x4(qa, a_addr<kS>(qs, warp * 16, 16 * kk, lane));
+      ldsm_x4(ga, a_addr<kS>(gs, warp * 16, 16 * kk, lane));
+#pragma unroll
+      for (int j2 = 0; j2 < 4; ++j2) {
+        unsigned bk[4], bv[4];
+        ldsm_x4(bk, b_addr<kS>(kt, 16 * j2, 16 * kk, lane));
+        ldsm_x4(bv, b_addr<kS>(vt, 16 * j2, 16 * kk, lane));
+        mma16816(s[2 * j2], qa, bk[0], bk[1]);
+        mma16816(s[2 * j2 + 1], qa, bk[2], bk[3]);
+        mma16816(dp[2 * j2], ga, bv[0], bv[1]);
+        mma16816(dp[2 * j2 + 1], ga, bv[2], bv[3]);
+      }
+    }
+    const int key = it * kTile + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = key + 8 * j + (e & 1) < S ? exp2f(s[j][e] * sl2 - lse2[r]) : 0.f;
+        s[j][e] = p * (dp[j][e] - dvr[r]) * scale;
+      }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      unsigned a[4];
+      c_to_a(a, s, kk);
+#pragma unroll
+      for (int n2 = 0; n2 < kNd / 2; ++n2) {
+        unsigned b[4];
+        ldsm_x4_t(b, bt_addr<kS>(kt, 16 * kk, 16 * n2, lane));
+        mma16816(dqa[2 * n2], a, b[0], b[1]);
+        mma16816(dqa[2 * n2 + 1], a, b[2], b[3]);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  bf16* qw = qs + warp * 16 * kS;  // this warp's Q rows, read by no other warp
+  frag_store<Dmax>(qw, dqa, 1.f, 1.f, lane);
+  __syncwarp();
+  warp_store<Dmax>(dq + head, qw, q0 + warp * 16, S, D, vec, lane);
+}
+
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if ((uintptr_t)p % 16) return false;
+  return true;
+}
+
+template <int Dmax>
+int forward_tc(const void* q, const void* k, const void* v, void* o, float* lse, int BN, int S,
+               int D, float scale, cudaStream_t s) {
+  const int vec = D % 8 == 0 && aligned16({q, k, v, o});
+  const size_t smem = fwd_tc_smem<Dmax>();
+  int rc;
+  if ((rc = prepare(fwd_tc_kernel<Dmax>, smem))) return rc;
+  const dim3 grid((S + kTile - 1) / kTile, BN);
+  fwd_tc_kernel<Dmax><<<grid, kTcThreads, smem, s>>>((const bf16*)q, (const bf16*)k,
+                                                     (const bf16*)v, (bf16*)o, lse, S, D, scale,
+                                                     vec);
+  return (int)cudaGetLastError();
+}
+
+template <int Dmax>
+int backward_tc(const void* q, const void* k, const void* v, const void* o, const void* g,
+                const float* lse, float* dvec, void* dq, void* dk, void* dv, int BN, int S, int D,
+                float scale, cudaStream_t s) {
+  const int vec = D % 8 == 0 && aligned16({q, k, v, o, g, dq, dk, dv});
+  const int rows = BN * S;
+  if (vec) {
+    int lanes = 1;
+    while (lanes < D / 8) lanes *= 2;
+    const long long threads = (long long)rows * lanes;
+    dot_v8_kernel<<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+        (const bf16*)o, (const bf16*)g, dvec, rows, D, lanes);
+  } else {
+    const int per_block = kThreads / 32;
+    dot_kernel<bf16><<<(rows + per_block - 1) / per_block, kThreads, 0, s>>>(
+        (const bf16*)o, (const bf16*)g, dvec, rows, D);
+  }
+  int rc;
+  if ((rc = (int)cudaGetLastError())) return rc;
+  const size_t smem = bwd_tc_smem<Dmax>();
+  const dim3 grid((S + kTile - 1) / kTile, BN);
+  if ((rc = prepare(dkdv_tc_kernel<Dmax>, smem))) return rc;
+  dkdv_tc_kernel<Dmax><<<grid, kTcThreads, smem, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, lse, dvec, (bf16*)dk,
+      (bf16*)dv, S, D, scale, vec);
+  if ((rc = (int)cudaGetLastError())) return rc;
+  if ((rc = prepare(dq_tc_kernel<Dmax>, smem))) return rc;
+  dq_tc_kernel<Dmax><<<grid, kTcThreads, smem, s>>>((const bf16*)q, (const bf16*)k,
+                                                    (const bf16*)v, (const bf16*)g, lse, dvec,
+                                                    (bf16*)dq, S, D, scale, vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
 // C interface, loaded with ctypes. (B, N, S, D) tensors are contiguous; BN = B * N.
 // Every launcher enqueues on `stream`, does not synchronise, and returns a CUDA
 // error code (0 on success; cudaErrorInvalidValue for a D the kernels do not take).
+// bf16 runs the tensor-core kernels, fp32 the fp32-FMA kernels.
 // ---------------------------------------------------------------------------
 
-#define FA_DISPATCH(fn, ...)                                                  \
+#define FA_DISPATCH(fp32_fn, bf16_fn, ...)                                    \
   if (S < 1 || D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;         \
   cudaStream_t s = (cudaStream_t)stream;                                      \
   if (bf16_io) {                                                              \
-    if (D <= 32) return fn<bf16, 32>(__VA_ARGS__, s);                         \
-    if (D <= 64) return fn<bf16, 64>(__VA_ARGS__, s);                         \
-    return fn<bf16, 128>(__VA_ARGS__, s);                                     \
+    if (D <= 32) return bf16_fn<32>(__VA_ARGS__, s);                          \
+    if (D <= 64) return bf16_fn<64>(__VA_ARGS__, s);                          \
+    return bf16_fn<128>(__VA_ARGS__, s);                                      \
   }                                                                           \
-  if (D <= 32) return fn<float, 32>(__VA_ARGS__, s);                          \
-  if (D <= 64) return fn<float, 64>(__VA_ARGS__, s);                          \
-  return fn<float, 128>(__VA_ARGS__, s);
+  if (D <= 32) return fp32_fn<float, 32>(__VA_ARGS__, s);                     \
+  if (D <= 64) return fp32_fn<float, 64>(__VA_ARGS__, s);                     \
+  return fp32_fn<float, 128>(__VA_ARGS__, s);
 
 extern "C" {
 
 // o (BN, S, D) in the input dtype, lse (BN, S) fp32.
 int fa_forward(const void* q, const void* k, const void* v, int bf16_io, void* o, float* lse,
                int BN, int S, int D, float scale, void* stream) {
-  FA_DISPATCH(forward, q, k, v, o, lse, BN, S, D, scale)
+  FA_DISPATCH(forward, forward_tc, q, k, v, o, lse, BN, S, D, scale)
 }
 
 // g = dL/do; dvec (BN, S) fp32 scratch; dq, dk, dv in the input dtype.
 int fa_backward(const void* q, const void* k, const void* v, const void* o, const void* g,
                 const float* lse, int bf16_io, float* dvec, void* dq, void* dk, void* dv, int BN,
                 int S, int D, float scale, void* stream) {
-  FA_DISPATCH(backward, q, k, v, o, g, lse, dvec, dq, dk, dv, BN, S, D, scale)
+  FA_DISPATCH(backward, backward_tc, q, k, v, o, g, lse, dvec, dq, dk, dv, BN, S, D, scale)
 }
 
 }  // extern "C"

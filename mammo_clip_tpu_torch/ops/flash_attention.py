@@ -8,10 +8,11 @@ with the softmax statistics and the accumulation in fp32 and the output in q's
 dtype (fp32 or bf16); its gradient gives dq, dk, dv in that dtype. On a CUDA
 tensor it runs the hand-written kernels of ``csrc/flash_attention.cu`` (a
 forward that keeps the (S, S) scores on chip and writes the log-sum-exp, and a
-three-launch backward that recomputes them); D may be at most 128 and S is
-free. A CPU tensor takes the plain PyTorch version
-(``plain_flash_attention``), which materializes the scores in fp32 and rounds
-once at the output, where the kernel does. ``launches`` counts the kernel
+three-launch backward that recomputes them): bf16 on the tensor cores, with P
+and dS rounded to bf16 before their products as the TPU kernel rounds them,
+fp32 in fp32 FMA. D may be at most 128 and S is free. A CPU tensor takes the
+plain PyTorch version (``plain_flash_attention``), which materializes the
+scores in fp32 and rounds once at the output. ``launches`` counts the kernel
 path's calls.
 """
 

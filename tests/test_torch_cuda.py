@@ -176,11 +176,15 @@ def _qkv(shape, dtype, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2, 3, 128, 64), (1, 2, 200, 32), (2, 2, 77, 64),
-                                   (1, 1, 70, 128), (1, 2, 33, 48)])
+                                   (1, 1, 70, 128), (1, 2, 33, 48), (1, 2, 96, 36),
+                                   (1, 2, 257, 64)])
 def test_cuda_flash_attention_matches_plain(shape, dtype):
     """Output and dq, dk, dv of the kernel against the plain version: fp32 within
     1e-4 (same math, other summation order); bf16 within 1e-2 (one bf16 rounding
-    of each output, and the backward's rowsum(dO * o) taken from the rounded o)."""
+    of each output, the bf16 P and dS operands of the tensor-core products, as
+    the TPU kernel rounds them, and the backward's rowsum(dO * o) taken from the
+    rounded o). D = 36 is not a multiple of 8, so the bf16 kernels copy their
+    tiles element by element; S = 257 puts one key past a 64-row tile."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     from mammo_clip_tpu_torch.ops.flash_attention import (
@@ -206,6 +210,48 @@ def test_cuda_flash_attention_matches_plain(shape, dtype):
     for name, a, b in zip(("out", "dq", "dk", "dv"), runs[0][:4], runs[1][:4]):
         assert _rel(a, b) < tol, (name, _rel(a, b))
     assert list(runs[0][4].values()) == [1, 1] and list(runs[1][4].values()) == [0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_single_key(dtype):
+    """S = 1: the softmax over one key is 1, so o is v and dv is dO, bit for bit
+    in both dtypes; dq and dk are zero in exact arithmetic and here only the
+    difference of two fp32 sums of dO * v (dP and Dvec), so they are held within
+    the dtype's tolerance of the largest entry of dO."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from mammo_clip_tpu_torch.ops.flash_attention import flash_attention
+
+    dt = getattr(torch, dtype)
+    q0, k0, v0, go = _qkv((2, 3, 1, 64), dt)
+    q, k, v = [t.clone().requires_grad_(True) for t in (q0, k0, v0)]
+    out = flash_attention(q, k, v, 0.125)
+    out.backward(go)
+    torch.cuda.synchronize()
+    tol = 1e-2 if dtype == "bfloat16" else 1e-4
+    assert torch.equal(out, v0) and torch.equal(v.grad, go)
+    for grad in (q.grad, k.grad):
+        assert float(grad.float().abs().max()) <= tol * float(go.float().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_backward_is_deterministic(dtype):
+    """No float atomics and one writer per element: two backward passes on the
+    same inputs give the same bits in dq, dk and dv."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from mammo_clip_tpu_torch.ops.flash_attention import flash_attention
+
+    q0, k0, v0, go = _qkv((2, 3, 200, 64), getattr(torch, dtype))
+    grads = []
+    for _ in range(2):
+        q, k, v = [t.clone().requires_grad_(True) for t in (q0, k0, v0)]
+        flash_attention(q, k, v, 0.125).backward(go)
+        grads.append((q.grad, k.grad, v.grad))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
 
 
 @pytest.mark.cuda
