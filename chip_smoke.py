@@ -65,7 +65,16 @@ Phases, each reported on its own lines:
      read around it; then their times, us per grid block, and bounds, and for
      the grid base and the three layout kernels the time of one PyTorch call of
      the same function (``torch.sum``, ``torch.mm``, ``torch.mul``,
-     ``torch.einsum``; each first checked against the plain version).
+     ``torch.einsum``; each first checked against the plain version). Two Gram
+     calls on the same input must give the same bits. The layout kernels and
+     their library calls are host-bound at this size, so each gets three
+     numbers (``benchmarks/layout_timing.py``, kernel and library trials taken
+     in turns): ``ms``, the median CUDA-event time per call of 5 trials of 200
+     calls after 20 warm-up calls; ``device_ms``, device time with the host's
+     enqueue hidden behind a sleep kernel; ``host_us``, the host's cost per
+     call over 1,000 calls with no synchronise between them (on the kernels
+     line: ``device_ms``, ``host_us``, ``library_device_ms``,
+     ``library_host_us``).
 The line before the last is a JSON object with one entry per kernel (e6 entries
 counted on the CLI slice, e1, flash and probe entries on their own paths); the
 last line is
@@ -240,34 +249,6 @@ def time_ms(fn, reps=10, warmup=2):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
-
-
-def device_ms(fn, reps=10):
-    """ms per call of ``fn`` on the device alone: a sleep kernel holds the stream
-    while the host enqueues all the calls, so the events around them time the
-    device's back-to-back work, not the host's enqueue (which bounds an
-    autograd call at small sizes). Fails if the enqueue outlasts the sleep."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    cycles = 20_000_000
-    for _ in range(4):
-        s0, s1, t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(4))
-        s0.record()
-        torch.cuda._sleep(cycles)
-        s1.record()
-        t0.record()
-        start = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        host_ms = (time.perf_counter() - start) * 1e3
-        t1.record()
-        torch.cuda.synchronize()
-        if host_ms < 0.8 * s0.elapsed_time(s1):
-            return t0.elapsed_time(t1) / reps
-        cycles *= 4
-    raise SmokeFailure(f"device_ms: the host's enqueue ({host_ms:.1f} ms) outlasted the sleep")
 
 
 def time_case(case):
@@ -865,6 +846,7 @@ def flash_phases(seed):
     import torch.nn.functional as F
 
     from mammo_clip_tpu_torch.benchmarks import probe_flash_attention as probe
+    from mammo_clip_tpu_torch.benchmarks.layout_timing import device_ms
     from mammo_clip_tpu_torch.models.bert import attention
     from mammo_clip_tpu_torch.ops import cuda_lib
     from mammo_clip_tpu_torch.ops.flash_attention import (
@@ -964,10 +946,10 @@ def probe_phases():
     import numpy as np
     import torch
 
+    from mammo_clip_tpu_torch.benchmarks import layout_timing
     from mammo_clip_tpu_torch.benchmarks import probe_mosaic as probe
-    from mammo_clip_tpu_torch.ops import cuda_lib, probes
+    from mammo_clip_tpu_torch.ops import probes
 
-    lib = cuda_lib.load()
     x, k, vec, we = probe.grid_inputs("cuda")
     N, C, H, W = x.shape
     E, blocks = k.shape[0], N * H // probes.ROWS
@@ -978,44 +960,36 @@ def probe_phases():
     vec0 = (-k[:, 0:1, :]).contiguous()
     # name: wrapper (checked), raw launch (timed, uncounted), plain, tol, bytes, flops
     grid = {
-        "base": (lambda: probes.grid_base(x), lambda: probes.grid_sum_kernel(lib, 0, x),
+        "base": (lambda: probes.grid_base(x), lambda: probes.grid_sum_kernel(0, x),
                  lambda: probes.plain_grid_base(x), 1e-4, x.numel() * 2, x.numel()),
-        "halo": (lambda: probes.grid_halo(x), lambda: probes.grid_sum_kernel(lib, 1, x),
+        "halo": (lambda: probes.grid_halo(x), lambda: probes.grid_sum_kernel(1, x),
                  lambda: probes.plain_grid_halo(x), 1e-4, x.numel() * 2, x.numel() * 1.25),
         "const": (lambda: probes.grid_const(x, k, vec),
-                  lambda: probes.grid_sum_kernel(lib, 2, x, k, vec),
+                  lambda: probes.grid_sum_kernel(2, x, k, vec),
                   lambda: probes.plain_grid_const(x, k, vec), 1e-4,
                   x.numel() * 2 + 2 * E * W * 2, x.numel() + 2 * E * W),
         "compute": (lambda: probes.grid_compute(x, we, k),
-                    lambda: probes.grid_compute_kernel(lib, x, we, k),
+                    lambda: probes.grid_compute_kernel(x, we, k),
                     lambda: probes.plain_grid_compute(x, we, k), 1e-3,
                     x.numel() * 2 + we.numel() * 2 + k.numel() * 2,
                     2 * N * H * W * C * E + 2 * 9 * N * H * W * E),
     }
-    r = np.random.default_rng(0)
-    xl = {"rows8": torch.from_numpy(r.standard_normal((16, 8, 384)).astype(np.float32)).cuda()}
-    wl = torch.from_numpy(np.random.default_rng(1).standard_normal((16, 16)).astype(np.float32)).cuda()
-    flat10 = xl["rows8"].new_tensor(np.random.default_rng(0).standard_normal((16, 3840))
-                                     .astype(np.float32))
-    n8 = xl["rows8"].numel()
+    rows8, wl, flat10 = layout_timing.layout_inputs("cuda")
+    n8 = rows8.numel()
     layout = {
-        "gram": (lambda: probes.gram_rows(xl["rows8"]), lambda: probes.plain_gram_rows(xl["rows8"]),
+        "gram": (lambda: probes.gram_rows(rows8), lambda: probes.plain_gram_rows(rows8),
                  1e-5, 4 * (n8 + 256), 2 * 16 * n8),
         "copy_scale": (lambda: probes.copy_scale(flat10, (16, 10, 384), 2.0),
                        lambda: probes.plain_copy_scale(flat10, (16, 10, 384), 2.0), 0.0,
                        8 * flat10.numel(), flat10.numel()),
-        "channel_mix": (lambda: probes.channel_mix(xl["rows8"], wl),
-                        lambda: probes.plain_channel_mix(xl["rows8"], wl), 1e-5,
+        "channel_mix": (lambda: probes.channel_mix(rows8, wl),
+                        lambda: probes.plain_channel_mix(rows8, wl), 1e-5,
                         8 * n8 + 4 * 256, 2 * 16 * n8),
     }
     # one PyTorch call of the same function, where there is one (timed as library_ms)
-    flat8 = xl["rows8"].reshape(16, -1)
-    library = {
-        "base": lambda: torch.sum(x, (0, 2, 3), dtype=torch.float32).view(-1, 1, 1),
-        "gram": lambda: torch.mm(flat8, flat8.t()),
-        "copy_scale": lambda: torch.mul(flat10, 2.0).view(16, 10, 384),
-        "channel_mix": lambda: torch.einsum("chw,cd->hdw", xl["rows8"], wl),
-    }
+    library = {"base": lambda: torch.sum(x, (0, 2, 3), dtype=torch.float32).view(-1, 1, 1)}
+    library.update({name: lib_call for name, (_, lib_call)
+                    in layout_timing.layout_calls(probes, rows8, wl, flat10).items()})
     checks = [("grid", name, wrap, plain, tol) for name, (wrap, _, plain, tol, _, _)
               in grid.items()]
     checks.insert(3, ("grid", "const (bank cancelled, x part alone)",
@@ -1038,9 +1012,13 @@ def probe_phases():
         say(f"[probe check] library call for {name} against the plain version: {err:.2e}")
         if not err <= 1e-5:
             raise SmokeFailure(f"the library call for {name} computes another function: {err}")
-    x3, w3 = xl["rows8"].cpu().numpy(), wl.cpu().numpy()
+    gram_bits = [probes.gram_rows(rows8) for _ in range(2)]
+    if not torch.equal(*gram_bits):
+        raise SmokeFailure("two calls of the Gram kernel on the same input gave other bits")
+    say("[probe check] two Gram kernel calls on the same input: the same bits")
+    x3, w3 = rows8.cpu().numpy(), wl.cpu().numpy()
     want = np.einsum("chw,cd->hdw", x3, w3)
-    mix_err = float(np.abs(probes.channel_mix(xl["rows8"], wl).cpu().numpy() - want).max())
+    mix_err = float(np.abs(probes.channel_mix(rows8, wl).cpu().numpy() - want).max())
     say(f"[probe check] dot_3d intended function (R6) vs numpy einsum: max |diff| {mix_err:.2e}")
     if not mix_err <= 1e-4 * np.abs(want).max():
         raise SmokeFailure(f"channel_mix disagrees with numpy: {mix_err}")
@@ -1062,8 +1040,15 @@ def probe_phases():
                   for name, (wrap, plain, _, nbytes, flops) in layout.items()})
     rows = []
     for (kind, name), (kern, plain, nbytes, flops) in timed.items():
-        ms, plain_ms = time_ms(kern), time_ms(plain, reps=3)
-        library_ms = time_ms(library[name]) if name in library else None
+        plain_ms = time_ms(plain, reps=3)
+        if kind == "layout":
+            # host-bound at this size: the median of 5 x 200 calls, device time
+            # and the host's cost per call, for the kernel and its library call
+            ours, lib_t = layout_timing.compare(kern, library[name])
+            ms, library_ms = ours["ms"], lib_t["ms"]
+        else:
+            ms = time_ms(kern)
+            library_ms = time_ms(library[name]) if name in library else None
         peak = BF16_FLOPS if kind == "grid" else FP32_FLOPS
         bound_ms, bound_by = bound(nbytes, flops, peak)
         per_block = f", {ms * 1e3 / blocks:.3f} us per block" if kind == "grid" else ""
@@ -1075,13 +1060,20 @@ def probe_phases():
         err = errs[name][1]
         if name == "const":
             err = max(err, errs["const (bank cancelled, x part alone)"][1])
-        rows.append({
+        row = {
             "name": f"probe_{kind}[{name}]", "route": "cuda",
             "source": "mammo_clip_tpu_torch/csrc/probes.cu",
             "replaces": f"benchmarks/probe_mosaic.py:{line}",
             "launches": counts[f"probe_{kind}.{name}"], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms})
+            "library_ms": library_ms}
+        if kind == "layout":
+            say(f"[probe time] layout {name}: kernel device {ours['device_ms']:.4f} ms, host "
+                f"{ours['host_us']:.2f} us per call; library device {lib_t['device_ms']:.4f} ms,"
+                f" host {lib_t['host_us']:.2f} us per call")
+            row.update(device_ms=ours["device_ms"], host_us=ours["host_us"],
+                       library_device_ms=lib_t["device_ms"], library_host_us=lib_t["host_us"])
+        rows.append(row)
     return rows
 
 # --------------------------------------------------------------------------

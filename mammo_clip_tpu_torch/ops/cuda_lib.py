@@ -9,6 +9,13 @@ reused by later processes.
 
 Nothing here runs at import: ``load()`` builds on its first call and raises if
 ``nvcc`` is missing or the build fails.
+
+``launcher(name)`` is the lean way to call a launcher that takes the CUDA device
+index and the stream as its last two arguments (``csrc/probes.cu``): it binds
+the ctypes function once, on its first call, and then costs the host one
+ctypes call and one lookup of PyTorch's current raw stream per launch, with no
+``torch.cuda.Stream`` object and no device context (the C launcher switches
+the device only when the tensor's is not the current one).
 """
 
 from __future__ import annotations
@@ -61,12 +68,12 @@ SIGNATURES: Dict[str, List] = {
     # csrc/flash_attention.cu
     "fa_forward": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _P],
     "fa_backward": [*[_P] * 6, _I, *[_P] * 4, _I, _I, _I, _F, _P],
-    # csrc/probes.cu
-    "pr_grid_sum": [_I, *[_P] * 5, *[_I] * 5, _P],
-    "pr_grid_compute": [*[_P] * 5, *[_I] * 5, _P],
-    "pr_gram": [_P, _P, _I, _I, _I, _I, _P],
-    "pr_copy_scale": [_P, _P, _LL, _F, _P],
-    "pr_channel_mix": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # csrc/probes.cu: ..., the device index, the stream
+    "pr_grid_sum": [_I, *[_P] * 5, *[_I] * 6, _P],
+    "pr_grid_compute": [*[_P] * 5, *[_I] * 6, _P],
+    "pr_gram": [_P, _P, *[_I] * 5, _P],
+    "pr_copy_scale": [_P, _P, _LL, _F, _I, _P],
+    "pr_channel_mix": [_P, _P, _P, *[_I] * 5, _P],
 }
 
 
@@ -146,3 +153,35 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         _lib = bind(build())
     return _lib
+
+
+_raw_stream = None  # torch._C._cuda_getCurrentRawStream, looked up at the first bind
+
+
+def _bind_launcher(name: str):
+    global _raw_stream
+    import torch
+
+    # PyTorch's own Triton launcher reads the stream this way; CPU builds lack it.
+    _raw_stream = torch._C._cuda_getCurrentRawStream
+    return getattr(load(), name)
+
+
+def launcher(name: str):
+    """The C launcher ``name`` as ``launch(device, *args)``: it calls the launcher
+    with ``args``, the CUDA device index and PyTorch's current raw stream on that
+    device (so a caller's ``torch.cuda.stream(s)`` is obeyed), and raises if the
+    launcher returns a CUDA error. The library is built and the function bound on
+    the first call, not at import."""
+    fn = None
+
+    def launch(device: int, *args):
+        nonlocal fn
+        if fn is None:
+            fn = _bind_launcher(name)
+        rc = fn(*args, device, _raw_stream(device))
+        if rc:
+            raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+
+    launch.__name__ = name
+    return launch

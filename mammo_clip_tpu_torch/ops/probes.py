@@ -25,29 +25,30 @@ Layout probes (``_run`` over the Mosaic probes), fp32:
 
 On a CUDA tensor each wrapper launches its kernel (grid kernels take bf16 x,
 the layout kernels fp32) or raises; a CPU tensor takes the plain version.
-``launches`` counts the kernel paths' calls.
+``launches`` counts the kernel paths' calls. The wrappers launch through
+``cuda_lib.launcher``, bound once, and check their tensors by plain attribute
+reads (device index, dtype, contiguity), so that a call of a layout kernel,
+whose device work is a few microseconds, costs the host little more than the
+ctypes call and the launch itself.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
-from .mbconv import LaunchCounter, _check
+from .cuda_lib import launcher
+from .mbconv import LaunchCounter
 
 ROWS = 8  # the probe's tile height
 launches = LaunchCounter([f"probe_grid.{k}" for k in ("base", "halo", "const", "compute")]
                          + [f"probe_layout.{k}" for k in ("gram", "copy_scale", "channel_mix")])
-
-
-def _lib():
-    from .cuda_lib import load
-
-    return load()
-
-
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+_grid_sum, _grid_compute = launcher("pr_grid_sum"), launcher("pr_grid_compute")
+_gram, _copy_scale = launcher("pr_gram"), launcher("pr_copy_scale")
+_channel_mix = launcher("pr_channel_mix")
+_F32 = torch.float32
 
 
 def _halo_rows(H: int):
@@ -110,110 +111,110 @@ def plain_channel_mix(x, w):
 
 
 def _check_grid_x(x):
+    """The CUDA device index of x when it is on the card (and fits the kernels), -1
+    on the CPU."""
     if x.dim() != 4 or x.shape[2] % ROWS:
         raise ValueError(f"x must be (N, C, H, W) with H % {ROWS} == 0, got {tuple(x.shape)}")
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.is_cpu:
+            return -1
         raise ValueError(f"the grid probes run on CUDA or CPU tensors, got {x.device}")
     if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.shape[3] % 2:
         raise TypeError(f"x must be contiguous bfloat16 with an even W, got {x.dtype}, "
                         f"{tuple(x.shape)}")
-    return True
+    return x.get_device()
 
 
-def _check_on(t, x, shape, name):
+def _check_on(t, device, shape, name):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
-    if t.device != x.device or t.dtype != torch.bfloat16 or not t.is_contiguous():
-        raise TypeError(f"{name} must be contiguous bfloat16 on {x.device}")
+    if t.get_device() != device or t.dtype != torch.bfloat16 or not t.is_contiguous():
+        raise TypeError(f"{name} must be contiguous bfloat16 on cuda:{device}")
 
 
-def grid_sum_kernel(lib, kind: int, x, k=None, vec=None):
-    """One call of the base (0), halo (1) or const (2) kernel and its reduction."""
+def grid_sum_kernel(kind: int, x, k=None, vec=None):
+    """One call of the base (0), halo (1) or const (2) kernel and its reduction
+    (uncounted: the wrappers count)."""
     N, C, H, W = x.shape
     E = 0 if k is None else k.shape[0]
-    part = torch.empty(N * H // ROWS, C, device=x.device, dtype=torch.float32)
-    out = torch.empty(C, 1, 1, device=x.device, dtype=torch.float32)
-    _check(lib.pr_grid_sum(kind, x.data_ptr(), None if k is None else k.data_ptr(),
-                           None if vec is None else vec.data_ptr(), part.data_ptr(),
-                           out.data_ptr(), N, C, E, H, W, _stream(x)), "pr_grid_sum")
+    part = x.new_empty((N * H // ROWS, C), dtype=_F32)
+    out = x.new_empty((C, 1, 1), dtype=_F32)
+    _grid_sum(x.get_device(), kind, x.data_ptr(), None if k is None else k.data_ptr(),
+              None if vec is None else vec.data_ptr(), part.data_ptr(), out.data_ptr(),
+              N, C, E, H, W)
     return out
 
 
-def grid_compute_kernel(lib, x, we, k):
+def grid_compute_kernel(x, we, k):
     N, C, H, W = x.shape
     E = we.shape[1]
-    part = torch.empty(N * H // ROWS, E, device=x.device, dtype=torch.float32)
-    out = torch.empty(C, 1, 1, device=x.device, dtype=torch.float32)
-    _check(lib.pr_grid_compute(x.data_ptr(), we.data_ptr(), k.data_ptr(), part.data_ptr(),
-                               out.data_ptr(), N, C, E, H, W, _stream(x)), "pr_grid_compute")
+    part = x.new_empty((N * H // ROWS, E), dtype=_F32)
+    out = x.new_empty((C, 1, 1), dtype=_F32)
+    _grid_compute(x.get_device(), x.data_ptr(), we.data_ptr(), k.data_ptr(), part.data_ptr(),
+                  out.data_ptr(), N, C, E, H, W)
     return out
 
 
 def grid_base(x):
-    if not _check_grid_x(x):
+    if _check_grid_x(x) < 0:
         return plain_grid_base(x)
-    with torch.cuda.device(x.device):
-        out = grid_sum_kernel(_lib(), 0, x)
+    out = grid_sum_kernel(0, x)
     launches.add("probe_grid.base")
     return out
 
 
 def grid_halo(x):
-    if not _check_grid_x(x):
+    if _check_grid_x(x) < 0:
         return plain_grid_halo(x)
-    with torch.cuda.device(x.device):
-        out = grid_sum_kernel(_lib(), 1, x)
+    out = grid_sum_kernel(1, x)
     launches.add("probe_grid.halo")
     return out
 
 
 def grid_const(x, k, vec):
     """k (E, 9, W) and vec (E, 1, W), bf16 on the card."""
-    on_card = _check_grid_x(x)
+    device = _check_grid_x(x)
     E, W = k.shape[0], x.shape[3]
     if k.dim() != 3 or k.shape[1:] != (9, W) or vec.shape != (E, 1, W):
         raise ValueError(f"k must be (E, 9, {W}) and vec (E, 1, {W}), got {tuple(k.shape)}, "
                          f"{tuple(vec.shape)}")
-    if not on_card:
+    if device < 0:
         return plain_grid_const(x, k, vec)
-    _check_on(k, x, (E, 9, W), "k")
-    _check_on(vec, x, (E, 1, W), "vec")
-    with torch.cuda.device(x.device):
-        out = grid_sum_kernel(_lib(), 2, x, k, vec)
+    _check_on(k, device, (E, 9, W), "k")
+    _check_on(vec, device, (E, 1, W), "vec")
+    out = grid_sum_kernel(2, x, k, vec)
     launches.add("probe_grid.const")
     return out
 
 
 def grid_compute(x, we, k):
     """we (C, E) with E >= C and k (E, 9, W), bf16 on the card."""
-    on_card = _check_grid_x(x)
+    device = _check_grid_x(x)
     C, W = x.shape[1], x.shape[3]
     if we.dim() != 2 or we.shape[0] != C or we.shape[1] < C or k.shape != (we.shape[1], 9, W):
         raise ValueError(f"we must be ({C}, E >= {C}) and k (E, 9, {W}), got "
                          f"{tuple(we.shape)}, {tuple(k.shape)}")
-    if not on_card:
+    if device < 0:
         return plain_grid_compute(x, we, k)
-    _check_on(we, x, tuple(we.shape), "we")
-    _check_on(k, x, tuple(k.shape), "k")
-    with torch.cuda.device(x.device):
-        out = grid_compute_kernel(_lib(), x, we, k)
+    _check_on(we, device, tuple(we.shape), "we")
+    _check_on(k, device, tuple(k.shape), "k")
+    out = grid_compute_kernel(x, we, k)
     launches.add("probe_grid.compute")
     return out
 
 
-def _check_layout(*ts):
-    """True when the tensors are on the card (and fit the kernels), False on the CPU."""
-    x = ts[0]
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
+def _layout_device(x, w=None):
+    """The CUDA device index of the tensors when they are on the card (and fit the
+    kernels), -1 when x is on the CPU; raises for anything else."""
+    if not x.is_cuda:
+        if x.is_cpu:
+            return -1
         raise ValueError(f"the layout probes run on CUDA or CPU tensors, got {x.device}")
-    for t in ts:
-        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise TypeError(f"the layout kernels take contiguous float32 tensors on {x.device}")
-    return True
+    device = x.get_device()
+    if x.dtype is not _F32 or not x.is_contiguous() or w is not None and (
+            w.get_device() != device or w.dtype is not _F32 or not w.is_contiguous()):
+        raise TypeError(f"the layout kernels take contiguous float32 tensors on {x.device}")
+    return device
 
 
 def gram_rows(x, width=None):
@@ -225,27 +226,25 @@ def gram_rows(x, width=None):
     width = L if width is None else width
     if not 1 <= width <= L:
         raise ValueError(f"width must be in 1..{L}, got {width}")
-    if not _check_layout(x):
+    device = _layout_device(x)
+    if device < 0:
         return plain_gram_rows(x, width)
-    out = torch.empty(C, C, device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        _check(_lib().pr_gram(x.data_ptr(), out.data_ptr(), C, R, width, L, _stream(x)),
-               "pr_gram")
+    out = x.new_empty((C, C))
+    _gram(device, x.data_ptr(), out.data_ptr(), C, R, width, L)
     launches.add("probe_layout.gram")
     return out
 
 
 def copy_scale(x, shape, scale: float = 1.0):
     """x * scale as a new contiguous tensor of ``shape`` (same number of elements)."""
-    shape = tuple(shape)
-    if x.numel() != torch.Size(shape).numel():
-        raise ValueError(f"cannot copy {tuple(x.shape)} into {shape}")
-    if not _check_layout(x):
-        return plain_copy_scale(x, shape, scale)
-    out = torch.empty(shape, device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        _check(_lib().pr_copy_scale(x.data_ptr(), out.data_ptr(), x.numel(), float(scale),
-                                    _stream(x)), "pr_copy_scale")
+    n = x.numel()
+    if n != math.prod(shape):
+        raise ValueError(f"cannot copy {tuple(x.shape)} into {tuple(shape)}")
+    device = _layout_device(x)
+    if device < 0:
+        return plain_copy_scale(x, tuple(shape), scale)
+    out = x.new_empty(shape)
+    _copy_scale(device, x.data_ptr(), out.data_ptr(), n, scale)
     launches.add("probe_layout.copy_scale")
     return out
 
@@ -255,12 +254,11 @@ def channel_mix(x, w):
     if x.dim() != 3 or w.dim() != 2 or w.shape[0] != x.shape[0]:
         raise ValueError(f"x must be (C, H, W) and w (C, C2), got {tuple(x.shape)}, "
                          f"{tuple(w.shape)}")
-    if not _check_layout(x, w):
+    device = _layout_device(x, w)
+    if device < 0:
         return plain_channel_mix(x, w)
     C, H, W = x.shape
-    out = torch.empty(H, w.shape[1], W, device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        _check(_lib().pr_channel_mix(x.data_ptr(), w.data_ptr(), out.data_ptr(), C, w.shape[1],
-                                     H, W, _stream(x)), "pr_channel_mix")
+    out = x.new_empty((H, w.shape[1], W))
+    _channel_mix(device, x.data_ptr(), w.data_ptr(), out.data_ptr(), C, w.shape[1], H, W)
     launches.add("probe_layout.channel_mix")
     return out

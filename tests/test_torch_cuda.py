@@ -1,5 +1,5 @@
-"""The port's hand-written CUDA kernels (``fused_mbconv_e6`` and
-``fused_mbconv_e1``) against their plain PyTorch versions, on a card. Every test here is marked ``cuda`` and skips itself without a card.
+"""The port's hand-written CUDA kernels (``fused_mbconv_e6``, ``fused_mbconv_e1``,
+flash attention and the probe kernels) against their plain PyTorch versions, on a card. Every test here is marked ``cuda`` and skips itself without a card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a card
 machine that has only PyTorch: ``python -m pytest --noconftest -m cuda
@@ -284,8 +284,45 @@ def _grid_inputs(N=2, C=8, E=24, H=32, W=70, seed=0):
     return f(N, C, H, W), f(E, 9, W), f(E, 1, W), f(C, E)
 
 
+# Gram cases: ("gram", C, R, W, L): the three probe shapes ((16, 8, 380-of-384) is
+# concat_aligned's padded buffer read in place), C = 1, 5 and 40, and W = 379 of
+# L = 383, which takes the kernel's 4-byte loads. Copy cases: ("copy", n, offset):
+# n % 4 != 0, and a contiguous input one float into its buffer, whose 16-byte
+# misalignment takes the 4-byte path.
+LAYOUT_CASES = [("gram", 16, 8, 380, 384), ("gram", 16, 8, 384, 384), ("gram", 16, 10, 384, 384),
+                ("gram", 1, 8, 384, 384), ("gram", 5, 8, 384, 384), ("gram", 40, 8, 384, 384),
+                ("gram", 16, 8, 379, 383), ("copy", 61442, 0), ("copy", 61440, 1)]
+
+
+def _layout_case(case):
+    """One Gram or copy kernel call against its plain version: Gram within 1e-5
+    of the largest entry (fp32 sums in another order), the copy bit-exact."""
+    from mammo_clip_tpu_torch.ops import probes
+
+    g = torch.Generator(device="cpu").manual_seed(2)
+    before = dict(probes.launches.counts)
+    if case[0] == "gram":
+        _, C, R, W, L = case
+        x = torch.randn(C, R, L, generator=g).cuda()
+        got, want, key = probes.gram_rows(x, W), probes.plain_gram_rows(x, W), "probe_layout.gram"
+        torch.cuda.synchronize()
+        assert got.shape == (C, C) and got.dtype == torch.float32
+        assert _rel(got, want) <= 1e-5, _rel(got, want)
+        assert torch.equal(got, got.t())
+    else:
+        _, n, offset = case
+        buf = torch.randn(n + offset, generator=g).cuda()
+        x = buf[offset:]
+        assert x.is_contiguous() and (x.data_ptr() % 16 == 0) == (offset == 0)
+        got, key = probes.copy_scale(x, (n,), 3.0), "probe_layout.copy_scale"
+        torch.cuda.synchronize()
+        assert torch.equal(got, probes.plain_copy_scale(x, (n,), 3.0))
+    counts = {k: probes.launches.counts[k] - before[k] for k in before}
+    assert counts == {**dict.fromkeys(counts, 0), key: 1}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 8, 24, 32, 70), (1, 40, 240, 16, 384)])
+@pytest.mark.parametrize("shape", [(2, 8, 24, 32, 70), (1, 40, 240, 16, 384), *LAYOUT_CASES])
 def test_cuda_probe_kernels_match_plain(shape):
     """The four grid kernels and the three layout kernels against their plain
     versions: sums of many bf16 values in fp32 in another order, within 1e-4 of
@@ -293,9 +330,12 @@ def test_cuda_probe_kernels_match_plain(shape):
     z or SiLU sits on a rounding tie, hence 1e-3 there. The const output is
     mostly its bank term, which fp32 holds to far less than the x part, so the
     const kernel is also held with vec = -k[:, 0:1, :]: the bank cancels exactly
-    and the x part must match the base sum alone."""
+    and the x part must match the base sum alone. The Gram and copy cases
+    (``LAYOUT_CASES``) hold those two kernels alone at more shapes."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
+    if isinstance(shape[0], str):
+        return _layout_case(shape)
     from mammo_clip_tpu_torch.ops import probes
 
     x, k, vec, we = _grid_inputs(*shape)
@@ -320,6 +360,73 @@ def test_cuda_probe_kernels_match_plain(shape):
         assert _rel(got, want) <= tol, (i, _rel(got, want))
     counts = {key: probes.launches.counts[key] - before[key] for key in before}
     assert counts == {**dict.fromkeys(counts, 1), "probe_grid.const": 2, "probe_layout.gram": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,R,W,L", [(16, 8, 380, 384), (40, 10, 379, 383)])
+def test_cuda_gram_kernel_gives_the_same_bits_on_every_call(C, R, W, L):
+    """No float atomics: the slices and the cluster's blocks are added in a fixed
+    order, so two calls on the same input agree bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from mammo_clip_tpu_torch.ops import probes
+
+    x = torch.randn(C, R, L, generator=torch.Generator(device="cpu").manual_seed(3)).cuda()
+    first, second = probes.gram_rows(x, W), probes.gram_rows(x, W)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_cuda_probe_kernels_run_on_the_callers_stream():
+    """The launch path reads PyTorch's current stream: kernels launched inside
+    ``torch.cuda.stream(s)`` land on s, so their results are there after
+    ``s.synchronize()`` alone, read back by copies on s, while the default
+    stream is still held by a sleep kernel (a launch on the default stream
+    would still be waiting behind it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from mammo_clip_tpu_torch.ops import probes
+
+    g = torch.Generator(device="cpu").manual_seed(4)
+    x_cpu = torch.randn(16, 10, 384, generator=g)
+    xg_cpu = torch.randn(2, 8, 32, 70, generator=g).bfloat16()
+    x, xg = x_cpu.cuda(), xg_cpu.cuda()
+    calls = (lambda: probes.gram_rows(x, 380), lambda: probes.copy_scale(x, (16, 3840), 2.0),
+             lambda: probes.grid_base(xg))
+    for call in calls:  # builds the library and loads the kernels before the sleep
+        call()
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    torch.cuda._sleep(200_000_000)  # holds the default stream for ~0.1 s
+    with torch.cuda.stream(s):
+        outs = [call() for call in calls]
+        s.synchronize()
+        gram, copy, base = (t.cpu() for t in outs)  # copies on s
+    assert torch.cuda.current_stream().query() is False  # the sleep is still running
+    torch.cuda.synchronize()
+    assert _rel(gram, probes.plain_gram_rows(x_cpu, 380)) <= 1e-5
+    assert torch.equal(copy, probes.plain_copy_scale(x_cpu, (16, 3840), 2.0))
+    assert _rel(base, probes.plain_grid_base(xg_cpu)) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_probe_kernels_run_on_a_tensor_of_another_device():
+    """A tensor on a device other than the current one: the C launcher makes its
+    device current for the launch and restores the caller's."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA cards")
+    from mammo_clip_tpu_torch.ops import probes
+
+    x_cpu = torch.randn(16, 8, 384, generator=torch.Generator(device="cpu").manual_seed(5))
+    x = x_cpu.to("cuda:1")
+    with torch.cuda.device(0):
+        gram, copy = probes.gram_rows(x), probes.copy_scale(x, (16, 3072), 2.0)
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(1)
+    assert gram.device == x.device and copy.device == x.device
+    assert _rel(gram.cpu(), probes.plain_gram_rows(x_cpu)) <= 1e-5
+    assert torch.equal(copy.cpu(), probes.plain_copy_scale(x_cpu, (16, 3072), 2.0))
 
 
 @pytest.mark.cuda

@@ -168,3 +168,67 @@ def test_grid_probe_script_times_each_kernel_on_the_cpu(monkeypatch, capsys):
         "PROBE grid_const(resident bank)", "PROBE grid_compute(z+silu+dw, no halo)"]
     assert set(res["grid_overhead"]) == {"base", "halo", "const", "compute"}
     assert all("us per block" in line for line in lines)
+
+
+def test_launcher_binds_once_and_passes_the_device_and_its_stream(monkeypatch):
+    """``cuda_lib.launcher``: nothing is built or bound until the first call;
+    then the ctypes function is bound once and called with the arguments, the
+    device index and that device's current raw stream; a CUDA error raises."""
+    from mammo_clip_tpu_torch.ops import cuda_lib
+
+    bound, calls, rcs = [], [], iter([0, 0, 700])
+
+    class Lib:
+        def __getattr__(self, name):
+            bound.append(name)
+            return lambda *args: (calls.append(args), next(rcs))[1]
+
+    monkeypatch.setattr(cuda_lib, "load", Lib)
+    monkeypatch.setattr(cuda_lib, "_raw_stream", None)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda d: 1000 + d, raising=False)
+    launch = cuda_lib.launcher("pr_gram")
+    assert bound == [] and launch.__name__ == "pr_gram"
+    launch(3, 11, 12)
+    launch(0, 21)
+    assert bound == ["pr_gram"]
+    assert calls == [(11, 12, 3, 1003), (21, 0, 1000)]
+    with pytest.raises(RuntimeError, match="pr_gram launch failed with CUDA error 700"):
+        launch(1)
+
+
+def test_probe_launcher_signatures_match_the_c_interface():
+    """Each ``pr_*`` launcher of csrc/probes.cu takes as many arguments as its
+    ctypes signature declares, the device index and the stream last."""
+    from mammo_clip_tpu_torch.ops import cuda_lib
+
+    src = (cuda_lib.CSRC_DIR / "probes.cu").read_text()
+    protos = dict(re.findall(r"^int (pr_\w+)\(([^)]*)\)", src, re.M))
+    assert set(protos) == {k for k in cuda_lib.SIGNATURES if k.startswith("pr_")}
+    for name, params in protos.items():
+        params = [p.strip() for p in params.split(",")]
+        assert len(params) == len(cuda_lib.SIGNATURES[name]), name
+        assert params[-2:] == ["int device", "void* stream"], name
+
+
+def test_wrappers_check_the_device_before_any_launch(monkeypatch):
+    """CPU tensors take the plain versions without reaching a launcher; tensors
+    on neither the CPU nor a card raise ValueError, as before."""
+    def refuse(*args):
+        raise AssertionError("a tensor that is not on a card reached a launcher")
+
+    for name in ("_gram", "_copy_scale", "_channel_mix", "_grid_sum", "_grid_compute"):
+        monkeypatch.setattr(probes, name, refuse)
+    before = dict(probes.launches.counts)
+    x, w = torch.randn(4, 3, 8), torch.randn(4, 5)
+    assert torch.equal(probes.gram_rows(x, 7), probes.plain_gram_rows(x, 7))
+    assert torch.equal(probes.copy_scale(x, (4, 24), 2.0), probes.plain_copy_scale(x, (4, 24), 2.0))
+    assert torch.equal(probes.channel_mix(x, w), probes.plain_channel_mix(x, w))
+    xg = torch.randn(1, 2, 8, 4).bfloat16()
+    assert torch.equal(probes.grid_base(xg), probes.plain_grid_base(xg))
+    meta = torch.empty(4, 3, 8, device="meta")
+    for call in (lambda: probes.gram_rows(meta), lambda: probes.copy_scale(meta, (4, 24)),
+                 lambda: probes.channel_mix(meta, w.to("meta")),
+                 lambda: probes.grid_base(xg.to("meta"))):
+        with pytest.raises(ValueError):
+            call()
+    assert probes.launches.counts == before
