@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with one NVIDIA card:
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--parent DIR]
 
 Phases, each reported on its own lines:
   1. environment: card name and power limit, torch/CUDA versions, build dir state;
@@ -14,6 +14,19 @@ Phases, each reported on its own lines:
      residual, 760x456; N=2), forward and backward, in fp32 and bf16, each max
      |diff| beside its tolerance;
   4. kernel times (CUDA events) beside the plain version's and the card's bound;
+     for the expanding form at block 4 (bf16, csrc/mbconv6_e6.cu) also its
+     device time per pass (torch.profiler), the bytes one forward keeps for its
+     backward, the kernels one forward and one backward launch (the library's
+     own and all, by torch.profiler), each new kernel's registers, shared and
+     local memory, spill stores and blocks per SM, and its HMMA and atomic
+     counts in the SASS (it fails if a kernel with a channel product has no
+     HMMA or any of them has an atomic; the SASS goes to chiprun_out/), and
+     two bf16 backward passes on the same inputs, which must give the same
+     bits; with ``--parent DIR`` (an older checkout of the port), the old and
+     this package's e6 form timed in turns through their public wrappers
+     (``benchmarks/e6_timing.py --turns``: old, new, new, old processes) with
+     the compat slice's peak memory in the first old and new processes, and
+     the e6 rows of the kernels line carry the old ``earlier_ms``;
   5. a small-input reference check (tiny CLIP step on the card with the kernels
      against the same step on the CPU with the plain version), then the slice:
      the full-width compat B5 CLIP (B5 at 1520x912, BERT-base, 256 tokens,
@@ -253,24 +266,32 @@ def time_ms(fn, reps=10, warmup=2):
 
 def time_case(case):
     """Phase 4 (bf16, the main path's type): forward and backward ms of the
-    kernels and of the plain version."""
+    kernels (the expanding form's passes, or the e=1 form's stage kernels) and
+    of the plain version."""
     import torch
 
     from mammo_clip_tpu_torch.ops import cuda_lib
     from mammo_clip_tpu_torch.ops.mbconv6 import (
         _backward_kernels,
+        _e6_backward,
+        _e6_forward,
         _forward_kernels,
         plain_fused_mbconv_e6,
     )
 
-    lib = cuda_lib.load()
     x = case.x.to(torch.bfloat16)
     g = case.gout.to(torch.bfloat16)
     p = case.params
     args = (x, p, case.delta, case.vh, case.vw, 1e-3)
-    fwd = lambda: _forward_kernels(lib, *args)
-    _, _, saved = fwd()
-    bwd = lambda: _backward_kernels(lib, x, p, case.delta, case.vh, case.vw, g, saved)
+    if case.form == "e6":
+        fwd = lambda: _e6_forward(*args)
+        _, stats, kept = fwd()
+        bwd = lambda: _e6_backward(*args, g, stats, kept)
+    else:
+        lib = cuda_lib.load()
+        fwd = lambda: _forward_kernels(lib, *args)
+        _, _, saved = fwd()
+        bwd = lambda: _backward_kernels(lib, x, p, case.delta, case.vh, case.vw, g, saved)
     with torch.no_grad():
         k_fwd, k_bwd = time_ms(fwd), time_ms(bwd)
         p_fwd = time_ms(lambda: plain_fused_mbconv_e6(*args))
@@ -321,9 +342,109 @@ def kernel_phases(seed):
                                 bound_ms=bound_ms, bound_by=bound_by))
     from mammo_clip_tpu_torch.ops.mbconv6 import fused_mbconv_e6
 
+    e6_report(cases[0])
     e6_e1_form = {c.name: (c.times, held_bytes(fused_mbconv_e6, c)) for c in cases
                   if c.form == "e1"}
     return kernels, e6_e1_form
+
+
+def e6_label(mangled):
+    """'sweep<bf16,8,3>', 'bwd_x<float,4>', 'bn0', 'sum_blocks' for a kernel of
+    csrc/mbconv6_e6.cu, from its mangled name; None for any other kernel."""
+    if "sum_blocks_kernel" in mangled:
+        return "sum_blocks"
+    m = re.search(r"\d(sweep|bwd_v|bwd_x|moments|out|dx|prep|bn0)_kernel(I.*?EE)?.*P6", mangled)
+    if not m:
+        return None
+    targs = m.group(2)
+    if not targs:
+        return m.group(1)
+    args = ["bf16" if "bfloat16" in targs else "float"] + re.findall(r"Li(\d+)E", targs)
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def e6_report(case):
+    """Phase 4's look at the expanding form at block 4 in bf16: device time per
+    pass, held bytes, kernels per call, each kernel's resources and SASS, and a
+    bit-identical backward."""
+    import ctypes
+
+    import torch
+
+    from mammo_clip_tpu_torch.benchmarks.e6_timing import kernels_of
+    from mammo_clip_tpu_torch.ops import cuda_lib
+    from mammo_clip_tpu_torch.ops.mbconv6 import _e6_backward, _e6_forward, fused_mbconv_e6
+
+    x, g = case.x.to(torch.bfloat16), case.gout.to(torch.bfloat16)
+    args = (x, case.params, case.delta, case.vh, case.vw, 1e-3)
+    fwd = lambda: _e6_forward(*args)
+    _, stats, kept = fwd()
+    bwd = lambda: _e6_backward(*args, g, stats, kept)
+    say(f"[e6 passes] {case.name} bf16, device us per forward: " + pass_breakdown(fwd))
+    say(f"[e6 passes] {case.name} bf16, device us per backward: " + pass_breakdown(bwd))
+    (hf, af), (hb, ab) = kernels_of(fwd), kernels_of(bwd)
+    say(f"[e6 launches] {case.name}: kernels per forward {hf} of the library, {af} in all; "
+        f"per backward {hb} of the library, {ab} in all (torch.profiler)")
+    say(f"[e6 memory] {case.name} bf16: held from forward to backward beyond x and the "
+        f"outputs: {held_bytes(fused_mbconv_e6, case)} B")
+    first, second = bwd(), bwd()
+    torch.cuda.synchronize()
+    a, b = [first[0], *first[1]], [second[0], *second[1]]
+    same = [torch.equal(u, v) for u, v in zip(a, b)]
+    say(f"[e6 check] {case.name} bf16 backward twice on the same inputs: dx and the 13 "
+        f"parameter gradients bit-identical: {all(same)}")
+    if not all(same):
+        raise SmokeFailure(f"e6 backward is not deterministic: {same}")
+
+    lib = cuda_lib.load()
+    info = {}
+    for name, pid in (("moments", 0), ("sweep F2", 1), ("sweep F3", 2), ("sweep F4", 3),
+                      ("sweep B1", 4), ("bwd_v", 6), ("bwd_x", 7)):
+        smem, blocks = ctypes.c_int(), ctypes.c_int()
+        rc = lib.m6_kernel_info(pid, 1, ctypes.byref(smem), ctypes.byref(blocks))
+        if rc:
+            raise SmokeFailure(f"m6_kernel_info({name}) failed with CUDA error {rc}")
+        info[name] = (smem.value, blocks.value)
+    say("[e6 kernels] bf16 dynamic shared memory B, blocks per SM: " + ", ".join(
+        f"{k} {v[0]} / {v[1]}" for k, v in info.items()))
+    usage, counts, spills = library_report(cuda_lib.build_info.path, cuda_lib.build_info.ptxas,
+                                           e6_label, "mbconv6_e6.sass")
+    for label in sorted(counts):
+        u = usage.get(label, {})
+        say(f"[e6 kernels] {label}: REG {u.get('REG')}, SHARED {u.get('SHARED')}, STACK "
+            f"{u.get('STACK')}, LOCAL {u.get('LOCAL')}, spill stores "
+            f"{spills.get(label, 'not read (built earlier)')} B, HMMA {counts[label][0]}, "
+            f"atomics {counts[label][1]}")
+    # every kernel but the elementwise, reduction and setup ones, and the F3
+    # sweep (sweep<.,.,2>: d read back, v and its sums, no product)
+    products = [k for k in counts if not k.startswith(("out", "sum_blocks", "prep", "bn0"))
+                and not (k.startswith("sweep") and k.endswith(",2>"))]
+    missing = [k for k in products if counts[k][0] == 0]
+    atomics = [k for k, (_, n) in counts.items() if n]
+    if len(products) != 14 or missing or atomics:
+        raise SmokeFailure(f"e6 SASS: kernels with a channel product {sorted(products)}, "
+                           f"without HMMA {missing}, with atomics {atomics}")
+
+
+def parent_turns(parent):
+    """The parent's e6 form against this one's at block 4 (bf16), through their
+    public wrappers, old, new, new, old, one process each
+    (``benchmarks/e6_timing.py --turns``); the first old and new processes also
+    run the compat slice for its peak memory."""
+    from mammo_clip_tpu_torch.benchmarks import e6_timing
+
+    lines = e6_timing.turns(parent.resolve(), with_slice=True)
+    side = lambda s: [ln for ln in lines if ln["side"] == s]
+    mid = lambda s, k: sum(ln[k] for ln in side(s)) / len(side(s))
+    for s in ("old", "new"):
+        say(f"[e6 turns] {s}: fwd ms {[round(ln['fwd_ms'], 4) for ln in side(s)]}, bwd ms "
+            f"{[round(ln['bwd_ms'], 4) for ln in side(s)]}, held B {side(s)[0]['held_bytes']}, "
+            f"kernels per forward {side(s)[0]['hand_fwd']} of the library / "
+            f"{side(s)[0]['all_fwd']} in all, per backward {side(s)[0]['hand_bwd']} / "
+            f"{side(s)[0]['all_bwd']}, slice peaks B {side(s)[0]['slice_peak_bytes']}")
+    return dict(forward=mid("old", "fwd_ms"), backward=mid("old", "bwd_ms"),
+                old_peak=max(side("old")[0]["slice_peak_bytes"]),
+                new_peak=max(side("new")[0]["slice_peak_bytes"]))
 
 
 # --------------------------------------------------------------------------
@@ -549,6 +670,13 @@ def short_name(name):
     return m.group(1) if m else name[:40]
 
 
+def pass_name(name):
+    """short_name, with the pass of csrc/mbconv6_e6.cu's sweep kernel named."""
+    m = re.search(r"sweep_kernel<[^>]*?(\d+)>", name)
+    return f"sweep_{dict(enumerate(('', 'F2', 'F3', 'F4', 'B1')))[int(m.group(1))]}" if m \
+        else short_name(name)
+
+
 def pass_breakdown(fn, reps=3):
     """Device time per call of each kernel ``fn`` launches, from torch.profiler."""
     import tempfile
@@ -566,7 +694,7 @@ def pass_breakdown(fn, reps=3):
         events = json.loads(Path(f"{d}/trace.json").read_text())["traceEvents"]
     times = {}
     for name, (n, t) in kernel_times(events).items():
-        key = short_name(name)
+        key = pass_name(name)
         times[key] = times.get(key, 0.0) + t / reps
     total = sum(times.values())
     top = sorted(times.items(), key=lambda kv: -kv[1])
@@ -781,14 +909,12 @@ def flash_label(mangled):
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
-def flash_kernel_report(lib_path, ptxas_log):
-    """Phase 8's look into the built library: each flash kernel's registers,
+def library_report(lib_path, ptxas_log, label, sass_name):
+    """The built library's kernels that ``label`` names: each one's registers,
     static shared memory, stack and local memory (``cuobjdump
-    --dump-resource-usage``), spill stores (the build's ptxas log, when it
-    compiled now), its dynamic shared memory per block (the tile layout of the
-    source), and its count of HMMA (tensor-core) and atomic instructions in the
-    SASS. Fails if a bf16 tensor-core kernel has no HMMA, or any flash kernel has
-    an atomic."""
+    --dump-resource-usage``), its counts of HMMA (tensor-core) and atomic
+    instructions in the SASS, and its spill stores (the build's ptxas log, when
+    it compiled now). Their SASS goes to chiprun_out/``sass_name``."""
     from mammo_clip_tpu_torch.ops import cuda_lib
 
     tool = str(Path(cuda_lib._nvcc()).parent / "cuobjdump")
@@ -804,23 +930,35 @@ def flash_kernel_report(lib_path, ptxas_log):
     for line in run("--dump-resource-usage").splitlines():
         m = re.search(r"Function (\S+):", line)
         if m:
-            name = flash_label(m.group(1))
+            name = label(m.group(1))
         elif name and "REG:" in line:
             usage[name] = dict(re.findall(r"([A-Z]+):(\d+)", line))
             name = None
     sass = run("-sass")
-    (OUT_DIR / "flash_attention.sass").write_text("\n".join(
+    (OUT_DIR / sass_name).write_text("\n".join(
         chunk for chunk in re.split(r"\n(?=\s*Function : )", sass)
-        if flash_label(chunk.split("\n", 1)[0])))
+        if label(chunk.split("\n", 1)[0])))
     counts = {}
     for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
-        label = flash_label(chunk.split("\n", 1)[0])
-        if label:
-            counts[label] = (len(re.findall(r"\bHMMA\.", chunk)),
-                             len(re.findall(r"\b(?:ATOMS|ATOMG|ATOM|RED)\.", chunk)))
-    spills = {flash_label(n): b for n, b in re.findall(
+        lab = label(chunk.split("\n", 1)[0])
+        if lab:
+            counts[lab] = (len(re.findall(r"\bHMMA\.", chunk)),
+                           len(re.findall(r"\b(?:ATOMS|ATOMG|ATOM|RED)\.", chunk)))
+    spills = {label(n): b for n, b in re.findall(
         r"Function properties for (\S+)\n\s*\d+ bytes stack frame, (\d+) bytes spill stores",
-        ptxas_log or "") if flash_label(n)}
+        ptxas_log or "") if label(n)}
+    return usage, counts, spills
+
+
+def flash_kernel_report(lib_path, ptxas_log):
+    """Phase 8's look into the built library: each flash kernel's registers,
+    static shared memory, stack and local memory, spill stores, its dynamic
+    shared memory per block (the tile layout of the source), and its count of
+    HMMA (tensor-core) and atomic instructions in the SASS (``library_report``).
+    Fails if a bf16 tensor-core kernel has no HMMA, or any flash kernel has an
+    atomic."""
+    usage, counts, spills = library_report(lib_path, ptxas_log, flash_label,
+                                           "flash_attention.sass")
     tc = [k for k in counts if k.split("<")[0] in ("fwd_tc", "dkdv_tc", "dq_tc")]
     for label in sorted(counts):
         u = usage.get(label, {})
@@ -1082,6 +1220,8 @@ def probe_phases():
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="an older checkout of the port whose e6 form is timed beside this one")
     args = ap.parse_args(argv)
 
     if not (ROOT / "mammo_clip_tpu_torch" / "csrc").is_dir():
@@ -1122,10 +1262,16 @@ def main(argv=None) -> int:
 
     # 3-4. kernel against plain version at the main path's shapes, then times
     kernels, e6_e1_form = kernel_phases(args.seed)
+    earlier = parent_turns(args.parent) if args.parent else None
 
     # 5. reference on a small input, then the slice
     reference_check(args.seed)
     rows = run_slice(args.seed)
+    peak = max(r["peak_bytes"] for r in rows)
+    if earlier:
+        say(f"[slice] peak memory {peak} B ({peak / 2**30:.2f} GiB); in e6_timing's processes: "
+            f"the parent's {earlier['old_peak']} B ({earlier['old_peak'] / 2**30:.2f} GiB), "
+            f"this package's {earlier['new_peak']} B ({earlier['new_peak'] / 2**30:.2f} GiB)")
 
     # 6. the standalone e1 kernel; 7. the pretraining entry point
     e1_rows = e1_phases(args.seed, e6_e1_form)
@@ -1144,14 +1290,17 @@ def main(argv=None) -> int:
         lines.append({
             "name": f"fused_mbconv_e6[{k['case']}].{direction}",
             "route": "cuda",
-            "source": "mammo_clip_tpu_torch/csrc/mbconv6.cu",
+            "source": "mammo_clip_tpu_torch/csrc/"
+                      + ("mbconv6_e6.cu" if k["form"] == "e6" else "mbconv6.cu"),
             "replaces": "mammo_clip_tpu/ops/mbconv6_pallas.py:"
-                        + ("535" if direction == "forward" else "702"),
+                        + ("536" if direction == "forward" else "702"),
             "launches": cli["counts"][f"mbconv6.{k['form']}.{direction}"],
             "max_abs_err": err_out if direction == "forward" else err_dx,
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
         })
+        if k["form"] == "e6":
+            lines[-1]["earlier_ms"] = earlier[direction] if earlier else None
     for k in e1_rows:
         direction = k["direction"]
         err_out, err_dx = k["err"]

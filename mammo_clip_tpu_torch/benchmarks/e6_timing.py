@@ -1,0 +1,197 @@
+"""Time the expanding (e6) form of ``fused_mbconv_e6`` at B5's block 4, and the
+compat slice's peak memory, through the public API only, so that an older
+checkout of the port is measured the same way.
+
+    python mammo_clip_tpu_torch/benchmarks/e6_timing.py [--root DIR] [--slice]
+    python mammo_clip_tpu_torch/benchmarks/e6_timing.py --turns OLD_ROOT [--slice]
+
+One run prints one JSON line for the package under ``--root`` (default: this
+checkout): block 4 (N=2, C=C2=40, E=240, 380x228 valid in 384x232, bf16,
+seeded inputs), ``fwd_ms`` and ``bwd_ms`` (CUDA events, median of 5 trials of
+10 calls after a second of forward calls and 2 warm-ups; the backward is ``torch.autograd.grad`` through the
+wrapper with the graph kept), ``held_bytes`` (what one forward keeps allocated
+for its backward beyond out and the stats; ``saved_bytes``, the part of it in the
+tensors its autograd node saves), and the kernels one forward and one
+backward launch by torch.profiler: ``hand_*`` those of the package's own CUDA
+library, ``all_*`` every kernel (the torch ops between them too). With
+``--slice`` it also runs 3 steps of the full-width compat B5 CLIP at batch 2
+and prints each step's peak device memory. ``--turns OLD_ROOT`` runs old, new,
+new, old, one process each (``--slice`` in the first two), and prints their
+lines. It needs an NVIDIA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[2]
+
+
+def block4_case(seed=0):
+    import torch
+
+    from mammo_clip_tpu_torch.ops.mbconv6 import MBConv6Params, pick_h_pad, pick_w_pad
+
+    N, C, E, vh, vw = 2, 40, 240, 380, 228
+    H, W = pick_h_pad(vh), pick_w_pad(vw)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    f = lambda *s: 0.5 * torch.randn(*s, generator=g, device="cuda")
+    sq = C // 4
+    p = MBConv6Params(we=f(C, E) / math.sqrt(C), gamma0=1 + 0.1 * f(E), beta0=0.1 * f(E),
+                      dw_kernel=f(E, 3, 3), gamma1=1 + 0.1 * f(E), beta1=0.1 * f(E),
+                      se_w1=f(E, sq) / math.sqrt(E), se_b1=0.1 * f(sq),
+                      se_w2=f(sq, E) / math.sqrt(sq), se_b2=0.1 * f(E),
+                      wp=f(E, C) / math.sqrt(E), gamma2=1 + 0.1 * f(C), beta2=0.1 * f(C))
+    x = torch.zeros(N, C, H, W, device="cuda")
+    x[:, :, :vh, :vw] = torch.randn(N, C, vh, vw, generator=g, device="cuda")
+    gout = torch.zeros(N, C, H, W, device="cuda")
+    gout[:, :, :vh, :vw] = torch.randn(N, C, vh, vw, generator=g, device="cuda")
+    delta = torch.tensor([1.25, 1.0], device="cuda")
+    return x.bfloat16(), p, delta, gout.bfloat16(), (vh, vw)
+
+
+def median_ms(fn, trials=5, reps=10, warmup=2):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1) / reps)
+    return statistics.median(times)
+
+
+def kernels_of(fn):
+    """(hand, all): kernels one call of ``fn`` launches, by torch.profiler; the
+    package's own kernels live in anonymous namespaces of its CUDA sources."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum("anonymous namespace" in n for n in names), len(names)
+
+
+def measure_block4():
+    import torch
+
+    from mammo_clip_tpu_torch.ops.mbconv6 import MBConv6Params, fused_mbconv_e6
+
+    x, p, delta, gout, (vh, vw) = block4_case()
+    xr = x.clone().requires_grad_(True)
+    pr = MBConv6Params(*[t.clone().requires_grad_(True) for t in p])
+    with torch.no_grad():
+        fwd = lambda: fused_mbconv_e6(x, p, delta, vh, vw)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 1.0:  # the card's clocks up from idle first
+            fwd()
+            torch.cuda.synchronize()
+        fwd_ms = median_ms(fwd)
+        hand_f, all_f = kernels_of(fwd)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    out, stats = fused_mbconv_e6(xr, pr, delta, vh, vw)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base - sum(
+        t.numel() * t.element_size() for t in (out, *stats))
+    before = {t.untyped_storage().data_ptr() for t in (xr, delta, *pr, out, *stats)}
+    saved = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+             for t in out.grad_fn.saved_tensors}
+    saved_bytes = sum(v for k, v in saved.items() if k not in before)
+    bwd = lambda: torch.autograd.grad(out, [xr, *pr], gout, retain_graph=True)
+    bwd_ms = median_ms(bwd)
+    hand_b, all_b = kernels_of(bwd)
+    return dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, held_bytes=held, saved_bytes=saved_bytes,
+                hand_fwd=hand_f, all_fwd=all_f,
+                hand_bwd=hand_b, all_bwd=all_b)
+
+
+def slice_peaks(steps=3, seed=0):
+    """Peak device memory (bytes) of each of ``steps`` compat-slice train steps."""
+    import torch
+
+    from mammo_clip_tpu_torch.train.recipes import bench_recipe_config, build_bench_train
+
+    cfg = bench_recipe_config(compat=True)
+    _, _, state, _, train_step = build_bench_train(cfg, device="cuda", seed=seed)
+    h, w, s = cfg.data.image_size_h, cfg.data.image_size_w, cfg.data.text_max_length
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.randint(1, cfg.model.text_encoder.vocab_size, (2, s), generator=g, device="cuda")
+    mask = torch.ones(2, s, dtype=torch.long, device="cuda")
+    batch = {"images": 255 * torch.rand(2, h, w, 1, generator=g, device="cuda"),
+             "image_views": 255 * torch.rand(2, h, w, 1, generator=g, device="cuda"),
+             "input_ids": ids, "attention_mask": mask, "input_ids2": ids, "attention_mask2": mask}
+    peaks = []
+    for _ in range(steps):
+        torch.cuda.reset_peak_memory_stats()
+        state, loss = train_step(state, batch, g)
+        float(loss["total"])
+        peaks.append(torch.cuda.max_memory_allocated())
+    return peaks
+
+
+def run(root: Path, with_slice: bool) -> dict:
+    sys.path.insert(0, str(root))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("e6_timing needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = dict(root=str(root), device=torch.cuda.get_device_name(0), **measure_block4())
+    if with_slice:
+        res["slice_peak_bytes"] = slice_peaks()
+    return res
+
+
+def turns(old: Path, with_slice: bool):
+    """old, new, new, old: one process each, this file run against each root;
+    with ``with_slice`` the first old and new processes also run the slice."""
+    lines = []
+    for i, root in enumerate((old, HERE, HERE, old)):
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--root", str(root)]
+        res = subprocess.run(cmd + (["--slice"] if with_slice and i < 2 else []),
+                             capture_output=True,
+                             text=True, env=dict(os.environ, PYTHONPATH=str(root)), timeout=900)
+        if res.returncode != 0:
+            raise RuntimeError(f"e6_timing on {root} failed:\n{res.stderr[-3000:]}")
+        line = json.loads(res.stdout.strip().splitlines()[-1])
+        line["side"] = "old" if root == old else "new"
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+    return lines
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, default=HERE)
+    ap.add_argument("--turns", type=Path, default=None, metavar="OLD_ROOT")
+    ap.add_argument("--slice", action="store_true")
+    args = ap.parse_args(argv)
+    if args.turns is not None:
+        return turns(args.turns.resolve(), args.slice)
+    res = run(args.root.resolve(), args.slice)
+    print(json.dumps(res), flush=True)
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -1,24 +1,25 @@
-// Hand-written CUDA for the fused train-mode MBConv block on Hopper (sm_90a).
+// Hand-written CUDA for the e=1 form of the fused train-mode MBConv block on
+// Hopper (sm_90a): the stage kernels.
 //
 // Replaces the Pallas kernels of mammo_clip_tpu/ops/mbconv6_pallas.py::
-// fused_mbconv_e6: the forward phases _p1_kernel.._p5_kernel (x moments, bn1
-// sums, SE squeeze, bn2 sums, apply) and the backward phases _b1_kernel..
-// _b4_kernel, in both block forms (expanding e>1 and e=1). The Python side
-// (ops/mbconv6.py) sequences these kernels; only the analytic per-channel
-// combinations (mean/var from sums, rsqrt, the SE MLP on (N, E) vectors) stay
-// torch ops, as they stayed host-side jnp in the Pallas version.
+// fused_mbconv_e6 in its e=1 form (params of type MBConvParams: the depthwise
+// runs on x itself, no expand conv and no bn0): the forward phases _p2_kernel
+// .. _p5_kernel and the backward phases _b1_kernel, _b2_kernel and _b4_kernel.
+// The expanding form has its own recompute kernels (csrc/mbconv6_e6.cu). The
+// Python side (ops/mbconv6.py::_forward_kernels, _backward_kernels) sequences
+// these kernels; only the analytic per-channel combinations (mean/var from
+// sums, rsqrt, the SE MLP on (N, C) vectors) stay torch ops, as they stayed
+// host-side jnp in the Pallas version.
 //
-// Design. The TPU kernel recomputes the expanded chain in five forward and
-// four backward passes because VMEM cannot hold it; here the expanded
-// intermediates (z, d, v and their cotangents) are stored in device memory in
-// fp32, one simple kernel per stage:
+// Design. The TPU kernel recomputes the chain in its passes because VMEM
+// cannot hold it; here the intermediates (d, v, y and their cotangents) are
+// stored in device memory in fp32, one simple kernel per stage:
 //   mix          1x1 channel product out[n,co,p] = sum_ci w[ci,co] in[n,ci,p]
-//                (expand We, project Wp, and their transposes in backward),
-//                shared-memory tiled, fp32 FMA accumulation
+//                (project Wp, and its transpose in backward), shared-memory
+//                tiled, fp32 FMA accumulation
 //   pgemm        per-image product reduced over positions, split over position
-//                chunks (dWe, and T = v dy^T which gives dWp and dgate)
-//   dw_fwd       3x3 depthwise with SAME edges; the input is re-zeroed outside
-//                the valid image (after bn0+silu in the expanding form)
+//                chunks (T = v dy^T, which gives dWp and dgate)
+//   dw_fwd       3x3 depthwise with SAME edges on the valid image
 //   dw_bwd_x     transposed stencil (correlation with the flipped taps)
 //   dw_bwd_k     the 9 tap-correlation sums for dK
 //   reduce_*     per-(image, channel) sums over the valid region in two
@@ -29,13 +30,13 @@
 //
 // What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16, 67 TFLOP/s fp32
 // without tensor cores): the function must read x (and dout) and write out
-// (and dx), N*C*P elements each way; its two channel products are
-// 2*N*P*C*E FLOPs each (four in backward). At the B5 block 4-7 shape
-// (N=2, C=40, E=240, 380x228) that is ~28 MB of bf16 I/O against ~7 GFLOP, so
-// the bound is bytes (~8 us forward). These kernels move every fp32 expanded
-// intermediate through device memory and run the products on fp32 FMA, so
-// they are far from that bound; closing the gap (keeping the expanded chain
-// on chip, wgmma for the products) is later work.
+// (and dx), N*(C+C2)*P elements each way; its channel product is 2*N*P*C*C2
+// FLOPs (two in backward). At B5 block 0 (N=2, 48->24, 760x456, bf16) that is
+// ~100 MB against ~1.7 GFLOP, so the bound is bytes (~0.03 ms forward). These
+// kernels move every fp32 intermediate through device memory and run the
+// product on fp32 FMA, so they are far from that bound; a recompute design
+// with the product on the tensor cores, as the expanding form has, is later
+// work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -193,27 +194,15 @@ pgemm_kernel(const T* __restrict__ A, const float* __restrict__ B,
   }
 }
 
-// Loads rows [r0-1, r0+kDwRows] x cols [-1, W] of the depthwise input plane into
-// the tile, zero outside the valid image. With m0 != nullptr the input is the
-// pre-bn0 expand output z and the tile holds w = silu(bn0(z)); otherwise the
-// input is x itself (e=1 form).
+// Loads rows [r0-1, r0+kDwRows] x cols [-1, W] of the depthwise input plane (x)
+// into the tile, zero outside the valid image.
 template <typename T>
-__device__ __forceinline__ void load_w_tile(float* tile, const T* __restrict__ src,
-                                            const float* m0, const float* a0,
-                                            const float* be0, int e, int r0, int W,
-                                            int vh, int vw) {
+__device__ __forceinline__ void load_w_tile(float* tile, const T* __restrict__ src, int r0,
+                                            int W, int vh, int vw) {
   const int tw = W + 2;
-  const bool expand = m0 != nullptr;
-  const float mm = expand ? m0[e] : 0.f, aa = expand ? a0[e] : 0.f,
-              bb = expand ? be0[e] : 0.f;
   for (int i = threadIdx.x; i < (kDwRows + 2) * tw; i += kThreads) {
     const int r = r0 + i / tw - 1, c = i % tw - 1;
-    float v = 0.f;
-    if (r >= 0 && r < vh && c >= 0 && c < vw) {
-      v = ld(src, (size_t)r * W + c);
-      if (expand) v = silu((v - mm) * aa + bb);
-    }
-    tile[i] = v;
+    tile[i] = (r >= 0 && r < vh && c >= 0 && c < vw) ? ld(src, (size_t)r * W + c) : 0.f;
   }
 }
 
@@ -221,12 +210,11 @@ __device__ __forceinline__ void load_w_tile(float* tile, const T* __restrict__ s
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 dw_fwd_kernel(const T* __restrict__ src, const float* __restrict__ k9,
-              const float* m0, const float* a0, const float* be0,
               float* __restrict__ d, int E, int H, int W, int vh, int vw) {
   extern __shared__ float tile[];
   const int r0 = blockIdx.x * kDwRows, e = blockIdx.y, n = blockIdx.z;
   const size_t plane = ((size_t)n * E + e) * H * W;
-  load_w_tile(tile, src + plane, m0, a0, be0, e, r0, W, vh, vw);
+  load_w_tile(tile, src + plane, r0, W, vh, vw);
   __syncthreads();
   float kk[9];
   for (int t = 0; t < 9; ++t) kk[t] = k9[e * 9 + t];
@@ -245,13 +233,10 @@ dw_fwd_kernel(const T* __restrict__ src, const float* __restrict__ k9,
   }
 }
 
-// out[q] = sum_ab k9[3a+b] * dd[q - (a-1, b-1)] on the valid image, times
-// dsilu(bn0(z[q])) in the expanding form (m0 != nullptr); 0 elsewhere.
+// out[q] = sum_ab k9[3a+b] * dd[q - (a-1, b-1)] on the valid image, 0 elsewhere.
 __global__ void __launch_bounds__(kThreads)
 dw_bwd_x_kernel(const float* __restrict__ dd, const float* __restrict__ k9,
-                const float* __restrict__ z, const float* m0, const float* a0,
-                const float* be0, float* __restrict__ out, int E, int H, int W,
-                int vh, int vw) {
+                float* __restrict__ out, int E, int H, int W, int vh, int vw) {
   extern __shared__ float tile[];
   const int r0 = blockIdx.x * kDwRows, e = blockIdx.y, n = blockIdx.z;
   const size_t plane = ((size_t)n * E + e) * H * W;
@@ -263,7 +248,6 @@ dw_bwd_x_kernel(const float* __restrict__ dd, const float* __restrict__ k9,
   __syncthreads();
   float kk[9];
   for (int t = 0; t < 9; ++t) kk[t] = k9[e * 9 + t];
-  const bool expand = m0 != nullptr;
   for (int i = threadIdx.x; i < kDwRows * W; i += kThreads) {
     const int tr = i / W, c = i % W, r = r0 + tr;
     if (r >= H) break;
@@ -274,10 +258,6 @@ dw_bwd_x_kernel(const float* __restrict__ dd, const float* __restrict__ k9,
 #pragma unroll
         for (int b = 0; b < 3; ++b)
           acc = fmaf(kk[a * 3 + b], tile[(tr + 2 - a) * tw + c + 2 - b], acc);
-      if (expand) {
-        const size_t q = plane + (size_t)r * W + c;
-        acc *= dsilu((z[q] - m0[e]) * a0[e] + be0[e]);
-      }
     }
     out[plane + (size_t)r * W + c] = acc;
   }
@@ -288,7 +268,6 @@ dw_bwd_x_kernel(const float* __restrict__ dd, const float* __restrict__ k9,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 dw_bwd_k_kernel(const float* __restrict__ dd, const T* __restrict__ src,
-                const float* m0, const float* a0, const float* be0,
                 float* __restrict__ partial, int E, int H, int W, int vh, int vw) {
   extern __shared__ float tile[];
   __shared__ float red[kThreads];
@@ -296,7 +275,7 @@ dw_bwd_k_kernel(const float* __restrict__ dd, const T* __restrict__ src,
   const int nchunk = gridDim.x;
   const int r0 = chunk * kDwRows;
   const size_t plane = ((size_t)n * E + e) * H * W;
-  load_w_tile(tile, src + plane, m0, a0, be0, e, r0, W, vh, vw);
+  load_w_tile(tile, src + plane, r0, W, vh, vw);
   __syncthreads();
   const int tw = W + 2;
   float acc[9];
@@ -527,42 +506,39 @@ int mbc_pgemm(const void* a, int a_bf16, const float* b, float* partial, int N, 
   return (int)cudaGetLastError();
 }
 
-int mbc_dw_fwd(const void* src, int src_bf16, const float* k9, const float* m0,
-               const float* a0, const float* be0, float* d, int N, int E, int H, int W,
-               int vh, int vw, void* stream) {
+int mbc_dw_fwd(const void* src, int src_bf16, const float* k9, float* d, int N, int E, int H,
+               int W, int vh, int vw, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const size_t smem = dw_smem(W);
   if (smem > kMaxDynSmem) return (int)cudaErrorInvalidValue;
   dim3 grid((H + kDwRows - 1) / kDwRows, E, N);
   if (src_bf16)
-    dw_fwd_kernel<bf16><<<grid, kThreads, smem, s>>>((const bf16*)src, k9, m0, a0, be0, d, E, H, W, vh, vw);
+    dw_fwd_kernel<bf16><<<grid, kThreads, smem, s>>>((const bf16*)src, k9, d, E, H, W, vh, vw);
   else
-    dw_fwd_kernel<float><<<grid, kThreads, smem, s>>>((const float*)src, k9, m0, a0, be0, d, E, H, W, vh, vw);
+    dw_fwd_kernel<float><<<grid, kThreads, smem, s>>>((const float*)src, k9, d, E, H, W, vh, vw);
   return (int)cudaGetLastError();
 }
 
-int mbc_dw_bwd_x(const float* dd, const float* k9, const float* z, const float* m0,
-                 const float* a0, const float* be0, float* out, int N, int E, int H,
-                 int W, int vh, int vw, void* stream) {
+int mbc_dw_bwd_x(const float* dd, const float* k9, float* out, int N, int E, int H, int W,
+                 int vh, int vw, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const size_t smem = dw_smem(W);
   if (smem > kMaxDynSmem) return (int)cudaErrorInvalidValue;
   dim3 grid((H + kDwRows - 1) / kDwRows, E, N);
-  dw_bwd_x_kernel<<<grid, kThreads, smem, s>>>(dd, k9, z, m0, a0, be0, out, E, H, W, vh, vw);
+  dw_bwd_x_kernel<<<grid, kThreads, smem, s>>>(dd, k9, out, E, H, W, vh, vw);
   return (int)cudaGetLastError();
 }
 
-int mbc_dw_bwd_k(const float* dd, const void* src, int src_bf16, const float* m0,
-                 const float* a0, const float* be0, float* partial, int N, int E, int H,
-                 int W, int vh, int vw, void* stream) {
+int mbc_dw_bwd_k(const float* dd, const void* src, int src_bf16, float* partial, int N, int E,
+                 int H, int W, int vh, int vw, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const size_t smem = dw_smem(W);
   if (smem > kMaxDynSmem) return (int)cudaErrorInvalidValue;
   dim3 grid((H + kDwRows - 1) / kDwRows, E, N);
   if (src_bf16)
-    dw_bwd_k_kernel<bf16><<<grid, kThreads, smem, s>>>(dd, (const bf16*)src, m0, a0, be0, partial, E, H, W, vh, vw);
+    dw_bwd_k_kernel<bf16><<<grid, kThreads, smem, s>>>(dd, (const bf16*)src, partial, E, H, W, vh, vw);
   else
-    dw_bwd_k_kernel<float><<<grid, kThreads, smem, s>>>(dd, (const float*)src, m0, a0, be0, partial, E, H, W, vh, vw);
+    dw_bwd_k_kernel<float><<<grid, kThreads, smem, s>>>(dd, (const float*)src, partial, E, H, W, vh, vw);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,1635 @@
+// Hand-written CUDA for the expanding (e6) form of the fused train-mode MBConv
+// block on Hopper (sm_90a), forward and backward.
+//
+// Replaces the Pallas kernels of mammo_clip_tpu/ops/mbconv6_pallas.py::
+// fused_mbconv_e6 in its expanding form: the forward passes _p1_kernel ..
+// _p5_kernel and the backward passes _b1_kernel .. _b4_kernel. The block is
+//
+//   x --We--> z --bn0,silu--> w --dw3x3--> d --bn1,silu--> v --SE--> u --Wp--> y
+//     --bn2--> yhat ;  out = [x +] delta * yhat
+//
+// with exact batch-statistics BatchNorm. ops/mbconv6.py sequences the passes
+// (one ctypes call each, m6_pass); the SE MLP and its backward on (N, E)
+// vectors stay torch ops there, as they stayed host-side jnp in the Pallas
+// version.
+//
+// Design. As in the TPU kernel, the forward keeps only x, the statistics and
+// (N, E) vectors for the backward (~17 KB at B5's block 4, against the ~541 MB
+// of the stage design it replaces). A thread block owns one tile of TR x 32
+// positions of one image (TR = 8 for bf16 I/O, 4 for fp32) and walks E in
+// chunks of 16 channels; x's tile with its halo stays in shared memory as bf16,
+// position-major, for the whole walk. Within one call, d (E channels, fp32) is
+// written once by the pass that recomputes it from x and read back by the
+// passes after it, instead of recomputing z -> w -> d from x in each of them:
+// measured faster on the card (PERF.md), and freed before the call returns.
+//   moments   x's sums and Gram sum x x^T; bn0_kernel: bn0's statistics from
+//             them in fp64 (z = x We is linear in x)                      [P1]
+//   sweep F2  x -> z -> w -> d, written; per tile [sum d, sum d^2]         [P2]
+//   sweep F3  d -> v; per tile sum v (the SE squeeze)                      [P3]
+//   sweep F4  d -> v, u = v gate, y = u Wp; writes y (C2 channels, fp32)
+//             and per tile [sum y, sum y^2]                                [P4]
+//   out       out = [x +] delta * bn2(y), zero outside the valid image     [P5]
+//   sweep B1  F2's and F4's recompute, d and y written again; per tile
+//             [sum dyh, sum dyh ybar] for the bn2 backward                 [B1]
+//   bwd_v     d -> v, s' = silu'(bn1(d)), dbar; du = dy Wp^T (dy from y and
+//             dout, the bn2 backward, on load); per image sums of v du (the
+//             SE cotangent), du s', s', du s' dbar and s' dbar, from which
+//             bn1's backward sums follow once the SE backward has given ds;
+//             dWp = sum u (x) dy                                           [B1, B2]
+//   bwd_x     on the tile and a 1-wide ring: w from x (for the dK taps), d
+//             read back, du, then the exact dd; on the tile: the stencil's
+//             transpose -> dL/dw -> dz0hat; per tile bn0's backward sums, T3
+//             = sum x (x) g0 inv0 dz0hat and the 9 dK tap sums; writes dxa =
+//             (g0 inv0 dz0hat) We^T (C channels); bn0_bwd_kernel: dWe from T3
+//             and x's moments, and dx's terms affine in x (M, k), in fp64  [B2, B3]
+//   dx        dx = [G +] dxa - x M + k on the valid image, 0 elsewhere     [B4]
+// Where the TPU kernel recomputed the whole chain for out (P5) and dx (B4),
+// this port keeps y (C2 channels) and dxa (C channels) in fp32 between two
+// passes of the same call.
+//
+// Every channel product runs on the tensor cores as mma.sync.m16n8k16 (bf16
+// in, fp32 sums) with ldmatrix operands: z = x We, y = u Wp, du = dy Wp^T, dxa
+// and x M with positions as M; the Gram, dWp and T3 with positions as K. An
+// operand that is not exactly bf16 is split, a = hi + lo, and the product sums
+// hi*hi + hi*lo + lo*hi (x is exactly bf16 in the bf16 case: two products),
+// ~2^-17 relative, so that the statistics hold 1e-4 of the fp32 version; the
+// weights' split fragments are laid out once per call (prep_kernel). The
+// depthwise stencil, BatchNorm and SiLU (accurate expf) run in fp32 on the CUDA
+// cores. Reductions are deterministic: a warp sums its lanes by a shuffle tree,
+// warps are added in a fixed order, each block writes one partial per entry,
+// and sum_blocks_kernel adds the blocks' partials in a fixed order. No float
+// atomics, so every call gives the same bits.
+//
+// What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16 dense): the function
+// must read x (and dout) and write out (and dx), ~28 MB of bf16 at block 4 (N=2,
+// C=C2=40, E=240, 380x228 valid in 384x232), and its channel products are
+// ~7 GFLOP forward, so the bound is bytes (~8 us). This design is bound on
+// chip instead, by instruction issue and latency in the recompute phases: the
+// z epilogue (SiLU on the halo region), the stencil and the chain's BatchNorm
+// and SiLU terms, with the sweeps at 16 warps per SM (two 8-warp blocks, or one
+// 16-warp block for bwd_v and bwd_x, whose tiles fill the shared memory).
+// PERF.md has each pass's time and cycles per tile on the card; warp
+// specialisation and wgmma, and a cheaper SiLU, are the later levers.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+#include <stddef.h>
+#include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int kThreads = 256;        // 8 warps: the forward sweeps, two blocks per SM
+constexpr int kWarps = kThreads / 32;
+constexpr int kBig = 512;            // 16 warps: the backward sweeps, one block per SM
+constexpr int kBigWarps = kBig / 32;
+constexpr int kTC = 32;              // tile columns
+constexpr int kEC = 16;              // expanded channels per chunk: 2 per warp
+constexpr int kMaxC = 48;            // C and C2 at most: 3 k16 steps, 6 n8 tiles
+constexpr int kMaxE = 256;
+constexpr int kXs = kMaxC + 8;       // row stride (bf16) of position-major x / dy tiles: 112 B
+constexpr int kUs = kEC + 8;         // row stride (bf16) of position-major chunk tiles: 48 B
+constexpr int kSl = 64;              // positions of a moments / dx slab
+constexpr int kSs = kSl + 8;         // row stride (bf16) of a channel-major slab: 144 B
+constexpr int kRedCols = 32;         // sum_blocks_kernel: entries per block
+constexpr int kRedRows = 32;         //                block partials summed in parallel
+constexpr size_t kMaxSmem = 232448;
+
+enum Pass { kMoments = 0, kF2, kF3, kF4, kB1, kOut, kBwdV, kBwdX, kDx, kPasses };
+constexpr int kFrags = 24;  // B fragments of the weights per chunk, see prep_kernel
+
+struct P6 {
+  const void* x;       // (N, C, H, W) T
+  const void* g;       // (N, C2, H, W) T: dout
+  void* out;           // (N, C2, H, W) T: out (kOut) or (N, C, H, W) T: dx (kDx)
+  const float *we, *wp, *k9;        // (C, E), (E, C2), (E, 9)
+  const float *m0, *v0, *g0, *b0;   // bn0 mean, var, gamma, beta (E)
+  const float *s1, *g1, *b1;        // bn1: [sum d | sum d^2] (2 x Ep), gamma, beta
+  const float *s2, *g2, *b2;        // bn2: [sum y | sum y^2] (2 x C2p), gamma, beta
+  const float* s3;                  // [sum dyh | sum dyh ybar] (2 x C2p)
+  const float *gate, *ds, *q;       // (N, E), (N, E) dL/ds_mean / (vh vw), (N, 5, Ep)
+  const float *delta, *mom;         // (N,), x's moments [sum x | sum x x^T] (Cp + Cp^2)
+  float *xm, *kv;                   // (C, C), (C,): dx's terms affine in x (bn0_bwd_kernel)
+  const void* wf;                   // the weights' split B fragments (prep_kernel)
+  float *y, *d, *dxa, *dwe, *part, *red, *red_n, *stats;  // d: (N, Ep, H, W) fp32
+  float eps;
+  int io_bf16, N, C, E, C2, H, W, vh, vw;
+};
+
+__host__ __device__ constexpr int up(int a, int m) { return (a + m - 1) / m * m; }
+
+template <int TR, int HALO>
+struct Geo {                                 // a tile with its halo, positions row-major
+  static constexpr int RR = TR + 2 * HALO;
+  static constexpr int RC = kTC + 2 * HALO;
+  static constexpr int RQ = RR * RC;
+  static constexpr int RQP = up(RQ, 16);     // padded to whole m16 tiles
+  static constexpr int MT = RQP / 16;
+  static constexpr int SW = RQP + 4;         // fp32 row stride of a [16][SW] chunk array
+};
+
+// ---------------------------------------------------------------------------
+// small helpers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float ld(const float* p, size_t i) { return p[i]; }
+__device__ __forceinline__ float ld(const bf16* p, size_t i) { return __bfloat162float(p[i]); }
+__device__ __forceinline__ void st(float* p, size_t i, float v) { p[i] = v; }
+__device__ __forceinline__ void st(bf16* p, size_t i, float v) { p[i] = __float2bfloat16(v); }
+
+// Accurate expf; the division by 1 + exp(-x) as a reciprocal (2 ulp).
+__device__ __forceinline__ float sigm(float x) { return __fdividef(1.f, 1.f + expf(-x)); }
+__device__ __forceinline__ float silu(float x) { return __fdividef(x, 1.f + expf(-x)); }
+__device__ __forceinline__ float dsilu(float x) {
+  const float s = sigm(x);
+  return s * (1.f + x * (1.f - s));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+// Sum over the 8 lanes that share lane % 4 (the rows of an mma C fragment).
+__device__ __forceinline__ float group_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  return v;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Asynchronous 4-byte copy to shared memory; a source size of 0 writes zero.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of row
+// l % 8 of matrix l / 8 and gets row l / 4, columns 2 (l % 4), +1 of each (of
+// its transpose with .trans).
+__device__ __forceinline__ void ldsm(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_t(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a b for one m16n8k16 tile: a 16 x 16 bf16 (row-major), b 16 x 8 bf16
+// (column-major), d 16 x 8 fp32. Lane l = 4 g + t holds d rows g and g + 8,
+// columns 2t and 2t + 1.
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                    unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ldmatrix row addresses (lane's row, its column offset) for the four operand
+// shapes: A from [m][k] rows; A^T from [k][m] rows (.trans); B from [n][k] rows;
+// B from [k][n] rows (.trans). The B forms load two n8 tiles (n0 and n0 + 8).
+__device__ __forceinline__ int a_row(int lane) { return lane & 15; }
+__device__ __forceinline__ int a_col(int lane) { return (lane >> 4) * 8; }
+__device__ __forceinline__ int at_row(int lane) { return (lane & 7) + ((lane >> 4) << 3); }
+__device__ __forceinline__ int at_col(int lane) { return ((lane >> 3) & 1) * 8; }
+__device__ __forceinline__ int b_row(int lane) { return (lane & 7) + ((lane >> 4) << 3); }
+__device__ __forceinline__ int b_col(int lane) { return ((lane >> 3) & 1) * 8; }
+__device__ __forceinline__ int bt_row(int lane) { return (lane & 7) + ((lane >> 3) & 1) * 8; }
+__device__ __forceinline__ int bt_col(int lane) { return (lane >> 4) * 8; }
+
+__device__ __forceinline__ unsigned bits(__nv_bfloat162 h) {
+  return *reinterpret_cast<unsigned*>(&h);
+}
+// Two fp32 values as bf16 pairs hi and lo with a = hi + lo to ~2^-17 relative.
+__device__ __forceinline__ void split2(float a, float b, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(a - f.x, b - f.y));
+}
+__device__ __forceinline__ void split1(float a, bf16& hi, bf16& lo) {
+  hi = __float2bfloat16(a);
+  lo = __float2bfloat16(a - __bfloat162float(hi));
+}
+
+// A B fragment (one n8 tile, one k16 step) of an fp32 matrix B[k][n] at
+// B[k * ldk + n * ldn], zero at k >= K or n >= N, split into hi and lo.
+struct Frag {
+  unsigned h0, h1, l0, l1;
+};
+__device__ __forceinline__ Frag bfrag(const float* __restrict__ B, int ldk, int ldn, int k0,
+                                      int n0, int K, int N) {
+  const int lane = threadIdx.x & 31, n = n0 + (lane >> 2), k = k0 + 2 * (lane & 3);
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kk = k + (i & 1) + (i >> 1) * 8;
+    v[i] = (kk < K && n < N) ? __ldg(B + (size_t)kk * ldk + (size_t)n * ldn) : 0.f;
+  }
+  Frag f;
+  split2(v[0], v[1], f.h0, f.l0);
+  split2(v[2], v[3], f.h1, f.l1);
+  return f;
+}
+// d += a b with b split: a exact in bf16 (two products), or split too (three).
+__device__ __forceinline__ void mma2(float (&d)[4], const unsigned (&a)[4], const Frag& b) {
+  mma(d, a, b.h0, b.h1);
+  mma(d, a, b.l0, b.l1);
+}
+__device__ __forceinline__ void mma3(float (&d)[4], const unsigned (&ah)[4],
+                                     const unsigned (&al)[4], const Frag& b) {
+  mma(d, ah, b.h0, b.h1);
+  mma(d, ah, b.l0, b.l1);
+  mma(d, al, b.h0, b.h1);
+}
+// d += a b for a, b both as (hi, lo) register pairs from ldmatrix.
+__device__ __forceinline__ void mma3r(float (&d)[4], const unsigned (&ah)[4],
+                                      const unsigned (&al)[4], unsigned bh0, unsigned bh1,
+                                      unsigned bl0, unsigned bl1) {
+  mma(d, ah, bh0, bh1);
+  mma(d, ah, bl0, bl1);
+  mma(d, al, bh0, bh1);
+}
+
+// The weights' B fragments for chunk e0 / 16, as prep_kernel lays them out: one
+// 16-byte load per lane instead of four loads and a split in every warp.
+//   f = 2 kk + nt        z = x We       B[c][e] = We[c][e], k16 step kk, n8 tile nt
+//   f = 6 + nt           y = u Wp       B[e][c2] = Wp[e][c2]
+//   f = 12 + 2 kk + nt   du = dy Wp^T   B[c2][e] = Wp[e][c2]
+//   f = 18 + nt          dxa = t We^T   B[e][c] = We[c][e]
+__device__ __forceinline__ Frag wfrag(const P6& p, int e0, int f) {
+  const uint4 v = __ldg(static_cast<const uint4*>(p.wf) + ((e0 / kEC) * kFrags + f) * 32 +
+                        (threadIdx.x & 31));
+  return Frag{v.x, v.y, v.z, v.w};
+}
+
+// ---------------------------------------------------------------------------
+// per-channel coefficients, recomputed by every block from the sums
+// ---------------------------------------------------------------------------
+
+struct Coef {
+  float m0[kMaxE], a0[kMaxE], b0[kMaxE], i0[kMaxE], g0[kMaxE];  // bn0 (a = gamma inv)
+  float m1[kMaxE], a1[kMaxE], b1[kMaxE], i1[kMaxE];             // bn1
+  float gate[kMaxE], dsh[kMaxE], r1a[kMaxE], r1b[kMaxE];        // this image's SE terms
+  float cm2[kMaxC], ci2[kMaxC], ca2[kMaxC], cb2[kMaxC], cc2[kMaxC];  // bn2
+  float red[kBigWarps * 2 * kMaxC];                             // cross-warp sums
+};
+
+// (mean, inv) of a batch norm from [sum | sum of squares], the plain version's
+// formula: var = max(E[t^2] - E[t]^2, 0).
+__device__ __forceinline__ float2 moments(const float* s, int half, int c, float cnt, float eps) {
+  const float m = s[c] / cnt;
+  const float var = fmaxf(s[half + c] / cnt - m * m, 0.f);
+  return make_float2(m, 1.f / sqrtf(var + eps));
+}
+
+__device__ void fill_coef(Coef& cf, const P6& p, int n) {
+  const int E = p.E, Ep = up(E, 16), C2p = up(p.C2, 8);
+  const float cnt = (float)p.N * p.vh * p.vw;
+  for (int e = threadIdx.x; e < kMaxE; e += blockDim.x) {
+    const bool in = e < E;
+    float m0 = 0.f, i0 = 0.f, g0 = 0.f, b0 = 0.f;
+    if (in && p.m0) {
+      m0 = p.m0[e];
+      i0 = 1.f / sqrtf(p.v0[e] + p.eps);
+      g0 = p.g0[e];
+      b0 = p.b0[e];
+    }
+    cf.m0[e] = m0, cf.i0[e] = i0, cf.g0[e] = g0, cf.a0[e] = g0 * i0, cf.b0[e] = b0;
+    float m1 = 0.f, i1 = 0.f, g1 = 0.f, b1 = 0.f;
+    if (in && p.s1) {
+      const float2 mi = moments(p.s1, Ep, e, cnt, p.eps);
+      m1 = mi.x, i1 = mi.y, g1 = p.g1[e], b1 = p.b1[e];
+    }
+    cf.m1[e] = m1, cf.i1[e] = i1, cf.a1[e] = g1 * i1, cf.b1[e] = b1;
+    cf.gate[e] = in && p.gate ? p.gate[(size_t)n * E + e] : 0.f;
+    cf.dsh[e] = in && p.ds ? p.ds[(size_t)n * E + e] : 0.f;
+    float r1a = 0.f, r1b = 0.f;
+    if (in && p.q) {  // bn1's backward sums from the sweep's per-image sums (bn1_backward_sums)
+      float sdb = 0.f, sdbd = 0.f;
+      for (int m = 0; m < p.N; ++m) {
+        const float* qm = p.q + (size_t)m * 5 * Ep;
+        const float gm = p.gate[(size_t)m * E + e], dm = p.ds[(size_t)m * E + e];
+        sdb += gm * qm[Ep + e] + dm * qm[2 * Ep + e];
+        sdbd += gm * qm[3 * Ep + e] + dm * qm[4 * Ep + e];
+      }
+      r1a = g1 * i1 * sdb / cnt, r1b = g1 * i1 * sdbd / cnt;
+      if (blockIdx.x == 0 && blockIdx.y == 0) p.stats[e] = sdb, p.stats[E + e] = sdbd;
+    }
+    cf.r1a[e] = r1a, cf.r1b[e] = r1b;
+  }
+  for (int c = threadIdx.x; c < kMaxC; c += blockDim.x) {
+    float m2 = 0.f, i2 = 0.f, a2 = 0.f, b2 = 0.f, c2 = 0.f;
+    if (c < p.C2 && p.s2) {
+      const float2 mi = moments(p.s2, C2p, c, cnt, p.eps);
+      m2 = mi.x, i2 = mi.y, a2 = p.g2[c] * i2, b2 = p.b2[c];
+      if (p.s3) {  // bn2 backward: dy = a2 dyh - alpha2 - (y - m2) inv2 beta2r
+        b2 = a2 * p.s3[c] / cnt;
+        c2 = i2 * a2 * p.s3[C2p + c] / cnt;
+      }
+    }
+    cf.cm2[c] = m2, cf.ci2[c] = i2, cf.ca2[c] = a2, cf.cb2[c] = b2, cf.cc2[c] = c2;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// tile loads
+// ---------------------------------------------------------------------------
+
+// x on a tile with its halo, position-major bf16 [q][kXs] (hi, and lo for fp32
+// input), zero outside the valid image, past C and on the padding positions.
+// Each thread issues kLoads loads before it stores any.
+constexpr int kLoads = 8;
+
+template <typename T, int TR, int HALO>
+__device__ void load_x(bf16* xh, bf16* xl, const P6& p, int n, int r0, int c0) {
+  using G = Geo<TR, HALO>;
+  const T* x = static_cast<const T*>(p.x);
+  const int total = up(p.C, 16) * G::RQP;
+  for (int base = threadIdx.x; base < total; base += kLoads * blockDim.x) {
+    T v[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int i = base + u * blockDim.x, c = i / G::RQP, q = i - c * G::RQP;
+      const int r = q / G::RC, cc = q - r * G::RC;
+      const int gr = r0 - HALO + r, gc = c0 - HALO + cc;
+      const bool in = i < total && q < G::RQ && c < p.C && gr >= 0 && gr < p.vh && gc >= 0 &&
+                      gc < p.vw;
+      if constexpr (sizeof(T) == 2)
+        v[u] = in ? x[(((size_t)n * p.C + c) * p.H + gr) * p.W + gc] : __float2bfloat16(0.f);
+      else
+        v[u] = in ? x[(((size_t)n * p.C + c) * p.H + gr) * p.W + gc] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int i = base + u * blockDim.x, c = i / G::RQP, q = i - c * G::RQP;
+      if (i >= total) break;
+      if constexpr (sizeof(T) == 2) {
+        xh[q * kXs + c] = v[u];
+      } else {
+        bf16 h, l;
+        split1(v[u], h, l);
+        xh[q * kXs + c] = h;
+        xl[q * kXs + c] = l;
+      }
+    }
+  }
+}
+
+// dy = a2 (dout delta) - alpha2 - (y - m2) inv2 beta2r (the bn2 backward) on a
+// tile with its halo, position-major [q][kXs] as hi and lo, zero outside the
+// valid image and past C2 (up to the 16-channel steps of the du product).
+template <typename T, int TR, int HALO>
+__device__ void load_dy(bf16* dh, bf16* dl, const P6& p, const Coef& cf, int n, int r0,
+                        int c0) {
+  using G = Geo<TR, HALO>;
+  const T* gp = static_cast<const T*>(p.g);
+  const int total = up(p.C2, 16) * G::RQP;
+  const float dn = p.delta[n];
+  for (int base = threadIdx.x; base < total; base += kLoads * blockDim.x) {
+    float gv[kLoads], yv[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int i = base + u * blockDim.x, c = i / G::RQP, q = i - c * G::RQP;
+      const int r = q / G::RC, cc = q - r * G::RC;
+      const int gr = r0 - HALO + r, gc = c0 - HALO + cc;
+      const bool in = i < total && q < G::RQ && c < p.C2 && gr >= 0 && gr < p.vh && gc >= 0 &&
+                      gc < p.vw;
+      const size_t idx = (((size_t)n * p.C2 + c) * p.H + gr) * p.W + gc;
+      gv[u] = in ? ld(gp, idx) : 0.f;
+      yv[u] = in ? p.y[idx] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int i = base + u * blockDim.x, c = i / G::RQP, q = i - c * G::RQP;
+      if (i >= total) break;
+      const int r = q / G::RC, cc = q - r * G::RC;
+      const int gr = r0 - HALO + r, gc = c0 - HALO + cc;
+      const bool in = q < G::RQ && c < p.C2 && gr >= 0 && gr < p.vh && gc >= 0 && gc < p.vw;
+      const float v = in ? cf.ca2[c] * (gv[u] * dn) - cf.cb2[c] - (yv[u] - cf.cm2[c]) * cf.cc2[c]
+                         : 0.f;
+      bf16 h, l;
+      split1(v, h, l);
+      dh[q * kXs + c] = h;
+      dl[q * kXs + c] = l;
+    }
+  }
+}
+
+// d (written by F2 or B1) for the chunk's 16 channels at the positions of a
+// tile with its halo into dst[el][SW]: asynchronous 4-byte copies, zero outside
+// the valid image; the caller commits and waits.
+template <int TR, int HALO>
+__device__ __forceinline__ void fetch_d(float* dst, const P6& p, int n, int e0, int r0, int c0) {
+  using G = Geo<TR, HALO>;
+  for (int i = threadIdx.x; i < kEC * G::RQP; i += blockDim.x) {
+    const int el = i / G::RQP, q = i - el * G::RQP;
+    const int r = q / G::RC, cc = q - r * G::RC;
+    const int gr = r0 - HALO + r, gc = c0 - HALO + cc;
+    const bool in = q < G::RQ && gr >= 0 && gr < p.vh && gc >= 0 && gc < p.vw;
+    const float* src = in ? p.d + (((size_t)n * up(p.E, 16) + e0 + el) * p.H + gr) * p.W + gc
+                          : p.d;
+    cp_async4(dst + el * G::SW + q, src, in ? 4 : 0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the recompute phases
+// ---------------------------------------------------------------------------
+
+// w = silu(bn0(x We)) for the chunk's 16 channels at every position of the
+// tile's halo region into ws[el][q], zero outside the valid image (SAME
+// padding: silu(bn0(0)) != 0); with zt, also zbar0 = (z - m0) inv0 at the tile's
+// own positions into zt[el][p]. The NW warps take the region's m16 tiles in turn,
+// MTW at a time.
+template <bool F32, int TR, int HALO, int NW, int MTW>
+__device__ __forceinline__ void z_phase(const P6& p, const Coef& cf, const bf16* xh,
+                                        const bf16* xl, float* ws, float* zt, int e0, int r0,
+                                        int c0) {
+  using G = Geo<TR, HALO>;
+  constexpr int ST = TR * kTC + 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int kc = (p.C + 15) / 16;
+  Frag wz[3][2];
+#pragma unroll
+  for (int kk = 0; kk < 3; ++kk)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+      if (kk < kc) wz[kk][nt] = wfrag(p, e0, 2 * kk + nt);
+  float ca[2][2], cm[2][2], cb[2][2];  // this thread's 4 channels' bn0 terms
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int e = e0 + nt * 8 + 2 * t + j;
+      ca[nt][j] = cf.a0[e], cm[nt][j] = cf.m0[e], cb[nt][j] = cf.b0[e];
+    }
+  // The products of MTW of this warp's m16 tiles first, then their epilogues
+  // (more tiles in flight where the kernel has the registers to spare).
+  for (int mt0 = warp; mt0 < G::MT; mt0 += MTW * NW) {
+    float acc[MTW][2][4] = {};
+#pragma unroll
+    for (int i = 0; i < MTW; ++i) {
+      const int mt = mt0 + i * NW;
+      if (mt >= G::MT) break;
+#pragma unroll
+      for (int kk = 0; kk < 3; ++kk) {
+        if (kk < kc) {
+          unsigned a[4];
+          const int off = (mt * 16 + a_row(lane)) * kXs + kk * 16 + a_col(lane);
+          ldsm(a, xh + off);
+          if constexpr (F32) {
+            unsigned al[4];
+            ldsm(al, xl + off);
+            mma3(acc[i][0], a, al, wz[kk][0]);
+            mma3(acc[i][1], a, al, wz[kk][1]);
+          } else {
+            mma2(acc[i][0], a, wz[kk][0]);
+            mma2(acc[i][1], a, wz[kk][1]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MTW; ++i) {
+      const int mt = mt0 + i * NW;
+      if (mt >= G::MT) break;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int q = mt * 16 + g + (v >> 1) * 8, el = nt * 8 + 2 * t + (v & 1), j = v & 1;
+          const int r = q / G::RC, cc = q - r * G::RC;
+          const int gr = r0 - HALO + r, gc = c0 - HALO + cc;
+          const bool valid = q < G::RQ && gr >= 0 && gr < p.vh && gc >= 0 && gc < p.vw;
+          const float z = acc[i][nt][v];
+          ws[el * G::SW + q] = valid ? silu(ca[nt][j] * (z - cm[nt][j]) + cb[nt][j]) : 0.f;
+          if (zt) {
+            const int tr = r - HALO, tc = cc - HALO;
+            if (q < G::RQ && tr >= 0 && tr < TR && tc >= 0 && tc < kTC)
+              zt[el * ST + tr * kTC + tc] = (z - cm[nt][j]) * cf.i0[e0 + el];
+          }
+        }
+    }
+  }
+}
+
+__device__ __forceinline__ void taps(const P6& p, int e, float (&k)[9]) {
+#pragma unroll
+  for (int i = 0; i < 9; ++i) k[i] = e < p.E ? __ldg(p.k9 + e * 9 + i) : 0.f;
+}
+
+// The 3x3 depthwise of one channel's w (region of width RC, row stride RC) on
+// `rows` output rows at column `col`: out[r] = sum_ab k[ab] src[(r + a) RC + col + b].
+template <int RC, int ROWS>
+__device__ __forceinline__ void stencil_col(const float* src, const float (&k)[9], int col,
+                                            float (&out)[ROWS]) {
+  float w0[3], w1[3];
+#pragma unroll
+  for (int b = 0; b < 3; ++b) w0[b] = src[col + b], w1[b] = src[RC + col + b];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    float w2[3];
+#pragma unroll
+    for (int b = 0; b < 3; ++b) w2[b] = src[(r + 2) * RC + col + b];
+    float acc = 0.f;
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      acc = fmaf(k[b], w0[b], acc);
+      acc = fmaf(k[3 + b], w1[b], acc);
+      acc = fmaf(k[6 + b], w2[b], acc);
+    }
+    out[r] = acc;
+#pragma unroll
+    for (int b = 0; b < 3; ++b) w0[b] = w1[b], w1[b] = w2[b];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward sweeps F2, F3, F4 and the backward's recompute of y (kB1)
+// ---------------------------------------------------------------------------
+
+// F2 and B1 recompute d from x (and write it for the passes after them); F3
+// and F4 read it back, so that they keep neither x nor w on chip.
+__host__ __device__ constexpr bool recomputes(int mode) { return mode == kF2 || mode == kB1; }
+
+template <bool F32, int TR, bool RECOMPUTE>
+struct SweepSmem {
+  using G = Geo<TR, 1>;
+  static constexpr size_t x = sizeof(Coef);
+  static constexpr size_t xlo = x + (RECOMPUTE ? (size_t)G::RQP * kXs * 2 : 0);
+  static constexpr size_t w = xlo + (RECOMPUTE && F32 ? (size_t)G::RQP * kXs * 2 : 0);
+  // recompute: w on the halo region; read back: two stages of d on the tile
+  static constexpr size_t u = w + (RECOMPUTE ? (size_t)kEC * G::SW * 4
+                                             : 2 * (size_t)kEC * Geo<TR, 0>::SW * 4);
+  static constexpr size_t ulo = u + (size_t)TR * kTC * kUs * 2;
+  static constexpr size_t total = ulo + (size_t)TR * kTC * kUs * 2;
+};
+
+__host__ __device__ int part_floats(int pass, int C, int E, int C2) {
+  const int Cp = up(C, 16), Ep = up(E, 16), C2p = up(C2, 8);
+  switch (pass) {
+    case kMoments: return Cp + Cp * Cp;
+    case kF2: return 2 * Ep;
+    case kF3: return Ep;
+    case kF4:
+    case kB1: return 2 * C2p;
+    case kBwdV: return 5 * Ep + Ep * C2p;
+    case kBwdX: return 11 * Ep + Cp * Ep;
+    default: return 0;
+  }
+}
+
+__device__ __forceinline__ size_t d_index(const P6& p, int n, int e, int gr, int gc) {
+  return (((size_t)n * up(p.E, 16) + e) * p.H + gr) * p.W + gc;
+}
+
+template <typename T, int TR, int MODE>
+__global__ void __launch_bounds__(kThreads, 2) sweep_kernel(P6 p) {
+  constexpr bool F32 = sizeof(T) == 4, RECOMPUTE = recomputes(MODE);
+  constexpr bool PRODUCT = MODE == kF4 || MODE == kB1;
+  using G = Geo<TR, 1>;
+  using L = SweepSmem<F32, TR, RECOMPUTE>;
+  constexpr int MW = TR / 4;  // m16 tiles of the tile per warp
+  extern __shared__ __align__(16) unsigned char smem[];
+  Coef& cf = *reinterpret_cast<Coef*>(smem);
+  bf16* xh = reinterpret_cast<bf16*>(smem + L::x);
+  bf16* xl = reinterpret_cast<bf16*>(smem + L::xlo);
+  float* ws = reinterpret_cast<float*>(smem + L::w);
+  bf16* uh = reinterpret_cast<bf16*>(smem + L::u);
+  bf16* ul = reinterpret_cast<bf16*>(smem + L::ulo);
+  const int n = blockIdx.y, tiles_c = (p.vw + kTC - 1) / kTC;
+  const int r0 = blockIdx.x / tiles_c * TR, c0 = blockIdx.x % tiles_c * kTC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int Ep = up(p.E, 16), C2p = up(p.C2, 8), nt2 = C2p / 8;
+  float* part = p.part + (size_t)(n * gridDim.x + blockIdx.x) * part_floats(MODE, p.C, p.E, p.C2);
+  constexpr int SD = Geo<TR, 0>::SW;  // row stride of a stage of d
+  fill_coef(cf, p, n);
+  if (RECOMPUTE) {
+    load_x<T, TR, 1>(xh, xl, p, n, r0, c0);
+  } else {
+    fetch_d<TR, 0>(ws, p, n, 0, r0, c0);
+    cp_async_commit();
+  }
+  __syncthreads();
+
+  float y[MW][6][4] = {};
+  for (int e0 = 0; e0 < Ep; e0 += kEC) {
+    // d for channels e0 + 2 warp + j at the tile's rows, column `lane`
+    float d[2][TR];
+    if (!RECOMPUTE) {  // this chunk's d has landed; the next chunk's starts
+      cp_async_wait_all();
+      __syncthreads();
+      if (e0 + kEC < Ep) {
+        fetch_d<TR, 0>(ws + ((e0 / kEC + 1) & 1) * kEC * SD, p, n, e0 + kEC, r0, c0);
+        cp_async_commit();
+      }
+    }
+    if (RECOMPUTE) {
+      z_phase<F32, TR, 1, kWarps, PRODUCT ? 1 : (G::MT + kWarps - 1) / kWarps>(
+          p, cf, xh, xl, ws, nullptr, e0, r0, c0);
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int e = e0 + 2 * warp + j;
+        float k[9];
+        taps(p, e, k);
+        stencil_col<G::RC, TR>(ws + (2 * warp + j) * G::SW, k, lane, d[j]);
+#pragma unroll
+        for (int tr = 0; tr < TR; ++tr)
+          if (r0 + tr < p.H && c0 + lane < p.W) p.d[d_index(p, n, e, r0 + tr, c0 + lane)] = d[j][tr];
+      }
+    } else {
+      const float* src = ws + ((e0 / kEC) & 1) * kEC * SD;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int tr = 0; tr < TR; ++tr) d[j][tr] = src[(2 * warp + j) * SD + tr * kTC + lane];
+    }
+    if (MODE == kF2 || MODE == kF3) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int e = e0 + 2 * warp + j;
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+        for (int tr = 0; tr < TR; ++tr) {
+          const bool valid = r0 + tr < p.vh && c0 + lane < p.vw;
+          if (MODE == kF2) {
+            const float v = valid ? d[j][tr] : 0.f;
+            s0 += v;
+            s1 = fmaf(v, v, s1);
+          } else {
+            s0 += valid ? silu(cf.a1[e] * (d[j][tr] - cf.m1[e]) + cf.b1[e]) : 0.f;
+          }
+        }
+        s0 = warp_sum(s0);
+        if (MODE == kF2) s1 = warp_sum(s1);
+        if (lane == 0) {
+          part[e] = s0;
+          if (MODE == kF2) part[Ep + e] = s1;
+        }
+      }
+    } else {
+      // u = silu(bn1(d)) gate as bf16 hi and lo, [p][el], two channels per word
+#pragma unroll
+      for (int tr = 0; tr < TR; ++tr) {
+        const bool valid = r0 + tr < p.vh && c0 + lane < p.vw;
+        float u[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int e = e0 + 2 * warp + j;
+          u[j] = valid ? silu(cf.a1[e] * (d[j][tr] - cf.m1[e]) + cf.b1[e]) * cf.gate[e] : 0.f;
+        }
+        unsigned hi, lo;
+        split2(u[0], u[1], hi, lo);
+        const int q = (tr * kTC + lane) * kUs + 2 * warp;
+        *reinterpret_cast<unsigned*>(uh + q) = hi;
+        *reinterpret_cast<unsigned*>(ul + q) = lo;
+      }
+    }
+    if (RECOMPUTE || PRODUCT) __syncthreads();  // w is free; u is ready
+    // (read back: the next chunk's first barrier frees u and this stage of d)
+    if (PRODUCT) {
+      Frag wy[6];
+#pragma unroll
+      for (int nt = 0; nt < 6; ++nt)
+        if (nt < nt2) wy[nt] = wfrag(p, e0, 6 + nt);
+#pragma unroll
+      for (int i = 0; i < MW; ++i) {
+        const int mt = warp * MW + i;
+        unsigned ah[4], al[4];
+        const int off = (mt * 16 + a_row(lane)) * kUs + a_col(lane);
+        ldsm(ah, uh + off);
+        ldsm(al, ul + off);
+#pragma unroll
+        for (int nt = 0; nt < 6; ++nt)
+          if (nt < nt2) mma3(y[i][nt], ah, al, wy[nt]);
+      }
+    }
+  }
+  if (!PRODUCT) return;
+
+  // y to device memory; [sum y, sum y^2] (F4) or [sum dyh, sum dyh ybar] (B1)
+  const T* gp = static_cast<const T*>(p.g);
+  float s[6][2][2] = {};
+#pragma unroll
+  for (int i = 0; i < MW; ++i)
+#pragma unroll
+    for (int nt = 0; nt < 6; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int pos = (warp * MW + i) * 16 + g + (q >> 1) * 8;
+        const int gr = r0 + pos / kTC, gc = c0 + pos % kTC, c2 = nt * 8 + 2 * t + (q & 1);
+        if (nt >= nt2 || c2 >= p.C2) continue;
+        const float v = y[i][nt][q];
+        const size_t idx = (((size_t)n * p.C2 + c2) * p.H + gr) * p.W + gc;
+        if (gr < p.H && gc < p.W) p.y[idx] = v;
+        if (!(gr < p.vh && gc < p.vw)) continue;
+        if (MODE == kF4) {
+          s[nt][q & 1][0] += v;
+          s[nt][q & 1][1] = fmaf(v, v, s[nt][q & 1][1]);
+        } else {
+          const float dyh = ld(gp, idx) * p.delta[n];
+          s[nt][q & 1][0] += dyh;
+          s[nt][q & 1][1] = fmaf(dyh, (v - cf.cm2[c2]) * cf.ci2[c2], s[nt][q & 1][1]);
+        }
+      }
+#pragma unroll
+  for (int nt = 0; nt < 6; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float v = group_sum(s[nt][j][k]);
+        if (g == 0 && nt < nt2) cf.red[(warp * 2 + k) * kMaxC + nt * 8 + 2 * t + j] = v;
+      }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * C2p; i += kThreads) {
+    const int k = i / C2p, c2 = i - k * C2p;
+    float v = 0.f;
+    for (int w = 0; w < kWarps; ++w) v += cf.red[(w * 2 + k) * kMaxC + c2];
+    part[i] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward sweep over v: SE cotangent, bn1 backward sums, dWp
+// ---------------------------------------------------------------------------
+
+template <bool F32, int TR>
+struct BwdVSmem {
+  static constexpr int TP = TR * kTC;
+  static constexpr size_t d = sizeof(Coef);  // two stages of d on the tile
+  static constexpr size_t dy = d + 2 * (size_t)kEC * (TP + 4) * 4;
+  static constexpr size_t dylo = dy + (size_t)TP * kXs * 2;
+  static constexpr size_t u = dylo + (size_t)TP * kXs * 2;
+  static constexpr size_t ulo = u + (size_t)TP * kUs * 2;
+  static constexpr size_t total = ulo + (size_t)TP * kUs * 2;
+};
+
+// One tile per block, 16 warps, each on one m16 tile of positions (TR = 8):
+// du = dy Wp^T (dy from y and dout, the bn2 backward, loaded once), then
+// v, s' and dbar from d read back, the per-image sums, and dWp = sum u (x) dy.
+template <typename T, int TR>
+__global__ void __launch_bounds__(kBig, 1) bwd_v_kernel(P6 p) {
+  constexpr bool F32 = sizeof(T) == 4;
+  using L = BwdVSmem<F32, TR>;
+  constexpr int TP = L::TP;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Coef& cf = *reinterpret_cast<Coef*>(smem);
+  float* db = reinterpret_cast<float*>(smem + L::d);
+  bf16* dyh = reinterpret_cast<bf16*>(smem + L::dy);
+  bf16* dyl = reinterpret_cast<bf16*>(smem + L::dylo);
+  bf16* uh = reinterpret_cast<bf16*>(smem + L::u);
+  bf16* ul = reinterpret_cast<bf16*>(smem + L::ulo);
+  constexpr int SD = TP + 4;
+  const int n = blockIdx.y, tiles_c = (p.vw + kTC - 1) / kTC;
+  const int r0 = blockIdx.x / tiles_c * TR, c0 = blockIdx.x % tiles_c * kTC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int Ep = up(p.E, 16), C2p = up(p.C2, 8), kc2 = (p.C2 + 15) / 16;
+  const bool chain = warp < TP / 16;  // this warp's m16 tile of positions
+  const int mt = warp;
+  float* part = p.part + (size_t)(n * gridDim.x + blockIdx.x) * part_floats(kBwdV, p.C, p.E, p.C2);
+  fill_coef(cf, p, n);
+  fetch_d<TR, 0>(db, p, n, 0, r0, c0);
+  cp_async_commit();
+  __syncthreads();
+  load_dy<T, TR, 0>(dyh, dyl, p, cf, n, r0, c0);
+
+  for (int e0 = 0; e0 < Ep; e0 += kEC) {
+    // this chunk's d has landed (and the last chunk's u and sums are read);
+    // the next chunk's starts
+    cp_async_wait_all();
+    __syncthreads();
+    if (e0 + kEC < Ep) {
+      fetch_d<TR, 0>(db + ((e0 / kEC + 1) & 1) * kEC * SD, p, n, e0 + kEC, r0, c0);
+      cp_async_commit();
+    }
+    const float* dsrc = db + ((e0 / kEC) & 1) * kEC * SD;
+    float acc[2][2][5] = {};  // [nt][column parity][v du, du s', s', du s' dbar, s' dbar]
+    if (chain) {
+      Frag wd[3][2];
+#pragma unroll
+      for (int kk = 0; kk < 3; ++kk)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          if (kk < kc2) wd[kk][nt] = wfrag(p, e0, 12 + 2 * kk + nt);
+      float du[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < 3; ++kk)
+        if (kk < kc2) {
+          unsigned ah[4], al[4];
+          const int off = (mt * 16 + a_row(lane)) * kXs + kk * 16 + a_col(lane);
+          ldsm(ah, dyh + off);
+          ldsm(al, dyl + off);
+          mma3(du[0], ah, al, wd[kk][0]);
+          mma3(du[1], ah, al, wd[kk][1]);
+        }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float u[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int pos = mt * 16 + g + (q >> 1) * 8, el = nt * 8 + 2 * t + (q & 1), e = e0 + el;
+          const bool valid = r0 + pos / kTC < p.vh && c0 + pos % kTC < p.vw;
+          const float dd = dsrc[el * SD + pos];
+          const float dh = cf.a1[e] * (dd - cf.m1[e]) + cf.b1[e];
+          const float sg = sigm(dh);
+          const float v = valid ? dh * sg : 0.f;
+          const float sp = valid ? sg * (1.f + dh * (1.f - sg)) : 0.f;
+          const float dbar = valid ? (dd - cf.m1[e]) * cf.i1[e] : 0.f;
+          const float gu = valid ? du[nt][q] : 0.f;
+          float* a = acc[nt][q & 1];
+          a[0] = fmaf(v, gu, a[0]);
+          a[1] = fmaf(gu, sp, a[1]);
+          a[2] += sp;
+          a[3] = fmaf(gu * sp, dbar, a[3]);
+          a[4] = fmaf(sp, dbar, a[4]);
+          u[q] = v * cf.gate[e];
+        }
+        unsigned hi, lo;
+        const int off = (mt * 16 + g) * kUs + nt * 8 + 2 * t;
+        split2(u[0], u[1], hi, lo);
+        *reinterpret_cast<unsigned*>(uh + off) = hi;
+        *reinterpret_cast<unsigned*>(ul + off) = lo;
+        split2(u[2], u[3], hi, lo);
+        *reinterpret_cast<unsigned*>(uh + off + 8 * kUs) = hi;
+        *reinterpret_cast<unsigned*>(ul + off + 8 * kUs) = lo;
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int k = 0; k < 5; ++k) {
+          const float v = group_sum(acc[nt][j][k]);
+          if (g == 0) cf.red[(warp * 5 + k) * kEC + nt * 8 + 2 * t + j] = v;
+        }
+    __syncthreads();
+    for (int i = threadIdx.x; i < 5 * kEC; i += kBig) {
+      const int k = i / kEC, el = i - k * kEC;
+      float v = 0.f;
+      for (int w = 0; w < kBigWarps; ++w) v += cf.red[(w * 5 + k) * kEC + el];
+      part[k * Ep + e0 + el] = v;
+    }
+    // dWp[e][c2] = sum over the tile of u[p][e] dy[p][c2]: M = e, K = positions,
+    // one warp per pair of n8 tiles of C2.
+    if (warp * 16 < C2p) {
+      float a2[2][2][4] = {};  // by k step parity, added at the end
+      unsigned ah[2][4], al[2][4], bh[2][4], bl[2][4];  // two k steps in flight
+      auto load = [&](int ks, int b) {
+        const int ao = (ks * 16 + at_row(lane)) * kUs + at_col(lane);
+        const int bo = (ks * 16 + bt_row(lane)) * kXs + warp * 16 + bt_col(lane);
+        ldsm_t(ah[b], uh + ao);
+        ldsm_t(al[b], ul + ao);
+        ldsm_t(bh[b], dyh + bo);
+        ldsm_t(bl[b], dyl + bo);
+      };
+      load(0, 0);
+#pragma unroll
+      for (int ks = 0; ks < TP / 16; ++ks) {
+        const int b = ks & 1;
+        if (ks + 1 < TP / 16) load(ks + 1, b ^ 1);
+        mma3r(a2[b][0], ah[b], al[b], bh[b][0], bh[b][1], bl[b][0], bl[b][1]);
+        mma3r(a2[b][1], ah[b], al[b], bh[b][2], bh[b][3], bl[b][2], bl[b][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int el = g + (q >> 1) * 8, c2 = warp * 16 + nt * 8 + 2 * t + (q & 1);
+          if (c2 < C2p) part[5 * Ep + (size_t)(e0 + el) * C2p + c2] = a2[0][nt][q] + a2[1][nt][q];
+        }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward sweep to dx: exact dd on the tile and a ring, dz0hat, T3, taps, dxa
+// ---------------------------------------------------------------------------
+
+template <bool F32, int TR>
+struct BwdXSmem {
+  using G1 = Geo<TR, 1>;
+  static constexpr int TP = TR * kTC;
+  static constexpr size_t x = sizeof(Coef);
+  static constexpr size_t xlo = x + (size_t)G1::RQP * kXs * 2;
+  static constexpr size_t w = xlo + (F32 ? (size_t)G1::RQP * kXs * 2 : 0);
+  static constexpr size_t zt = w + (size_t)kEC * G1::SW * 4;
+  static constexpr size_t dy = zt + (size_t)kEC * (TP + 4) * 4;
+  static constexpr size_t dylo = dy + (size_t)G1::RQP * kXs * 2;
+  static constexpr size_t d = dylo + (size_t)G1::RQP * kXs * 2;
+  static constexpr size_t dz = d + (size_t)kEC * G1::SW * 4;
+  static constexpr size_t dzlo = dz + (size_t)TP * kUs * 2;
+  static constexpr size_t total = dzlo + (size_t)TP * kUs * 2;
+};
+
+// One tile per block, 16 warps. On the tile and its 1-wide ring: w from x (for
+// the taps), d read back, du = dy Wp^T, then dd; on the tile: dL/dw (the
+// stencil's transpose of dd), dz0hat, the bn0 sums and dK taps, T3 and dxa.
+template <typename T, int TR>
+__global__ void __launch_bounds__(kBig, 1) bwd_x_kernel(P6 p) {
+  constexpr bool F32 = sizeof(T) == 4;
+  using G1 = Geo<TR, 1>;
+  using L = BwdXSmem<F32, TR>;
+  constexpr int TP = L::TP, ST = TP + 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Coef& cf = *reinterpret_cast<Coef*>(smem);
+  bf16* xh = reinterpret_cast<bf16*>(smem + L::x);
+  bf16* xl = reinterpret_cast<bf16*>(smem + L::xlo);
+  float* ws = reinterpret_cast<float*>(smem + L::w);
+  float* zt = reinterpret_cast<float*>(smem + L::zt);
+  bf16* dyh = reinterpret_cast<bf16*>(smem + L::dy);
+  bf16* dyl = reinterpret_cast<bf16*>(smem + L::dylo);
+  float* ds = reinterpret_cast<float*>(smem + L::d);
+  bf16* zh = reinterpret_cast<bf16*>(smem + L::dz);  // g0 inv0 dz0hat, [p][kUs]
+  bf16* zl = reinterpret_cast<bf16*>(smem + L::dzlo);
+  const int n = blockIdx.y, tiles_c = (p.vw + kTC - 1) / kTC;
+  const int r0 = blockIdx.x / tiles_c * TR, c0 = blockIdx.x % tiles_c * kTC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int Ep = up(p.E, 16), kc = (p.C + 15) / 16, kc2 = (p.C2 + 15) / 16;
+  const int ntc = (p.C + 7) / 8;
+  const bool own = warp < TP / 16;  // this warp's m16 tile of the tile's positions
+  float* part = p.part + (size_t)(n * gridDim.x + blockIdx.x) * part_floats(kBwdX, p.C, p.E, p.C2);
+  fill_coef(cf, p, n);
+  __syncthreads();
+  load_x<T, TR, 1>(xh, xl, p, n, r0, c0);
+  load_dy<T, TR, 1>(dyh, dyl, p, cf, n, r0, c0);
+  __syncthreads();
+
+  float dxa[6][4] = {};
+  for (int e0 = 0; e0 < Ep; e0 += kEC) {
+    // Each warp fetches d for the m16 tiles of its own du / dd step (their
+    // order reversed against z_phase's, so that no warp has two tiles of both),
+    // lands it while w is recomputed, and reads only what it fetched: no
+    // barrier between the two steps.
+    for (int mt = kBigWarps - 1 - warp; mt < G1::MT; mt += kBigWarps) {
+#pragma unroll
+      for (int k = 0; k < kEC * 16 / 32; ++k) {
+        const int i = lane + 32 * k, el = i >> 4, qq = mt * 16 + (i & 15);
+        const int r = qq / G1::RC, cc = qq - r * G1::RC;
+        const int gr = r0 - 1 + r, gc = c0 - 1 + cc;
+        const bool in = qq < G1::RQ && gr >= 0 && gr < p.vh && gc >= 0 && gc < p.vw;
+        cp_async4(ds + el * G1::SW + qq, in ? p.d + d_index(p, n, e0 + el, gr, gc) : p.d,
+                  in ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+    z_phase<F32, TR, 1, kBigWarps, 1>(p, cf, xh, xl, ws, zt, e0, r0, c0);
+    cp_async_wait_all();
+    __syncwarp();
+    // du = dy Wp^T on the ring region, then dd (in place of d)
+    {
+      Frag wd[3][2];
+#pragma unroll
+      for (int kk = 0; kk < 3; ++kk)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          if (kk < kc2) wd[kk][nt] = wfrag(p, e0, 12 + 2 * kk + nt);
+      for (int mt = kBigWarps - 1 - warp; mt < G1::MT; mt += kBigWarps) {
+        float du[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < 3; ++kk)
+          if (kk < kc2) {
+            unsigned ah[4], al[4];
+            const int off = (mt * 16 + a_row(lane)) * kXs + kk * 16 + a_col(lane);
+            ldsm(ah, dyh + off);
+            ldsm(al, dyl + off);
+            mma3(du[0], ah, al, wd[kk][0]);
+            mma3(du[1], ah, al, wd[kk][1]);
+          }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int qq = mt * 16 + g + (q >> 1) * 8, el = nt * 8 + 2 * t + (q & 1);
+            const int e = e0 + el, r = qq / G1::RC, cc = qq - r * G1::RC;
+            const int gr = r0 - 1 + r, gc = c0 - 1 + cc;
+            const bool valid = qq < G1::RQ && gr >= 0 && gr < p.vh && gc >= 0 && gc < p.vw;
+            float* dp = ds + el * G1::SW + qq;
+            const float d = *dp;
+            const float dh = cf.a1[e] * (d - cf.m1[e]) + cf.b1[e];
+            const float sp = dsilu(dh);
+            const float db1h = (du[nt][q] * cf.gate[e] + cf.dsh[e]) * sp;
+            const float dd = cf.a1[e] * db1h - cf.r1a[e] - (d - cf.m1[e]) * cf.i1[e] * cf.r1b[e];
+            *dp = valid ? dd : 0.f;
+          }
+      }
+    }
+    __syncthreads();
+    // dL/dw on the tile (the stencil's transpose), dz0hat, bn0 sums and dK taps:
+    // one channel per warp, one column per lane
+    {
+      const int el = warp, e = e0 + el;
+      float k[9], kf[9];
+      taps(p, e, k);
+#pragma unroll
+      for (int i = 0; i < 9; ++i) kf[i] = k[8 - i];  // flipped: correlation
+      float dl[TR];
+      stencil_col<G1::RC, TR>(ds + el * G1::SW, kf, lane, dl);
+      const float* dd = ds + el * G1::SW;
+      const float* w = ws + el * G1::SW;
+      float s0 = 0.f, s1 = 0.f, tp[9] = {}, dz[TR];
+#pragma unroll
+      for (int tr = 0; tr < TR; ++tr) {
+        const bool valid = r0 + tr < p.vh && c0 + lane < p.vw;
+        const float zb = zt[el * ST + tr * kTC + lane];
+        const float dzh = valid ? dl[tr] * dsilu(zb * cf.g0[e] + cf.b0[e]) : 0.f;
+        s0 += dzh;
+        s1 = fmaf(dzh, zb, s1);
+        dz[tr] = dzh * cf.a0[e];
+        const float ddt = dd[(tr + 1) * G1::RC + lane + 1];
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+#pragma unroll
+          for (int b = 0; b < 3; ++b)
+            tp[3 * a + b] = fmaf(ddt, w[(tr + a) * G1::RC + lane + b], tp[3 * a + b]);
+      }
+      s0 = warp_sum(s0);
+      s1 = warp_sum(s1);
+#pragma unroll
+      for (int i = 0; i < 9; ++i) tp[i] = warp_sum(tp[i]);
+      if (lane == 0) {
+        part[e] = s0;
+        part[Ep + e] = s1;
+#pragma unroll
+        for (int i = 0; i < 9; ++i) part[(2 + i) * Ep + e] = tp[i];
+      }
+      // g0 inv0 dz0hat as bf16 hi and lo, [p][el]
+#pragma unroll
+      for (int tr = 0; tr < TR; ++tr) {
+        bf16 hi, lo;
+        split1(dz[tr], hi, lo);
+        zh[(tr * kTC + lane) * kUs + el] = hi;
+        zl[(tr * kTC + lane) * kUs + el] = lo;
+      }
+    }
+    __syncthreads();
+    // T3[c][e] = sum over the tile of x[p][c] g0 inv0 dz0hat[p][e]: M = c, K = positions
+    Frag wt[6];  // the dxa product's B fragments, in flight during T3
+#pragma unroll
+    for (int nt = 0; nt < 6; ++nt)
+      if (nt < ntc) wt[nt] = wfrag(p, e0, 18 + nt);
+    // T3[c][e] = sum over the tile of x[p][c] g0 inv0 dz0hat[p][e]: M = c, K =
+    // positions; warp 2 m + nt (m < kc) owns one 16 x 8 tile (c's m16 tile m,
+    // the chunk's n8 tile nt), with two independent sums by k-step parity for
+    // each of dz0hat's hi and lo parts, added in a fixed order at the end.
+    if (warp < 2 * kc) {
+      const int m3 = warp >> 1, nt3 = warp & 1;
+      float a3[2][2][4] = {};
+      unsigned a[2][4], al[2][4], b[2][4];  // two k steps in flight
+      auto load = [&](int ks, int i) {
+        const int q1 = ((ks >> 1) + 1) * G1::RC + 1 + (ks & 1) * 16 + at_row(lane);
+        const int ao = q1 * kXs + m3 * 16 + at_col(lane);
+        const int bo = (ks * 16 + bt_row(lane)) * kUs + nt3 * 8 + (lane >> 4) * TP * kUs;
+        ldsm_t(a[i], xh + ao);
+        if constexpr (F32) ldsm_t(al[i], xl + ao);
+        ldsm_t(b[i], zh + bo);  // lanes 16-31 address zl: r[2], r[3] are the lo part
+      };
+      load(0, 0);
+#pragma unroll
+      for (int ks = 0; ks < TP / 16; ++ks) {
+        const int i = ks & 1;
+        if (ks + 1 < TP / 16) load(ks + 1, i ^ 1);
+        mma(a3[i][0], a[i], b[i][0], b[i][1]);
+        mma(a3[i][1], a[i], b[i][2], b[i][3]);
+        if constexpr (F32) mma(a3[i][0], al[i], b[i][0], b[i][1]);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = m3 * 16 + g + (q >> 1) * 8, el = nt3 * 8 + 2 * t + (q & 1);
+        part[11 * Ep + (size_t)c * Ep + e0 + el] =
+            (a3[0][0][q] + a3[1][0][q]) + (a3[0][1][q] + a3[1][1][q]);
+      }
+    }
+    // dxa[p][c] += sum over the chunk of g0 inv0 dz0hat[p][e] We[c][e]
+    if (own) {
+      unsigned ah[4], al[4];
+      const int off = (warp * 16 + a_row(lane)) * kUs + a_col(lane);
+      ldsm(ah, zh + off);
+      ldsm(al, zl + off);
+#pragma unroll
+      for (int nt = 0; nt < 6; ++nt)
+        if (nt < ntc) mma3(dxa[nt], ah, al, wt[nt]);
+    }
+    // No barrier here: the next chunk writes d, dd, w and zbar0, which this
+    // chunk read before the barrier above, and dz0hat only after its own.
+  }
+  if (!own) return;
+#pragma unroll
+  for (int nt = 0; nt < 6; ++nt)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int pos = warp * 16 + g + (q >> 1) * 8;
+      const int gr = r0 + pos / kTC, gc = c0 + pos % kTC, c = nt * 8 + 2 * t + (q & 1);
+      if (nt < ntc && c < p.C && gr < p.H && gc < p.W)
+        p.dxa[(((size_t)n * p.C + c) * p.H + gr) * p.W + gc] = dxa[nt][q];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// x's moments, the output, dx, and the second level of every reduction
+// ---------------------------------------------------------------------------
+
+// The weights' split B fragments, one warp per fragment (wfrag's list), one
+// block per chunk of 16 expanded channels; zero past C, C2 and E.
+__global__ void __launch_bounds__(kFrags * 32) prep_kernel(P6 p, uint4* wf) {
+  const int f = threadIdx.x >> 5, e0 = blockIdx.x * kEC;
+  Frag b;
+  if (f < 6)
+    b = bfrag(p.we, p.E, 1, (f >> 1) * 16, e0 + (f & 1) * 8, p.C, p.E);
+  else if (f < 12)
+    b = bfrag(p.wp, p.C2, 1, e0, (f - 6) * 8, p.E, p.C2);
+  else if (f < 18)
+    b = bfrag(p.wp, 1, p.C2, ((f - 12) >> 1) * 16, e0 + (f & 1) * 8, p.C2, p.E);
+  else
+    b = bfrag(p.we, 1, p.E, e0, (f - 18) * 8, p.E, p.C);
+  wf[(blockIdx.x * kFrags + f) * 32 + (threadIdx.x & 31)] = make_uint4(b.h0, b.h1, b.l0, b.l1);
+}
+
+// Per block: [sum x (Cp) | sum x x^T (Cp x Cp)] over the slabs it walks.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) moments_kernel(P6 p) {
+  constexpr bool F32 = sizeof(T) == 4;
+  __shared__ __align__(16) bf16 sh[kMaxC * kSs];
+  __shared__ __align__(16) bf16 sl[F32 ? kMaxC * kSs : 8];
+  __shared__ float red[kWarps][kMaxC * kSl / kThreads];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const T* x = static_cast<const T*>(p.x);
+  const int HW = p.H * p.W, spi = (HW + kSl - 1) / kSl, slabs = p.N * spi;
+  const int kc = (p.C + 15) / 16, Cp = kc * 16;
+  float* part = p.part + (size_t)blockIdx.x * part_floats(kMoments, p.C, p.E, p.C2);
+  float colsum[kMaxC * kSl / kThreads] = {};
+  float acc[2][2][4] = {};
+  for (int s = blockIdx.x; s < slabs; s += gridDim.x) {
+    const int n = s / spi, p0 = (s - n * spi) * kSl;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kMaxC * kSl / kThreads; ++j) {
+      const int i = threadIdx.x + j * kThreads, c = i / kSl, q = i - c * kSl;
+      if (c < Cp) {
+        const int pos = p0 + q, r = pos / p.W, col = pos - r * p.W;
+        const bool in = c < p.C && pos < HW && r < p.vh && col < p.vw;
+        const size_t idx = ((size_t)n * p.C + c) * HW + pos;
+        const float v = in ? ld(x, idx) : 0.f;
+        colsum[j] += v;
+        if constexpr (F32) {
+          split1(v, sh[c * kSs + q], sl[c * kSs + q]);
+        } else {
+          sh[c * kSs + q] = in ? x[idx] : __float2bfloat16(0.f);
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int it = 0; it < 2; ++it) {
+      const int item = warp + it * kWarps, mt = item / 3, np = item % 3;
+      if (mt >= kc || np >= kc) continue;
+#pragma unroll
+      for (int ks = 0; ks < kSl / 16; ++ks) {
+        unsigned a[4], b[4];
+        ldsm(a, sh + (mt * 16 + a_row(lane)) * kSs + ks * 16 + a_col(lane));
+        ldsm(b, sh + (np * 16 + b_row(lane)) * kSs + ks * 16 + b_col(lane));
+        mma(acc[it][0], a, b[0], b[1]);
+        mma(acc[it][1], a, b[2], b[3]);
+        if constexpr (F32) {
+          unsigned al[4], bl[4];
+          ldsm(al, sl + (mt * 16 + a_row(lane)) * kSs + ks * 16 + a_col(lane));
+          ldsm(bl, sl + (np * 16 + b_row(lane)) * kSs + ks * 16 + b_col(lane));
+          mma(acc[it][0], a, bl[0], bl[1]);
+          mma(acc[it][1], a, bl[2], bl[3]);
+          mma(acc[it][0], al, b[0], b[1]);
+          mma(acc[it][1], al, b[2], b[3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < 2; ++it) {
+    const int item = warp + it * kWarps, mt = item / 3, np = item % 3;
+    if (mt >= kc || np >= kc) continue;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = mt * 16 + g + (q >> 1) * 8, c2 = np * 16 + nt * 8 + 2 * t + (q & 1);
+        part[Cp + c * Cp + c2] = acc[it][nt][q];
+      }
+  }
+  // sum x: thread i's j-th value is channel i / kSl + j * kThreads / kSl (two warps each)
+#pragma unroll
+  for (int j = 0; j < kMaxC * kSl / kThreads; ++j) {
+    const float v = warp_sum(colsum[j]);
+    if (lane == 0) red[warp][j] = v;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < Cp; c += kThreads) {
+    const int j = c / (kThreads / kSl), w = (c % (kThreads / kSl)) * 2;
+    part[c] = red[w][j] + red[w + 1][j];
+  }
+}
+
+// bn0's batch statistics from x's moments (p.red = [sum x | sum x x^T], Cp and
+// Cp x Cp): z = x We is linear in x, so E[z] = sx We / cnt and E[z^2] =
+// diag(We^T sxx We) / cnt; in fp64, var = max(E[z^2] - E[z]^2, 0). Writes
+// p.stats = [mean0 | var0]. Its plain version is ops/mbconv6.py::bn0_stats.
+__global__ void __launch_bounds__(64) bn0_kernel(P6 p) {
+  __shared__ double red[2][64];
+  const int e = blockIdx.x, c = threadIdx.x, C = p.C, Cp = up(C, 16);
+  const float* sx = p.red;
+  const float* sxx = p.red + Cp;
+  double m = 0.0, q = 0.0;  // this thread's row c of sx We and of We^T sxx We
+  if (c < C) {
+    double t = 0.0;
+    for (int c2 = 0; c2 < C; ++c2) t += (double)sxx[c * Cp + c2] * p.we[(size_t)c2 * p.E + e];
+    const double w = p.we[(size_t)c * p.E + e];
+    m = (double)sx[c] * w;
+    q = w * t;
+  }
+  red[0][c] = m, red[1][c] = q;
+  __syncthreads();
+  for (int s = 32; s > 0; s >>= 1) {
+    if (c < s) red[0][c] += red[0][c + s], red[1][c] += red[1][c + s];
+    __syncthreads();
+  }
+  if (c == 0) {
+    const double cnt = (double)p.N * p.vh * p.vw, mean = red[0][0] / cnt;
+    p.stats[e] = (float)mean;
+    p.stats[p.E + e] = (float)fmax(red[1][0] / cnt - mean * mean, 0.0);
+  }
+}
+
+// bn0's backward from bwd_x's sums (p.red = [sum dz0hat | sum dz0hat zbar0 |
+// 9 taps | T3], rows of Ep) and x's moments (p.mom), in fp64: alpha0 and beta0r,
+// dWe = T3 - sx (x) alpha0 - (sxx We - sx (x) mean0) diag(inv0 beta0r), and
+// dx's terms affine in x, M = We diag(inv0 beta0r) We^T and k = We (mean0 inv0
+// beta0r - alpha0). One block per row c of dWe, M and k; each warp sums its
+// entries of M and k by a shuffle tree. Plain versions: ops/mbconv6.py::
+// dwe_from_moments and dx_terms.
+__global__ void __launch_bounds__(kMaxE) bn0_bwd_kernel(P6 p) {
+  __shared__ double ib_s[kMaxE], k_s[kMaxE];
+  const int c = blockIdx.x, e = threadIdx.x, C = p.C, E = p.E;
+  const int Cp = up(C, 16), Ep = up(E, 16);
+  if (e < E) {
+    const double cnt = (double)p.N * p.vh * p.vw, m0 = p.m0[e];
+    const double inv0 = 1.0 / sqrt((double)p.v0[e] + p.eps), k0 = p.g0[e] * inv0 / cnt;
+    const double alpha0 = k0 * p.red[e], ib = inv0 * k0 * p.red[Ep + e];
+    ib_s[e] = ib, k_s[e] = m0 * ib - alpha0;
+    double sxz = -(double)p.mom[c] * m0;
+    for (int c2 = 0; c2 < C; ++c2) sxz += (double)p.mom[Cp + c * Cp + c2] * p.we[(size_t)c2 * E + e];
+    p.dwe[(size_t)c * E + e] =
+        (float)(p.red[11 * Ep + c * Ep + e] - (double)p.mom[c] * alpha0 - sxz * ib);
+  }
+  __syncthreads();
+  const int warp = e >> 5, lane = e & 31;
+  for (int c2 = warp; c2 <= C; c2 += kMaxE / 32) {
+    double v = 0.0;
+    for (int j = lane; j < E; j += 32) {
+      const double w = p.we[(size_t)c * E + j];
+      v += c2 < C ? w * ib_s[j] * p.we[(size_t)c2 * E + j] : w * k_s[j];
+    }
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == 0) {
+      if (c2 < C)
+        p.xm[c * C + c2] = (float)v;
+      else
+        p.kv[c] = (float)v;
+    }
+  }
+}
+
+// out = [x +] delta * bn2(y) on the valid image, 0 elsewhere. Block 0 also
+// writes the returned statistics [mean1 | var1 | mean2 | var2].
+template <typename T>
+__global__ void __launch_bounds__(kThreads) out_kernel(P6 p) {
+  __shared__ float cm[kMaxC], ca[kMaxC], cb[kMaxC];
+  const float cnt = (float)p.N * p.vh * p.vw;
+  const int Ep = up(p.E, 16), C2p = up(p.C2, 8);
+  for (int c = threadIdx.x; c < p.C2; c += kThreads) {
+    const float2 mi = moments(p.s2, C2p, c, cnt, p.eps);
+    cm[c] = mi.x, ca[c] = p.g2[c] * mi.y, cb[c] = p.b2[c];
+  }
+  if (blockIdx.x == 0 && blockIdx.y == 0) {
+    for (int e = threadIdx.x; e < p.E; e += kThreads) {
+      const float m = p.s1[e] / cnt;
+      p.stats[e] = m;
+      p.stats[p.E + e] = fmaxf(p.s1[Ep + e] / cnt - m * m, 0.f);
+    }
+    for (int c = threadIdx.x; c < p.C2; c += kThreads) {
+      const float m = p.s2[c] / cnt;
+      p.stats[2 * p.E + c] = m;
+      p.stats[2 * p.E + p.C2 + c] = fmaxf(p.s2[C2p + c] / cnt - m * m, 0.f);
+    }
+  }
+  __syncthreads();
+  const T* x = static_cast<const T*>(p.x);
+  T* out = static_cast<T*>(p.out);
+  const bool residual = p.C2 == p.C;
+  const int HW = p.H * p.W, c = blockIdx.y % p.C2, n = blockIdx.y / p.C2;
+  const size_t plane = (size_t)blockIdx.y * HW;  // (n, c) of out and, with the residual, of x
+  const float dn = p.delta[n], a = ca[c], m = cm[c], b = cb[c];
+  for (int pos = blockIdx.x * kThreads + threadIdx.x; pos < HW; pos += gridDim.x * kThreads) {
+    const int r = pos / p.W, col = pos - r * p.W;
+    float v = 0.f;
+    if (r < p.vh && col < p.vw) {
+      v = dn * (a * (p.y[plane + pos] - m) + b);
+      if (residual) v += ld(x, plane + pos);
+    }
+    st(out, plane + pos, v);
+  }
+}
+
+// dx = [G +] dxa - x M + k on the valid image, 0 elsewhere: a block per slab of
+// kSl positions, x M on the tensor cores (M = positions, K = C).
+template <typename T>
+__global__ void __launch_bounds__(128) dx_kernel(P6 p) {
+  constexpr bool F32 = sizeof(T) == 4;
+  __shared__ __align__(16) bf16 sh[kMaxC * kSs];
+  __shared__ __align__(16) bf16 sl[F32 ? kMaxC * kSs : 8];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int HW = p.H * p.W, spi = (HW + kSl - 1) / kSl, s = blockIdx.x;
+  const int n = s / spi, p0 = (s - n * spi) * kSl, kc = (p.C + 15) / 16, ntc = (p.C + 7) / 8;
+  {
+    const T* x = static_cast<const T*>(p.x);
+    for (int i = threadIdx.x; i < kc * 16 * kSl; i += 128) {
+      const int c = i / kSl, q = i - c * kSl, pos = p0 + q, r = pos / p.W, col = pos - r * p.W;
+      const bool in = c < p.C && pos < HW && r < p.vh && col < p.vw;
+      const size_t idx = ((size_t)n * p.C + c) * HW + pos;
+      if constexpr (F32) {
+        split1(in ? ld(x, idx) : 0.f, sh[c * kSs + q], sl[c * kSs + q]);
+      } else {
+        sh[c * kSs + q] = in ? x[idx] : __float2bfloat16(0.f);
+      }
+    }
+  }
+  __syncthreads();
+  float acc[6][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < 3; ++kk) {
+    if (kk >= kc) break;
+    unsigned a[4];
+    const int off = (kk * 16 + at_row(lane)) * kSs + warp * 16 + at_col(lane);
+    ldsm_t(a, sh + off);
+    unsigned al[4];
+    if constexpr (F32) ldsm_t(al, sl + off);
+#pragma unroll
+    for (int nt = 0; nt < 6; ++nt) {
+      if (nt >= ntc) break;
+      const Frag b = bfrag(p.xm, p.C, 1, kk * 16, nt * 8, p.C, p.C);
+      if constexpr (F32)
+        mma3(acc[nt], a, al, b);
+      else
+        mma2(acc[nt], a, b);
+    }
+  }
+  const T* gp = static_cast<const T*>(p.g);
+  T* dx = static_cast<T*>(p.out);
+#pragma unroll
+  for (int nt = 0; nt < 6; ++nt)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int pos = p0 + warp * 16 + g + (q >> 1) * 8, c = nt * 8 + 2 * t + (q & 1);
+      if (nt >= ntc || c >= p.C || pos >= HW) continue;
+      const int r = pos / p.W, col = pos - r * p.W;
+      const size_t idx = ((size_t)n * p.C + c) * HW + pos;
+      float v = 0.f;
+      if (r < p.vh && col < p.vw) {
+        v = p.dxa[idx] - acc[nt][q] + p.kv[c];
+        if (gp) v += ld(gp, idx);
+      }
+      st(dx, idx, v);
+    }
+}
+
+// Second level: for each entry k of the blocks' partials part[blk][K], with the
+// blocks image-major (bpi per image), red_n[n][k] = sum over image n's blocks
+// (k < kimg) and red[k - kimg] = sum over all blocks, image by image (k >=
+// kimg), the per-image sums times scale_n. kRedRows threads share an entry, each
+// summing every kRedRows-th block in order; their sums are added in a fixed order.
+__global__ void __launch_bounds__(kRedCols* kRedRows)
+sum_blocks_kernel(const float* __restrict__ part, int N, int bpi, int K, int kimg,
+                  float scale_n, float* __restrict__ red_n, float* __restrict__ red) {
+  __shared__ float sm[kRedRows][kRedCols];
+  const int tx = threadIdx.x % kRedCols, ty = threadIdx.x / kRedCols;
+  const int k = blockIdx.x * kRedCols + tx;
+  float tot = 0.f;
+  for (int n = 0; n < N; ++n) {
+    float s[4] = {};
+    if (k < K) {
+      const float* src = part + ((size_t)n * bpi) * K + k;
+      int b = ty;
+      for (; b + 3 * kRedRows < bpi; b += 4 * kRedRows) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) s[u] += src[(size_t)(b + u * kRedRows) * K];
+      }
+      for (; b < bpi; b += kRedRows) s[0] += src[(size_t)b * K];
+    }
+    sm[ty][tx] = (s[0] + s[1]) + (s[2] + s[3]);
+    __syncthreads();
+    if (ty == 0 && k < K) {
+      float v = 0.f;
+      for (int r = 0; r < kRedRows; ++r) v += sm[r][tx];
+      if (k < kimg)
+        red_n[(size_t)n * kimg + k] = v * scale_n;
+      else
+        tot += v;
+    }
+    __syncthreads();
+  }
+  if (ty == 0 && k < K && k >= kimg) red[k - kimg] = tot;
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+struct DeviceGuard {
+  int prev = -1, want;
+  int err;
+  explicit DeviceGuard(int device) : want(device) {
+    err = (int)cudaGetDevice(&prev);
+    if (!err && prev != want) err = (int)cudaSetDevice(want);
+  }
+  ~DeviceGuard() {
+    if (prev >= 0 && prev != want) cudaSetDevice(prev);
+  }
+};
+
+template <typename K>
+int launch_big(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t s, const P6& p) {
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)smem);
+  if (rc) return rc;
+  kernel<<<grid, threads, smem, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+int reduce(const P6& p, int nimg, int bpi, int K, int kimg, cudaStream_t s,
+           float scale_n = 1.f) {
+  sum_blocks_kernel<<<(K + kRedCols - 1) / kRedCols, kRedCols * kRedRows, 0, s>>>(
+      p.part, nimg, bpi, K, kimg, scale_n, p.red_n, p.red);
+  return (int)cudaGetLastError();
+}
+
+int moments_blocks(const P6& p) {
+  const int slabs = p.N * ((p.H * p.W + kSl - 1) / kSl);
+  return slabs < 1024 ? slabs : 1024;
+}
+
+template <typename T, int TR>
+int run_pass(int pass, const P6& p, cudaStream_t s) {
+  constexpr bool F32 = sizeof(T) == 4;
+  const int tiles = ((p.vh + TR - 1) / TR) * ((p.vw + kTC - 1) / kTC);
+  const dim3 grid(tiles, p.N);
+  const int Ep = up(p.E, 16), K = part_floats(pass, p.C, p.E, p.C2);
+  int rc = 0;
+  switch (pass) {
+    case kMoments: {  // also lays out the weights' fragments for the forward
+      prep_kernel<<<Ep / kEC, kFrags * 32, 0, s>>>(p, (uint4*)p.wf);
+      const int blocks = moments_blocks(p);
+      moments_kernel<T><<<blocks, kThreads, 0, s>>>(p);
+      if ((rc = (int)cudaGetLastError()) || (rc = reduce(p, 1, blocks, K, 0, s))) return rc;
+      bn0_kernel<<<p.E, 64, 0, s>>>(p);
+      return (int)cudaGetLastError();
+    }
+    case kF2:
+      rc = launch_big(sweep_kernel<T, TR, kF2>, grid, kThreads, SweepSmem<F32, TR, recomputes(kF2)>::total, s, p);
+      return rc ? rc : reduce(p, p.N, tiles, K, 0, s);
+    case kF3:
+      rc = launch_big(sweep_kernel<T, TR, kF3>, grid, kThreads, SweepSmem<F32, TR, recomputes(kF3)>::total, s, p);
+      return rc ? rc : reduce(p, p.N, tiles, K, Ep, s, 1.f / ((float)p.vh * p.vw));
+    case kF4:
+      rc = launch_big(sweep_kernel<T, TR, kF4>, grid, kThreads, SweepSmem<F32, TR, recomputes(kF4)>::total, s, p);
+      return rc ? rc : reduce(p, p.N, tiles, K, 0, s);
+    case kB1:  // also lays out the weights' fragments for the backward
+      prep_kernel<<<Ep / kEC, kFrags * 32, 0, s>>>(p, (uint4*)p.wf);
+      rc = launch_big(sweep_kernel<T, TR, kB1>, grid, kThreads, SweepSmem<F32, TR, recomputes(kB1)>::total, s, p);
+      return rc ? rc : reduce(p, p.N, tiles, K, 0, s);
+    case kOut: {
+      const int bx = (p.H * p.W + kThreads - 1) / kThreads;
+      out_kernel<T><<<dim3(bx < 32 ? bx : 32, p.N * p.C2), kThreads, 0, s>>>(p);
+      return (int)cudaGetLastError();
+    }
+    case kBwdV:
+      rc = launch_big(bwd_v_kernel<T, TR>, grid, kBig, BwdVSmem<F32, TR>::total, s, p);
+      return rc ? rc : reduce(p, p.N, tiles, K, 5 * Ep, s);
+    case kBwdX:  // then bn0's backward: dWe, M and k
+      rc = launch_big(bwd_x_kernel<T, TR>, grid, kBig, BwdXSmem<F32, TR>::total, s, p);
+      if (rc || (rc = reduce(p, p.N, tiles, K, 0, s))) return rc;
+      bn0_bwd_kernel<<<p.C, kMaxE, 0, s>>>(p);
+      return (int)cudaGetLastError();
+    case kDx: {
+      const int spi = (p.H * p.W + kSl - 1) / kSl;
+      dx_kernel<T><<<p.N * spi, 128, 0, s>>>(p);
+      return (int)cudaGetLastError();
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename K>
+int occupancy(K kernel, int threads, size_t smem, int* smem_out, int* blocks) {
+  *smem_out = (int)smem;
+  int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)smem);
+  return rc ? rc : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem);
+}
+
+template <typename T, int TR>
+int kernel_info(int pass, int* smem, int* blocks) {
+  constexpr bool F32 = sizeof(T) == 4;
+  *smem = 0, *blocks = 0;
+  switch (pass) {
+    case kF2:
+      return occupancy(sweep_kernel<T, TR, kF2>, kThreads, SweepSmem<F32, TR, true>::total, smem, blocks);
+    case kF3:
+      return occupancy(sweep_kernel<T, TR, kF3>, kThreads, SweepSmem<F32, TR, false>::total, smem, blocks);
+    case kF4:
+      return occupancy(sweep_kernel<T, TR, kF4>, kThreads, SweepSmem<F32, TR, false>::total, smem, blocks);
+    case kB1:
+      return occupancy(sweep_kernel<T, TR, kB1>, kThreads, SweepSmem<F32, TR, true>::total, smem, blocks);
+    case kBwdV: return occupancy(bwd_v_kernel<T, TR>, kBig, BwdVSmem<F32, TR>::total, smem, blocks);
+    case kBwdX: return occupancy(bwd_x_kernel<T, TR>, kBig, BwdXSmem<F32, TR>::total, smem, blocks);
+    case kMoments: return occupancy(moments_kernel<T>, kThreads, 0, smem, blocks);
+    default: return 0;
+  }
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// C interface, loaded with ctypes (ops/cuda_lib.py). m6_pass runs one pass of
+// the e6 form (its kernel, then its reduction where it has one) on CUDA device
+// `device` (made current only if it is not), enqueued on `stream`; it does not
+// synchronise and returns a CUDA error code (0 on success). Which pointers a
+// pass reads and writes is listed in ops/mbconv6.py; unused ones are null.
+// Shapes: C, C2 <= 48, E <= 256; x and dout bf16 (bf16 = 1) or fp32.
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+// The dynamic shared memory (bytes) of pass `pass`'s main kernel in this I/O
+// type and how many of its blocks one SM holds (0 for a pass without one).
+int m6_kernel_info(int pass, int io_bf16, int* smem, int* blocks_per_sm) {
+  return io_bf16 ? kernel_info<bf16, 8>(pass, smem, blocks_per_sm)
+                 : kernel_info<float, 4>(pass, smem, blocks_per_sm);
+}
+
+// Floats of block partials the largest pass needs (the `part` scratch).
+int m6_scratch(int io_bf16, int N, int C, int E, int C2, int H, int W, int vh, int vw) {
+  const int TR = io_bf16 ? 8 : 4;
+  const long tiles = (long)N * ((vh + TR - 1) / TR) * ((vw + kTC - 1) / kTC);
+  long best = 0;
+  for (int pass = kF2; pass < kPasses; ++pass) {
+    const long f = tiles * part_floats(pass, C, E, C2);
+    best = f > best ? f : best;
+  }
+  P6 p{};
+  p.N = N, p.H = H, p.W = W;
+  const long m = (long)moments_blocks(p) * part_floats(kMoments, C, E, C2);
+  best = m > best ? m : best;
+  return best > 0x7fffffff ? -1 : (int)best;
+}
+
+int m6_pass(int pass, const void* x, const void* g, void* out, const float* we,
+            const float* wp, const float* k9, const float* m0, const float* v0,
+            const float* g0, const float* b0, const float* s1, const float* g1,
+            const float* b1, const float* s2, const float* g2, const float* b2,
+            const float* s3, const float* gate, const float* ds, const float* q,
+            const float* delta, const float* mom, float* xm, float* kv, const void* wf, float* y,
+            float* d, float* dxa, float* dwe, float* part, float* red, float* red_n, float* stats,
+            float eps,
+            int io_bf16, int N,
+            int C, int E, int C2, int H, int W, int vh, int vw, int device, void* stream) {
+  if (pass < 0 || pass >= kPasses || C < 1 || C > kMaxC || C2 < 1 || C2 > kMaxC || E < 1 ||
+      E > kMaxE || vh < 1 || vh > H || vw < 1 || vw > W)
+    return (int)cudaErrorInvalidValue;
+  DeviceGuard guard(device);
+  if (guard.err) return guard.err;
+  const P6 p{x, g, out, we, wp, k9, m0, v0, g0, b0, s1, g1, b1, s2, g2, b2, s3, gate, ds, q,
+             delta, mom, xm, kv, wf, y, d, dxa, dwe, part, red, red_n, stats, eps, io_bf16, N, C, E,
+             C2, H, W, vh, vw};
+  cudaStream_t s = (cudaStream_t)stream;
+  return io_bf16 ? run_pass<bf16, 8>(pass, p, s) : run_pass<float, 4>(pass, p, s);
+}
+
+}  // extern "C"

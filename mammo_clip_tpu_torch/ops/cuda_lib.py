@@ -11,7 +11,8 @@ Nothing here runs at import: ``load()`` builds on its first call and raises if
 ``nvcc`` is missing or the build fails.
 
 ``launcher(name)`` is the lean way to call a launcher that takes the CUDA device
-index and the stream as its last two arguments (``csrc/probes.cu``): it binds
+index and the stream as its last two arguments (``csrc/probes.cu``, and
+``m6_pass`` of ``csrc/mbconv6_e6.cu``): it binds
 the ctypes function once, on its first call, and then costs the host one
 ctypes call and one lookup of PyTorch's current raw stream per launch, with no
 ``torch.cuda.Stream`` object and no device context (the C launcher switches
@@ -40,9 +41,9 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 SIGNATURES: Dict[str, List] = {
     "mbc_mix": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     "mbc_pgemm": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
-    "mbc_dw_fwd": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "mbc_dw_bwd_x": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "mbc_dw_bwd_k": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "mbc_dw_fwd": [_P, _I, _P, _P, *[_I] * 6, _P],
+    "mbc_dw_bwd_x": [_P, _P, _P, *[_I] * 6, _P],
+    "mbc_dw_bwd_k": [_P, _P, _I, _P, *[_I] * 6, _P],
     "mbc_reduce_partial": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "mbc_reduce_final": [_P, _P, _P, _I, _I, _I, _I, _P],
     "mbc_bn_act": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -55,6 +56,10 @@ SIGNATURES: Dict[str, List] = {
     "mbc_red_chunk": [],
     "mbc_pg_chunk": [],
     "mbc_dw_rows": [],
+    # csrc/mbconv6_e6.cu: pass, 33 pointers, eps, 9 shape ints, the device index, the stream
+    "m6_pass": [_I, *[_P] * 33, _F, *[_I] * 9, _I, _P],
+    "m6_scratch": [_I] * 9,
+    "m6_kernel_info": [_I, _I, _P, _P],
     # csrc/mbconv1.cu
     "mb1_p1": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
     "mb1_p2": [_P, _I, *[_P] * 5, _I, _I, _I, _I, _P],

@@ -12,20 +12,32 @@ biased batch (mean, var) of each BatchNorm. ``MBConv6Params`` selects the
 expanding form; ``MBConvParams`` (ops/mbconv.py) the e=1 form, which runs the
 depthwise directly on x and returns 4 stats instead of 6.
 
-On a CUDA tensor the forward and the backward are the hand-written kernels of
-``csrc/mbconv6.cu``, sequenced here; a CPU tensor takes the plain PyTorch
+On a CUDA tensor the expanding form runs the kernels of ``csrc/mbconv6_e6.cu``:
+passes that read x (and the cotangent) and recompute the block on chip with
+its channel products on the tensor cores; the forward keeps only x, the
+statistics and the (N, E) SE vectors for the backward (within one call, d is
+written once and read back by the passes after it). The passes are sequenced
+here (``_e6_forward``, ``_e6_backward``) through ``cuda_lib.launcher``; the
+analytic per-channel combinations between them run in the kernels, with their
+plain versions here (``bn0_stats``, ``bn1_backward_sums``,
+``dwe_from_moments``, ``dx_terms``), and the SE MLP and its backward are torch
+ops on (N, E) vectors. The e=1 form runs the stage kernels of
+``csrc/mbconv6.cu`` (``_forward_kernels``, ``_backward_kernels``), which keep
+its intermediates in fp32 device memory. A CPU tensor takes the plain PyTorch
 version of the same function (``plain_fused_mbconv_e6``), and any other device
-raises. ``launches`` (ops/mbconv.py) counts the kernel path's forward and backward
-calls under ``mbconv6.<form>.<direction>``.
+raises. ``launches`` (ops/mbconv.py) counts the kernel path's
+forward and backward calls under ``mbconv6.<form>.<direction>``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from .cuda_lib import launcher
 from .mbconv import (
     BN_EPS,
     MBConvParams,
@@ -109,7 +121,175 @@ def plain_fused_mbconv_e6(x, params, delta, valid_h: int, valid_w: int,
 
 
 # ----------------------------------------------------------------------------
-# kernel path
+# expanding form: the recompute passes of csrc/mbconv6_e6.cu
+# ----------------------------------------------------------------------------
+
+
+def _up(a: int, m: int) -> int:
+    return -(-a // m) * m
+
+
+def bn0_stats(sx, sxx, we, cnt):
+    """bn0's biased batch (mean, var) from x's moments: z = x We is linear in x,
+    so E[z] = sx We / cnt and E[z^2] = diag(We^T sxx We) / cnt, with sx the sum
+    of x over the valid positions (C,) and sxx the sum of x x^T (C, C). Computed
+    in float64 (var = max(E[z^2] - E[z]^2, 0), the plain version's formula).
+    The plain version of csrc/mbconv6_e6.cu's bn0_kernel, which the moments pass
+    runs on the card."""
+    we64 = we.double()
+    mean = sx.double() @ we64 / cnt
+    ez2 = ((sxx.double() @ we64) * we64).sum(0) / cnt
+    return mean.to(we.dtype), (ez2 - mean * mean).clamp(min=0.0).to(we.dtype)
+
+
+def bn1_backward_sums(q, gate, ds_hw):
+    """(sum db1h, sum db1h * dbar) per channel, where db1h = (du gate + ds_hw) s'
+    is the cotangent of bn1's output (s' = silu'(bn1(d)), dbar = (d - mean1)
+    inv1), from the backward sweep's per-image sums
+    q (N, 5, E) = [sum v du, sum du s', sum s', sum du s' dbar, sum s' dbar]:
+    db1h is affine in the per-image gate and ds_hw, which the SE backward gives
+    only after that sweep. The plain version of what bwd_x_kernel's prologue
+    (csrc/mbconv6_e6.cu, fill_coef) forms on the card."""
+    return ((gate * q[:, 1] + ds_hw * q[:, 2]).sum(0),
+            (gate * q[:, 3] + ds_hw * q[:, 4]).sum(0))
+
+
+def dwe_from_moments(t3, sx, sxx, we, mean0, inv0, alpha0, beta0r):
+    """dWe = sum_p x (x) dz with dz = t - alpha0 - zbar0 beta0r the bn0 backward
+    (t = gamma0 inv0 dz0hat, zbar0 = (x We - mean0) inv0), from
+    t3 = sum_p x (x) t (C, E) and x's moments: sum_p x (x) zbar0 =
+    (sxx We - sx (x) mean0) inv0. Computed in float64; the plain version of
+    csrc/mbconv6_e6.cu's bn0_bwd_kernel."""
+    d = lambda a: a.double()
+    sxz = d(sxx) @ d(we) - d(sx)[:, None] * d(mean0)[None, :]
+    dwe = d(t3) - d(sx)[:, None] * d(alpha0)[None, :] - sxz * d(inv0 * beta0r)[None, :]
+    return dwe.to(we.dtype)
+
+
+def dx_terms(we, mean0, inv0, alpha0, beta0r):
+    """(M, k) with dz We^T = dxa - x M + k, where dxa = (gamma0 inv0 dz0hat) We^T:
+    the bn0 backward's other terms are affine in x, M = We diag(inv0 beta0r) We^T
+    (C, C) and k = We (mean0 inv0 beta0r - alpha0) (C,). Computed in float64; the
+    plain version of csrc/mbconv6_e6.cu's bn0_bwd_kernel."""
+    we64, ib = we.double(), (inv0 * beta0r).double()
+    m = (we64 * ib[None, :]) @ we64.t()
+    k = we64 @ (mean0.double() * ib - alpha0.double())
+    return m.to(we.dtype).contiguous(), k.to(we.dtype)
+
+
+# pass ids of m6_pass (csrc/mbconv6_e6.cu), and the pointers it takes in order
+MOMENTS, F2, F3, F4, B1, OUT, BWD_V, BWD_X, DX = range(9)
+_PTRS = ("x", "g", "out", "we", "wp", "k9", "m0", "v0", "g0", "b0", "s1", "g1", "b1",
+         "s2", "g2", "b2", "s3", "gate", "ds", "q", "delta", "mom", "xm", "kv", "wf", "y", "d",
+         "dxa", "dwe", "part", "red", "red_n", "stats")
+_INDEX = {k: i for i, k in enumerate(_PTRS)}
+E6_MAX_C, E6_MAX_E = 48, 256  # the kernels' limits on C and C2, and on E
+_FRAG_FLOATS = 24 * 32 * 4  # the weights' B fragments per chunk of 16 channels (prep_kernel)
+_m6_pass = launcher("m6_pass")
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_floats(ints) -> int:
+    from . import cuda_lib
+
+    return cuda_lib.load().m6_scratch(*ints)
+
+
+class _E6:
+    """One call of the expanding form: its shapes, the tensors its passes use
+    (kept alive here) and their pointers in ``_PTRS`` order, and
+    ``run(pass, **tensors)``, which sets tensors and launches one pass."""
+
+    def __init__(self, x, p, delta, valid_h, valid_w, eps):
+        self.N, self.C, self.H, self.W = x.shape
+        self.E, self.C2 = p.we.shape[1], p.wp.shape[1]
+        self.Cp, self.Ep, self.C2p = _up(self.C, 16), _up(self.E, 16), _up(self.C2, 8)
+        self.hw = valid_h * valid_w
+        self.cnt = self.N * self.hw
+        self.eps = eps
+        self.dev = x.get_device()
+        self.ints = (int(x.dtype == torch.bfloat16), self.N, self.C, self.E, self.C2, self.H,
+                     self.W, valid_h, valid_w)
+        self.new = functools.partial(torch.empty, device=x.device, dtype=torch.float32)
+        self.t, self.args = {}, [None] * len(_PTRS)
+        c = lambda a: a.contiguous()
+        self.set(x=x, delta=delta, we=c(p.we), wp=c(p.wp), k9=c(p.dw_kernel), g0=c(p.gamma0),
+                 b0=c(p.beta0), g1=c(p.gamma1), b1=c(p.beta1), g2=c(p.gamma2), b2=c(p.beta2),
+                 part=self.new(_scratch_floats(self.ints)),
+                 wf=self.new(self.Ep // 16 * _FRAG_FLOATS))
+
+    def set(self, **tensors):
+        for k, v in tensors.items():
+            self.t[k] = v
+            self.args[_INDEX[k]] = v.data_ptr() if v is not None else None
+
+    def run(self, pass_id, **tensors):
+        self.set(**tensors)
+        _m6_pass(self.dev, pass_id, *self.args, self.eps, *self.ints)
+
+
+def _e6_forward(x, p, delta, valid_h, valid_w, eps):
+    """Forward of the expanding form: (out, the 6 stats, what the backward keeps:
+    bn1's and bn2's sums, s_mean, gate and x's moments [sum x | sum x x^T])."""
+    k = _E6(x, p, delta, valid_h, valid_w, eps)
+    C, E, C2, Cp = k.C, k.E, k.C2, k.Cp
+    mom, stats0 = k.new(Cp + Cp * Cp), k.new(2 * E)
+    k.run(MOMENTS, red=mom, stats=stats0)  # and bn0's statistics (bn0_kernel)
+    mean0, var0 = stats0[:E], stats0[E:]
+    s1 = k.new(2 * k.Ep)
+    k.run(F2, m0=mean0, v0=var0, red=s1, d=k.new(k.N, k.Ep, k.H, k.W))
+    s_mean = k.new(k.N, k.Ep)
+    k.run(F3, s1=s1, red=None, red_n=s_mean)  # the per-image sums of v over vh * vw
+    s_mean = s_mean[:, :E]
+    gate = _se_gate(s_mean, p)[0].contiguous()
+    y, s2 = k.new(k.N, C2, k.H, k.W), k.new(2 * k.C2p)
+    k.run(F4, gate=gate, y=y, red=s2, red_n=None)
+    out = torch.empty((k.N, C2, k.H, k.W), device=x.device, dtype=x.dtype)
+    stats = k.new(2 * E + 2 * C2)
+    k.run(OUT, s2=s2, out=out, stats=stats)
+    return out, (mean0, var0, *stats.split([E, E, C2, C2])), (s1, s2, s_mean, gate, mom)
+
+
+def _se_backward(s_mean, p, dgate):
+    """(dL/ds_mean, dse_w1, dse_b1, dse_w2, dse_b2) of the SE MLP, by autograd."""
+    with torch.enable_grad():
+        se_in = [a.detach().requires_grad_(True)
+                 for a in (s_mean, p.se_w1, p.se_b1, p.se_w2, p.se_b2)]
+        se_p = MBConvParams(*([None] * 3), *se_in[1:], None, None, None)
+        gate_re, _ = _se_gate(se_in[0], se_p)
+        return torch.autograd.grad(gate_re, se_in, dgate)
+
+
+def _e6_backward(x, p, delta, valid_h, valid_w, eps, g, stats, kept):
+    """Backward of the expanding form: (dx, parameter gradients as MBConv6Params).
+    bn1's backward sums (``bn1_backward_sums``) are formed in bwd_x's prologue
+    and bn0's backward (``dwe_from_moments``, ``dx_terms``) by its last kernel."""
+    s1, s2, s_mean, gate, mom = kept
+    mean0, var0 = stats[:2]
+    k = _E6(x, p, delta, valid_h, valid_w, eps)
+    C, E, C2, Cp, Ep, C2p, N = k.C, k.E, k.C2, k.Cp, k.Ep, k.C2p, k.N
+    k.set(g=g, m0=mean0, v0=var0, s1=s1, s2=s2, gate=gate, mom=mom, d=k.new(N, Ep, k.H, k.W))
+    y, s3 = k.new(N, C2, k.H, k.W), k.new(2 * C2p)
+    k.run(B1, y=y, red=s3)
+    q, dwp = k.new(N, 5 * Ep), k.new(Ep * C2p)
+    k.run(BWD_V, s3=s3, red_n=q, red=dwp)
+    ds, dse_w1, dse_b1, dse_w2, dse_b2 = _se_backward(s_mean, p, q.view(N, 5, Ep)[:, 0, :E])
+    red, sdb = k.new(11 * Ep + Cp * Ep), k.new(2 * E)
+    dwe, xm, kv = k.new(C, E), k.new(C, C), k.new(C)
+    k.run(BWD_X, ds=(ds / k.hw).contiguous(), q=q, dxa=k.new(N, C, k.H, k.W), red=red,
+          red_n=None, stats=sdb, dwe=dwe, xm=xm, kv=kv)
+    dx = torch.empty_like(x)
+    k.run(DX, g=g if C2 == C else None, out=dx)
+    grads = MBConv6Params(
+        we=dwe, gamma0=red[Ep:Ep + E], beta0=red[:E],
+        dw_kernel=red[2 * Ep:11 * Ep].view(9, Ep)[:, :E].t().reshape(E, 3, 3),
+        gamma1=sdb[E:], beta1=sdb[:E], se_w1=dse_w1, se_b1=dse_b1, se_w2=dse_w2,
+        se_b2=dse_b2, wp=dwp.view(Ep, C2p)[:E, :C2], gamma2=s3[C2p:C2p + C2], beta2=s3[:C2])
+    return dx, grads
+
+
+# ----------------------------------------------------------------------------
+# e=1 form: the stage kernels of csrc/mbconv6.cu
 # ----------------------------------------------------------------------------
 
 
@@ -123,7 +303,7 @@ def _check(rc: int, name: str):
 
 
 class _Ctx:
-    """Per-call shapes and the library handle shared by the kernel stages."""
+    """Per-call shapes and the library handle shared by the e=1 form's stages."""
 
     def __init__(self, lib, x, E, C2, valid_h, valid_w):
         self.lib = lib
@@ -178,15 +358,14 @@ class _Ctx:
         out_n, _ = self._final(part, M * K, nchunk, 1)
         return out_n.view(self.N, M, K)
 
-    def taps(self, dd, src, bn0):
-        """(E, 9): sum over images and valid positions of dd * shifted w."""
+    def taps(self, dd, src):
+        """(E, 9): sum over images and valid positions of dd * shifted src."""
         lib, E = self.lib, self.E
         nchunk = -(-self.H // lib.mbc_dw_rows())
         part = self.empty(self.N, E, nchunk, 9)
-        m0, a0, b0 = bn0
         _check(lib.mbc_dw_bwd_k(_ptr(dd), _ptr(src), int(src.dtype == torch.bfloat16),
-                                _ptr(m0), _ptr(a0), _ptr(b0), _ptr(part), self.N, E,
-                                self.H, self.W, self.vh, self.vw, self.stream), "dw_bwd_k")
+                                _ptr(part), self.N, E, self.H, self.W, self.vh, self.vw,
+                                self.stream), "dw_bwd_k")
         _, out = self._final(part, E, nchunk, 9)
         return out
 
@@ -199,29 +378,14 @@ def _bn_coeffs(s, cnt, gamma, beta, eps):
     return mean, var, inv, gamma * inv
 
 
-_NO_BN0 = (None, None, None)
-
-
 def _forward_kernels(lib, x, p, delta, valid_h, valid_w, eps):
-    """Forward on the kernel library. Returns (out, stats, saved)."""
-    expand = isinstance(p, MBConv6Params)
-    E = p.we.shape[1] if expand else x.shape[1]
-    C2 = p.wp.shape[1]
+    """Forward of the e=1 form on the stage kernels. Returns (out, stats, saved)."""
+    E, C2 = x.shape[1], p.wp.shape[1]
     c = _Ctx(lib, x, E, C2, valid_h, valid_w)
     k9 = p.dw_kernel.reshape(E, 9).contiguous()
-    stats = ()
-    if expand:
-        z = c.mix(x, p.we.contiguous())
-        _, s0 = c.sums(z)
-        mean0, var0, inv0, a0 = _bn_coeffs(s0, c.cnt, p.gamma0, p.beta0, eps)
-        bn0 = (mean0, a0, p.beta0.contiguous())
-        src, stats = z, (mean0, var0)
-    else:
-        z, inv0, bn0, src = None, None, _NO_BN0, x
     d = c.empty(c.N, E, c.H, c.W)
-    _check(lib.mbc_dw_fwd(_ptr(src), int(src.dtype == torch.bfloat16), _ptr(k9),
-                          *map(_ptr, bn0), _ptr(d), c.N, E, c.H, c.W, valid_h, valid_w,
-                          c.stream), "dw_fwd")
+    _check(lib.mbc_dw_fwd(_ptr(x), c.bf16, _ptr(k9), _ptr(d), c.N, E, c.H, c.W, valid_h,
+                          valid_w, c.stream), "dw_fwd")
     _, s1 = c.sums(d)
     mean1, var1, inv1, a1 = _bn_coeffs(s1, c.cnt, p.gamma1, p.beta1, eps)
     be1 = p.beta1.contiguous()
@@ -241,23 +405,18 @@ def _forward_kernels(lib, x, p, delta, valid_h, valid_w, eps):
                            _ptr(p.beta2.contiguous()),
                            _ptr(delta), residual, _ptr(out), *c.dims(C2), c.stream),
            "out_fwd")
-    stats = stats + (mean1, var1, mean2, var2)
-    saved = dict(z=z, d=d, v=v, y=y, gate=gate, s_mean=s_mean, inv0=inv0, mean1=mean1,
-                 inv1=inv1, a1=a1, be1=be1, mean2=mean2, inv2=inv2, bn0=bn0)
-    return out, stats, saved
+    saved = dict(d=d, v=v, y=y, gate=gate, s_mean=s_mean, mean1=mean1, inv1=inv1, a1=a1,
+                 be1=be1, mean2=mean2, inv2=inv2)
+    return out, (mean1, var1, mean2, var2), saved
 
 
-# What the forward keeps for the backward, besides the bn0 triple (which is
-# (None, None, None) in the e=1 form).
-_SAVED = ("z", "d", "v", "y", "gate", "s_mean", "inv0", "mean1", "inv1", "a1", "be1",
-          "mean2", "inv2")
+# What the e=1 form's forward keeps for its backward.
+_SAVED = ("d", "v", "y", "gate", "s_mean", "mean1", "inv1", "a1", "be1", "mean2", "inv2")
 
 
 def _backward_kernels(lib, x, p, delta, valid_h, valid_w, g, sv):
-    """Backward on the kernel library: (dx, parameter gradients as p's type)."""
-    expand = isinstance(p, MBConv6Params)
-    E = p.we.shape[1] if expand else x.shape[1]
-    C2 = p.wp.shape[1]
+    """Backward of the e=1 form on the stage kernels: (dx, MBConvParams gradients)."""
+    E, C2 = x.shape[1], p.wp.shape[1]
     c = _Ctx(lib, x, E, C2, valid_h, valid_w)
     hw = valid_h * valid_w
     g = g.contiguous()
@@ -278,12 +437,7 @@ def _backward_kernels(lib, x, p, delta, valid_h, valid_w, g, sv):
     t = c.pgemm(v, dy)
     dwp = torch.einsum("ne,nec->ec", gate, t)
     dgate = torch.einsum("ec,nec->ne", p.wp, t)
-    with torch.enable_grad():
-        se_in = [sv["s_mean"], p.se_w1, p.se_b1, p.se_w2, p.se_b2]
-        se_in = [a.detach().requires_grad_(True) for a in se_in]
-        se_p = MBConvParams(*([None] * 3), *se_in[1:], None, None, None)
-        gate_re, _ = _se_gate(se_in[0], se_p)
-        ds, dse_w1, dse_b1, dse_w2, dse_b2 = torch.autograd.grad(gate_re, se_in, dgate)
+    ds, dse_w1, dse_b1, dse_w2, dse_b2 = _se_backward(sv["s_mean"], p, dgate)
 
     # du = Wp dy, then the SE/silu/bn1 backward to dd (E channels, in place)
     du = c.mix(dy, p.wp.t().contiguous())
@@ -296,33 +450,16 @@ def _backward_kernels(lib, x, p, delta, valid_h, valid_w, g, sv):
     _check(lib.mbc_bn_bwd(_ptr(du), _ptr(d), _ptr(sv["mean1"]), _ptr(sv["inv1"]), _ptr(k1),
                           _ptr(r1a), _ptr(r1b), _ptr(du), *c.dims(E), c.stream), "bn_bwd")
     dd = du
-    src = sv["z"] if expand else x
-    ddw = c.taps(dd, src, sv["bn0"]).view(E, 3, 3)
+    ddw = c.taps(dd, x).view(E, 3, 3)
 
-    # transposed stencil: dL/dw (e=1: dL/dx's chain term), times silu'(bn0) when expanding
+    # transposed stencil: dL/dx's chain term
     k9 = p.dw_kernel.reshape(E, 9).contiguous()
-    dw = c.empty(c.N, E, c.H, c.W)
-    zz = sv["z"] if expand else None
-    _check(lib.mbc_dw_bwd_x(_ptr(dd), _ptr(k9), _ptr(zz), *map(_ptr, sv["bn0"]), _ptr(dw),
-                            c.N, E, c.H, c.W, valid_h, valid_w, c.stream), "dw_bwd_x")
-    grads = dict(dw_kernel=ddw, gamma1=r1[:, 1], beta1=r1[:, 0], se_w1=dse_w1,
-                 se_b1=dse_b1, se_w2=dse_w2, se_b2=dse_b2, wp=dwp, gamma2=r2[:, 1],
-                 beta2=r2[:, 0])
-    if expand:
-        z, (mean0, _, _), inv0 = sv["z"], sv["bn0"], sv["inv0"]
-        _, r0 = c.sums(dw, z, mean0, inv0)
-        k1 = p.gamma0 * inv0
-        alpha0, beta0r = k1 * r0[:, 0] / c.cnt, k1 * r0[:, 1] / c.cnt
-        _check(lib.mbc_bn_bwd(_ptr(dw), _ptr(z), _ptr(mean0), _ptr(inv0), _ptr(k1),
-                              _ptr(alpha0), _ptr(beta0r), _ptr(dw), *c.dims(E), c.stream),
-               "bn_bwd")
-        dwe = c.pgemm(x, dw).sum(dim=0)
-        dxf = c.mix(dw, p.we.t().contiguous())
-        grads.update(we=dwe, gamma0=r0[:, 1], beta0=r0[:, 0])
-        dparams = MBConv6Params(**grads)
-    else:
-        dxf = dw
-        dparams = MBConvParams(**grads)
+    dxf = c.empty(c.N, E, c.H, c.W)
+    _check(lib.mbc_dw_bwd_x(_ptr(dd), _ptr(k9), _ptr(dxf), c.N, E, c.H, c.W, valid_h, valid_w,
+                            c.stream), "dw_bwd_x")
+    dparams = MBConvParams(dw_kernel=ddw, gamma1=r1[:, 1], beta1=r1[:, 0], se_w1=dse_w1,
+                           se_b1=dse_b1, se_w2=dse_w2, se_b2=dse_b2, wp=dwp, gamma2=r2[:, 1],
+                           beta2=r2[:, 0])
     dx = torch.empty_like(x)
     res = g if C2 == c.C else None
     _check(lib.mbc_finish(_ptr(dxf), _ptr(res), c.bf16, _ptr(dx), *c.dims(c.C), c.stream),
@@ -334,24 +471,33 @@ class _FusedMBConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, delta, valid_h, valid_w, eps, form, *flat):
         p = form(*flat)
-        with torch.cuda.device(x.device):
-            out, stats, saved = _forward_kernels(_lib(), x, p, delta, valid_h, valid_w, eps)
+        ctx.meta = (valid_h, valid_w, eps, form, len(flat))
+        if form is MBConv6Params:
+            out, stats, kept = _e6_forward(x, p, delta, valid_h, valid_w, eps)
+            ctx.save_for_backward(x, delta, *flat, *stats, *kept)
+        else:
+            with torch.cuda.device(x.device):
+                out, stats, saved = _forward_kernels(_lib(), x, p, delta, valid_h, valid_w, eps)
+            # The fp32 intermediates go through save_for_backward too, so
+            # saved-tensor hooks (checkpointing, offload) see them.
+            ctx.save_for_backward(x, delta, *flat, *(saved[k] for k in _SAVED))
         launches.add(f"mbconv6.{_form_name(form)}.forward")
-        # The fp32 intermediates go through save_for_backward too, so saved-tensor
-        # hooks (checkpointing, offload) see them.
-        ctx.meta = (valid_h, valid_w, form, len(flat))
-        ctx.save_for_backward(x, delta, *flat, *saved["bn0"], *(saved[k] for k in _SAVED))
         ctx.mark_non_differentiable(*stats)
         return (out, *stats)
 
     @staticmethod
     def backward(ctx, g, *_stat_grads):
-        valid_h, valid_w, form, nflat = ctx.meta
+        valid_h, valid_w, eps, form, nflat = ctx.meta
         x, delta, *rest = ctx.saved_tensors
         p = form(*rest[:nflat])
-        saved = dict(zip(_SAVED, rest[nflat + 3:]), bn0=tuple(rest[nflat:nflat + 3]))
-        with torch.cuda.device(x.device):
-            dx, dp = _backward_kernels(_lib(), x, p, delta, valid_h, valid_w, g, saved)
+        g = g.contiguous()
+        if form is MBConv6Params:
+            stats, kept = rest[nflat:nflat + 6], rest[nflat + 6:]
+            dx, dp = _e6_backward(x, p, delta, valid_h, valid_w, eps, g, stats, kept)
+        else:
+            with torch.cuda.device(x.device):
+                dx, dp = _backward_kernels(_lib(), x, p, delta, valid_h, valid_w, g,
+                                           dict(zip(_SAVED, rest[nflat:])))
         launches.add(f"mbconv6.{_form_name(form)}.backward")
         return (dx, None, None, None, None, None, *dp)
 
@@ -370,9 +516,10 @@ def _validate(x, p, delta, valid_h, valid_w):
     N, C, H, W = x.shape
     if not (0 < valid_h <= H and 0 < valid_w <= W):
         raise ValueError(f"valid region {valid_h}x{valid_w} outside {H}x{W}")
-    E = p.we.shape[1] if isinstance(p, MBConv6Params) else C
+    expand = isinstance(p, MBConv6Params)
+    E = p.we.shape[1] if expand else C
     expect = {"dw_kernel": (E, 3, 3), "wp": (E, p.wp.shape[1])}
-    if isinstance(p, MBConv6Params):
+    if expand:
         expect["we"] = (C, E)
     for name, shape in expect.items():
         if tuple(getattr(p, name).shape) != shape:
@@ -383,7 +530,11 @@ def _validate(x, p, delta, valid_h, valid_w):
     if (delta.shape != (N,) or delta.dtype != torch.float32 or delta.device != x.device
             or not delta.is_contiguous()):
         raise ValueError("delta must be a contiguous float32 (N,) tensor on x's device")
-    if W > _lib().mbc_dw_max_width():
+    if expand:
+        if max(C, p.wp.shape[1]) > E6_MAX_C or E > E6_MAX_E:
+            raise ValueError(f"the expanding form's kernels take C, C2 <= {E6_MAX_C} and "
+                             f"E <= {E6_MAX_E}, got C={C}, C2={p.wp.shape[1]}, E={E}")
+    elif W > _lib().mbc_dw_max_width():
         raise ValueError(f"width {W} exceeds the depthwise kernels' limit")
 
 

@@ -96,6 +96,88 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
         fused_mbconv_e6(x, type(p)(*[t.cpu() for t in p]), delta, H, W)
 
 
+# (C, E, C2, H, W, valid_h, valid_w): edges the expanding form's tiles must
+# mask. C and E not multiples of 16 (the mma steps), two 32-column tiles with
+# a ragged valid width and a valid height off the 8-row tile, C2 != C (no
+# residual), and block 4's channel widths on a small image.
+E6_EDGES = [(6, 36, 6, 24, 40, 21, 37), (6, 36, 4, 24, 40, 21, 37),
+            (40, 240, 40, 16, 40, 11, 38)]
+
+
+def _e6_case(c, e, c2, h, w, vh, vw, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    f = lambda *s: 0.5 * torch.randn(*s, generator=g)
+    sq = max(1, c // 4)
+    p = MBConv6Params(we=f(c, e), gamma0=1 + 0.1 * f(e), beta0=0.1 * f(e), dw_kernel=f(e, 3, 3),
+                      gamma1=1 + 0.1 * f(e), beta1=0.1 * f(e), se_w1=f(e, sq), se_b1=0.1 * f(sq),
+                      se_w2=f(sq, e), se_b2=0.1 * f(e), wp=f(e, c2) * 2 / e ** 0.5,
+                      gamma2=1 + 0.1 * f(c2), beta2=0.1 * f(c2))
+    x = torch.zeros(N, c, h, w)
+    x[:, :, :vh, :vw] = torch.randn(N, c, vh, vw, generator=g)
+    gout = torch.zeros(N, c2, h, w)
+    gout[:, :, :vh, :vw] = torch.randn(N, c2, vh, vw, generator=g)
+    p = MBConv6Params(*[t.cuda() for t in p])
+    return x.cuda(), p, torch.tensor([1.25, 0.0], device="cuda"), gout.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", E6_EDGES)
+def test_cuda_e6_form_masks_the_tiles_edges(shape, dtype):
+    """The expanding form's recompute kernels (csrc/mbconv6_e6.cu) against the
+    plain version where the tiles and the mma steps have ragged edges: out,
+    stats, zero pads, dx and every parameter gradient, at the tolerances of
+    test_cuda_kernel_matches_plain; delta drops the second image."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    c, e, c2, h, w, vh, vw = shape
+    x0, p0, delta, gout = _e6_case(c, e, c2, h, w, vh, vw)
+    runs = []
+    for fn in (fused_mbconv_e6, plain_fused_mbconv_e6):
+        x = x0.to(dt).clone().requires_grad_(True)
+        p = MBConv6Params(*[t.clone().requires_grad_(True) for t in p0])
+        out, stats = fn(x, p, delta, vh, vw)
+        out.backward(gout.to(dt))
+        torch.cuda.synchronize()
+        runs.append((out.detach().float().clone(), stats, x.grad.float().clone(),
+                     [t.grad for t in p]))
+    (ok, sk, dxk, gk), (op, sp, dxp, gp) = runs
+    bf16 = dtype == "bfloat16"
+    assert _rel(ok, op) < (1e-2 if bf16 else 1e-4)
+    assert ok[:, :, vh:].abs().max() == 0 and ok[:, :, :, vw:].abs().max() == 0
+    assert dxk[:, :, vh:].abs().max() == 0 and dxk[:, :, :, vw:].abs().max() == 0
+    for a, b in zip(sk, sp):
+        assert _rel(a, b) < 1e-4
+    assert _rel(dxk, dxp) < (1e-2 if bf16 else 1e-3)
+    for name, a, b in zip(MBConv6Params._fields, gk, gp):
+        assert _rel(a, b) < 1e-3, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_e6_backward_gives_the_same_bits_twice(dtype):
+    """No float atomics: two backward passes of the expanding form on the same
+    inputs give the same bits in dx and every parameter gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from mammo_clip_tpu_torch.ops.mbconv6 import _e6_backward, _e6_forward
+
+    c, e, c2, h, w, vh, vw = E6_EDGES[2]
+    x, p, delta, gout = _e6_case(c, e, c2, h, w, vh, vw, seed=1)
+    dt = getattr(torch, dtype)
+    x, gout = x.to(dt), gout.to(dt)
+    _, stats, kept = _e6_forward(x, p, delta, vh, vw, 1e-3)
+    runs = [_e6_backward(x, p, delta, vh, vw, 1e-3, gout, stats, kept) for _ in range(2)]
+    torch.cuda.synchronize()
+    (dx1, g1), (dx2, g2) = runs
+    assert torch.equal(dx1, dx2)
+    for name, a, b in zip(MBConv6Params._fields, g1, g2):
+        assert torch.equal(a, b), name
+
+
 def _e1_case(c1, c2, h, w, seed=0):
     g = torch.Generator(device="cpu").manual_seed(seed)
     f = lambda *s: 0.5 * torch.randn(*s, generator=g)

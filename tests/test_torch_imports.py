@@ -38,7 +38,7 @@ def test_port_imports_without_jax_and_host_extras():
     for name in ("ops.mbconv6", "cli.pretrain", "train.trainer", "train.checkpoint",
                  "data.datamodule", "data.pipeline", "data.metadata", "utils.logging",
                  "ops.flash_attention", "ops.probes", "benchmarks.probe_flash_attention",
-                 "benchmarks.probe_mosaic", "benchmarks.layout_timing"):
+                 "benchmarks.probe_mosaic", "benchmarks.layout_timing", "benchmarks.e6_timing"):
         assert f"mammo_clip_tpu_torch.{name}" in mods
     assert len(mods) > 30
     code = textwrap.dedent(f"""

@@ -163,3 +163,134 @@ def test_padding_keeps_the_valid_region_and_aligns():
     assert (pick_h_pad(380), pick_w_pad(228)) == (384, 232)
     assert (pick_h_pad(760), pick_w_pad(456)) == (760, 456)
     assert pick_h_pad(1) == 8 and pick_w_pad(9) == 16
+
+
+# ----------------------------------------------------------------------------
+# the expanding form's analytic combinations (ops/mbconv6.py), in float64
+# ----------------------------------------------------------------------------
+
+
+def _chain64(seed=1, n=2, c=5, e=12, c2=5, h=9, w=7):
+    """The expanding block's reference math in float64 with its intermediates
+    kept (the body of mbconv_e6_reference, opened up), and the cotangent of a
+    random linear loss: x, params, the intermediates and their gradients."""
+    from mammo_clip_tpu_torch.ops.mbconv import _bn, _se_gate, batch_stats, depthwise3x3
+
+    r = np.random.default_rng(seed)
+    f = lambda *s: torch.tensor(r.standard_normal(s) * 0.5, dtype=torch.float64,
+                                requires_grad=True)
+    sq = 2
+    p = MBConv6Params(we=f(c, e), gamma0=f(e), beta0=f(e), dw_kernel=f(e, 3, 3), gamma1=f(e),
+                      beta1=f(e), se_w1=f(e, sq), se_b1=f(sq), se_w2=f(sq, e), se_b2=f(e),
+                      wp=f(e, c2), gamma2=f(c2), beta2=f(c2))
+    x = f(n, c, h, w)
+    delta = torch.tensor([1.25, 0.5], dtype=torch.float64)
+    z = torch.einsum("nchw,ce->nehw", x, p.we)
+    mean0, var0 = batch_stats(z)
+    zhat0 = _bn(z, mean0, var0, p.gamma0, p.beta0, EPS)
+    zhat0.retain_grad()
+    d = depthwise3x3(torch.nn.functional.silu(zhat0), p.dw_kernel)
+    mean1, var1 = batch_stats(d)
+    dhat = _bn(d, mean1, var1, p.gamma1, p.beta1, EPS)
+    dhat.retain_grad()
+    v = torch.nn.functional.silu(dhat)
+    s_mean = v.mean(dim=(2, 3))
+    s_mean.retain_grad()
+    gate, _ = _se_gate(s_mean, p)
+    gate.retain_grad()
+    u = v * gate[:, :, None, None]
+    u.retain_grad()
+    y = torch.einsum("nehw,ec->nchw", u, p.wp)
+    mean2, var2 = batch_stats(y)
+    out = delta[:, None, None, None] * _bn(y, mean2, var2, p.gamma2, p.beta2, EPS) + x
+    g = torch.tensor(r.standard_normal(out.shape), dtype=torch.float64)
+    (out * g).sum().backward()
+    return dict(x=x, p=p, g=g, z=z, mean0=mean0, var0=var0, zhat0=zhat0, d=d, mean1=mean1,
+                var1=var1, dhat=dhat, v=v, s_mean=s_mean, gate=gate, u=u, delta=delta)
+
+
+def test_bn0_stats_from_x_moments_match_batch_stats():
+    """bn0's statistics from x's first two moments equal batch_stats of z = x We."""
+    from mammo_clip_tpu_torch.ops.mbconv import batch_stats
+
+    k = _chain64()
+    x, we = k["x"].detach(), k["p"].we.detach()
+    sx, sxx = x.sum(dim=(0, 2, 3)), torch.einsum("nchw,ndhw->cd", x, x)
+    mean0, var0 = mbconv6.bn0_stats(sx, sxx, we, x.shape[0] * x.shape[2] * x.shape[3])
+    ref_mean, ref_var = batch_stats(torch.einsum("nchw,ce->nehw", x, we))
+    np.testing.assert_allclose(mean0.numpy(), ref_mean.numpy(), rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(var0.numpy(), ref_var.numpy(), rtol=1e-10, atol=1e-12)
+
+
+def test_dwe_and_dx_from_t3_and_moments_match_autograd():
+    """dWe from T3 = sum x (x) gamma0 inv0 dz0hat and x's moments, and the chain
+    part of dx from dxa = (gamma0 inv0 dz0hat) We^T, M and k, equal autograd's
+    dWe and dx (less the residual) of the reference, in float64."""
+    k = _chain64()
+    x, p = k["x"].detach(), k["p"]
+    cnt = x.shape[0] * x.shape[2] * x.shape[3]
+    inv0 = torch.rsqrt(k["var0"].detach() + EPS)
+    mean0, gamma0 = k["mean0"].detach(), p.gamma0.detach()
+    dz0hat = k["zhat0"].grad
+    zbar0 = (k["z"].detach() - mean0[None, :, None, None]) * inv0[None, :, None, None]
+    t = gamma0[None, :, None, None] * inv0[None, :, None, None] * dz0hat
+    alpha0 = gamma0 * inv0 * dz0hat.sum(dim=(0, 2, 3)) / cnt
+    beta0r = gamma0 * inv0 * (dz0hat * zbar0).sum(dim=(0, 2, 3)) / cnt
+    t3 = torch.einsum("nchw,nehw->ce", x, t)
+    sx, sxx = x.sum(dim=(0, 2, 3)), torch.einsum("nchw,ndhw->cd", x, x)
+    we = p.we.detach()
+    dwe = mbconv6.dwe_from_moments(t3, sx, sxx, we, mean0, inv0, alpha0, beta0r)
+    np.testing.assert_allclose(dwe.numpy(), p.we.grad.numpy(), rtol=1e-9, atol=1e-10)
+    m, kv = mbconv6.dx_terms(we, mean0, inv0, alpha0, beta0r)
+    dxa = torch.einsum("nehw,ce->nchw", t, we)
+    dx = dxa - torch.einsum("ndhw,dc->nchw", x, m) + kv[None, :, None, None]
+    np.testing.assert_allclose(dx.numpy(), (k["x"].grad - k["g"]).numpy(), rtol=1e-9,
+                               atol=1e-10)
+
+
+def test_bn1_backward_sums_from_the_sweep_sums_match_autograd():
+    """bn1's backward sums from the backward sweep's per-image sums and the SE
+    cotangent, and the SE cotangent sum v du itself, equal autograd's."""
+    k = _chain64()
+    hw = k["x"].shape[2] * k["x"].shape[3]
+    d, dhat, v = k["d"].detach(), k["dhat"].detach(), k["v"].detach()
+    du = k["u"].grad
+    sg = torch.sigmoid(dhat)
+    sp = sg * (1 + dhat * (1 - sg))
+    dbar = (d - k["mean1"].detach()[None, :, None, None]) * torch.rsqrt(
+        k["var1"].detach() + EPS)[None, :, None, None]
+    s = lambda a: a.sum(dim=(2, 3))
+    q = torch.stack([s(v * du), s(du * sp), s(sp), s(du * sp * dbar), s(sp * dbar)], dim=1)
+    np.testing.assert_allclose(q[:, 0].numpy(), k["gate"].grad.numpy(), rtol=1e-10, atol=1e-12)
+    gate = k["gate"].detach()
+    # ds_mean's cotangent through the SE MLP alone: the gate's gradient path
+    ds = torch.autograd.grad(mbconv6._se_gate(k["s_mean"], k["p"])[0], k["s_mean"],
+                             k["gate"].grad)[0]
+    sdb, sdbd = mbconv6.bn1_backward_sums(q, gate, ds / hw)
+    db1h = k["dhat"].grad
+    np.testing.assert_allclose(sdb.detach().numpy(), db1h.sum(dim=(0, 2, 3)).numpy(),
+                               rtol=1e-9, atol=1e-11)
+    np.testing.assert_allclose(sdbd.detach().numpy(), (db1h * dbar).sum(dim=(0, 2, 3)).numpy(),
+                               rtol=1e-9, atol=1e-11)
+
+
+@pytest.mark.parametrize("src,prefix", [("mbconv6_e6.cu", "m6_"), ("mbconv6.cu", "mbc_")])
+def test_mbconv6_launcher_signatures_match_the_c_interface(src, prefix):
+    """Each C launcher of the MBConv sources takes as many arguments as its
+    ctypes signature declares; m6_pass takes the device index and the stream
+    last, for cuda_lib.launcher."""
+    import re
+
+    from mammo_clip_tpu_torch.ops import cuda_lib
+
+    text = (cuda_lib.CSRC_DIR / src).read_text()
+    protos = dict(re.findall(rf"^int ({prefix}\w+)\(([^)]*)\)", text, re.M))
+    assert set(protos) == {k for k in cuda_lib.SIGNATURES if k.startswith(prefix)}
+    for name, params in protos.items():
+        params = [q.strip() for q in params.split(",") if q.strip()]
+        assert len(params) == len(cuda_lib.SIGNATURES[name]), name
+    if prefix == "m6_":
+        last = [" ".join(q.split()) for q in protos["m6_pass"].split(",")][-2:]
+        assert last == ["int device", "void* stream"]
+        assert len(mbconv6._PTRS) == 33 == cuda_lib.SIGNATURES["m6_pass"].count(
+            cuda_lib.ctypes.c_void_p) - 1
