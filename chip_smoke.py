@@ -14,19 +14,21 @@ Phases, each reported on its own lines:
      residual, 760x456; N=2), forward and backward, in fp32 and bf16, each max
      |diff| beside its tolerance;
   4. kernel times (CUDA events) beside the plain version's and the card's bound;
-     for the expanding form at block 4 (bf16, csrc/mbconv6_e6.cu) also its
-     device time per pass (torch.profiler), the bytes one forward keeps for its
-     backward, the kernels one forward and one backward launch (the library's
-     own and all, by torch.profiler), each new kernel's registers, shared and
-     local memory, spill stores and blocks per SM, and its HMMA and atomic
-     counts in the SASS (it fails if a kernel with a channel product has no
-     HMMA or any of them has an atomic; the SASS goes to chiprun_out/), and
-     two bf16 backward passes on the same inputs, which must give the same
-     bits; with ``--parent DIR`` (an older checkout of the port), the old and
-     this package's e6 form timed in turns through their public wrappers
-     (``benchmarks/e6_timing.py --turns``: old, new, new, old processes) with
-     the compat slice's peak memory in the first old and new processes, and
-     the e6 rows of the kernels line carry the old ``earlier_ms``;
+     for each form at each shape (bf16; both forms run the passes of
+     csrc/mbconv6_e6.cu) also its device time per pass (torch.profiler), the
+     bytes one forward keeps for its backward (it fails if an e=1 call keeps
+     64 KB or more), the kernels one forward and one backward launch (the
+     library's own and all, by torch.profiler), each of the form's kernels'
+     registers, shared and local memory, spill stores and blocks per SM, and
+     its HMMA and atomic counts in the SASS (it fails if a kernel with a
+     channel product has no HMMA or any kernel has an atomic; the SASS goes to
+     chiprun_out/), and two bf16 backward passes on the same inputs, which must
+     give the same bits; with ``--parent DIR`` (an older checkout of the port),
+     the old and this package's block timed in turns at each shape through
+     their public wrappers (``benchmarks/e6_timing.py --turns --case``: old,
+     new, new, old processes), with the compat slice's peak memory in the
+     first old and new processes of block 4's turns, and the fused rows of the
+     kernels line carry the old ``earlier_ms``;
   5. a small-input reference check (tiny CLIP step on the card with the kernels
      against the same step on the CPU with the plain version), then the slice:
      the full-width compat B5 CLIP (B5 at 1520x912, BERT-base, 256 tokens,
@@ -264,34 +266,34 @@ def time_ms(fn, reps=10, warmup=2):
     return t0.elapsed_time(t1) / reps
 
 
-def time_case(case):
-    """Phase 4 (bf16, the main path's type): forward and backward ms of the
-    kernels (the expanding form's passes, or the e=1 form's stage kernels) and
-    of the plain version."""
+def case_fns(case):
+    """(forward, backward) of the case's form through its pass sequence
+    (``_e6_forward`` / ``_e6_backward`` or ``_e1_forward`` / ``_e1_backward``),
+    bf16, the backward on one forward's statistics and kept vectors."""
     import torch
 
-    from mammo_clip_tpu_torch.ops import cuda_lib
-    from mammo_clip_tpu_torch.ops.mbconv6 import (
-        _backward_kernels,
-        _e6_backward,
-        _e6_forward,
-        _forward_kernels,
-        plain_fused_mbconv_e6,
-    )
+    from mammo_clip_tpu_torch.ops import mbconv6
+
+    fwd_fn, bwd_fn = ((mbconv6._e6_forward, mbconv6._e6_backward) if case.form == "e6"
+                      else (mbconv6._e1_forward, mbconv6._e1_backward))
+    x, g = case.x.to(torch.bfloat16), case.gout.to(torch.bfloat16)
+    args = (x, case.params, case.delta, case.vh, case.vw, 1e-3)
+    _, stats, kept = fwd_fn(*args)
+    return (lambda: fwd_fn(*args)), (lambda: bwd_fn(*args, g, stats, kept))
+
+
+def time_case(case):
+    """Phase 4 (bf16, the main path's type): forward and backward ms of the
+    form's passes and of the plain version."""
+    import torch
+
+    from mammo_clip_tpu_torch.ops.mbconv6 import plain_fused_mbconv_e6
 
     x = case.x.to(torch.bfloat16)
     g = case.gout.to(torch.bfloat16)
     p = case.params
     args = (x, p, case.delta, case.vh, case.vw, 1e-3)
-    if case.form == "e6":
-        fwd = lambda: _e6_forward(*args)
-        _, stats, kept = fwd()
-        bwd = lambda: _e6_backward(*args, g, stats, kept)
-    else:
-        lib = cuda_lib.load()
-        fwd = lambda: _forward_kernels(lib, *args)
-        _, _, saved = fwd()
-        bwd = lambda: _backward_kernels(lib, x, p, case.delta, case.vh, case.vw, g, saved)
+    fwd, bwd = case_fns(case)
     with torch.no_grad():
         k_fwd, k_bwd = time_ms(fwd), time_ms(bwd)
         p_fwd = time_ms(lambda: plain_fused_mbconv_e6(*args))
@@ -340,9 +342,13 @@ def kernel_phases(seed):
             kernels.append(dict(case=case.name, form=case.form, direction=direction,
                                 err=errs[case.name, "bfloat16"], ms=ms, plain_ms=plain,
                                 bound_ms=bound_ms, bound_by=bound_by))
+    from mammo_clip_tpu_torch.ops import cuda_lib
     from mammo_clip_tpu_torch.ops.mbconv6 import fused_mbconv_e6
 
-    e6_report(cases[0])
+    sass = library_report(cuda_lib.build_info.path, cuda_lib.build_info.ptxas, e6_label,
+                          "mbconv6_e6.sass")
+    for case in cases:
+        form_report(case, sass)
     e6_e1_form = {c.name: (c.times, held_bytes(fused_mbconv_e6, c)) for c in cases
                   if c.form == "e1"}
     return kernels, e6_e1_form
@@ -350,101 +356,135 @@ def kernel_phases(seed):
 
 def e6_label(mangled):
     """'sweep<bf16,8,3>', 'bwd_x<float,4>', 'bn0', 'sum_blocks' for a kernel of
-    csrc/mbconv6_e6.cu, from its mangled name; None for any other kernel."""
+    csrc/mbconv6_e6.cu, from its mangled name, with ',e1' last for the e=1
+    form's instances ('sweep<bf16,8,3,e1>'); None for any other kernel."""
     if "sum_blocks_kernel" in mangled:
         return "sum_blocks"
-    m = re.search(r"\d(sweep|bwd_v|bwd_x|moments|out|dx|prep|bn0)_kernel(I.*?EE)?.*P6", mangled)
+    m = re.search(r"\d(sweep|bwd_v|bwd_x|moments|out|dx_pad|dx|prep1|prep|bn0)_kernel(I.*?EE)?.*P6",
+                  mangled)
     if not m:
         return None
     targs = m.group(2)
     if not targs:
         return m.group(1)
     args = ["bf16" if "bfloat16" in targs else "float"] + re.findall(r"Li(\d+)E", targs)
-    return f"{m.group(1)}<{','.join(args)}>"
+    return f"{m.group(1)}<{','.join(args + (['e1'] if 'Lb0E' in targs else []))}>"
 
 
-def e6_report(case):
-    """Phase 4's look at the expanding form at block 4 in bf16: device time per
-    pass, held bytes, kernels per call, each kernel's resources and SASS, and a
-    bit-identical backward."""
+# A form's kernels in e6_label's names: the e6 form's have no ',e1' (its pass
+# kernels and the moments, bn0, dx and prep kernels); the e=1 form's pass kernels
+# end in ',e1>' and it shares out and sum_blocks, and adds prep1 and dx_pad.
+def form_kernels(labels, form):
+    if form == "e6":
+        return [k for k in labels if not k.endswith(",e1>") and not k.startswith(("prep1", "dx_pad"))]
+    return [k for k in labels if k.endswith(",e1>") or k.startswith(("prep1", "dx_pad", "out",
+                                                                      "sum_blocks"))]
+
+
+def product_kernels(labels, form):
+    """The form's kernels with a channel product on the tensor cores: all pass
+    kernels but the F3 sweep (d -> v, no product); for the e=1 form also not
+    the F2 sweep (the stencil and d's sums)."""
+    kinds = ("sweep", "bwd_v", "bwd_x") + (("moments", "dx<") if form == "e6" else ())
+    out = []
+    for k in form_kernels(labels, form):
+        if not k.startswith(kinds):
+            continue
+        mode = re.match(r"sweep<\w+,\d+,(\d)", k)
+        if mode and mode.group(1) in (("2",) if form == "e6" else ("1", "2")):
+            continue
+        out.append(k)
+    return out
+
+
+def form_report(case, sass):
+    """Phase 4's look at one form at one shape in bf16: device time per pass,
+    held bytes, kernels per call, the form's kernels' resources and SASS
+    (``sass``: library_report's), and a bit-identical backward."""
     import ctypes
 
     import torch
 
     from mammo_clip_tpu_torch.benchmarks.e6_timing import kernels_of
     from mammo_clip_tpu_torch.ops import cuda_lib
-    from mammo_clip_tpu_torch.ops.mbconv6 import _e6_backward, _e6_forward, fused_mbconv_e6
+    from mammo_clip_tpu_torch.ops.mbconv6 import fused_mbconv_e6
 
-    x, g = case.x.to(torch.bfloat16), case.gout.to(torch.bfloat16)
-    args = (x, case.params, case.delta, case.vh, case.vw, 1e-3)
-    fwd = lambda: _e6_forward(*args)
-    _, stats, kept = fwd()
-    bwd = lambda: _e6_backward(*args, g, stats, kept)
-    say(f"[e6 passes] {case.name} bf16, device us per forward: " + pass_breakdown(fwd))
-    say(f"[e6 passes] {case.name} bf16, device us per backward: " + pass_breakdown(bwd))
+    tag = "e6" if case.form == "e6" else "e6 e=1"
+    fwd, bwd = case_fns(case)
+    say(f"[{tag} passes] {case.name} bf16, device us per forward: " + pass_breakdown(fwd))
+    say(f"[{tag} passes] {case.name} bf16, device us per backward: " + pass_breakdown(bwd))
     (hf, af), (hb, ab) = kernels_of(fwd), kernels_of(bwd)
-    say(f"[e6 launches] {case.name}: kernels per forward {hf} of the library, {af} in all; "
+    say(f"[{tag} launches] {case.name}: kernels per forward {hf} of the library, {af} in all; "
         f"per backward {hb} of the library, {ab} in all (torch.profiler)")
-    say(f"[e6 memory] {case.name} bf16: held from forward to backward beyond x and the "
-        f"outputs: {held_bytes(fused_mbconv_e6, case)} B")
+    held = held_bytes(fused_mbconv_e6, case)
+    say(f"[{tag} memory] {case.name} bf16: held from forward to backward beyond x and the "
+        f"outputs: {held} B")
+    if case.form == "e1" and held >= 65536:
+        raise SmokeFailure(f"{case.name}: the e=1 form keeps {held} B from forward to backward")
     first, second = bwd(), bwd()
     torch.cuda.synchronize()
     a, b = [first[0], *first[1]], [second[0], *second[1]]
     same = [torch.equal(u, v) for u, v in zip(a, b)]
-    say(f"[e6 check] {case.name} bf16 backward twice on the same inputs: dx and the 13 "
-        f"parameter gradients bit-identical: {all(same)}")
+    say(f"[{tag} check] {case.name} bf16 backward twice on the same inputs: dx and the "
+        f"{len(a) - 1} parameter gradients bit-identical: {all(same)}")
     if not all(same):
-        raise SmokeFailure(f"e6 backward is not deterministic: {same}")
+        raise SmokeFailure(f"{case.name} backward is not deterministic: {same}")
 
     lib = cuda_lib.load()
+    expand = int(case.form == "e6")
     info = {}
     for name, pid in (("moments", 0), ("sweep F2", 1), ("sweep F3", 2), ("sweep F4", 3),
-                      ("sweep B1", 4), ("bwd_v", 6), ("bwd_x", 7)):
+                      ("sweep B1", 4), ("bwd_v", 6), ("bwd_x", 7))[1 - expand:]:
         smem, blocks = ctypes.c_int(), ctypes.c_int()
-        rc = lib.m6_kernel_info(pid, 1, ctypes.byref(smem), ctypes.byref(blocks))
+        rc = lib.m6_kernel_info(pid, expand, 1, case.C, ctypes.byref(smem), ctypes.byref(blocks))
         if rc:
             raise SmokeFailure(f"m6_kernel_info({name}) failed with CUDA error {rc}")
         info[name] = (smem.value, blocks.value)
-    say("[e6 kernels] bf16 dynamic shared memory B, blocks per SM: " + ", ".join(
+    say(f"[{tag} kernels] bf16 dynamic shared memory B, blocks per SM: " + ", ".join(
         f"{k} {v[0]} / {v[1]}" for k, v in info.items()))
-    usage, counts, spills = library_report(cuda_lib.build_info.path, cuda_lib.build_info.ptxas,
-                                           e6_label, "mbconv6_e6.sass")
-    for label in sorted(counts):
+    usage, counts, spills = sass
+    labels = form_kernels(counts, case.form)
+    for label in sorted(labels):
         u = usage.get(label, {})
-        say(f"[e6 kernels] {label}: REG {u.get('REG')}, SHARED {u.get('SHARED')}, STACK "
+        say(f"[{tag} kernels] {label}: REG {u.get('REG')}, SHARED {u.get('SHARED')}, STACK "
             f"{u.get('STACK')}, LOCAL {u.get('LOCAL')}, spill stores "
             f"{spills.get(label, 'not read (built earlier)')} B, HMMA {counts[label][0]}, "
             f"atomics {counts[label][1]}")
-    # every kernel but the elementwise, reduction and setup ones, and the F3
-    # sweep (sweep<.,.,2>: d read back, v and its sums, no product)
-    products = [k for k in counts if not k.startswith(("out", "sum_blocks", "prep", "bn0"))
-                and not (k.startswith("sweep") and k.endswith(",2>"))]
+    products = product_kernels(counts, case.form)
     missing = [k for k in products if counts[k][0] == 0]
-    atomics = [k for k, (_, n) in counts.items() if n]
-    if len(products) != 14 or missing or atomics:
-        raise SmokeFailure(f"e6 SASS: kernels with a channel product {sorted(products)}, "
+    atomics = [k for k in labels if counts[k][1]]
+    if len(products) != (14 if expand else 8) or missing or atomics:
+        raise SmokeFailure(f"{case.name} SASS: kernels with a channel product {sorted(products)}, "
                            f"without HMMA {missing}, with atomics {atomics}")
 
 
 def parent_turns(parent):
-    """The parent's e6 form against this one's at block 4 (bf16), through their
-    public wrappers, old, new, new, old, one process each
-    (``benchmarks/e6_timing.py --turns``); the first old and new processes also
-    run the compat slice for its peak memory."""
+    """The parent's fused block against this one's at each phase-4 shape (bf16),
+    through their public wrappers, old, new, new, old, one process each
+    (``benchmarks/e6_timing.py --turns --case``); the first old and new
+    processes of block 4's turns also run the compat slice for its peak
+    memory. Returns {case: {forward, backward}: the old ms} and the peaks."""
     from mammo_clip_tpu_torch.benchmarks import e6_timing
 
-    lines = e6_timing.turns(parent.resolve(), with_slice=True)
-    side = lambda s: [ln for ln in lines if ln["side"] == s]
-    mid = lambda s, k: sum(ln[k] for ln in side(s)) / len(side(s))
-    for s in ("old", "new"):
-        say(f"[e6 turns] {s}: fwd ms {[round(ln['fwd_ms'], 4) for ln in side(s)]}, bwd ms "
-            f"{[round(ln['bwd_ms'], 4) for ln in side(s)]}, held B {side(s)[0]['held_bytes']}, "
-            f"kernels per forward {side(s)[0]['hand_fwd']} of the library / "
-            f"{side(s)[0]['all_fwd']} in all, per backward {side(s)[0]['hand_bwd']} / "
-            f"{side(s)[0]['all_bwd']}, slice peaks B {side(s)[0]['slice_peak_bytes']}")
-    return dict(forward=mid("old", "fwd_ms"), backward=mid("old", "bwd_ms"),
-                old_peak=max(side("old")[0]["slice_peak_bytes"]),
-                new_peak=max(side("new")[0]["slice_peak_bytes"]))
+    earlier = {}
+    for case in ("block4_e6", "block0_e1", "block1_e1"):
+        lines = e6_timing.turns(parent.resolve(), with_slice=case == "block4_e6", case=case)
+        side = lambda s: [ln for ln in lines if ln["side"] == s]
+        mid = lambda s, k: sum(ln[k] for ln in side(s)) / len(side(s))
+        for s in ("old", "new"):
+            peaks = side(s)[0].get("slice_peak_bytes")
+            say(f"[turns] {case} {s}: fwd ms {[round(ln['fwd_ms'], 4) for ln in side(s)]}, bwd ms "
+                f"{[round(ln['bwd_ms'], 4) for ln in side(s)]}, held B {side(s)[0]['held_bytes']} "
+                f"(requested {side(s)[0]['held_requested_bytes']}, saved "
+                f"{side(s)[0]['saved_bytes']}), kernels per forward "
+                f"{side(s)[0]['hand_fwd']} of the library / {side(s)[0]['all_fwd']} in all, per "
+                f"backward {side(s)[0]['hand_bwd']} / {side(s)[0]['all_bwd']}"
+                + (f", slice peaks B {peaks}" if peaks else ""))
+        earlier[case] = dict(forward=mid("old", "fwd_ms"), backward=mid("old", "bwd_ms"))
+        if case == "block4_e6":
+            earlier["old_peak"] = max(side("old")[0]["slice_peak_bytes"])
+            earlier["new_peak"] = max(side("new")[0]["slice_peak_bytes"])
+    return earlier
 
 
 # --------------------------------------------------------------------------
@@ -672,7 +712,7 @@ def short_name(name):
 
 def pass_name(name):
     """short_name, with the pass of csrc/mbconv6_e6.cu's sweep kernel named."""
-    m = re.search(r"sweep_kernel<[^>]*?(\d+)>", name)
+    m = re.search(r"sweep_kernel<[^>]*?(\d+), (?:true|false)>", name)
     return f"sweep_{dict(enumerate(('', 'F2', 'F3', 'F4', 'B1')))[int(m.group(1))]}" if m \
         else short_name(name)
 
@@ -1290,8 +1330,7 @@ def main(argv=None) -> int:
         lines.append({
             "name": f"fused_mbconv_e6[{k['case']}].{direction}",
             "route": "cuda",
-            "source": "mammo_clip_tpu_torch/csrc/"
-                      + ("mbconv6_e6.cu" if k["form"] == "e6" else "mbconv6.cu"),
+            "source": "mammo_clip_tpu_torch/csrc/mbconv6_e6.cu",
             "replaces": "mammo_clip_tpu/ops/mbconv6_pallas.py:"
                         + ("536" if direction == "forward" else "702"),
             "launches": cli["counts"][f"mbconv6.{k['form']}.{direction}"],
@@ -1299,8 +1338,7 @@ def main(argv=None) -> int:
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
         })
-        if k["form"] == "e6":
-            lines[-1]["earlier_ms"] = earlier[direction] if earlier else None
+        lines[-1]["earlier_ms"] = earlier[k["case"]][direction] if earlier else None
     for k in e1_rows:
         direction = k["direction"]
         err_out, err_dx = k["err"]

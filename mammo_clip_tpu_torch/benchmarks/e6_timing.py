@@ -1,17 +1,21 @@
-"""Time the expanding (e6) form of ``fused_mbconv_e6`` at B5's block 4, and the
-compat slice's peak memory, through the public API only, so that an older
-checkout of the port is measured the same way.
+"""Time ``fused_mbconv_e6`` at one of B5's main-path shapes, and the compat
+slice's peak memory, through the public API only, so that an older checkout of
+the port is measured the same way.
 
-    python mammo_clip_tpu_torch/benchmarks/e6_timing.py [--root DIR] [--slice]
-    python mammo_clip_tpu_torch/benchmarks/e6_timing.py --turns OLD_ROOT [--slice]
+    python mammo_clip_tpu_torch/benchmarks/e6_timing.py [--root DIR] [--case C] [--slice]
+    python mammo_clip_tpu_torch/benchmarks/e6_timing.py --turns OLD_ROOT [--case C] [--slice]
 
 One run prints one JSON line for the package under ``--root`` (default: this
-checkout): block 4 (N=2, C=C2=40, E=240, 380x228 valid in 384x232, bf16,
-seeded inputs), ``fwd_ms`` and ``bwd_ms`` (CUDA events, median of 5 trials of
+checkout) at ``--case`` (bf16, N=2, seeded inputs): ``block4_e6`` (the default:
+the expanding form, C=C2=40, E=240, 380x228 valid in 384x232), ``block0_e1``
+(the e=1 form, 48 -> 24, 760x456) or ``block1_e1`` (24 -> 24 with the
+residual, 760x456); ``fwd_ms`` and ``bwd_ms`` (CUDA events, median of 5 trials of
 10 calls after a second of forward calls and 2 warm-ups; the backward is ``torch.autograd.grad`` through the
 wrapper with the graph kept), ``held_bytes`` (what one forward keeps allocated
-for its backward beyond out and the stats; ``saved_bytes``, the part of it in the
-tensors its autograd node saves), and the kernels one forward and one
+for its backward beyond out and the stats, as the caching allocator counts it,
+which rounds a large block such as out's up to whole 2 MiB;
+``held_requested_bytes``, the same in the bytes the tensors asked for;
+``saved_bytes``, the part in the tensors its autograd node saves), and the kernels one forward and one
 backward launch by torch.profiler: ``hand_*`` those of the package's own CUDA
 library, ``all_*`` every kernel (the torch ops between them too). With
 ``--slice`` it also runs 3 steps of the full-width compat B5 CLIP at batch 2
@@ -35,25 +39,34 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[2]
 
 
-def block4_case(seed=0):
+# case -> (form, C, C2, valid_h, valid_w)
+CASES = {"block4_e6": ("e6", 40, 40, 380, 228), "block0_e1": ("e1", 48, 24, 760, 456),
+         "block1_e1": ("e1", 24, 24, 760, 456)}
+
+
+def make_case(name="block4_e6", seed=0):
     import torch
 
+    from mammo_clip_tpu_torch.ops.mbconv import MBConvParams
     from mammo_clip_tpu_torch.ops.mbconv6 import MBConv6Params, pick_h_pad, pick_w_pad
 
-    N, C, E, vh, vw = 2, 40, 240, 380, 228
+    form, C, C2, vh, vw = CASES[name]
+    N, E = 2, 6 * C if form == "e6" else C
     H, W = pick_h_pad(vh), pick_w_pad(vw)
     g = torch.Generator(device="cuda").manual_seed(seed)
     f = lambda *s: 0.5 * torch.randn(*s, generator=g, device="cuda")
     sq = C // 4
-    p = MBConv6Params(we=f(C, E) / math.sqrt(C), gamma0=1 + 0.1 * f(E), beta0=0.1 * f(E),
-                      dw_kernel=f(E, 3, 3), gamma1=1 + 0.1 * f(E), beta1=0.1 * f(E),
-                      se_w1=f(E, sq) / math.sqrt(E), se_b1=0.1 * f(sq),
-                      se_w2=f(sq, E) / math.sqrt(sq), se_b2=0.1 * f(E),
-                      wp=f(E, C) / math.sqrt(E), gamma2=1 + 0.1 * f(C), beta2=0.1 * f(C))
+    lead = (dict(we=f(C, E) / math.sqrt(C), gamma0=1 + 0.1 * f(E), beta0=0.1 * f(E))
+            if form == "e6" else {})
+    p = dict(lead, dw_kernel=f(E, 3, 3), gamma1=1 + 0.1 * f(E), beta1=0.1 * f(E),
+             se_w1=f(E, sq) / math.sqrt(E), se_b1=0.1 * f(sq),
+             se_w2=f(sq, E) / math.sqrt(sq), se_b2=0.1 * f(E),
+             wp=f(E, C2) / math.sqrt(E), gamma2=1 + 0.1 * f(C2), beta2=0.1 * f(C2))
+    p = (MBConv6Params if form == "e6" else MBConvParams)(**p)
     x = torch.zeros(N, C, H, W, device="cuda")
     x[:, :, :vh, :vw] = torch.randn(N, C, vh, vw, generator=g, device="cuda")
-    gout = torch.zeros(N, C, H, W, device="cuda")
-    gout[:, :, :vh, :vw] = torch.randn(N, C, vh, vw, generator=g, device="cuda")
+    gout = torch.zeros(N, C2, H, W, device="cuda")
+    gout[:, :, :vh, :vw] = torch.randn(N, C2, vh, vw, generator=g, device="cuda")
     delta = torch.tensor([1.25, 1.0], device="cuda")
     return x.bfloat16(), p, delta, gout.bfloat16(), (vh, vw)
 
@@ -90,14 +103,14 @@ def kernels_of(fn):
     return sum("anonymous namespace" in n for n in names), len(names)
 
 
-def measure_block4():
+def measure(case):
     import torch
 
-    from mammo_clip_tpu_torch.ops.mbconv6 import MBConv6Params, fused_mbconv_e6
+    from mammo_clip_tpu_torch.ops.mbconv6 import fused_mbconv_e6
 
-    x, p, delta, gout, (vh, vw) = block4_case()
+    x, p, delta, gout, (vh, vw) = make_case(case)
     xr = x.clone().requires_grad_(True)
-    pr = MBConv6Params(*[t.clone().requires_grad_(True) for t in p])
+    pr = type(p)(*[t.clone().requires_grad_(True) for t in p])
     with torch.no_grad():
         fwd = lambda: fused_mbconv_e6(x, p, delta, vh, vw)
         t0 = time.perf_counter()
@@ -107,11 +120,13 @@ def measure_block4():
         fwd_ms = median_ms(fwd)
         hand_f, all_f = kernels_of(fwd)
     torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
+    requested = lambda: torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
+    base, base_req = torch.cuda.memory_allocated(), requested()
     out, stats = fused_mbconv_e6(xr, pr, delta, vh, vw)
     torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated() - base - sum(
-        t.numel() * t.element_size() for t in (out, *stats))
+    outputs = sum(t.numel() * t.element_size() for t in (out, *stats))
+    held = torch.cuda.memory_allocated() - base - outputs
+    held_requested = requested() - base_req - outputs
     before = {t.untyped_storage().data_ptr() for t in (xr, delta, *pr, out, *stats)}
     saved = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
              for t in out.grad_fn.saved_tensors}
@@ -119,7 +134,8 @@ def measure_block4():
     bwd = lambda: torch.autograd.grad(out, [xr, *pr], gout, retain_graph=True)
     bwd_ms = median_ms(bwd)
     hand_b, all_b = kernels_of(bwd)
-    return dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, held_bytes=held, saved_bytes=saved_bytes,
+    return dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, held_bytes=held, held_requested_bytes=held_requested,
+                saved_bytes=saved_bytes,
                 hand_fwd=hand_f, all_fwd=all_f,
                 hand_bwd=hand_b, all_bwd=all_b)
 
@@ -148,7 +164,7 @@ def slice_peaks(steps=3, seed=0):
     return peaks
 
 
-def run(root: Path, with_slice: bool) -> dict:
+def run(root: Path, with_slice: bool, case: str = "block4_e6") -> dict:
     sys.path.insert(0, str(root))
     import torch
 
@@ -156,18 +172,19 @@ def run(root: Path, with_slice: bool) -> dict:
         raise SystemExit("e6_timing needs an NVIDIA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    res = dict(root=str(root), device=torch.cuda.get_device_name(0), **measure_block4())
+    res = dict(root=str(root), device=torch.cuda.get_device_name(0), case=case,
+               **measure(case))
     if with_slice:
         res["slice_peak_bytes"] = slice_peaks()
     return res
 
 
-def turns(old: Path, with_slice: bool):
+def turns(old: Path, with_slice: bool, case: str = "block4_e6"):
     """old, new, new, old: one process each, this file run against each root;
     with ``with_slice`` the first old and new processes also run the slice."""
     lines = []
     for i, root in enumerate((old, HERE, HERE, old)):
-        cmd = [sys.executable, str(Path(__file__).resolve()), "--root", str(root)]
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--root", str(root), "--case", case]
         res = subprocess.run(cmd + (["--slice"] if with_slice and i < 2 else []),
                              capture_output=True,
                              text=True, env=dict(os.environ, PYTHONPATH=str(root)), timeout=900)
@@ -184,11 +201,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=HERE)
     ap.add_argument("--turns", type=Path, default=None, metavar="OLD_ROOT")
+    ap.add_argument("--case", choices=sorted(CASES), default="block4_e6")
     ap.add_argument("--slice", action="store_true")
     args = ap.parse_args(argv)
     if args.turns is not None:
-        return turns(args.turns.resolve(), args.slice)
-    res = run(args.root.resolve(), args.slice)
+        return turns(args.turns.resolve(), args.slice, args.case)
+    res = run(args.root.resolve(), args.slice, args.case)
     print(json.dumps(res), flush=True)
     return res
 

@@ -10,8 +10,9 @@
 //
 // Design. The TPU kernel keeps nothing but x and a few per-channel and
 // per-image vectors from forward to backward and recomputes the block from x
-// in every pass; this port keeps that design (unlike csrc/mbconv6.cu, which
-// stores the fp32 intermediates):
+// in every pass; this port keeps that design, with serial per-pixel channel
+// loops on the CUDA cores (csrc/mbconv6_e6.cu's e=1 form computes the same
+// block with its channel products on the tensor cores):
 //   P1  stencil -> per-channel [sum d, sum d^2]
 //   P2  recompute d -> bn1 -> silu v; per image sum v and M = sum v v^T (C x C)
 //   P3  recompute v; u = v*gate; y = u Wp; bn2; out = delta*yhat [+ x]

@@ -1,9 +1,9 @@
-// Hand-written CUDA for the expanding (e6) form of the fused train-mode MBConv
-// block on Hopper (sm_90a), forward and backward.
+// Hand-written CUDA for the fused train-mode MBConv block on Hopper (sm_90a),
+// forward and backward, in its expanding (e6) form and its e=1 form.
 //
 // Replaces the Pallas kernels of mammo_clip_tpu/ops/mbconv6_pallas.py::
-// fused_mbconv_e6 in its expanding form: the forward passes _p1_kernel ..
-// _p5_kernel and the backward passes _b1_kernel .. _b4_kernel. The block is
+// fused_mbconv_e6 in both forms: the forward passes _p1_kernel .. _p5_kernel
+// and the backward passes _b1_kernel .. _b4_kernel. The block is
 //
 //   x --We--> z --bn0,silu--> w --dw3x3--> d --bn1,silu--> v --SE--> u --Wp--> y
 //     --bn2--> yhat ;  out = [x +] delta * yhat
@@ -47,6 +47,20 @@
 // this port keeps y (C2 channels) and dxa (C channels) in fp32 between two
 // passes of the same call.
 //
+// The e=1 form (the TPU kernel's expand=False branch: no We, no bn0, d is the
+// depthwise of x itself, E = C) runs the same sweeps with a compile-time
+// EXPAND = false (m6_pass's `expand` argument): the tile of x with its halo
+// stays in shared memory channel-major in its own type (exact in fp32 too),
+// and every pass recomputes d from it by the stencil, which is the whole
+// recompute; nothing but the statistics, s_mean and the gate (a few KB) is
+// kept from forward to backward, and y (C2 channels, fp32) within a call.
+// F2, F3, F4, out, B1 and bwd_v are the passes above with d from the stencil;
+// there is no moments, bn0, dx or DX pass. bwd_x (bwd_x1) loads x with a
+// 2-wide halo and dy on the tile's ring, forms d then dd on the ring, and on
+// the tile dx = [dout +] the stencil's transpose of dd, written straight to
+// dx, and the 9 dK tap sums. C and C2 go up to 64 (b7's 64 -> 32), so its
+// products take 4 k16 steps and 8 n8 tiles (Fr<false>, prep1_kernel).
+//
 // Every channel product runs on the tensor cores as mma.sync.m16n8k16 (bf16
 // in, fp32 sums) with ldmatrix operands: z = x We, y = u Wp, du = dy Wp^T, dxa
 // and x M with positions as M; the Gram, dWp and T3 with positions as K. An
@@ -63,19 +77,24 @@
 // What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16 dense): the function
 // must read x (and dout) and write out (and dx), ~28 MB of bf16 at block 4 (N=2,
 // C=C2=40, E=240, 380x228 valid in 384x232), and its channel products are
-// ~7 GFLOP forward, so the bound is bytes (~8 us). This design is bound on
-// chip instead, by instruction issue and latency in the recompute phases: the
-// z epilogue (SiLU on the halo region), the stencil and the chain's BatchNorm
+// ~7 GFLOP forward, so the bound is bytes (~8 us); the e=1 form at B5's block 0
+// (48 -> 24, 760x456) moves ~100 MB (~30 us). This design is bound on chip
+// instead, by instruction issue and latency in the recompute phases: the z
+// epilogue (SiLU on the halo region), the stencil and the chain's BatchNorm
 // and SiLU terms, with the sweeps at 16 warps per SM (two 8-warp blocks, or one
-// 16-warp block for bwd_v and bwd_x, whose tiles fill the shared memory).
-// PERF.md has each pass's time and cycles per tile on the card; warp
-// specialisation and wgmma, and a cheaper SiLU, are the later levers.
+// 16-warp block for bwd_v and bwd_x, whose tiles fill the shared memory); the
+// e=1 form's tiles walk only 2-4 chunks, so a tile's fixed costs (its loads,
+// the coefficients, the partial sums) weigh more. PERF.md has each pass's time
+// on the card; warp specialisation and wgmma, a cheaper SiLU, and tiles that
+// prefetch the next tile while they compute are the later levers.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 typedef __nv_bfloat16 bf16;
 
@@ -93,12 +112,28 @@ constexpr int kXs = kMaxC + 8;       // row stride (bf16) of position-major x / 
 constexpr int kUs = kEC + 8;         // row stride (bf16) of position-major chunk tiles: 48 B
 constexpr int kSl = 64;              // positions of a moments / dx slab
 constexpr int kSs = kSl + 8;         // row stride (bf16) of a channel-major slab: 144 B
-constexpr int kRedCols = 32;         // sum_blocks_kernel: entries per block
-constexpr int kRedRows = 32;         //                block partials summed in parallel
 constexpr size_t kMaxSmem = 232448;
+constexpr int kMaxC1 = 64;           // the e=1 form: C (= E) and C2 at most: 4 k16 steps, 8 n8 tiles
+constexpr int kXs1 = kMaxC1 + 8;     // row stride (bf16) of its position-major dy tiles: 144 B
 
 enum Pass { kMoments = 0, kF2, kF3, kF4, kB1, kOut, kBwdV, kBwdX, kDx, kPasses };
-constexpr int kFrags = 24;  // B fragments of the weights per chunk, see prep_kernel
+constexpr int kFrags = 24;   // B fragments of the weights per chunk, see prep_kernel
+constexpr int kFrags1 = 16;  // the same for the e=1 form (Wp's only)
+
+// Where a form's passes find the weights' B fragments of a chunk (prep_kernel's
+// layout), and its widest C2 in k16 steps (du) and n8 tiles (y).
+template <bool EXPAND>
+struct Fr {
+  static constexpr int n = kFrags, kk = 3, nt = 6, xs = kXs;
+  __device__ static constexpr int y(int t) { return 6 + t; }
+  __device__ static constexpr int du(int k, int t) { return 12 + 2 * k + t; }
+};
+template <>
+struct Fr<false> {
+  static constexpr int n = kFrags1, kk = 4, nt = 8, xs = kXs1;
+  __device__ static constexpr int y(int t) { return t; }
+  __device__ static constexpr int du(int k, int t) { return 8 + 2 * k + t; }
+};
 
 struct P6 {
   const void* x;       // (N, C, H, W) T
@@ -138,6 +173,10 @@ __device__ __forceinline__ float ld(const float* p, size_t i) { return p[i]; }
 __device__ __forceinline__ float ld(const bf16* p, size_t i) { return __bfloat162float(p[i]); }
 __device__ __forceinline__ void st(float* p, size_t i, float v) { p[i] = v; }
 __device__ __forceinline__ void st(bf16* p, size_t i, float v) { p[i] = __float2bfloat16(v); }
+template <typename T>
+__device__ __forceinline__ T zero() {
+  if constexpr (sizeof(T) == 2) return __float2bfloat16(0.f); else return 0.f;
+}
 
 // Accurate expf; the division by 1 + exp(-x) as a reciprocal (2 ulp).
 __device__ __forceinline__ float sigm(float x) { return __fdividef(1.f, 1.f + expf(-x)); }
@@ -274,8 +313,10 @@ __device__ __forceinline__ void mma3r(float (&d)[4], const unsigned (&ah)[4],
 //   f = 6 + nt           y = u Wp       B[e][c2] = Wp[e][c2]
 //   f = 12 + 2 kk + nt   du = dy Wp^T   B[c2][e] = Wp[e][c2]
 //   f = 18 + nt          dxa = t We^T   B[e][c] = We[c][e]
+// and for the e=1 form (Fr<false>): y's at f = nt (8 n8 tiles), du's at 8 + 2 kk + nt.
+template <bool EXPAND = true>
 __device__ __forceinline__ Frag wfrag(const P6& p, int e0, int f) {
-  const uint4 v = __ldg(static_cast<const uint4*>(p.wf) + ((e0 / kEC) * kFrags + f) * 32 +
+  const uint4 v = __ldg(static_cast<const uint4*>(p.wf) + ((e0 / kEC) * Fr<EXPAND>::n + f) * 32 +
                         (threadIdx.x & 31));
   return Frag{v.x, v.y, v.z, v.w};
 }
@@ -284,13 +325,19 @@ __device__ __forceinline__ Frag wfrag(const P6& p, int e0, int f) {
 // per-channel coefficients, recomputed by every block from the sums
 // ---------------------------------------------------------------------------
 
-struct Coef {
-  float m0[kMaxE], a0[kMaxE], b0[kMaxE], i0[kMaxE], g0[kMaxE];  // bn0 (a = gamma inv)
-  float m1[kMaxE], a1[kMaxE], b1[kMaxE], i1[kMaxE];             // bn1
-  float gate[kMaxE], dsh[kMaxE], r1a[kMaxE], r1b[kMaxE];        // this image's SE terms
-  float cm2[kMaxC], ci2[kMaxC], ca2[kMaxC], cb2[kMaxC], cc2[kMaxC];  // bn2
-  float red[kBigWarps * 2 * kMaxC];                             // cross-warp sums
+// ME entries per expanded channel, MC per output channel: the e6 form's (Coef)
+// or the e=1 form's (Coef1, whose bn0 entries stay zero).
+template <int ME, int MC>
+struct CoefT {
+  static constexpr int kE = ME, kC = MC;
+  float m0[ME], a0[ME], b0[ME], i0[ME], g0[ME];  // bn0 (a = gamma inv)
+  float m1[ME], a1[ME], b1[ME], i1[ME];          // bn1
+  float gate[ME], dsh[ME], r1a[ME], r1b[ME];     // this image's SE terms
+  float cm2[MC], ci2[MC], ca2[MC], cb2[MC], cc2[MC];  // bn2
+  float red[kBigWarps * 2 * MC];                 // cross-warp sums
 };
+using Coef = CoefT<kMaxE, kMaxC>;
+using Coef1 = CoefT<kMaxC1, kMaxC1>;
 
 // (mean, inv) of a batch norm from [sum | sum of squares], the plain version's
 // formula: var = max(E[t^2] - E[t]^2, 0).
@@ -300,10 +347,11 @@ __device__ __forceinline__ float2 moments(const float* s, int half, int c, float
   return make_float2(m, 1.f / sqrtf(var + eps));
 }
 
-__device__ void fill_coef(Coef& cf, const P6& p, int n) {
+template <typename CF>
+__device__ void fill_coef(CF& cf, const P6& p, int n) {
   const int E = p.E, Ep = up(E, 16), C2p = up(p.C2, 8);
   const float cnt = (float)p.N * p.vh * p.vw;
-  for (int e = threadIdx.x; e < kMaxE; e += blockDim.x) {
+  for (int e = threadIdx.x; e < CF::kE; e += blockDim.x) {
     const bool in = e < E;
     float m0 = 0.f, i0 = 0.f, g0 = 0.f, b0 = 0.f;
     if (in && p.m0) {
@@ -335,7 +383,7 @@ __device__ void fill_coef(Coef& cf, const P6& p, int n) {
     }
     cf.r1a[e] = r1a, cf.r1b[e] = r1b;
   }
-  for (int c = threadIdx.x; c < kMaxC; c += blockDim.x) {
+  for (int c = threadIdx.x; c < CF::kC; c += blockDim.x) {
     float m2 = 0.f, i2 = 0.f, a2 = 0.f, b2 = 0.f, c2 = 0.f;
     if (c < p.C2 && p.s2) {
       const float2 mi = moments(p.s2, C2p, c, cnt, p.eps);
@@ -393,42 +441,131 @@ __device__ void load_x(bf16* xh, bf16* xl, const P6& p, int n, int r0, int c0) {
   }
 }
 
-// dy = a2 (dout delta) - alpha2 - (y - m2) inv2 beta2r (the bn2 backward) on a
-// tile with its halo, position-major [q][kXs] as hi and lo, zero outside the
-// valid image and past C2 (up to the 16-channel steps of the du product).
+// A tile's region row by row: slot s of a row reads the tile's own columns c0 +
+// s V .. + V (s < NV, one 16-byte load where the row is 16-byte aligned and the
+// V values lie in the valid image, else value by value) or one halo column
+// (s >= NV). Returns the slot's first column in the image and in the region.
+template <int HALO, int V>
+__device__ __forceinline__ int2 slot_cols(int s, int c0) {
+  constexpr int NV = kTC / V;
+  const int h = s - NV;  // halo column: 0 .. HALO - 1 left, then right
+  const int rc = s < NV ? HALO + s * V : (h < HALO ? h : kTC + h);
+  return make_int2(c0 - HALO + rc, rc);
+}
+
+// x on a tile with its halo for the e=1 form's stencil, channel-major in its own
+// type [c][RQP] (exact), zero outside the valid image and past C (up to the
+// chunks' 16 channels). Each thread has kLoads loads in flight before it stores.
 template <typename T, int TR, int HALO>
-__device__ void load_dy(bf16* dh, bf16* dl, const P6& p, const Coef& cf, int n, int r0,
-                        int c0) {
+__device__ void load_xc(T* xs, const P6& p, int n, int r0, int c0) {
   using G = Geo<TR, HALO>;
-  const T* gp = static_cast<const T*>(p.g);
-  const int total = up(p.C2, 16) * G::RQP;
-  const float dn = p.delta[n];
+  constexpr int V = 16 / sizeof(T), NV = kTC / V, S = NV + 2 * HALO;
+  union Vec {
+    uint4 u;
+    T t[V];
+  };
+  const T* x = static_cast<const T*>(p.x);
+  const bool aligned = p.W % V == 0 && (reinterpret_cast<size_t>(x) & 15) == 0;
+  const int total = up(p.C, 16) * G::RR * S;
   for (int base = threadIdx.x; base < total; base += kLoads * blockDim.x) {
-    float gv[kLoads], yv[kLoads];
+    Vec v[kLoads];
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
-      const int i = base + u * blockDim.x, c = i / G::RQP, q = i - c * G::RQP;
-      const int r = q / G::RC, cc = q - r * G::RC;
-      const int gr = r0 - HALO + r, gc = c0 - HALO + cc;
-      const bool in = i < total && q < G::RQ && c < p.C2 && gr >= 0 && gr < p.vh && gc >= 0 &&
-                      gc < p.vw;
-      const size_t idx = (((size_t)n * p.C2 + c) * p.H + gr) * p.W + gc;
-      gv[u] = in ? ld(gp, idx) : 0.f;
-      yv[u] = in ? p.y[idx] : 0.f;
+      const int i = base + u * blockDim.x, c = i / (G::RR * S), rs = i - c * (G::RR * S);
+      const int r = rs / S, s = rs - r * S, gr = r0 - HALO + r, col = slot_cols<HALO, V>(s, c0).x;
+      v[u].u = make_uint4(0u, 0u, 0u, 0u);
+      if (!(i < total && c < p.C && gr >= 0 && gr < p.vh)) continue;
+      const T* src = x + (((size_t)n * p.C + c) * p.H + gr) * p.W;
+      if (s >= NV) {
+        if (col >= 0 && col < p.vw) v[u].t[0] = src[col];
+      } else if (aligned && col + V <= p.vw) {
+        v[u].u = __ldg(reinterpret_cast<const uint4*>(src + col));
+      } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          if (col + k < p.vw) v[u].t[k] = src[col + k];
+      }
     }
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
-      const int i = base + u * blockDim.x, c = i / G::RQP, q = i - c * G::RQP;
+      const int i = base + u * blockDim.x, c = i / (G::RR * S), rs = i - c * (G::RR * S);
       if (i >= total) break;
-      const int r = q / G::RC, cc = q - r * G::RC;
-      const int gr = r0 - HALO + r, gc = c0 - HALO + cc;
-      const bool in = q < G::RQ && c < p.C2 && gr >= 0 && gr < p.vh && gc >= 0 && gc < p.vw;
-      const float v = in ? cf.ca2[c] * (gv[u] * dn) - cf.cb2[c] - (yv[u] - cf.cm2[c]) * cf.cc2[c]
-                         : 0.f;
-      bf16 h, l;
-      split1(v, h, l);
-      dh[q * kXs + c] = h;
-      dl[q * kXs + c] = l;
+      const int r = rs / S, s = rs - r * S;
+      T* dst = xs + c * G::RQP + r * G::RC + slot_cols<HALO, V>(s, c0).y;
+      if (s >= NV) {
+        dst[0] = v[u].t[0];
+      } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k) dst[k] = v[u].t[k];
+      }
+    }
+  }
+}
+
+// dy = a2 (dout delta) - alpha2 - (y - m2) inv2 beta2r (the bn2 backward) on a
+// tile with its halo, position-major [q][XS] as hi and lo, zero outside the
+// valid image and past C2 (up to the 16-channel steps of the du product).
+// dout and y are read 4 positions at a time where the rows allow it.
+template <typename T, int TR, int HALO, int XS, typename CF>
+__device__ void load_dy(bf16* dh, bf16* dl, const P6& p, const CF& cf, int n, int r0,
+                        int c0) {
+  using G = Geo<TR, HALO>;
+  constexpr int V = 4, NV = kTC / V, S = NV + 2 * HALO;
+  union Vg {
+    typename std::conditional<sizeof(T) == 2, uint2, uint4>::type u;
+    T t[V];
+  };
+  union Vy {
+    float4 u;
+    float t[V];
+  };
+  const T* gp = static_cast<const T*>(p.g);
+  const bool aligned = p.W % V == 0 && (reinterpret_cast<size_t>(gp) & (V * sizeof(T) - 1)) == 0 &&
+                       (reinterpret_cast<size_t>(p.y) & 15) == 0;
+  const int total = up(p.C2, 16) * G::RR * S;
+  const float dn = p.delta[n];
+  constexpr int kL = kLoads / 2;  // two loads a slot
+  for (int base = threadIdx.x; base < total; base += kL * blockDim.x) {
+    Vg gv[kL];
+    Vy yv[kL];
+#pragma unroll
+    for (int u = 0; u < kL; ++u) {
+      const int i = base + u * blockDim.x, c = i / (G::RR * S), rs = i - c * (G::RR * S);
+      const int r = rs / S, s = rs - r * S, gr = r0 - HALO + r, col = slot_cols<HALO, V>(s, c0).x;
+#pragma unroll
+      for (int k = 0; k < V; ++k) gv[u].t[k] = zero<T>(), yv[u].t[k] = 0.f;
+      if (!(i < total && c < p.C2 && gr >= 0 && gr < p.vh)) continue;
+      const size_t row = (((size_t)n * p.C2 + c) * p.H + gr) * p.W;
+      if (s >= NV) {
+        if (col >= 0 && col < p.vw) gv[u].t[0] = gp[row + col], yv[u].t[0] = p.y[row + col];
+      } else if (aligned && col + V <= p.vw) {
+        gv[u].u = *reinterpret_cast<const decltype(gv[u].u)*>(gp + row + col);
+        yv[u].u = *reinterpret_cast<const float4*>(p.y + row + col);
+      } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          if (col + k < p.vw) gv[u].t[k] = gp[row + col + k], yv[u].t[k] = p.y[row + col + k];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kL; ++u) {
+      const int i = base + u * blockDim.x, c = i / (G::RR * S), rs = i - c * (G::RR * S);
+      if (i >= total) break;
+      const int r = rs / S, s = rs - r * S, gr = r0 - HALO + r;
+      const int2 cols = slot_cols<HALO, V>(s, c0);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        if (s >= NV && k > 0) break;
+        const int gc = cols.x + k, q = r * G::RC + cols.y + k;
+        const bool in = c < p.C2 && gr >= 0 && gr < p.vh && gc >= 0 && gc < p.vw;
+        const float v = in ? cf.ca2[c] * (ld(gv[u].t, k) * dn) - cf.cb2[c] -
+                                 (yv[u].t[k] - cf.cm2[c]) * cf.cc2[c]
+                           : 0.f;
+        bf16 h, l;
+        split1(v, h, l);
+        dh[q * XS + c] = h;
+        dl[q * XS + c] = l;
+      }
     }
   }
 }
@@ -536,19 +673,20 @@ __device__ __forceinline__ void taps(const P6& p, int e, float (&k)[9]) {
   for (int i = 0; i < 9; ++i) k[i] = e < p.E ? __ldg(p.k9 + e * 9 + i) : 0.f;
 }
 
-// The 3x3 depthwise of one channel's w (region of width RC, row stride RC) on
-// `rows` output rows at column `col`: out[r] = sum_ab k[ab] src[(r + a) RC + col + b].
-template <int RC, int ROWS>
-__device__ __forceinline__ void stencil_col(const float* src, const float (&k)[9], int col,
+// The 3x3 depthwise of one channel's w (or x, for the e=1 form; region of width
+// RC, row stride RC) on `rows` output rows at column `col`: out[r] = sum_ab k[ab]
+// src[(r + a) RC + col + b].
+template <int RC, int ROWS, typename S>
+__device__ __forceinline__ void stencil_col(const S* src, const float (&k)[9], int col,
                                             float (&out)[ROWS]) {
   float w0[3], w1[3];
 #pragma unroll
-  for (int b = 0; b < 3; ++b) w0[b] = src[col + b], w1[b] = src[RC + col + b];
+  for (int b = 0; b < 3; ++b) w0[b] = ld(src, col + b), w1[b] = ld(src, RC + col + b);
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     float w2[3];
 #pragma unroll
-    for (int b = 0; b < 3; ++b) w2[b] = src[(r + 2) * RC + col + b];
+    for (int b = 0; b < 3; ++b) w2[b] = ld(src, (r + 2) * RC + col + b);
     float acc = 0.f;
 #pragma unroll
     for (int b = 0; b < 3; ++b) {
@@ -566,8 +704,9 @@ __device__ __forceinline__ void stencil_col(const float* src, const float (&k)[9
 // forward sweeps F2, F3, F4 and the backward's recompute of y (kB1)
 // ---------------------------------------------------------------------------
 
-// F2 and B1 recompute d from x (and write it for the passes after them); F3
-// and F4 read it back, so that they keep neither x nor w on chip.
+// The e6 form: F2 and B1 recompute d from x (and write it for the passes after
+// them); F3 and F4 read it back, so that they keep neither x nor w on chip. The
+// e=1 form recomputes d from x, a stencil and nothing else, in every pass.
 __host__ __device__ constexpr bool recomputes(int mode) { return mode == kF2 || mode == kB1; }
 
 template <bool F32, int TR, bool RECOMPUTE>
@@ -583,7 +722,25 @@ struct SweepSmem {
   static constexpr size_t total = ulo + (size_t)TR * kTC * kUs * 2;
 };
 
-__host__ __device__ int part_floats(int pass, int C, int E, int C2) {
+__host__ __device__ constexpr size_t up16(size_t a) { return (a + 15) / 16 * 16; }
+
+// The e=1 form's sweep: x on the tile with its halo, channel-major, C's chunks
+// only (so that F2 and F3, which need no u, fit 3 blocks on an SM), then u (hi,
+// lo) for F4 and B1. sweep1_u is u's offset.
+template <typename T, int TR>
+__host__ __device__ constexpr size_t sweep1_u(int C) {
+  return sizeof(Coef1) + up16((size_t)up(C, 16) * Geo<TR, 1>::RQP * sizeof(T));
+}
+
+template <typename T, int TR, int MODE, bool EXPAND>
+constexpr size_t sweep_smem(int C) {
+  if constexpr (EXPAND)
+    return SweepSmem<sizeof(T) == 4, TR, recomputes(MODE)>::total;
+  else
+    return sweep1_u<T, TR>(C) + (MODE == kF4 || MODE == kB1 ? 4 * (size_t)TR * kTC * kUs : 0);
+}
+
+__host__ __device__ int part_floats(int pass, int C, int E, int C2, bool expand) {
   const int Cp = up(C, 16), Ep = up(E, 16), C2p = up(C2, 8);
   switch (pass) {
     case kMoments: return Cp + Cp * Cp;
@@ -592,7 +749,7 @@ __host__ __device__ int part_floats(int pass, int C, int E, int C2) {
     case kF4:
     case kB1: return 2 * C2p;
     case kBwdV: return 5 * Ep + Ep * C2p;
-    case kBwdX: return 11 * Ep + Cp * Ep;
+    case kBwdX: return expand ? 11 * Ep + Cp * Ep : 9 * Ep;
     default: return 0;
   }
 }
@@ -601,28 +758,35 @@ __device__ __forceinline__ size_t d_index(const P6& p, int n, int e, int gr, int
   return (((size_t)n * up(p.E, 16) + e) * p.H + gr) * p.W + gc;
 }
 
-template <typename T, int TR, int MODE>
-__global__ void __launch_bounds__(kThreads, 2) sweep_kernel(P6 p) {
-  constexpr bool F32 = sizeof(T) == 4, RECOMPUTE = recomputes(MODE);
+template <typename T, int TR, int MODE, bool EXPAND>
+__global__ void __launch_bounds__(kThreads, EXPAND || MODE == kF4 || MODE == kB1 ? 2 : 3)
+    sweep_kernel(P6 p) {
+  constexpr bool F32 = sizeof(T) == 4, RECOMPUTE = EXPAND && recomputes(MODE);
   constexpr bool PRODUCT = MODE == kF4 || MODE == kB1;
   using G = Geo<TR, 1>;
   using L = SweepSmem<F32, TR, RECOMPUTE>;
+  using CF = std::conditional_t<EXPAND, Coef, Coef1>;
+  using F = Fr<EXPAND>;
   constexpr int MW = TR / 4;  // m16 tiles of the tile per warp
   extern __shared__ __align__(16) unsigned char smem[];
-  Coef& cf = *reinterpret_cast<Coef*>(smem);
+  CF& cf = *reinterpret_cast<CF*>(smem);
   bf16* xh = reinterpret_cast<bf16*>(smem + L::x);
   bf16* xl = reinterpret_cast<bf16*>(smem + L::xlo);
   float* ws = reinterpret_cast<float*>(smem + L::w);
-  bf16* uh = reinterpret_cast<bf16*>(smem + L::u);
-  bf16* ul = reinterpret_cast<bf16*>(smem + L::ulo);
+  T* xc = reinterpret_cast<T*>(smem + sizeof(Coef1));  // the e=1 form's x tile
+  bf16* uh = reinterpret_cast<bf16*>(smem + (EXPAND ? L::u : sweep1_u<T, TR>(p.C)));
+  bf16* ul = uh + TR * kTC * kUs;
   const int n = blockIdx.y, tiles_c = (p.vw + kTC - 1) / kTC;
   const int r0 = blockIdx.x / tiles_c * TR, c0 = blockIdx.x % tiles_c * kTC;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int Ep = up(p.E, 16), C2p = up(p.C2, 8), nt2 = C2p / 8;
-  float* part = p.part + (size_t)(n * gridDim.x + blockIdx.x) * part_floats(MODE, p.C, p.E, p.C2);
+  float* part = p.part + (size_t)(n * gridDim.x + blockIdx.x) *
+                             part_floats(MODE, p.C, p.E, p.C2, EXPAND);
   constexpr int SD = Geo<TR, 0>::SW;  // row stride of a stage of d
   fill_coef(cf, p, n);
-  if (RECOMPUTE) {
+  if constexpr (!EXPAND) {
+    load_xc<T, TR, 1>(xc, p, n, r0, c0);
+  } else if (RECOMPUTE) {
     load_x<T, TR, 1>(xh, xl, p, n, r0, c0);
   } else {
     fetch_d<TR, 0>(ws, p, n, 0, r0, c0);
@@ -630,38 +794,49 @@ __global__ void __launch_bounds__(kThreads, 2) sweep_kernel(P6 p) {
   }
   __syncthreads();
 
-  float y[MW][6][4] = {};
+  float y[MW][F::nt][4] = {};
   for (int e0 = 0; e0 < Ep; e0 += kEC) {
     // d for channels e0 + 2 warp + j at the tile's rows, column `lane`
     float d[2][TR];
-    if (!RECOMPUTE) {  // this chunk's d has landed; the next chunk's starts
-      cp_async_wait_all();
-      __syncthreads();
-      if (e0 + kEC < Ep) {
-        fetch_d<TR, 0>(ws + ((e0 / kEC + 1) & 1) * kEC * SD, p, n, e0 + kEC, r0, c0);
-        cp_async_commit();
-      }
-    }
-    if (RECOMPUTE) {
-      z_phase<F32, TR, 1, kWarps, PRODUCT ? 1 : (G::MT + kWarps - 1) / kWarps>(
-          p, cf, xh, xl, ws, nullptr, e0, r0, c0);
-      __syncthreads();
+    if constexpr (!EXPAND) {  // the stencil on x's own channel
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const int e = e0 + 2 * warp + j;
+        const int el = 2 * warp + j;
         float k[9];
-        taps(p, e, k);
-        stencil_col<G::RC, TR>(ws + (2 * warp + j) * G::SW, k, lane, d[j]);
-#pragma unroll
-        for (int tr = 0; tr < TR; ++tr)
-          if (r0 + tr < p.H && c0 + lane < p.W) p.d[d_index(p, n, e, r0 + tr, c0 + lane)] = d[j][tr];
+        taps(p, e0 + el, k);
+        stencil_col<G::RC, TR>(xc + (size_t)(e0 + el) * G::RQP, k, lane, d[j]);
       }
+      if (PRODUCT && e0 > 0) __syncthreads();  // the last chunk's product has read u
     } else {
-      const float* src = ws + ((e0 / kEC) & 1) * kEC * SD;
+      if (!RECOMPUTE) {  // this chunk's d has landed; the next chunk's starts
+        cp_async_wait_all();
+        __syncthreads();
+        if (e0 + kEC < Ep) {
+          fetch_d<TR, 0>(ws + ((e0 / kEC + 1) & 1) * kEC * SD, p, n, e0 + kEC, r0, c0);
+          cp_async_commit();
+        }
+      }
+      if (RECOMPUTE) {
+        z_phase<F32, TR, 1, kWarps, PRODUCT ? 1 : (G::MT + kWarps - 1) / kWarps>(
+            p, cf, xh, xl, ws, nullptr, e0, r0, c0);
+        __syncthreads();
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+        for (int j = 0; j < 2; ++j) {
+          const int e = e0 + 2 * warp + j;
+          float k[9];
+          taps(p, e, k);
+          stencil_col<G::RC, TR>(ws + (2 * warp + j) * G::SW, k, lane, d[j]);
 #pragma unroll
-        for (int tr = 0; tr < TR; ++tr) d[j][tr] = src[(2 * warp + j) * SD + tr * kTC + lane];
+          for (int tr = 0; tr < TR; ++tr)
+            if (r0 + tr < p.H && c0 + lane < p.W) p.d[d_index(p, n, e, r0 + tr, c0 + lane)] = d[j][tr];
+        }
+      } else {
+        const float* src = ws + ((e0 / kEC) & 1) * kEC * SD;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int tr = 0; tr < TR; ++tr) d[j][tr] = src[(2 * warp + j) * SD + tr * kTC + lane];
+      }
     }
     if (MODE == kF2 || MODE == kF3) {
 #pragma unroll
@@ -705,22 +880,39 @@ __global__ void __launch_bounds__(kThreads, 2) sweep_kernel(P6 p) {
       }
     }
     if (RECOMPUTE || PRODUCT) __syncthreads();  // w is free; u is ready
-    // (read back: the next chunk's first barrier frees u and this stage of d)
+    // (e6 read back: the next chunk's first barrier frees u and this stage of d)
     if (PRODUCT) {
-      Frag wy[6];
-#pragma unroll
-      for (int nt = 0; nt < 6; ++nt)
-        if (nt < nt2) wy[nt] = wfrag(p, e0, 6 + nt);
-#pragma unroll
-      for (int i = 0; i < MW; ++i) {
-        const int mt = warp * MW + i;
-        unsigned ah[4], al[4];
-        const int off = (mt * 16 + a_row(lane)) * kUs + a_col(lane);
-        ldsm(ah, uh + off);
-        ldsm(al, ul + off);
+      if constexpr (EXPAND) {
+        Frag wy[6];
 #pragma unroll
         for (int nt = 0; nt < 6; ++nt)
-          if (nt < nt2) mma3(y[i][nt], ah, al, wy[nt]);
+          if (nt < nt2) wy[nt] = wfrag(p, e0, F::y(nt));
+#pragma unroll
+        for (int i = 0; i < MW; ++i) {
+          const int mt = warp * MW + i;
+          unsigned ah[4], al[4];
+          const int off = (mt * 16 + a_row(lane)) * kUs + a_col(lane);
+          ldsm(ah, uh + off);
+          ldsm(al, ul + off);
+#pragma unroll
+          for (int nt = 0; nt < 6; ++nt)
+            if (nt < nt2) mma3(y[i][nt], ah, al, wy[nt]);
+        }
+      } else {  // the A fragments first, then one B fragment at a time (8 n8 tiles)
+        unsigned ah[MW][4], al[MW][4];
+#pragma unroll
+        for (int i = 0; i < MW; ++i) {
+          const int off = ((warp * MW + i) * 16 + a_row(lane)) * kUs + a_col(lane);
+          ldsm(ah[i], uh + off);
+          ldsm(al[i], ul + off);
+        }
+#pragma unroll
+        for (int nt = 0; nt < F::nt; ++nt) {
+          if (nt >= nt2) break;
+          const Frag w = wfrag<false>(p, e0, F::y(nt));
+#pragma unroll
+          for (int i = 0; i < MW; ++i) mma3(y[i][nt], ah[i], al[i], w);
+        }
       }
     }
   }
@@ -728,43 +920,43 @@ __global__ void __launch_bounds__(kThreads, 2) sweep_kernel(P6 p) {
 
   // y to device memory; [sum y, sum y^2] (F4) or [sum dyh, sum dyh ybar] (B1)
   const T* gp = static_cast<const T*>(p.g);
-  float s[6][2][2] = {};
 #pragma unroll
-  for (int i = 0; i < MW; ++i)
+  for (int nt = 0; nt < F::nt; ++nt) {
+    if (nt >= nt2) break;
+    float s[2][2] = {};
 #pragma unroll
-    for (int nt = 0; nt < 6; ++nt)
+    for (int i = 0; i < MW; ++i)
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int pos = (warp * MW + i) * 16 + g + (q >> 1) * 8;
         const int gr = r0 + pos / kTC, gc = c0 + pos % kTC, c2 = nt * 8 + 2 * t + (q & 1);
-        if (nt >= nt2 || c2 >= p.C2) continue;
+        if (c2 >= p.C2) continue;
         const float v = y[i][nt][q];
         const size_t idx = (((size_t)n * p.C2 + c2) * p.H + gr) * p.W + gc;
         if (gr < p.H && gc < p.W) p.y[idx] = v;
         if (!(gr < p.vh && gc < p.vw)) continue;
         if (MODE == kF4) {
-          s[nt][q & 1][0] += v;
-          s[nt][q & 1][1] = fmaf(v, v, s[nt][q & 1][1]);
+          s[q & 1][0] += v;
+          s[q & 1][1] = fmaf(v, v, s[q & 1][1]);
         } else {
           const float dyh = ld(gp, idx) * p.delta[n];
-          s[nt][q & 1][0] += dyh;
-          s[nt][q & 1][1] = fmaf(dyh, (v - cf.cm2[c2]) * cf.ci2[c2], s[nt][q & 1][1]);
+          s[q & 1][0] += dyh;
+          s[q & 1][1] = fmaf(dyh, (v - cf.cm2[c2]) * cf.ci2[c2], s[q & 1][1]);
         }
       }
-#pragma unroll
-  for (int nt = 0; nt < 6; ++nt)
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
-        const float v = group_sum(s[nt][j][k]);
-        if (g == 0 && nt < nt2) cf.red[(warp * 2 + k) * kMaxC + nt * 8 + 2 * t + j] = v;
+        const float v = group_sum(s[j][k]);
+        if (g == 0) cf.red[(warp * 2 + k) * CF::kC + nt * 8 + 2 * t + j] = v;
       }
+  }
   __syncthreads();
   for (int i = threadIdx.x; i < 2 * C2p; i += kThreads) {
     const int k = i / C2p, c2 = i - k * C2p;
     float v = 0.f;
-    for (int w = 0; w < kWarps; ++w) v += cf.red[(w * 2 + k) * kMaxC + c2];
+    for (int w = 0; w < kWarps; ++w) v += cf.red[(w * 2 + k) * CF::kC + c2];
     part[i] = v;
   }
 }
@@ -784,16 +976,33 @@ struct BwdVSmem {
   static constexpr size_t total = ulo + (size_t)TP * kUs * 2;
 };
 
+// The e=1 form's: x on the tile with its halo (channel-major), one stage of d.
+template <typename T, int TR>
+struct BwdV1Smem {
+  static constexpr int TP = TR * kTC;
+  static constexpr size_t x = sizeof(Coef1);
+  static constexpr size_t d = x + up16((size_t)kMaxC1 * Geo<TR, 1>::RQP * sizeof(T));
+  static constexpr size_t dy = d + (size_t)kEC * (TP + 4) * 4;
+  static constexpr size_t dylo = dy + (size_t)TP * kXs1 * 2;
+  static constexpr size_t u = dylo + (size_t)TP * kXs1 * 2;
+  static constexpr size_t ulo = u + (size_t)TP * kUs * 2;
+  static constexpr size_t total = ulo + (size_t)TP * kUs * 2;
+};
+
 // One tile per block, 16 warps, each on one m16 tile of positions (TR = 8):
 // du = dy Wp^T (dy from y and dout, the bn2 backward, loaded once), then
-// v, s' and dbar from d read back, the per-image sums, and dWp = sum u (x) dy.
-template <typename T, int TR>
+// v, s' and dbar from d (read back, or for the e=1 form the stencil on x, one
+// channel per warp), the per-image sums, and dWp = sum u (x) dy.
+template <typename T, int TR, bool EXPAND>
 __global__ void __launch_bounds__(kBig, 1) bwd_v_kernel(P6 p) {
   constexpr bool F32 = sizeof(T) == 4;
-  using L = BwdVSmem<F32, TR>;
+  using L = std::conditional_t<EXPAND, BwdVSmem<F32, TR>, BwdV1Smem<T, TR>>;
+  using CF = std::conditional_t<EXPAND, Coef, Coef1>;
+  using F = Fr<EXPAND>;
   constexpr int TP = L::TP;
   extern __shared__ __align__(16) unsigned char smem[];
-  Coef& cf = *reinterpret_cast<Coef*>(smem);
+  CF& cf = *reinterpret_cast<CF*>(smem);
+  T* xc = reinterpret_cast<T*>(smem + BwdV1Smem<T, TR>::x);  // the e=1 form's x tile
   float* db = reinterpret_cast<float*>(smem + L::d);
   bf16* dyh = reinterpret_cast<bf16*>(smem + L::dy);
   bf16* dyl = reinterpret_cast<bf16*>(smem + L::dylo);
@@ -806,37 +1015,55 @@ __global__ void __launch_bounds__(kBig, 1) bwd_v_kernel(P6 p) {
   const int Ep = up(p.E, 16), C2p = up(p.C2, 8), kc2 = (p.C2 + 15) / 16;
   const bool chain = warp < TP / 16;  // this warp's m16 tile of positions
   const int mt = warp;
-  float* part = p.part + (size_t)(n * gridDim.x + blockIdx.x) * part_floats(kBwdV, p.C, p.E, p.C2);
+  float* part = p.part + (size_t)(n * gridDim.x + blockIdx.x) *
+                             part_floats(kBwdV, p.C, p.E, p.C2, EXPAND);
   fill_coef(cf, p, n);
-  fetch_d<TR, 0>(db, p, n, 0, r0, c0);
-  cp_async_commit();
+  if constexpr (EXPAND) {
+    fetch_d<TR, 0>(db, p, n, 0, r0, c0);
+    cp_async_commit();
+  } else {
+    load_xc<T, TR, 1>(xc, p, n, r0, c0);
+  }
   __syncthreads();
-  load_dy<T, TR, 0>(dyh, dyl, p, cf, n, r0, c0);
+  load_dy<T, TR, 0, F::xs>(dyh, dyl, p, cf, n, r0, c0);
 
   for (int e0 = 0; e0 < Ep; e0 += kEC) {
-    // this chunk's d has landed (and the last chunk's u and sums are read);
-    // the next chunk's starts
-    cp_async_wait_all();
-    __syncthreads();
-    if (e0 + kEC < Ep) {
-      fetch_d<TR, 0>(db + ((e0 / kEC + 1) & 1) * kEC * SD, p, n, e0 + kEC, r0, c0);
-      cp_async_commit();
+    const float* dsrc = db;
+    if constexpr (EXPAND) {
+      // this chunk's d has landed (and the last chunk's u and sums are read);
+      // the next chunk's starts
+      cp_async_wait_all();
+      __syncthreads();
+      if (e0 + kEC < Ep) {
+        fetch_d<TR, 0>(db + ((e0 / kEC + 1) & 1) * kEC * SD, p, n, e0 + kEC, r0, c0);
+        cp_async_commit();
+      }
+      dsrc = db + ((e0 / kEC) & 1) * kEC * SD;
+    } else {
+      // the last chunk's d, u and sums are read; this chunk's d, one channel per warp
+      __syncthreads();
+      using G = Geo<TR, 1>;
+      float k[9], dv[TR];
+      taps(p, e0 + warp, k);
+      stencil_col<G::RC, TR>(xc + (size_t)(e0 + warp) * G::RQP, k, lane, dv);
+#pragma unroll
+      for (int tr = 0; tr < TR; ++tr) db[warp * SD + tr * kTC + lane] = dv[tr];
+      __syncthreads();
     }
-    const float* dsrc = db + ((e0 / kEC) & 1) * kEC * SD;
     float acc[2][2][5] = {};  // [nt][column parity][v du, du s', s', du s' dbar, s' dbar]
     if (chain) {
-      Frag wd[3][2];
+      Frag wd[F::kk][2];
 #pragma unroll
-      for (int kk = 0; kk < 3; ++kk)
+      for (int kk = 0; kk < F::kk; ++kk)
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt)
-          if (kk < kc2) wd[kk][nt] = wfrag(p, e0, 12 + 2 * kk + nt);
+          if (kk < kc2) wd[kk][nt] = wfrag<EXPAND>(p, e0, F::du(kk, nt));
       float du[2][4] = {};
 #pragma unroll
-      for (int kk = 0; kk < 3; ++kk)
+      for (int kk = 0; kk < F::kk; ++kk)
         if (kk < kc2) {
           unsigned ah[4], al[4];
-          const int off = (mt * 16 + a_row(lane)) * kXs + kk * 16 + a_col(lane);
+          const int off = (mt * 16 + a_row(lane)) * F::xs + kk * 16 + a_col(lane);
           ldsm(ah, dyh + off);
           ldsm(al, dyl + off);
           mma3(du[0], ah, al, wd[kk][0]);
@@ -897,7 +1124,7 @@ __global__ void __launch_bounds__(kBig, 1) bwd_v_kernel(P6 p) {
       unsigned ah[2][4], al[2][4], bh[2][4], bl[2][4];  // two k steps in flight
       auto load = [&](int ks, int b) {
         const int ao = (ks * 16 + at_row(lane)) * kUs + at_col(lane);
-        const int bo = (ks * 16 + bt_row(lane)) * kXs + warp * 16 + bt_col(lane);
+        const int bo = (ks * 16 + bt_row(lane)) * F::xs + warp * 16 + bt_col(lane);
         ldsm_t(ah[b], uh + ao);
         ldsm_t(al[b], ul + ao);
         ldsm_t(bh[b], dyh + bo);
@@ -942,11 +1169,171 @@ struct BwdXSmem {
   static constexpr size_t total = dzlo + (size_t)TP * kUs * 2;
 };
 
+// du = dy Wp^T on a tile's 1-wide ring region (dy at [q][XS] as hi and lo),
+// then the exact dd in place of d at ds[el][SW], zero outside the valid image;
+// the warps take the region's m16 tiles in turn, from the last.
+template <bool EXPAND, int TR, typename CF>
+__device__ __forceinline__ void ring_dd(const P6& p, const CF& cf, const bf16* dyh,
+                                        const bf16* dyl, float* ds, int e0, int r0, int c0) {
+  using G1 = Geo<TR, 1>;
+  using F = Fr<EXPAND>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int kc2 = (p.C2 + 15) / 16;
+  Frag wd[F::kk][2];
+#pragma unroll
+  for (int kk = 0; kk < F::kk; ++kk)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+      if (kk < kc2) wd[kk][nt] = wfrag<EXPAND>(p, e0, F::du(kk, nt));
+  for (int mt = kBigWarps - 1 - warp; mt < G1::MT; mt += kBigWarps) {
+    float du[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < F::kk; ++kk)
+      if (kk < kc2) {
+        unsigned ah[4], al[4];
+        const int off = (mt * 16 + a_row(lane)) * F::xs + kk * 16 + a_col(lane);
+        ldsm(ah, dyh + off);
+        ldsm(al, dyl + off);
+        mma3(du[0], ah, al, wd[kk][0]);
+        mma3(du[1], ah, al, wd[kk][1]);
+      }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int qq = mt * 16 + g + (q >> 1) * 8, el = nt * 8 + 2 * t + (q & 1);
+        const int e = e0 + el, r = qq / G1::RC, cc = qq - r * G1::RC;
+        const int gr = r0 - 1 + r, gc = c0 - 1 + cc;
+        const bool valid = qq < G1::RQ && gr >= 0 && gr < p.vh && gc >= 0 && gc < p.vw;
+        float* dp = ds + el * G1::SW + qq;
+        const float d = *dp;
+        const float dh = cf.a1[e] * (d - cf.m1[e]) + cf.b1[e];
+        const float sp = dsilu(dh);
+        const float db1h = (du[nt][q] * cf.gate[e] + cf.dsh[e]) * sp;
+        const float dd = cf.a1[e] * db1h - cf.r1a[e] - (d - cf.m1[e]) * cf.i1[e] * cf.r1b[e];
+        *dp = valid ? dd : 0.f;
+      }
+  }
+}
+
+// The e=1 form's bwd_x: x on the tile with a 2-wide halo (channel-major), dy on
+// the tile's 1-wide ring, d then dd on the ring for the chunk.
+template <typename T, int TR>
+struct BwdX1Smem {
+  using G1 = Geo<TR, 1>;
+  static constexpr size_t x = sizeof(Coef1);
+  static constexpr size_t dy = x + up16((size_t)kMaxC1 * Geo<TR, 2>::RQP * sizeof(T));
+  static constexpr size_t dylo = dy + (size_t)G1::RQP * kXs1 * 2;
+  static constexpr size_t d = dylo + (size_t)G1::RQP * kXs1 * 2;
+  static constexpr size_t total = d + (size_t)kEC * G1::SW * 4;
+};
+
+// bwd_x of the e=1 form: per chunk, one channel per warp, d = the stencil on x
+// over the tile's ring region; du = dy Wp^T and dd there (ring_dd); then on the
+// tile dx = [dout +] corr(K~, dd), written straight to dx (0 outside the valid
+// image), and the 9 dK tap sums dd x(shifted).
+template <typename T, int TR>
+__device__ __forceinline__ void bwd_x1(const P6& p) {
+  using G1 = Geo<TR, 1>;
+  using G2 = Geo<TR, 2>;
+  using L = BwdX1Smem<T, TR>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Coef1& cf = *reinterpret_cast<Coef1*>(smem);
+  T* xc = reinterpret_cast<T*>(smem + L::x);
+  bf16* dyh = reinterpret_cast<bf16*>(smem + L::dy);
+  bf16* dyl = reinterpret_cast<bf16*>(smem + L::dylo);
+  float* ds = reinterpret_cast<float*>(smem + L::d);
+  const int n = blockIdx.y, tiles_c = (p.vw + kTC - 1) / kTC;
+  const int r0 = blockIdx.x / tiles_c * TR, c0 = blockIdx.x % tiles_c * kTC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int Ep = up(p.E, 16);
+  const bool residual = p.C2 == p.C;
+  const T* gp = static_cast<const T*>(p.g);
+  T* dx = static_cast<T*>(p.out);
+  float* part = p.part + (size_t)(n * gridDim.x + blockIdx.x) *
+                             part_floats(kBwdX, p.C, p.E, p.C2, false);
+  fill_coef(cf, p, n);
+  __syncthreads();
+  load_xc<T, TR, 2>(xc, p, n, r0, c0);
+  load_dy<T, TR, 1, kXs1>(dyh, dyl, p, cf, n, r0, c0);
+
+  for (int e0 = 0; e0 < Ep; e0 += kEC) {
+    const int e = e0 + warp;  // this warp's channel
+    const T* xe = xc + (size_t)e * G2::RQP;
+    float k[9];
+    taps(p, e, k);
+    __syncthreads();  // the tiles are in; the last chunk's dd is read
+    // d on the ring region: its TR + 2 rows at column `lane`, then its last two
+    // columns one value a lane (stencil_col's order of terms)
+    {
+      float dv[TR + 2];
+      stencil_col<G2::RC, TR + 2>(xe, k, lane, dv);
+#pragma unroll
+      for (int r = 0; r < TR + 2; ++r) ds[warp * G1::SW + r * G1::RC + lane] = dv[r];
+      if (lane < 2 * (TR + 2)) {
+        const int col = kTC + (lane & 1), r = lane >> 1;
+        float acc = 0.f;
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+#pragma unroll
+          for (int a = 0; a < 3; ++a)
+            acc = fmaf(k[3 * a + b], ld(xe, (r + a) * G2::RC + col + b), acc);
+        ds[warp * G1::SW + r * G1::RC + col] = acc;
+      }
+    }
+    __syncthreads();
+    ring_dd<false, TR>(p, cf, dyh, dyl, ds, e0, r0, c0);
+    __syncthreads();
+    // on the tile: dx (the stencil's transpose of dd) and the dK taps
+    float kf[9], dl[TR], tp[9] = {};
+#pragma unroll
+    for (int i = 0; i < 9; ++i) kf[i] = k[8 - i];  // flipped: correlation
+    const float* dd = ds + warp * G1::SW;
+    stencil_col<G1::RC, TR>(dd, kf, lane, dl);
+    // x at rows tr + 1 .. tr + 3 of the 2-wide region, columns lane + 1 .. + 3: a
+    // window that slides down a row per output row
+    const T* xw = xe + G2::RC + lane + 1;
+    float w0[3], w1[3];
+#pragma unroll
+    for (int b = 0; b < 3; ++b) w0[b] = ld(xw, b), w1[b] = ld(xw, G2::RC + b);
+#pragma unroll
+    for (int tr = 0; tr < TR; ++tr) {
+      const float ddt = dd[(tr + 1) * G1::RC + lane + 1];
+      float w2[3];
+#pragma unroll
+      for (int b = 0; b < 3; ++b) w2[b] = ld(xw, (tr + 2) * G2::RC + b);
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        tp[b] = fmaf(ddt, w0[b], tp[b]);
+        tp[3 + b] = fmaf(ddt, w1[b], tp[3 + b]);
+        tp[6 + b] = fmaf(ddt, w2[b], tp[6 + b]);
+        w0[b] = w1[b], w1[b] = w2[b];
+      }
+      const int gr = r0 + tr, gc = c0 + lane;
+      if (e < p.C && gr < p.H && gc < p.W) {
+        const size_t idx = (((size_t)n * p.C + e) * p.H + gr) * p.W + gc;
+        float v = 0.f;
+        if (gr < p.vh && gc < p.vw) {
+          v = dl[tr];
+          if (residual) v += ld(gp, idx);
+        }
+        st(dx, idx, v);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 9; ++i) tp[i] = warp_sum(tp[i]);
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < 9; ++i) part[i * Ep + e] = tp[i];
+    }
+  }
+}
+
 // One tile per block, 16 warps. On the tile and its 1-wide ring: w from x (for
 // the taps), d read back, du = dy Wp^T, then dd; on the tile: dL/dw (the
 // stencil's transpose of dd), dz0hat, the bn0 sums and dK taps, T3 and dxa.
 template <typename T, int TR>
-__global__ void __launch_bounds__(kBig, 1) bwd_x_kernel(P6 p) {
+__device__ __forceinline__ void bwd_x6(const P6& p) {
   constexpr bool F32 = sizeof(T) == 4;
   using G1 = Geo<TR, 1>;
   using L = BwdXSmem<F32, TR>;
@@ -965,14 +1352,15 @@ __global__ void __launch_bounds__(kBig, 1) bwd_x_kernel(P6 p) {
   const int n = blockIdx.y, tiles_c = (p.vw + kTC - 1) / kTC;
   const int r0 = blockIdx.x / tiles_c * TR, c0 = blockIdx.x % tiles_c * kTC;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int Ep = up(p.E, 16), kc = (p.C + 15) / 16, kc2 = (p.C2 + 15) / 16;
+  const int Ep = up(p.E, 16), kc = (p.C + 15) / 16;
   const int ntc = (p.C + 7) / 8;
   const bool own = warp < TP / 16;  // this warp's m16 tile of the tile's positions
-  float* part = p.part + (size_t)(n * gridDim.x + blockIdx.x) * part_floats(kBwdX, p.C, p.E, p.C2);
+  float* part = p.part + (size_t)(n * gridDim.x + blockIdx.x) *
+                             part_floats(kBwdX, p.C, p.E, p.C2, true);
   fill_coef(cf, p, n);
   __syncthreads();
   load_x<T, TR, 1>(xh, xl, p, n, r0, c0);
-  load_dy<T, TR, 1>(dyh, dyl, p, cf, n, r0, c0);
+  load_dy<T, TR, 1, kXs>(dyh, dyl, p, cf, n, r0, c0);
   __syncthreads();
 
   float dxa[6][4] = {};
@@ -996,44 +1384,7 @@ __global__ void __launch_bounds__(kBig, 1) bwd_x_kernel(P6 p) {
     z_phase<F32, TR, 1, kBigWarps, 1>(p, cf, xh, xl, ws, zt, e0, r0, c0);
     cp_async_wait_all();
     __syncwarp();
-    // du = dy Wp^T on the ring region, then dd (in place of d)
-    {
-      Frag wd[3][2];
-#pragma unroll
-      for (int kk = 0; kk < 3; ++kk)
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-          if (kk < kc2) wd[kk][nt] = wfrag(p, e0, 12 + 2 * kk + nt);
-      for (int mt = kBigWarps - 1 - warp; mt < G1::MT; mt += kBigWarps) {
-        float du[2][4] = {};
-#pragma unroll
-        for (int kk = 0; kk < 3; ++kk)
-          if (kk < kc2) {
-            unsigned ah[4], al[4];
-            const int off = (mt * 16 + a_row(lane)) * kXs + kk * 16 + a_col(lane);
-            ldsm(ah, dyh + off);
-            ldsm(al, dyl + off);
-            mma3(du[0], ah, al, wd[kk][0]);
-            mma3(du[1], ah, al, wd[kk][1]);
-          }
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int qq = mt * 16 + g + (q >> 1) * 8, el = nt * 8 + 2 * t + (q & 1);
-            const int e = e0 + el, r = qq / G1::RC, cc = qq - r * G1::RC;
-            const int gr = r0 - 1 + r, gc = c0 - 1 + cc;
-            const bool valid = qq < G1::RQ && gr >= 0 && gr < p.vh && gc >= 0 && gc < p.vw;
-            float* dp = ds + el * G1::SW + qq;
-            const float d = *dp;
-            const float dh = cf.a1[e] * (d - cf.m1[e]) + cf.b1[e];
-            const float sp = dsilu(dh);
-            const float db1h = (du[nt][q] * cf.gate[e] + cf.dsh[e]) * sp;
-            const float dd = cf.a1[e] * db1h - cf.r1a[e] - (d - cf.m1[e]) * cf.i1[e] * cf.r1b[e];
-            *dp = valid ? dd : 0.f;
-          }
-      }
-    }
+    ring_dd<true, TR>(p, cf, dyh, dyl, ds, e0, r0, c0);
     __syncthreads();
     // dL/dw on the tile (the stencil's transpose), dz0hat, bn0 sums and dK taps:
     // one channel per warp, one column per lane
@@ -1145,6 +1496,15 @@ __global__ void __launch_bounds__(kBig, 1) bwd_x_kernel(P6 p) {
     }
 }
 
+// The e6 form's bwd_x (bwd_x6) or the e=1 form's (bwd_x1).
+template <typename T, int TR, bool EXPAND>
+__global__ void __launch_bounds__(kBig, 1) bwd_x_kernel(P6 p) {
+  if constexpr (EXPAND)
+    bwd_x6<T, TR>(p);
+  else
+    bwd_x1<T, TR>(p);
+}
+
 // ---------------------------------------------------------------------------
 // x's moments, the output, dx, and the second level of every reduction
 // ---------------------------------------------------------------------------
@@ -1165,6 +1525,15 @@ __global__ void __launch_bounds__(kFrags * 32) prep_kernel(P6 p, uint4* wf) {
   wf[(blockIdx.x * kFrags + f) * 32 + (threadIdx.x & 31)] = make_uint4(b.h0, b.h1, b.l0, b.l1);
 }
 
+// The e=1 form's (Fr<false>): Wp's fragments for y = u Wp (f < 8) and du =
+// dy Wp^T (f = 8 + 2 kk + nt).
+__global__ void __launch_bounds__(kFrags1 * 32) prep1_kernel(P6 p, uint4* wf) {
+  const int f = threadIdx.x >> 5, e0 = blockIdx.x * kEC;
+  const Frag b = f < 8 ? bfrag(p.wp, p.C2, 1, e0, f * 8, p.E, p.C2)
+                       : bfrag(p.wp, 1, p.C2, ((f - 8) >> 1) * 16, e0 + (f & 1) * 8, p.C2, p.E);
+  wf[(blockIdx.x * kFrags1 + f) * 32 + (threadIdx.x & 31)] = make_uint4(b.h0, b.h1, b.l0, b.l1);
+}
+
 // Per block: [sum x (Cp) | sum x x^T (Cp x Cp)] over the slabs it walks.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) moments_kernel(P6 p) {
@@ -1176,7 +1545,7 @@ __global__ void __launch_bounds__(kThreads) moments_kernel(P6 p) {
   const T* x = static_cast<const T*>(p.x);
   const int HW = p.H * p.W, spi = (HW + kSl - 1) / kSl, slabs = p.N * spi;
   const int kc = (p.C + 15) / 16, Cp = kc * 16;
-  float* part = p.part + (size_t)blockIdx.x * part_floats(kMoments, p.C, p.E, p.C2);
+  float* part = p.part + (size_t)blockIdx.x * part_floats(kMoments, p.C, p.E, p.C2, true);
   float colsum[kMaxC * kSl / kThreads] = {};
   float acc[2][2][4] = {};
   for (int s = blockIdx.x; s < slabs; s += gridDim.x) {
@@ -1320,7 +1689,7 @@ __global__ void __launch_bounds__(kMaxE) bn0_bwd_kernel(P6 p) {
 // writes the returned statistics [mean1 | var1 | mean2 | var2].
 template <typename T>
 __global__ void __launch_bounds__(kThreads) out_kernel(P6 p) {
-  __shared__ float cm[kMaxC], ca[kMaxC], cb[kMaxC];
+  __shared__ float cm[kMaxC1], ca[kMaxC1], cb[kMaxC1];  // C2 of either form
   const float cnt = (float)p.N * p.vh * p.vw;
   const int Ep = up(p.E, 16), C2p = up(p.C2, 8);
   for (int c = threadIdx.x; c < p.C2; c += kThreads) {
@@ -1346,6 +1715,39 @@ __global__ void __launch_bounds__(kThreads) out_kernel(P6 p) {
   const int HW = p.H * p.W, c = blockIdx.y % p.C2, n = blockIdx.y / p.C2;
   const size_t plane = (size_t)blockIdx.y * HW;  // (n, c) of out and, with the residual, of x
   const float dn = p.delta[n], a = ca[c], m = cm[c], b = cb[c];
+  // 4 positions of one row a thread (16-byte y, 8- or 16-byte x and out), where
+  // the rows allow it; else one
+  constexpr int V = 4;
+  union Vt {
+    typename std::conditional<sizeof(T) == 2, uint2, uint4>::type u;
+    T t[V];
+  };
+  const bool aligned = p.W % V == 0 && ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(out)) &
+                                        (V * sizeof(T) - 1)) == 0 &&
+                       (reinterpret_cast<size_t>(p.y) & 15) == 0;
+  if (aligned) {
+    for (int pos = (blockIdx.x * kThreads + threadIdx.x) * V; pos < HW;
+         pos += gridDim.x * kThreads * V) {
+      const int r = pos / p.W, col = pos - r * p.W;
+      Vt o, xv;
+      float yv[V] = {};
+      if (r < p.vh && col < p.vw) {
+        *reinterpret_cast<float4*>(yv) = *reinterpret_cast<const float4*>(p.y + plane + pos);
+        if (residual) xv.u = *reinterpret_cast<const decltype(xv.u)*>(x + plane + pos);
+      }
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        float v = 0.f;
+        if (r < p.vh && col + k < p.vw) {
+          v = dn * (a * (yv[k] - m) + b);
+          if (residual) v += ld(xv.t, k);
+        }
+        st(o.t, k, v);
+      }
+      *reinterpret_cast<decltype(o.u)*>(out + plane + pos) = o.u;
+    }
+    return;
+  }
   for (int pos = blockIdx.x * kThreads + threadIdx.x; pos < HW; pos += gridDim.x * kThreads) {
     const int r = pos / p.W, col = pos - r * p.W;
     float v = 0.f;
@@ -1419,42 +1821,67 @@ __global__ void __launch_bounds__(128) dx_kernel(P6 p) {
     }
 }
 
+// The e=1 form's dx outside bwd_x's tiles (rows from rc or columns from cc on): 0.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) dx_pad_kernel(P6 p, int rc, int cc) {
+  T* dx = static_cast<T*>(p.out);
+  const size_t HW = (size_t)p.H * p.W, total = (size_t)p.N * p.C * HW;
+  for (size_t i = blockIdx.x * (size_t)kThreads + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * kThreads) {
+    const int pos = (int)(i % HW), r = pos / p.W, c = pos - r * p.W;
+    if (r >= rc || c >= cc) st(dx, i, 0.f);
+  }
+}
+
 // Second level: for each entry k of the blocks' partials part[blk][K], with the
 // blocks image-major (bpi per image), red_n[n][k] = sum over image n's blocks
 // (k < kimg) and red[k - kimg] = sum over all blocks, image by image (k >=
-// kimg), the per-image sums times scale_n. kRedRows threads share an entry, each
-// summing every kRedRows-th block in order; their sums are added in a fixed order.
-__global__ void __launch_bounds__(kRedCols* kRedRows)
+// kimg), the per-image sums times scale_n. A block takes COLS entries, and
+// ROWS threads share an entry, each summing every ROWS-th block in order (8
+// sums in flight); a warp holds 32 / COLS rows of its entries and adds them by
+// shuffles, then warp 0 adds the warps' sums, all in a fixed order. reduce()
+// takes 32 x 32 where K alone gives the card enough blocks, else 8 x 128.
+template <int COLS, int ROWS>
+__global__ void __launch_bounds__(COLS* ROWS)
 sum_blocks_kernel(const float* __restrict__ part, int N, int bpi, int K, int kimg,
                   float scale_n, float* __restrict__ red_n, float* __restrict__ red) {
-  __shared__ float sm[kRedRows][kRedCols];
-  const int tx = threadIdx.x % kRedCols, ty = threadIdx.x / kRedCols;
-  const int k = blockIdx.x * kRedCols + tx;
+  constexpr int kW = COLS * ROWS / 32, kG = 32 / COLS;  // warps; rows of a warp
+  __shared__ float sm[kW][COLS];
+  const int tx = threadIdx.x % COLS, ty = threadIdx.x / COLS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int k = blockIdx.x * COLS + tx, k0 = blockIdx.x * COLS + lane % COLS;
   float tot = 0.f;
   for (int n = 0; n < N; ++n) {
-    float s[4] = {};
+    float s[8] = {};
     if (k < K) {
       const float* src = part + ((size_t)n * bpi) * K + k;
       int b = ty;
-      for (; b + 3 * kRedRows < bpi; b += 4 * kRedRows) {
+      for (; b + 7 * ROWS < bpi; b += 8 * ROWS) {
 #pragma unroll
-        for (int u = 0; u < 4; ++u) s[u] += src[(size_t)(b + u * kRedRows) * K];
+        for (int u = 0; u < 8; ++u) s[u] += src[(size_t)(b + u * ROWS) * K];
       }
-      for (; b < bpi; b += kRedRows) s[0] += src[(size_t)b * K];
+      for (; b < bpi; b += ROWS) s[0] += src[(size_t)b * K];
     }
-    sm[ty][tx] = (s[0] + s[1]) + (s[2] + s[3]);
+    float v = ((s[0] + s[1]) + (s[2] + s[3])) + ((s[4] + s[5]) + (s[6] + s[7]));
+#pragma unroll
+    for (int off = COLS; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane < COLS) sm[warp][lane] = v;
     __syncthreads();
-    if (ty == 0 && k < K) {
-      float v = 0.f;
-      for (int r = 0; r < kRedRows; ++r) v += sm[r][tx];
-      if (k < kimg)
-        red_n[(size_t)n * kimg + k] = v * scale_n;
-      else
-        tot += v;
+    if (warp == 0) {  // lane COLS g + t: warps g, g + kG, ... of entry t
+      float w = 0.f;
+      for (int r = lane / COLS; r < kW; r += kG) w += sm[r][lane % COLS];
+#pragma unroll
+      for (int off = COLS; off < 32; off <<= 1) w += __shfl_xor_sync(0xffffffffu, w, off);
+      if (lane < COLS && k0 < K) {
+        if (k0 < kimg)
+          red_n[(size_t)n * kimg + k0] = w * scale_n;
+        else
+          tot += w;
+      }
     }
     __syncthreads();
   }
-  if (ty == 0 && k < K && k >= kimg) red[k - kimg] = tot;
+  if (warp == 0 && lane < COLS && k0 < K && k0 >= kimg) red[k0 - kimg] = tot;
 }
 
 // ---------------------------------------------------------------------------
@@ -1485,8 +1912,12 @@ int launch_big(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t s, co
 
 int reduce(const P6& p, int nimg, int bpi, int K, int kimg, cudaStream_t s,
            float scale_n = 1.f) {
-  sum_blocks_kernel<<<(K + kRedCols - 1) / kRedCols, kRedCols * kRedRows, 0, s>>>(
-      p.part, nimg, bpi, K, kimg, scale_n, p.red_n, p.red);
+  if (K >= 32 * 132)
+    sum_blocks_kernel<32, 32><<<(K + 31) / 32, 1024, 0, s>>>(p.part, nimg, bpi, K, kimg,
+                                                             scale_n, p.red_n, p.red);
+  else
+    sum_blocks_kernel<8, 128><<<(K + 7) / 8, 1024, 0, s>>>(p.part, nimg, bpi, K, kimg,
+                                                           scale_n, p.red_n, p.red);
   return (int)cudaGetLastError();
 }
 
@@ -1495,12 +1926,19 @@ int moments_blocks(const P6& p) {
   return slabs < 1024 ? slabs : 1024;
 }
 
+template <typename T>
+int out_pass(const P6& p, cudaStream_t s) {
+  const int bx = (p.H * p.W + kThreads - 1) / kThreads;
+  out_kernel<T><<<dim3(bx < 32 ? bx : 32, p.N * p.C2), kThreads, 0, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int TR>
 int run_pass(int pass, const P6& p, cudaStream_t s) {
   constexpr bool F32 = sizeof(T) == 4;
   const int tiles = ((p.vh + TR - 1) / TR) * ((p.vw + kTC - 1) / kTC);
   const dim3 grid(tiles, p.N);
-  const int Ep = up(p.E, 16), K = part_floats(pass, p.C, p.E, p.C2);
+  const int Ep = up(p.E, 16), K = part_floats(pass, p.C, p.E, p.C2, true);
   int rc = 0;
   switch (pass) {
     case kMoments: {  // also lays out the weights' fragments for the forward
@@ -1512,28 +1950,25 @@ int run_pass(int pass, const P6& p, cudaStream_t s) {
       return (int)cudaGetLastError();
     }
     case kF2:
-      rc = launch_big(sweep_kernel<T, TR, kF2>, grid, kThreads, SweepSmem<F32, TR, recomputes(kF2)>::total, s, p);
+      rc = launch_big(sweep_kernel<T, TR, kF2, true>, grid, kThreads, sweep_smem<T, TR, kF2, true>(p.C), s, p);
       return rc ? rc : reduce(p, p.N, tiles, K, 0, s);
     case kF3:
-      rc = launch_big(sweep_kernel<T, TR, kF3>, grid, kThreads, SweepSmem<F32, TR, recomputes(kF3)>::total, s, p);
+      rc = launch_big(sweep_kernel<T, TR, kF3, true>, grid, kThreads, sweep_smem<T, TR, kF3, true>(p.C), s, p);
       return rc ? rc : reduce(p, p.N, tiles, K, Ep, s, 1.f / ((float)p.vh * p.vw));
     case kF4:
-      rc = launch_big(sweep_kernel<T, TR, kF4>, grid, kThreads, SweepSmem<F32, TR, recomputes(kF4)>::total, s, p);
+      rc = launch_big(sweep_kernel<T, TR, kF4, true>, grid, kThreads, sweep_smem<T, TR, kF4, true>(p.C), s, p);
       return rc ? rc : reduce(p, p.N, tiles, K, 0, s);
     case kB1:  // also lays out the weights' fragments for the backward
       prep_kernel<<<Ep / kEC, kFrags * 32, 0, s>>>(p, (uint4*)p.wf);
-      rc = launch_big(sweep_kernel<T, TR, kB1>, grid, kThreads, SweepSmem<F32, TR, recomputes(kB1)>::total, s, p);
+      rc = launch_big(sweep_kernel<T, TR, kB1, true>, grid, kThreads, sweep_smem<T, TR, kB1, true>(p.C), s, p);
       return rc ? rc : reduce(p, p.N, tiles, K, 0, s);
-    case kOut: {
-      const int bx = (p.H * p.W + kThreads - 1) / kThreads;
-      out_kernel<T><<<dim3(bx < 32 ? bx : 32, p.N * p.C2), kThreads, 0, s>>>(p);
-      return (int)cudaGetLastError();
-    }
+    case kOut:
+      return out_pass<T>(p, s);
     case kBwdV:
-      rc = launch_big(bwd_v_kernel<T, TR>, grid, kBig, BwdVSmem<F32, TR>::total, s, p);
+      rc = launch_big(bwd_v_kernel<T, TR, true>, grid, kBig, BwdVSmem<F32, TR>::total, s, p);
       return rc ? rc : reduce(p, p.N, tiles, K, 5 * Ep, s);
     case kBwdX:  // then bn0's backward: dWe, M and k
-      rc = launch_big(bwd_x_kernel<T, TR>, grid, kBig, BwdXSmem<F32, TR>::total, s, p);
+      rc = launch_big(bwd_x_kernel<T, TR, true>, grid, kBig, BwdXSmem<F32, TR>::total, s, p);
       if (rc || (rc = reduce(p, p.N, tiles, K, 0, s))) return rc;
       bn0_bwd_kernel<<<p.C, kMaxE, 0, s>>>(p);
       return (int)cudaGetLastError();
@@ -1546,6 +1981,47 @@ int run_pass(int pass, const P6& p, cudaStream_t s) {
   return (int)cudaErrorInvalidValue;
 }
 
+// The e=1 form's passes: F2 (and Wp's fragments), F3, F4, out; B1 (and the
+// fragments), bwd_v, bwd_x (and dx outside its tiles, where there is such).
+template <typename T, int TR>
+int run_pass1(int pass, const P6& p, cudaStream_t s) {
+  const int tiles_r = (p.vh + TR - 1) / TR, tiles_c = (p.vw + kTC - 1) / kTC;
+  const int tiles = tiles_r * tiles_c;
+  const dim3 grid(tiles, p.N);
+  const int Ep = up(p.E, 16), K = part_floats(pass, p.C, p.E, p.C2, false);
+  int rc = 0;
+  switch (pass) {
+    case kF2:
+      prep1_kernel<<<Ep / kEC, kFrags1 * 32, 0, s>>>(p, (uint4*)p.wf);
+      rc = launch_big(sweep_kernel<T, TR, kF2, false>, grid, kThreads, sweep_smem<T, TR, kF2, false>(p.C), s, p);
+      return rc ? rc : reduce(p, p.N, tiles, K, 0, s);
+    case kF3:
+      rc = launch_big(sweep_kernel<T, TR, kF3, false>, grid, kThreads, sweep_smem<T, TR, kF3, false>(p.C), s, p);
+      return rc ? rc : reduce(p, p.N, tiles, K, Ep, s, 1.f / ((float)p.vh * p.vw));
+    case kF4:
+      rc = launch_big(sweep_kernel<T, TR, kF4, false>, grid, kThreads, sweep_smem<T, TR, kF4, false>(p.C), s, p);
+      return rc ? rc : reduce(p, p.N, tiles, K, 0, s);
+    case kB1:
+      prep1_kernel<<<Ep / kEC, kFrags1 * 32, 0, s>>>(p, (uint4*)p.wf);
+      rc = launch_big(sweep_kernel<T, TR, kB1, false>, grid, kThreads, sweep_smem<T, TR, kB1, false>(p.C), s, p);
+      return rc ? rc : reduce(p, p.N, tiles, K, 0, s);
+    case kOut:
+      return out_pass<T>(p, s);
+    case kBwdV:
+      rc = launch_big(bwd_v_kernel<T, TR, false>, grid, kBig, BwdV1Smem<T, TR>::total, s, p);
+      return rc ? rc : reduce(p, p.N, tiles, K, 5 * Ep, s);
+    case kBwdX:
+      rc = launch_big(bwd_x_kernel<T, TR, false>, grid, kBig, BwdX1Smem<T, TR>::total, s, p);
+      if (rc || (rc = reduce(p, p.N, tiles, K, 0, s))) return rc;
+      if (tiles_r * TR < p.H || tiles_c * kTC < p.W) {
+        dx_pad_kernel<T><<<1024, kThreads, 0, s>>>(p, tiles_r * TR, tiles_c * kTC);
+        rc = (int)cudaGetLastError();
+      }
+      return rc;
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename K>
 int occupancy(K kernel, int threads, size_t smem, int* smem_out, int* blocks) {
   *smem_out = (int)smem;
@@ -1554,22 +2030,25 @@ int occupancy(K kernel, int threads, size_t smem, int* smem_out, int* blocks) {
   return rc ? rc : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem);
 }
 
-template <typename T, int TR>
-int kernel_info(int pass, int* smem, int* blocks) {
+template <typename T, int TR, bool EXPAND>
+int kernel_info(int pass, int C, int* smem, int* blocks) {
   constexpr bool F32 = sizeof(T) == 4;
+  using BV = std::conditional_t<EXPAND, BwdVSmem<F32, TR>, BwdV1Smem<T, TR>>;
+  constexpr size_t bx = EXPAND ? BwdXSmem<F32, TR>::total : BwdX1Smem<T, TR>::total;
   *smem = 0, *blocks = 0;
   switch (pass) {
     case kF2:
-      return occupancy(sweep_kernel<T, TR, kF2>, kThreads, SweepSmem<F32, TR, true>::total, smem, blocks);
+      return occupancy(sweep_kernel<T, TR, kF2, EXPAND>, kThreads, sweep_smem<T, TR, kF2, EXPAND>(C), smem, blocks);
     case kF3:
-      return occupancy(sweep_kernel<T, TR, kF3>, kThreads, SweepSmem<F32, TR, false>::total, smem, blocks);
+      return occupancy(sweep_kernel<T, TR, kF3, EXPAND>, kThreads, sweep_smem<T, TR, kF3, EXPAND>(C), smem, blocks);
     case kF4:
-      return occupancy(sweep_kernel<T, TR, kF4>, kThreads, SweepSmem<F32, TR, false>::total, smem, blocks);
+      return occupancy(sweep_kernel<T, TR, kF4, EXPAND>, kThreads, sweep_smem<T, TR, kF4, EXPAND>(C), smem, blocks);
     case kB1:
-      return occupancy(sweep_kernel<T, TR, kB1>, kThreads, SweepSmem<F32, TR, true>::total, smem, blocks);
-    case kBwdV: return occupancy(bwd_v_kernel<T, TR>, kBig, BwdVSmem<F32, TR>::total, smem, blocks);
-    case kBwdX: return occupancy(bwd_x_kernel<T, TR>, kBig, BwdXSmem<F32, TR>::total, smem, blocks);
-    case kMoments: return occupancy(moments_kernel<T>, kThreads, 0, smem, blocks);
+      return occupancy(sweep_kernel<T, TR, kB1, EXPAND>, kThreads, sweep_smem<T, TR, kB1, EXPAND>(C), smem, blocks);
+    case kBwdV: return occupancy(bwd_v_kernel<T, TR, EXPAND>, kBig, BV::total, smem, blocks);
+    case kBwdX: return occupancy(bwd_x_kernel<T, TR, EXPAND>, kBig, bx, smem, blocks);
+    case kMoments:
+      return EXPAND ? occupancy(moments_kernel<T>, kThreads, 0, smem, blocks) : 0;
     default: return 0;
   }
 }
@@ -1578,35 +2057,44 @@ int kernel_info(int pass, int* smem, int* blocks) {
 
 // ---------------------------------------------------------------------------
 // C interface, loaded with ctypes (ops/cuda_lib.py). m6_pass runs one pass of
-// the e6 form (its kernel, then its reduction where it has one) on CUDA device
-// `device` (made current only if it is not), enqueued on `stream`; it does not
-// synchronise and returns a CUDA error code (0 on success). Which pointers a
-// pass reads and writes is listed in ops/mbconv6.py; unused ones are null.
-// Shapes: C, C2 <= 48, E <= 256; x and dout bf16 (bf16 = 1) or fp32.
+// the e6 form (expand = 1) or of the e=1 form (expand = 0: E = C, no We, no
+// bn0; passes F2, F3, F4, out, B1, bwd_v and bwd_x): its kernel, then its
+// reduction where it has one, on CUDA device `device` (made current only if it
+// is not), enqueued on `stream`; it does not synchronise and returns a CUDA
+// error code (0 on success). Which pointers a pass reads and writes is listed
+// in ops/mbconv6.py; unused ones are null. Shapes: the e6 form C, C2 <= 48,
+// E <= 256; the e=1 form C, C2 <= 64; x and dout bf16 (bf16 = 1) or fp32.
 // ---------------------------------------------------------------------------
 
 extern "C" {
 
-// The dynamic shared memory (bytes) of pass `pass`'s main kernel in this I/O
-// type and how many of its blocks one SM holds (0 for a pass without one).
-int m6_kernel_info(int pass, int io_bf16, int* smem, int* blocks_per_sm) {
-  return io_bf16 ? kernel_info<bf16, 8>(pass, smem, blocks_per_sm)
-                 : kernel_info<float, 4>(pass, smem, blocks_per_sm);
+// The dynamic shared memory (bytes) of pass `pass`'s main kernel in this form
+// and I/O type at C input channels, and how many of its blocks one SM holds (0
+// for a pass without one).
+int m6_kernel_info(int pass, int expand, int io_bf16, int C, int* smem, int* blocks_per_sm) {
+  if (expand)
+    return io_bf16 ? kernel_info<bf16, 8, true>(pass, C, smem, blocks_per_sm)
+                   : kernel_info<float, 4, true>(pass, C, smem, blocks_per_sm);
+  return io_bf16 ? kernel_info<bf16, 8, false>(pass, C, smem, blocks_per_sm)
+                 : kernel_info<float, 4, false>(pass, C, smem, blocks_per_sm);
 }
 
 // Floats of block partials the largest pass needs (the `part` scratch).
-int m6_scratch(int io_bf16, int N, int C, int E, int C2, int H, int W, int vh, int vw) {
+int m6_scratch(int expand, int io_bf16, int N, int C, int E, int C2, int H, int W, int vh,
+               int vw) {
   const int TR = io_bf16 ? 8 : 4;
   const long tiles = (long)N * ((vh + TR - 1) / TR) * ((vw + kTC - 1) / kTC);
   long best = 0;
   for (int pass = kF2; pass < kPasses; ++pass) {
-    const long f = tiles * part_floats(pass, C, E, C2);
+    const long f = tiles * part_floats(pass, C, E, C2, expand);
     best = f > best ? f : best;
   }
-  P6 p{};
-  p.N = N, p.H = H, p.W = W;
-  const long m = (long)moments_blocks(p) * part_floats(kMoments, C, E, C2);
-  best = m > best ? m : best;
+  if (expand) {
+    P6 p{};
+    p.N = N, p.H = H, p.W = W;
+    const long m = (long)moments_blocks(p) * part_floats(kMoments, C, E, C2, true);
+    best = m > best ? m : best;
+  }
   return best > 0x7fffffff ? -1 : (int)best;
 }
 
@@ -1617,11 +2105,12 @@ int m6_pass(int pass, const void* x, const void* g, void* out, const float* we,
             const float* s3, const float* gate, const float* ds, const float* q,
             const float* delta, const float* mom, float* xm, float* kv, const void* wf, float* y,
             float* d, float* dxa, float* dwe, float* part, float* red, float* red_n, float* stats,
-            float eps,
-            int io_bf16, int N,
+            float eps, int expand, int io_bf16, int N,
             int C, int E, int C2, int H, int W, int vh, int vw, int device, void* stream) {
-  if (pass < 0 || pass >= kPasses || C < 1 || C > kMaxC || C2 < 1 || C2 > kMaxC || E < 1 ||
-      E > kMaxE || vh < 1 || vh > H || vw < 1 || vw > W)
+  const bool shapes = expand ? C <= kMaxC && C2 <= kMaxC && E <= kMaxE
+                             : E == C && C <= kMaxC1 && C2 <= kMaxC1;
+  if (pass < 0 || pass >= kPasses || !shapes || C < 1 || C2 < 1 || E < 1 || vh < 1 || vh > H ||
+      vw < 1 || vw > W)
     return (int)cudaErrorInvalidValue;
   DeviceGuard guard(device);
   if (guard.err) return guard.err;
@@ -1629,7 +2118,8 @@ int m6_pass(int pass, const void* x, const void* g, void* out, const float* we,
              delta, mom, xm, kv, wf, y, d, dxa, dwe, part, red, red_n, stats, eps, io_bf16, N, C, E,
              C2, H, W, vh, vw};
   cudaStream_t s = (cudaStream_t)stream;
-  return io_bf16 ? run_pass<bf16, 8>(pass, p, s) : run_pass<float, 4>(pass, p, s);
+  if (expand) return io_bf16 ? run_pass<bf16, 8>(pass, p, s) : run_pass<float, 4>(pass, p, s);
+  return io_bf16 ? run_pass1<bf16, 8>(pass, p, s) : run_pass1<float, 4>(pass, p, s);
 }
 
 }  // extern "C"

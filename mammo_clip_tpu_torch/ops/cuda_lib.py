@@ -39,27 +39,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # launcher name -> argument types (pointers and the stream as c_void_p)
 SIGNATURES: Dict[str, List] = {
-    "mbc_mix": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
-    "mbc_pgemm": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
-    "mbc_dw_fwd": [_P, _I, _P, _P, *[_I] * 6, _P],
-    "mbc_dw_bwd_x": [_P, _P, _P, *[_I] * 6, _P],
-    "mbc_dw_bwd_k": [_P, _P, _I, _P, *[_I] * 6, _P],
-    "mbc_reduce_partial": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "mbc_reduce_final": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "mbc_bn_act": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "mbc_scale_rows": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "mbc_bn_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "mbc_dv_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "mbc_out_fwd": [_P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P],
-    "mbc_finish": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P],
-    "mbc_dw_max_width": [],
-    "mbc_red_chunk": [],
-    "mbc_pg_chunk": [],
-    "mbc_dw_rows": [],
-    # csrc/mbconv6_e6.cu: pass, 33 pointers, eps, 9 shape ints, the device index, the stream
-    "m6_pass": [_I, *[_P] * 33, _F, *[_I] * 9, _I, _P],
-    "m6_scratch": [_I] * 9,
-    "m6_kernel_info": [_I, _I, _P, _P],
+    # csrc/mbconv6_e6.cu: pass, 33 pointers, eps, the form and 9 shape ints, the
+    # device index, the stream
+    "m6_pass": [_I, *[_P] * 33, _F, *[_I] * 10, _I, _P],
+    "m6_scratch": [_I] * 10,
+    "m6_kernel_info": [_I, _I, _I, _I, _P, _P],
     # csrc/mbconv1.cu
     "mb1_p1": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
     "mb1_p2": [_P, _I, *[_P] * 5, _I, _I, _I, _I, _P],

@@ -12,21 +12,22 @@ biased batch (mean, var) of each BatchNorm. ``MBConv6Params`` selects the
 expanding form; ``MBConvParams`` (ops/mbconv.py) the e=1 form, which runs the
 depthwise directly on x and returns 4 stats instead of 6.
 
-On a CUDA tensor the expanding form runs the kernels of ``csrc/mbconv6_e6.cu``:
+On a CUDA tensor both forms run the kernels of ``csrc/mbconv6_e6.cu``:
 passes that read x (and the cotangent) and recompute the block on chip with
 its channel products on the tensor cores; the forward keeps only x, the
-statistics and the (N, E) SE vectors for the backward (within one call, d is
-written once and read back by the passes after it). The passes are sequenced
-here (``_e6_forward``, ``_e6_backward``) through ``cuda_lib.launcher``; the
-analytic per-channel combinations between them run in the kernels, with their
-plain versions here (``bn0_stats``, ``bn1_backward_sums``,
-``dwe_from_moments``, ``dx_terms``), and the SE MLP and its backward are torch
-ops on (N, E) vectors. The e=1 form runs the stage kernels of
-``csrc/mbconv6.cu`` (``_forward_kernels``, ``_backward_kernels``), which keep
-its intermediates in fp32 device memory. A CPU tensor takes the plain PyTorch
-version of the same function (``plain_fused_mbconv_e6``), and any other device
-raises. ``launches`` (ops/mbconv.py) counts the kernel path's
-forward and backward calls under ``mbconv6.<form>.<direction>``.
+statistics and the (N, E) SE vectors for the backward. Within one call the
+expanding form writes d once and reads it back in the passes after it; the
+e=1 form recomputes d, a stencil on x, in every pass. Both write y (C2
+channels, fp32) within a call for the pass after the one that forms it. The
+passes are sequenced here (``_e6_forward``, ``_e6_backward``, ``_e1_forward``,
+``_e1_backward``), one ``cuda_lib.launcher`` call each; the analytic
+per-channel combinations between them run in the kernels, with their plain
+versions here (``bn0_stats``, ``bn1_backward_sums``, ``dwe_from_moments``,
+``dx_terms``, ``se_cotangent``, ``dx_from_dd``, ``dk_taps``), and the SE MLP
+and its backward are torch ops on (N, E) vectors. A CPU tensor takes the plain
+PyTorch version of the same function (``plain_fused_mbconv_e6``), and any other
+device raises. ``launches`` (ops/mbconv.py) counts the kernel path's forward
+and backward calls under ``mbconv6.<form>.<direction>``.
 """
 
 from __future__ import annotations
@@ -42,7 +43,6 @@ from .mbconv import (
     BN_EPS,
     MBConvParams,
     _bn,
-    _lib,
     _se_gate,
     _tail,
     batch_stats,
@@ -177,13 +177,40 @@ def dx_terms(we, mean0, inv0, alpha0, beta0r):
     return m.to(we.dtype).contiguous(), k.to(we.dtype)
 
 
+def se_cotangent(v, du):
+    """The SE gate's cotangent (N, E): the per-image sum over positions of v du,
+    with v = silu(bn1(d)) and du the cotangent of u = v gate. The plain version
+    of bwd_v_kernel's first per-image sum (csrc/mbconv6_e6.cu)."""
+    return (v * du).sum(dim=(2, 3))
+
+
+def dx_from_dd(dd, dw_kernel, g=None):
+    """The e=1 form's dx from dd, the cotangent of d = dw3x3(x): the stencil's
+    transpose, a correlation with the taps turned by 180 degrees (SAME
+    padding), plus dout ``g`` where the block has its residual. The plain
+    version of what csrc/mbconv6_e6.cu's bwd_x1 writes."""
+    dx = F.conv2d(dd, dw_kernel.flip(1, 2)[:, None], padding=1, groups=dd.shape[1])
+    return dx if g is None else dx + g
+
+
+def dk_taps(dd, x):
+    """dL/dw_kernel (E, 3, 3) of d = dw3x3(x) from dd: tap (a, b) is the sum over
+    images and positions of dd times x shifted by (a - 1, b - 1), zero outside
+    the image. The plain version of bwd_x's 9 tap sums (csrc/mbconv6_e6.cu)."""
+    H, W = x.shape[2:]
+    xp = F.pad(x, (1, 1, 1, 1))
+    return torch.stack([(dd * xp[:, :, a:a + H, b:b + W]).sum(dim=(0, 2, 3))
+                        for a in range(3) for b in range(3)], 1).view(-1, 3, 3)
+
+
 # pass ids of m6_pass (csrc/mbconv6_e6.cu), and the pointers it takes in order
 MOMENTS, F2, F3, F4, B1, OUT, BWD_V, BWD_X, DX = range(9)
 _PTRS = ("x", "g", "out", "we", "wp", "k9", "m0", "v0", "g0", "b0", "s1", "g1", "b1",
          "s2", "g2", "b2", "s3", "gate", "ds", "q", "delta", "mom", "xm", "kv", "wf", "y", "d",
          "dxa", "dwe", "part", "red", "red_n", "stats")
 _INDEX = {k: i for i, k in enumerate(_PTRS)}
-E6_MAX_C, E6_MAX_E = 48, 256  # the kernels' limits on C and C2, and on E
+E6_MAX_C, E6_MAX_E = 48, 256  # the expanding form's limits on C and C2, and on E
+E1_MAX_C = 64  # the e=1 form's limit on C (= E) and C2
 _FRAG_FLOATS = 24 * 32 * 4  # the weights' B fragments per chunk of 16 channels (prep_kernel)
 _m6_pass = launcher("m6_pass")
 
@@ -196,27 +223,30 @@ def _scratch_floats(ints) -> int:
 
 
 class _E6:
-    """One call of the expanding form: its shapes, the tensors its passes use
-    (kept alive here) and their pointers in ``_PTRS`` order, and
-    ``run(pass, **tensors)``, which sets tensors and launches one pass."""
+    """One call of either form: its shapes, the tensors its passes use (kept
+    alive here) and their pointers in ``_PTRS`` order, and ``run(pass,
+    **tensors)``, which sets tensors and launches one pass."""
 
     def __init__(self, x, p, delta, valid_h, valid_w, eps):
+        expand = isinstance(p, MBConv6Params)
         self.N, self.C, self.H, self.W = x.shape
-        self.E, self.C2 = p.we.shape[1], p.wp.shape[1]
+        self.E, self.C2 = p.wp.shape
         self.Cp, self.Ep, self.C2p = _up(self.C, 16), _up(self.E, 16), _up(self.C2, 8)
         self.hw = valid_h * valid_w
         self.cnt = self.N * self.hw
         self.eps = eps
         self.dev = x.get_device()
-        self.ints = (int(x.dtype == torch.bfloat16), self.N, self.C, self.E, self.C2, self.H,
-                     self.W, valid_h, valid_w)
+        self.ints = (int(expand), int(x.dtype == torch.bfloat16), self.N, self.C, self.E,
+                     self.C2, self.H, self.W, valid_h, valid_w)
         self.new = functools.partial(torch.empty, device=x.device, dtype=torch.float32)
         self.t, self.args = {}, [None] * len(_PTRS)
         c = lambda a: a.contiguous()
-        self.set(x=x, delta=delta, we=c(p.we), wp=c(p.wp), k9=c(p.dw_kernel), g0=c(p.gamma0),
-                 b0=c(p.beta0), g1=c(p.gamma1), b1=c(p.beta1), g2=c(p.gamma2), b2=c(p.beta2),
+        self.set(x=x, delta=delta, wp=c(p.wp), k9=c(p.dw_kernel), g1=c(p.gamma1),
+                 b1=c(p.beta1), g2=c(p.gamma2), b2=c(p.beta2),
                  part=self.new(_scratch_floats(self.ints)),
                  wf=self.new(self.Ep // 16 * _FRAG_FLOATS))
+        if expand:
+            self.set(we=c(p.we), g0=c(p.gamma0), b0=c(p.beta0))
 
     def set(self, **tensors):
         for k, v in tensors.items():
@@ -289,215 +319,73 @@ def _e6_backward(x, p, delta, valid_h, valid_w, eps, g, stats, kept):
 
 
 # ----------------------------------------------------------------------------
-# e=1 form: the stage kernels of csrc/mbconv6.cu
+# e=1 form: the same passes of csrc/mbconv6_e6.cu, d recomputed from x in each
 # ----------------------------------------------------------------------------
 
 
-def _ptr(t):
-    return t.data_ptr() if t is not None else None
+def _e1_forward(x, p, delta, valid_h, valid_w, eps):
+    """Forward of the e=1 form: (out, the 4 stats, what the backward keeps:
+    bn1's and bn2's sums, s_mean and gate)."""
+    k = _E6(x, p, delta, valid_h, valid_w, eps)
+    E, C2 = k.E, k.C2
+    s1 = k.new(2 * k.Ep)
+    k.run(F2, red=s1)  # and Wp's fragments for F4
+    s_mean = k.new(k.N, k.Ep)
+    k.run(F3, s1=s1, red=None, red_n=s_mean)  # the per-image sums of v over vh * vw
+    s_mean = s_mean[:, :E]
+    gate = _se_gate(s_mean, p)[0].contiguous()
+    y, s2 = k.new(k.N, C2, k.H, k.W), k.new(2 * k.C2p)
+    k.run(F4, gate=gate, y=y, red=s2, red_n=None)
+    out = torch.empty((k.N, C2, k.H, k.W), device=x.device, dtype=x.dtype)
+    stats = k.new(2 * E + 2 * C2)
+    k.run(OUT, s2=s2, out=out, stats=stats)
+    return out, tuple(stats.split([E, E, C2, C2])), (s1, s2, s_mean, gate)
 
 
-def _check(rc: int, name: str):
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
-
-
-class _Ctx:
-    """Per-call shapes and the library handle shared by the e=1 form's stages."""
-
-    def __init__(self, lib, x, E, C2, valid_h, valid_w):
-        self.lib = lib
-        self.N, self.C, self.H, self.W = x.shape
-        self.E, self.C2 = E, C2
-        self.vh, self.vw = valid_h, valid_w
-        self.P = self.H * self.W
-        self.cnt = self.N * valid_h * valid_w
-        self.bf16 = int(x.dtype == torch.bfloat16)
-        self.dev = x.device
-        self.stream = (torch.cuda.current_stream(x.device).cuda_stream
-                       if x.is_cuda else None)
-
-    def empty(self, *shape):
-        return torch.empty(shape, device=self.dev, dtype=torch.float32)
-
-    def dims(self, ch):
-        return (self.N, ch, self.H, self.W, self.vh, self.vw)
-
-    def sums(self, a, b=None, mb=None, ib=None):
-        """Per-(image, channel) and per-channel [sum a, sum a*b'] over the
-        valid region (see reduce_partial_kernel); returns ((N, Ch, 2), (Ch, 2))."""
-        lib, ch = self.lib, a.shape[1]
-        nchunk = -(-self.P // lib.mbc_red_chunk())
-        part = self.empty(self.N, ch, nchunk, 2)
-        _check(lib.mbc_reduce_partial(_ptr(a), _ptr(b), _ptr(mb), _ptr(ib), _ptr(part),
-                                      *self.dims(ch), self.stream), "reduce_partial")
-        return self._final(part, ch, nchunk, 2)
-
-    def _final(self, part, ch, nchunk, k):
-        out_n, out = self.empty(self.N, ch, k), self.empty(ch, k)
-        _check(self.lib.mbc_reduce_final(_ptr(part), _ptr(out_n), _ptr(out), self.N, ch,
-                                         nchunk, k, self.stream), "reduce_final")
-        return out_n, out
-
-    def mix(self, inp, w, scale=None):
-        """out[n, co, p] = sum_ci w[ci, co] * inp[n, ci, p] * scale[n, ci]."""
-        ci, co = w.shape
-        out = self.empty(self.N, co, self.H, self.W)
-        in_bf16 = int(inp.dtype == torch.bfloat16)
-        _check(self.lib.mbc_mix(_ptr(inp), in_bf16, _ptr(w), _ptr(scale), _ptr(out), self.N,
-                                ci, co, self.P, self.stream), "mix")
-        return out
-
-    def pgemm(self, a, b):
-        """(N, M, K): sum over positions of a[n, m, p] * b[n, k, p]."""
-        lib, M, K = self.lib, a.shape[1], b.shape[1]
-        nchunk = -(-self.P // lib.mbc_pg_chunk())
-        part = self.empty(self.N, M * K, nchunk, 1)
-        _check(lib.mbc_pgemm(_ptr(a), int(a.dtype == torch.bfloat16), _ptr(b), _ptr(part),
-                             self.N, M, K, self.P, self.stream), "pgemm")
-        out_n, _ = self._final(part, M * K, nchunk, 1)
-        return out_n.view(self.N, M, K)
-
-    def taps(self, dd, src):
-        """(E, 9): sum over images and valid positions of dd * shifted src."""
-        lib, E = self.lib, self.E
-        nchunk = -(-self.H // lib.mbc_dw_rows())
-        part = self.empty(self.N, E, nchunk, 9)
-        _check(lib.mbc_dw_bwd_k(_ptr(dd), _ptr(src), int(src.dtype == torch.bfloat16),
-                                _ptr(part), self.N, E, self.H, self.W, self.vh, self.vw,
-                                self.stream), "dw_bwd_k")
-        _, out = self._final(part, E, nchunk, 9)
-        return out
-
-
-def _bn_coeffs(s, cnt, gamma, beta, eps):
-    """(mean, var, inv, gamma*inv) from the per-channel [sum, sum of squares]."""
-    mean = s[:, 0] / cnt
-    var = torch.clamp(s[:, 1] / cnt - mean * mean, min=0.0)
-    inv = torch.rsqrt(var + eps)
-    return mean, var, inv, gamma * inv
-
-
-def _forward_kernels(lib, x, p, delta, valid_h, valid_w, eps):
-    """Forward of the e=1 form on the stage kernels. Returns (out, stats, saved)."""
-    E, C2 = x.shape[1], p.wp.shape[1]
-    c = _Ctx(lib, x, E, C2, valid_h, valid_w)
-    k9 = p.dw_kernel.reshape(E, 9).contiguous()
-    d = c.empty(c.N, E, c.H, c.W)
-    _check(lib.mbc_dw_fwd(_ptr(x), c.bf16, _ptr(k9), _ptr(d), c.N, E, c.H, c.W, valid_h,
-                          valid_w, c.stream), "dw_fwd")
-    _, s1 = c.sums(d)
-    mean1, var1, inv1, a1 = _bn_coeffs(s1, c.cnt, p.gamma1, p.beta1, eps)
-    be1 = p.beta1.contiguous()
-    v = c.empty(c.N, E, c.H, c.W)
-    _check(lib.mbc_bn_act(_ptr(d), _ptr(mean1), _ptr(a1), _ptr(be1), _ptr(v),
-                          *c.dims(E), c.stream), "bn_act")
-    sv_n, _ = c.sums(v)
-    s_mean = sv_n[:, :, 0] / (valid_h * valid_w)
-    gate, _ = _se_gate(s_mean, p)
-    gate = gate.contiguous()
-    y = c.mix(v, p.wp.contiguous(), gate)
-    _, s2 = c.sums(y)
-    mean2, var2, inv2, a2 = _bn_coeffs(s2, c.cnt, p.gamma2, p.beta2, eps)
-    out = torch.empty((c.N, C2, c.H, c.W), device=x.device, dtype=x.dtype)
-    residual = int(C2 == c.C)
-    _check(lib.mbc_out_fwd(_ptr(x), c.bf16, _ptr(y), _ptr(mean2), _ptr(a2),
-                           _ptr(p.beta2.contiguous()),
-                           _ptr(delta), residual, _ptr(out), *c.dims(C2), c.stream),
-           "out_fwd")
-    saved = dict(d=d, v=v, y=y, gate=gate, s_mean=s_mean, mean1=mean1, inv1=inv1, a1=a1,
-                 be1=be1, mean2=mean2, inv2=inv2)
-    return out, (mean1, var1, mean2, var2), saved
-
-
-# What the e=1 form's forward keeps for its backward.
-_SAVED = ("d", "v", "y", "gate", "s_mean", "mean1", "inv1", "a1", "be1", "mean2", "inv2")
-
-
-def _backward_kernels(lib, x, p, delta, valid_h, valid_w, g, sv):
-    """Backward of the e=1 form on the stage kernels: (dx, MBConvParams gradients)."""
-    E, C2 = x.shape[1], p.wp.shape[1]
-    c = _Ctx(lib, x, E, C2, valid_h, valid_w)
-    hw = valid_h * valid_w
-    g = g.contiguous()
-    gate, d, v, y = sv["gate"], sv["d"], sv["v"], sv["y"]
-
-    # bn2 backward: dyhat = g * delta, then dy (C2 channels)
-    dy = c.empty(c.N, C2, c.H, c.W)
-    _check(lib.mbc_scale_rows(_ptr(g), int(g.dtype == torch.bfloat16), _ptr(delta), _ptr(dy),
-                              *c.dims(C2), c.stream), "scale_rows")
-    _, r2 = c.sums(dy, y, sv["mean2"], sv["inv2"])
-    k1 = p.gamma2 * sv["inv2"]
-    alpha2, beta2r = k1 * r2[:, 0] / c.cnt, k1 * r2[:, 1] / c.cnt
-    _check(lib.mbc_bn_bwd(_ptr(dy), _ptr(y), _ptr(sv["mean2"]), _ptr(sv["inv2"]), _ptr(k1),
-                          _ptr(alpha2), _ptr(beta2r), _ptr(dy), *c.dims(C2), c.stream),
-           "bn_bwd")
-
-    # T[n, e, c2] = sum_p v dy: gives dWp (through the gate) and the SE cotangent
-    t = c.pgemm(v, dy)
-    dwp = torch.einsum("ne,nec->ec", gate, t)
-    dgate = torch.einsum("ec,nec->ne", p.wp, t)
-    ds, dse_w1, dse_b1, dse_w2, dse_b2 = _se_backward(sv["s_mean"], p, dgate)
-
-    # du = Wp dy, then the SE/silu/bn1 backward to dd (E channels, in place)
-    du = c.mix(dy, p.wp.t().contiguous())
-    ds_hw = (ds / hw).contiguous()
-    _check(lib.mbc_dv_bwd(_ptr(du), _ptr(d), _ptr(sv["mean1"]), _ptr(sv["a1"]), _ptr(sv["be1"]),
-                          _ptr(gate), _ptr(ds_hw), _ptr(du), *c.dims(E), c.stream), "dv_bwd")
-    _, r1 = c.sums(du, d, sv["mean1"], sv["inv1"])
-    k1 = p.gamma1 * sv["inv1"]
-    r1a, r1b = k1 * r1[:, 0] / c.cnt, k1 * r1[:, 1] / c.cnt
-    _check(lib.mbc_bn_bwd(_ptr(du), _ptr(d), _ptr(sv["mean1"]), _ptr(sv["inv1"]), _ptr(k1),
-                          _ptr(r1a), _ptr(r1b), _ptr(du), *c.dims(E), c.stream), "bn_bwd")
-    dd = du
-    ddw = c.taps(dd, x).view(E, 3, 3)
-
-    # transposed stencil: dL/dx's chain term
-    k9 = p.dw_kernel.reshape(E, 9).contiguous()
-    dxf = c.empty(c.N, E, c.H, c.W)
-    _check(lib.mbc_dw_bwd_x(_ptr(dd), _ptr(k9), _ptr(dxf), c.N, E, c.H, c.W, valid_h, valid_w,
-                            c.stream), "dw_bwd_x")
-    dparams = MBConvParams(dw_kernel=ddw, gamma1=r1[:, 1], beta1=r1[:, 0], se_w1=dse_w1,
-                           se_b1=dse_b1, se_w2=dse_w2, se_b2=dse_b2, wp=dwp, gamma2=r2[:, 1],
-                           beta2=r2[:, 0])
+def _e1_backward(x, p, delta, valid_h, valid_w, eps, g, stats, kept):
+    """Backward of the e=1 form: (dx, parameter gradients as MBConvParams). bn1's
+    backward sums (``bn1_backward_sums``) are formed in bwd_x's prologue, which
+    then writes dx = [g +] ``dx_from_dd`` and the taps (``dk_taps``)."""
+    s1, s2, s_mean, gate = kept
+    k = _E6(x, p, delta, valid_h, valid_w, eps)
+    E, C2, Ep, C2p, N = k.E, k.C2, k.Ep, k.C2p, k.N
+    k.set(g=g, s1=s1, s2=s2, gate=gate)
+    y, s3 = k.new(N, C2, k.H, k.W), k.new(2 * C2p)
+    k.run(B1, y=y, red=s3)
+    q, dwp = k.new(N, 5 * Ep), k.new(Ep * C2p)
+    k.run(BWD_V, s3=s3, red_n=q, red=dwp)
+    ds, dse_w1, dse_b1, dse_w2, dse_b2 = _se_backward(s_mean, p, q.view(N, 5, Ep)[:, 0, :E])
+    taps, sdb = k.new(9 * Ep), k.new(2 * E)
     dx = torch.empty_like(x)
-    res = g if C2 == c.C else None
-    _check(lib.mbc_finish(_ptr(dxf), _ptr(res), c.bf16, _ptr(dx), *c.dims(c.C), c.stream),
-           "finish")
-    return dx, dparams
+    k.run(BWD_X, ds=(ds / k.hw).contiguous(), q=q, red=taps, red_n=None, stats=sdb, out=dx)
+    grads = MBConvParams(
+        dw_kernel=taps.view(9, Ep)[:, :E].t().reshape(E, 3, 3), gamma1=sdb[E:], beta1=sdb[:E],
+        se_w1=dse_w1, se_b1=dse_b1, se_w2=dse_w2, se_b2=dse_b2,
+        wp=dwp.view(Ep, C2p)[:E, :C2], gamma2=s3[C2p:C2p + C2], beta2=s3[:C2])
+    return dx, grads
 
 
 class _FusedMBConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, delta, valid_h, valid_w, eps, form, *flat):
         p = form(*flat)
-        ctx.meta = (valid_h, valid_w, eps, form, len(flat))
-        if form is MBConv6Params:
-            out, stats, kept = _e6_forward(x, p, delta, valid_h, valid_w, eps)
-            ctx.save_for_backward(x, delta, *flat, *stats, *kept)
-        else:
-            with torch.cuda.device(x.device):
-                out, stats, saved = _forward_kernels(_lib(), x, p, delta, valid_h, valid_w, eps)
-            # The fp32 intermediates go through save_for_backward too, so
-            # saved-tensor hooks (checkpointing, offload) see them.
-            ctx.save_for_backward(x, delta, *flat, *(saved[k] for k in _SAVED))
+        expand = form is MBConv6Params
+        out, stats, kept = (_e6_forward if expand else _e1_forward)(
+            x, p, delta, valid_h, valid_w, eps)
+        ctx.meta = (valid_h, valid_w, eps, form, len(flat), len(stats))
+        ctx.save_for_backward(x, delta, *flat, *stats, *kept)
         launches.add(f"mbconv6.{_form_name(form)}.forward")
         ctx.mark_non_differentiable(*stats)
         return (out, *stats)
 
     @staticmethod
     def backward(ctx, g, *_stat_grads):
-        valid_h, valid_w, eps, form, nflat = ctx.meta
+        valid_h, valid_w, eps, form, nflat, nstats = ctx.meta
         x, delta, *rest = ctx.saved_tensors
         p = form(*rest[:nflat])
-        g = g.contiguous()
-        if form is MBConv6Params:
-            stats, kept = rest[nflat:nflat + 6], rest[nflat + 6:]
-            dx, dp = _e6_backward(x, p, delta, valid_h, valid_w, eps, g, stats, kept)
-        else:
-            with torch.cuda.device(x.device):
-                dx, dp = _backward_kernels(_lib(), x, p, delta, valid_h, valid_w, g,
-                                           dict(zip(_SAVED, rest[nflat:])))
+        stats, kept = rest[nflat:nflat + nstats], rest[nflat + nstats:]
+        bwd = _e6_backward if form is MBConv6Params else _e1_backward
+        dx, dp = bwd(x, p, delta, valid_h, valid_w, eps, g.contiguous(), stats, kept)
         launches.add(f"mbconv6.{_form_name(form)}.backward")
         return (dx, None, None, None, None, None, *dp)
 
@@ -530,12 +418,13 @@ def _validate(x, p, delta, valid_h, valid_w):
     if (delta.shape != (N,) or delta.dtype != torch.float32 or delta.device != x.device
             or not delta.is_contiguous()):
         raise ValueError("delta must be a contiguous float32 (N,) tensor on x's device")
-    if expand:
-        if max(C, p.wp.shape[1]) > E6_MAX_C or E > E6_MAX_E:
-            raise ValueError(f"the expanding form's kernels take C, C2 <= {E6_MAX_C} and "
-                             f"E <= {E6_MAX_E}, got C={C}, C2={p.wp.shape[1]}, E={E}")
-    elif W > _lib().mbc_dw_max_width():
-        raise ValueError(f"width {W} exceeds the depthwise kernels' limit")
+    C2 = p.wp.shape[1]
+    if expand and (max(C, C2) > E6_MAX_C or E > E6_MAX_E):
+        raise ValueError(f"the expanding form's kernels take C, C2 <= {E6_MAX_C} and "
+                         f"E <= {E6_MAX_E}, got C={C}, C2={C2}, E={E}")
+    if not expand and max(C, C2) > E1_MAX_C:
+        raise ValueError(f"the e=1 form's kernels take C, C2 <= {E1_MAX_C}, got C={C}, "
+                         f"C2={C2}")
 
 
 def fused_mbconv_e6(x, params, delta, valid_h: int, valid_w: int,

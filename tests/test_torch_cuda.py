@@ -178,6 +178,88 @@ def test_cuda_e6_backward_gives_the_same_bits_twice(dtype):
         assert torch.equal(a, b), name
 
 
+# (C, C2, H, W, valid_h, valid_w): edges the e=1 form's tiles must mask. B5's
+# block 0 (48 -> 24) and blocks 1-2 (24 -> 24, with the residual), b7's block 0
+# (64 -> 32, the widest the model routes), C = 6 (past C in the 16-channel
+# chunks); ragged valid regions off the 8-row and 32-column tiles, and one
+# whose padded height has rows no tile covers (dx written 0 there apart).
+E1_EDGES = [(48, 24, 24, 40, 21, 37), (24, 24, 24, 40, 21, 37), (64, 32, 16, 40, 11, 38),
+            (6, 6, 24, 40, 21, 37), (24, 24, 32, 40, 11, 38)]
+
+
+def _e1_form_case(c, c2, h, w, vh, vw, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    f = lambda *s: 0.5 * torch.randn(*s, generator=g)
+    sq = max(1, c // 4)
+    p = MBConvParams(dw_kernel=f(c, 3, 3), gamma1=1 + 0.1 * f(c), beta1=0.1 * f(c),
+                     se_w1=f(c, sq), se_b1=0.1 * f(sq), se_w2=f(sq, c), se_b2=0.1 * f(c),
+                     wp=f(c, c2) * 2 / c ** 0.5, gamma2=1 + 0.1 * f(c2), beta2=0.1 * f(c2))
+    x = torch.zeros(N, c, h, w)
+    x[:, :, :vh, :vw] = torch.randn(N, c, vh, vw, generator=g)
+    gout = torch.zeros(N, c2, h, w)
+    gout[:, :, :vh, :vw] = torch.randn(N, c2, vh, vw, generator=g)
+    p = MBConvParams(*[t.cuda() for t in p])
+    return x.cuda(), p, torch.tensor([1.25, 0.0], device="cuda"), gout.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", E1_EDGES)
+def test_cuda_e1_form_masks_the_tiles_edges(shape, dtype):
+    """The e=1 form's recompute passes (csrc/mbconv6_e6.cu) against the plain
+    version where the tiles and the mma steps have ragged edges: out, stats,
+    zero pads, dx and every parameter gradient, at the tolerances of
+    test_cuda_kernel_matches_plain; delta drops the second image."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    c, c2, h, w, vh, vw = shape
+    x0, p0, delta, gout = _e1_form_case(c, c2, h, w, vh, vw)
+    runs = []
+    for fn in (fused_mbconv_e6, plain_fused_mbconv_e6):
+        x = x0.to(dt).clone().requires_grad_(True)
+        p = MBConvParams(*[t.clone().requires_grad_(True) for t in p0])
+        out, stats = fn(x, p, delta, vh, vw)
+        out.backward(gout.to(dt))
+        torch.cuda.synchronize()
+        runs.append((out.detach().float().clone(), stats, x.grad.float().clone(),
+                     [t.grad for t in p]))
+    (ok, sk, dxk, gk), (op, sp, dxp, gp) = runs
+    bf16 = dtype == "bfloat16"
+    assert _rel(ok, op) < (1e-2 if bf16 else 1e-4)
+    assert ok[:, :, vh:].abs().max() == 0 and ok[:, :, :, vw:].abs().max() == 0
+    assert dxk[:, :, vh:].abs().max() == 0 and dxk[:, :, :, vw:].abs().max() == 0
+    for a, b in zip(sk, sp):
+        assert _rel(a, b) < 1e-4
+    assert _rel(dxk, dxp) < (1e-2 if bf16 else 1e-3)
+    for name, a, b in zip(MBConvParams._fields, gk, gp):
+        assert _rel(a, b) < 1e-3, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_e1_form_backward_gives_the_same_bits_twice(dtype):
+    """No float atomics: two backward passes of the e=1 form on the same inputs
+    give the same bits in dx and every parameter gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from mammo_clip_tpu_torch.ops.mbconv6 import _e1_backward, _e1_forward
+
+    c, c2, h, w, vh, vw = E1_EDGES[0]
+    x, p, delta, gout = _e1_form_case(c, c2, h, w, vh, vw, seed=1)
+    dt = getattr(torch, dtype)
+    x, gout = x.to(dt), gout.to(dt)
+    _, stats, kept = _e1_forward(x, p, delta, vh, vw, 1e-3)
+    runs = [_e1_backward(x, p, delta, vh, vw, 1e-3, gout, stats, kept) for _ in range(2)]
+    torch.cuda.synchronize()
+    (dx1, g1), (dx2, g2) = runs
+    assert torch.equal(dx1, dx2)
+    for name, a, b in zip(MBConvParams._fields, g1, g2):
+        assert torch.equal(a, b), name
+
+
 def _e1_case(c1, c2, h, w, seed=0):
     g = torch.Generator(device="cpu").manual_seed(seed)
     f = lambda *s: 0.5 * torch.randn(*s, generator=g)

@@ -274,11 +274,11 @@ def test_bn1_backward_sums_from_the_sweep_sums_match_autograd():
                                rtol=1e-9, atol=1e-11)
 
 
-@pytest.mark.parametrize("src,prefix", [("mbconv6_e6.cu", "m6_"), ("mbconv6.cu", "mbc_")])
+@pytest.mark.parametrize("src,prefix", [("mbconv6_e6.cu", "m6_")])
 def test_mbconv6_launcher_signatures_match_the_c_interface(src, prefix):
-    """Each C launcher of the MBConv sources takes as many arguments as its
-    ctypes signature declares; m6_pass takes the device index and the stream
-    last, for cuda_lib.launcher."""
+    """Each C launcher of the fused block's source takes as many arguments as
+    its ctypes signature declares; m6_pass takes the device index and the
+    stream last, for cuda_lib.launcher."""
     import re
 
     from mammo_clip_tpu_torch.ops import cuda_lib
@@ -294,3 +294,94 @@ def test_mbconv6_launcher_signatures_match_the_c_interface(src, prefix):
         assert last == ["int device", "void* stream"]
         assert len(mbconv6._PTRS) == 33 == cuda_lib.SIGNATURES["m6_pass"].count(
             cuda_lib.ctypes.c_void_p) - 1
+
+
+# ----------------------------------------------------------------------------
+# the e=1 form's analytic pieces (ops/mbconv6.py), in float64
+# ----------------------------------------------------------------------------
+
+
+def _e1_chain64(seed=2, n=2, c=5, c2=4, h=9, w=7):
+    """The e=1 block's reference math in float64 with d, v, the gate and u kept,
+    and the cotangent of a random linear loss, the residual included (c2 == c
+    adds it)."""
+    from mammo_clip_tpu_torch.ops.mbconv import _bn, _se_gate, batch_stats, depthwise3x3
+
+    r = np.random.default_rng(seed)
+    f = lambda *s: torch.tensor(r.standard_normal(s) * 0.5, dtype=torch.float64,
+                                requires_grad=True)
+    p = MBConvParams(dw_kernel=f(c, 3, 3), gamma1=f(c), beta1=f(c), se_w1=f(c, 2), se_b1=f(2),
+                     se_w2=f(2, c), se_b2=f(c), wp=f(c, c2), gamma2=f(c2), beta2=f(c2))
+    x = f(n, c, h, w)
+    d = depthwise3x3(x, p.dw_kernel)
+    d.retain_grad()
+    mean1, var1 = batch_stats(d)
+    v = torch.nn.functional.silu(_bn(d, mean1, var1, p.gamma1, p.beta1, EPS))
+    gate, _ = _se_gate(v.mean(dim=(2, 3)), p)
+    gate.retain_grad()
+    u = v * gate[:, :, None, None]
+    u.retain_grad()
+    y = torch.einsum("nehw,ec->nchw", u, p.wp)
+    mean2, var2 = batch_stats(y)
+    out = torch.tensor([1.25, 0.5], dtype=torch.float64)[:, None, None, None] * _bn(
+        y, mean2, var2, p.gamma2, p.beta2, EPS)
+    if c2 == c:
+        out = out + x
+    g = torch.tensor(r.standard_normal(out.shape), dtype=torch.float64)
+    (out * g).sum().backward()
+    return dict(x=x, p=p, g=g, d=d, v=v, gate=gate, u=u)
+
+
+def test_se_cotangent_is_the_per_image_sum_of_v_du():
+    """The SE cotangent that bwd_v sums on the card, sum over positions of v du,
+    equals autograd's gradient of the gate, in float64."""
+    k = _e1_chain64()
+    ds = mbconv6.se_cotangent(k["v"].detach(), k["u"].grad)
+    np.testing.assert_allclose(ds.numpy(), k["gate"].grad.numpy(), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("c2", [5, 4])  # 5 == C: with the residual; 4: without
+def test_e1_dx_and_taps_from_dd_match_autograd(c2):
+    """The e=1 form's dx from dd (the stencil's transpose, plus dout with the
+    residual) and the 9 dK tap sums equal autograd's dx and dw_kernel gradient
+    of the reference, in float64."""
+    k = _e1_chain64(c2=c2)
+    dd, x = k["d"].grad, k["x"].detach()
+    dx = mbconv6.dx_from_dd(dd, k["p"].dw_kernel.detach(), k["g"] if c2 == 5 else None)
+    np.testing.assert_allclose(dx.numpy(), k["x"].grad.numpy(), rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(mbconv6.dk_taps(dd, x).numpy(), k["p"].dw_kernel.grad.numpy(),
+                               rtol=1e-10, atol=1e-12)
+
+
+def _block_params(a):
+    """Parameters of the fused form of block args ``a`` (zeros, CPU, fp32)."""
+    z = lambda *s: torch.zeros(s)
+    c, e, c2, sq = a.in_filters, a.expanded, a.out_filters, max(1, int(a.in_filters * a.se_ratio))
+    common = dict(dw_kernel=z(e, 3, 3), gamma1=z(e), beta1=z(e), se_w1=z(e, sq), se_b1=z(sq),
+                  se_w2=z(sq, e), se_b2=z(e), wp=z(e, c2), gamma2=z(c2), beta2=z(c2))
+    if a.expand_ratio == 1:
+        return MBConvParams(**common)
+    return MBConv6Params(we=z(c, e), gamma0=z(e), beta0=z(e), **common)
+
+
+@pytest.mark.parametrize("variant", [f"b{i}" for i in range(8)])
+def test_validate_takes_every_block_the_model_routes(variant):
+    """Every block that EfficientNet.fused_ok sends to fused_mbconv_e6, in both
+    forms (the e=1 blocks of b6 and b7 have C 56 and 64), is within the
+    kernels' limits as _validate states them; a block just past the e=1 limit
+    is refused. _validate reads no kernel library."""
+    from types import SimpleNamespace
+
+    from mammo_clip_tpu_torch.models.efficientnet import EfficientNet, scaled_block_args
+
+    model = SimpleNamespace(fused_mbconv=True)
+    routed = [a for a in scaled_block_args(variant) if EfficientNet.fused_ok(model, a)]
+    assert any(a.expand_ratio == 1 for a in routed)
+    for a in routed:
+        x = torch.zeros(2, a.in_filters, 16, 16)
+        mbconv6._validate(x, _block_params(a), torch.ones(2), 11, 13)
+    wide = SimpleNamespace(in_filters=mbconv6.E1_MAX_C + 1, out_filters=32, expand_ratio=1,
+                           expanded=mbconv6.E1_MAX_C + 1, se_ratio=0.25)
+    with pytest.raises(ValueError, match="e=1 form"):
+        mbconv6._validate(torch.zeros(2, wide.in_filters, 16, 16), _block_params(wide),
+                          torch.ones(2), 11, 13)
