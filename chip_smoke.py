@@ -16,8 +16,9 @@ Phases, each reported on its own lines:
   4. kernel times (CUDA events) beside the plain version's and the card's bound;
      for each form at each shape (bf16; both forms run the passes of
      csrc/mbconv6_e6.cu) also its device time per pass (torch.profiler), the
-     bytes one forward keeps for its backward (it fails if an e=1 call keeps
-     64 KB or more), the kernels one forward and one backward launch (the
+     bytes one forward keeps for its backward as the tensors requested them
+     and as the caching allocator rounds them (it fails if an e=1 call keeps
+     64 KB or more requested), the kernels one forward and one backward launch (the
      library's own and all, by torch.profiler), each of the form's kernels'
      registers, shared and local memory, spill stores and blocks per SM, and
      its HMMA and atomic counts in the SASS (it fails if a kernel with a
@@ -27,8 +28,13 @@ Phases, each reported on its own lines:
      the old and this package's block timed in turns at each shape through
      their public wrappers (``benchmarks/e6_timing.py --turns --case``: old,
      new, new, old processes), with the compat slice's peak memory in the
-     first old and new processes of block 4's turns, and the fused rows of the
-     kernels line carry the old ``earlier_ms``;
+     first old and new processes of block 4's turns, then the e1 entry point
+     at blocks 0 and 1-2, the grid compute chain at the probe's shape, and the
+     layout and flash wrappers' host cost the same way (``e6_timing.py --case
+     block0_e1_entry`` / ``block1_e1_entry``, ``layout_timing.py --grid``,
+     ``layout_timing.py``), and the fused, e1 and grid compute rows of the
+     kernels line carry the old ``earlier_ms`` (the e1 rows' in device time),
+     the flash rows the old ``earlier_host_us``;
   5. a small-input reference check (tiny CLIP step on the card with the kernels
      against the same step on the CPU with the plain version), then the slice:
      the full-width compat B5 CLIP (B5 at 1520x912, BERT-base, 256 tokens,
@@ -36,14 +42,20 @@ Phases, each reported on its own lines:
      takes 3 train steps on a seeded synthetic batch of 2 samples
      (two views, two texts each, augmentation on), with the kernel launch
      counters read around the run;
-  6. the standalone ``fused_mbconv_e1`` kernel (csrc/mbconv1.cu) against its
+  6. the e=1 block's own entry point, ``fused_mbconv_e1``, which runs the e=1
+     form's passes of csrc/mbconv6_e6.cu over the whole image, against its
      plain version at the two B5 e=1 shapes (block 0: 48->24; blocks 1-2:
      24->24 with the residual; 760x456, N=2, delta [1.25, 0]), forward and
-     backward, fp32 and bf16; its path driven once through the public wrapper
-     with the counters read around it; then its times beside the plain
-     version's, its bound, the e6 kernel's e=1 form at the same shape, the
-     device memory each holds from forward to backward, and its device time
-     per pass (torch.profiler);
+     backward, fp32 and bf16; the same bits as ``fused_mbconv_e6(x, p, delta,
+     H, W)`` for out, the stats, dx and every gradient; its path driven once
+     through the public wrapper with the counters read around it; the
+     library's kernels one call launches (torch.profiler), which must all be
+     the e=1 form's; then its times through the wrapper (the kernels line's
+     ``ms`` and ``plain_ms`` in device time, the host's enqueue hidden behind
+     a sleep kernel; ``event_ms`` CUDA events) beside the plain version's, its
+     bound and the e=1 form's phase-4 times, its device time per pass and the
+     bytes it holds from forward to backward (requested, under 64 KB, and
+     allocated);
   7. the pretraining entry point: ``cli/pretrain.main`` at full width (the
      default B5 config made into the compat recipe by dotted overrides, a CSV
      of 8 rows in a temporary directory, ``synthetic://`` images), 1 epoch of 3
@@ -67,7 +79,10 @@ Phases, each reported on its own lines:
      backward and forward+backward times (CUDA events, and device time with the
      host's enqueue hidden behind a sleep kernel) beside the plain version's,
      the port's ``amp_attn_scores`` einsum attention,
-     ``scaled_dot_product_attention`` (the library yardstick) and the bound;
+     ``scaled_dot_product_attention`` (the library yardstick) and the bound,
+     and the host's cost per call of ``flash_attention`` (``host_us``;
+     ``layout_timing.flash_calls``), beside the parent's with ``--parent``
+     (``earlier_host_us``);
      the kernels line's ``ms``, ``plain_ms`` and ``library_ms`` of these rows
      are all device times, ``event_ms`` the kernel's CUDA-event time;
   9. the probe kernels (csrc/probes.cu): the four grid kernels at the probe's
@@ -77,11 +92,19 @@ Phases, each reported on its own lines:
      grid kernels are timed through their raw launchers, uncounted), the layout
      sums beside what the JAX script prints; their path, the port of
      ``benchmarks/probe_mosaic.py`` (all probes), driven once with the counters
-     read around it; then their times, us per grid block, and bounds, and for
+     read around it; then their times, us per grid block, and bounds (the
+     part that bounds printed; the grid compute kernel's work priced at the
+     units its code uses: z and the taps' 0/1-selector sums on the tensor
+     cores, the packed bf16 tap products off them), and for
      the grid base and the three layout kernels the time of one PyTorch call of
      the same function (``torch.sum``, ``torch.mm``, ``torch.mul``,
      ``torch.einsum``; each first checked against the plain version). Two Gram
-     calls on the same input must give the same bits. The layout kernels and
+     calls on the same input must give the same bits. The grid compute kernel
+     is also held to the plain version on all E channel sums (its C outputs
+     are their first C), must give the same bits on two calls, and its
+     registers, spills, shared memory, blocks per SM and HMMA and atomic
+     counts are printed (it fails without HMMA or with an atomic; the SASS
+     goes to chiprun_out/probes.sass). The layout kernels and
      their library calls are host-bound at this size, so each gets three
      numbers (``benchmarks/layout_timing.py``, kernel and library trials taken
      in turns): ``ms``, the median CUDA-event time per call of 5 trials of 200
@@ -185,20 +208,20 @@ class Case:
             [t.grad for t in p]
 
     def bound(self, direction):
-        """(bound_ms, bound_by) for one bf16 call: I/O bytes over the HBM rate,
-        channel products and stencil FLOPs over the bf16 tensor-core peak."""
+        """(bound_ms, bound_by, which) for one bf16 call: I/O bytes over the HBM
+        rate, the channel products over the bf16 tensor-core peak and the
+        depthwise stencil (fp32 sums, off the tensor cores) over the fp32 peak."""
         P = self.N * self.H * self.W
         nparam = sum(t.numel() for t in self.params)
         prod = 2 * P * self.E * self.C2 + (2 * P * self.C * self.E if self.form == "e6" else 0)
         stencil = 2 * 9 * P * self.E
         if direction == "forward":
             nbytes = 2 * P * (self.C + self.C2) + 4 * nparam
-            flops = prod + stencil
         else:
             nbytes = 2 * P * (2 * self.C + self.C2) + 8 * nparam
-            flops = 2 * prod + 2 * stencil
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
-        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+            prod, stencil = 2 * prod, 2 * stencil
+        return bound(nbytes, {"channel products": (prod, BF16_FLOPS),
+                              "stencil": (stencil, FP32_FLOPS)})
 
 
 def max_rel(a, b):
@@ -214,7 +237,7 @@ def pad_max(t, case):
 
 def e1_fns():
     """fused_mbconv_e1 and its plain version under the Case.run call signature
-    (the e1 block has no pad region: vh, vw are the full height and width)."""
+    (the e1 entry point has no pad region: vh, vw are the full height and width)."""
     from mammo_clip_tpu_torch.ops.mbconv import fused_mbconv_e1, plain_fused_mbconv_e1
 
     return (lambda x, p, d, vh, vw: fused_mbconv_e1(x, p, d),
@@ -305,24 +328,42 @@ def time_case(case):
 
 
 def held_bytes(fn, case):
-    """Device bytes that one bf16 forward of ``fn`` keeps allocated for its
-    backward, beyond its inputs and outputs (the saved intermediates)."""
+    """Device bytes that one bf16 forward of ``fn`` keeps for its backward beyond
+    its inputs and outputs (the saved intermediates), as (allocated, requested):
+    ``memory_allocated()`` counts the caching allocator's blocks, which round a
+    large output up to whole 2 MiB pages once or twice by the allocator's state;
+    ``requested_bytes.all.current`` counts the bytes the tensors asked for, which
+    the allocator's state does not move. Each less the outputs' bytes."""
     import torch
 
+    requested = lambda: torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
     x = case.x.to(torch.bfloat16).requires_grad_(True)
     p = type(case.params)(*[t.detach().clone().requires_grad_(True) for t in case.params])
     torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
+    base, base_req = torch.cuda.memory_allocated(), requested()
     out, stats = fn(x, p, case.delta, case.vh, case.vw)
     torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated() - base
-    return held - sum(t.numel() * t.element_size() for t in (out, *stats))
+    outputs = sum(t.numel() * t.element_size() for t in (out, *stats))
+    return (torch.cuda.memory_allocated() - base - outputs, requested() - base_req - outputs)
+
+
+HELD_LIMIT = 65536  # bytes an e=1 call may keep from forward to backward (requested)
+
+
+def check_held(tag, name, held):
+    """Print both counts of held_bytes; fail an e=1 call that keeps 64 KB or more
+    of requested bytes."""
+    allocated, requested = held
+    say(f"[{tag} memory] {name} bf16: held from forward to backward beyond x and the "
+        f"outputs: {requested} B requested ({allocated} B allocated)")
+    if requested >= HELD_LIMIT:
+        raise SmokeFailure(f"{name}: the e=1 block keeps {requested} B from forward to backward")
 
 
 def kernel_phases(seed):
     """Phases 3 and 4 for each main-path shape. Returns one row per case and
-    direction, and for the e=1 cases the e6 kernel's (forward, backward) ms and
-    held bytes; the cases' device tensors are freed on return, so the slice's
+    direction, and for the e=1 cases the e=1 form's (forward, backward) ms; the
+    cases' device tensors are freed on return, so the slice's
     peak memory counts only the slice."""
     cases = [Case("block4_e6", "e6", BATCH, 40, 40, 380, 228, seed),
              Case("block0_e1", "e1", BATCH, 48, 24, 760, 456, seed + 1),
@@ -336,22 +377,19 @@ def kernel_phases(seed):
         k_fwd, k_bwd, p_fwd, p_bwd = time_case(case)
         case.times = (k_fwd, k_bwd)
         for direction, ms, plain in (("forward", k_fwd, p_fwd), ("backward", k_bwd, p_bwd)):
-            bound_ms, bound_by = case.bound(direction)
+            bound_ms, bound_by, which = case.bound(direction)
             say(f"[time] {case.name} {direction} bf16 N={case.N} {case.H}x{case.W}: kernel "
-                f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bound_ms:.4f} ms ({which})")
             kernels.append(dict(case=case.name, form=case.form, direction=direction,
                                 err=errs[case.name, "bfloat16"], ms=ms, plain_ms=plain,
                                 bound_ms=bound_ms, bound_by=bound_by))
     from mammo_clip_tpu_torch.ops import cuda_lib
-    from mammo_clip_tpu_torch.ops.mbconv6 import fused_mbconv_e6
 
     sass = library_report(cuda_lib.build_info.path, cuda_lib.build_info.ptxas, e6_label,
                           "mbconv6_e6.sass")
     for case in cases:
         form_report(case, sass)
-    e6_e1_form = {c.name: (c.times, held_bytes(fused_mbconv_e6, c)) for c in cases
-                  if c.form == "e1"}
-    return kernels, e6_e1_form
+    return kernels, {c.name: c.times for c in cases if c.form == "e1"}
 
 
 def e6_label(mangled):
@@ -405,7 +443,7 @@ def form_report(case, sass):
 
     import torch
 
-    from mammo_clip_tpu_torch.benchmarks.e6_timing import kernels_of
+    from mammo_clip_tpu_torch.benchmarks.e6_timing import kernels_of, launch_counts
     from mammo_clip_tpu_torch.ops import cuda_lib
     from mammo_clip_tpu_torch.ops.mbconv6 import fused_mbconv_e6
 
@@ -413,14 +451,15 @@ def form_report(case, sass):
     fwd, bwd = case_fns(case)
     say(f"[{tag} passes] {case.name} bf16, device us per forward: " + pass_breakdown(fwd))
     say(f"[{tag} passes] {case.name} bf16, device us per backward: " + pass_breakdown(bwd))
-    (hf, af), (hb, ab) = kernels_of(fwd), kernels_of(bwd)
+    (hf, af), (hb, ab) = launch_counts(kernels_of(fwd)), launch_counts(kernels_of(bwd))
     say(f"[{tag} launches] {case.name}: kernels per forward {hf} of the library, {af} in all; "
         f"per backward {hb} of the library, {ab} in all (torch.profiler)")
     held = held_bytes(fused_mbconv_e6, case)
-    say(f"[{tag} memory] {case.name} bf16: held from forward to backward beyond x and the "
-        f"outputs: {held} B")
-    if case.form == "e1" and held >= 65536:
-        raise SmokeFailure(f"{case.name}: the e=1 form keeps {held} B from forward to backward")
+    if case.form == "e1":
+        check_held(tag, case.name, held)
+    else:
+        say(f"[{tag} memory] {case.name} bf16: held from forward to backward beyond x and the "
+            f"outputs: {held[1]} B requested ({held[0]} B allocated)")
     first, second = bwd(), bwd()
     torch.cuda.synchronize()
     a, b = [first[0], *first[1]], [second[0], *second[1]]
@@ -460,30 +499,50 @@ def form_report(case, sass):
 
 def parent_turns(parent):
     """The parent's fused block against this one's at each phase-4 shape (bf16),
-    through their public wrappers, old, new, new, old, one process each
-    (``benchmarks/e6_timing.py --turns --case``); the first old and new
-    processes of block 4's turns also run the compat slice for its peak
-    memory. Returns {case: {forward, backward}: the old ms} and the peaks."""
+    and the e1 entry point at blocks 0 and 1-2, through their public wrappers,
+    old, new, new, old, one process each (``benchmarks/e6_timing.py --turns
+    --case``); the first old and new processes of block 4's turns also run the
+    compat slice for its peak memory. Then the grid compute chain through
+    ``probes.grid_compute`` (``benchmarks/layout_timing.py --grid``), and the
+    layout wrappers and the flash wrapper's host cost per call
+    (``layout_timing.py``), in the same turns. Returns {case: {forward,
+    backward: the old CUDA-event ms, forward_device, backward_device: the old
+    device ms}}, the peaks, the old grid compute ms and {"flash": {forward,
+    backward: the old host us}}."""
     from mammo_clip_tpu_torch.benchmarks import e6_timing
 
     earlier = {}
-    for case in ("block4_e6", "block0_e1", "block1_e1"):
+    for case in ("block4_e6", "block0_e1", "block1_e1", "block0_e1_entry", "block1_e1_entry"):
         lines = e6_timing.turns(parent.resolve(), with_slice=case == "block4_e6", case=case)
         side = lambda s: [ln for ln in lines if ln["side"] == s]
         mid = lambda s, k: sum(ln[k] for ln in side(s)) / len(side(s))
         for s in ("old", "new"):
             peaks = side(s)[0].get("slice_peak_bytes")
             say(f"[turns] {case} {s}: fwd ms {[round(ln['fwd_ms'], 4) for ln in side(s)]}, bwd ms "
-                f"{[round(ln['bwd_ms'], 4) for ln in side(s)]}, held B {side(s)[0]['held_bytes']} "
+                f"{[round(ln['bwd_ms'], 4) for ln in side(s)]}, device fwd ms "
+                f"{[round(ln['fwd_device_ms'], 4) for ln in side(s)]}, bwd ms "
+                f"{[round(ln['bwd_device_ms'], 4) for ln in side(s)]}, held B {side(s)[0]['held_bytes']} "
                 f"(requested {side(s)[0]['held_requested_bytes']}, saved "
                 f"{side(s)[0]['saved_bytes']}), kernels per forward "
                 f"{side(s)[0]['hand_fwd']} of the library / {side(s)[0]['all_fwd']} in all, per "
                 f"backward {side(s)[0]['hand_bwd']} / {side(s)[0]['all_bwd']}"
                 + (f", slice peaks B {peaks}" if peaks else ""))
-        earlier[case] = dict(forward=mid("old", "fwd_ms"), backward=mid("old", "bwd_ms"))
+        earlier[case] = dict(forward=mid("old", "fwd_ms"), backward=mid("old", "bwd_ms"),
+                             forward_device=mid("old", "fwd_device_ms"),
+                             backward_device=mid("old", "bwd_device_ms"))
         if case == "block4_e6":
             earlier["old_peak"] = max(side("old")[0]["slice_peak_bytes"])
             earlier["new_peak"] = max(side("new")[0]["slice_peak_bytes"])
+    from mammo_clip_tpu_torch.benchmarks import layout_timing
+
+    records = layout_timing.turns(parent.resolve(), grid=True)
+    ms = [round(r["grid_compute"]["ms"], 4) for r in records]
+    say(f"[turns] grid compute (probe_grid[compute], through probes.grid_compute) ms: old "
+        f"{[ms[0], ms[3]]}, new {ms[1:3]}")
+    earlier["grid_compute"] = (ms[0] + ms[3]) / 2
+    records = layout_timing.turns(parent.resolve())
+    earlier["flash"] = {d: (records[0][f"flash.{d}"]["host_us"] + records[3][f"flash.{d}"]["host_us"])
+                        / 2 for d in ("forward", "backward")}
     return earlier
 
 
@@ -610,20 +669,19 @@ def run_slice(seed):
 
 
 def e1_phases(seed, e6_e1_form):
-    """The e1 kernel against its plain version at B5 blocks 0 and 1-2, its own
-    path through the public wrapper (counters at 0 before, read after), then its
-    times and held memory beside the e6 kernel's e=1 form at the same shape."""
+    """Phase 6: fused_mbconv_e1, which runs the e=1 form's passes of
+    csrc/mbconv6_e6.cu over the whole image, against its plain version at B5
+    blocks 0 and 1-2; the same bits as fused_mbconv_e6(x, p, delta, H, W); its
+    own path through the public wrapper (counters at 0 before, read after), and
+    the kernels one call launches, which must all be the e=1 form's; then its
+    times through the wrapper (device time, the host's enqueue hidden behind a
+    sleep kernel, and CUDA-event time) beside the plain version's, its bound
+    and the e=1 form's phase-4 times, its device time per pass and its held
+    bytes."""
     import torch
 
-    from mammo_clip_tpu_torch.ops import cuda_lib
-    from mammo_clip_tpu_torch.ops.mbconv import (
-        E1Passes,
-        _e1_backward,
-        _e1_forward,
-        fused_mbconv_e1,
-        launches,
-        plain_fused_mbconv_e1,
-    )
+    from mammo_clip_tpu_torch.benchmarks.layout_timing import device_ms
+    from mammo_clip_tpu_torch.ops.mbconv import fused_mbconv_e1, launches, plain_fused_mbconv_e1
 
     # named apart from phase 3's e6 cases of the same shapes (block0_e1, block1_e1)
     cases = [Case("block0", "e1", BATCH, 48, 24, 760, 456, seed + 1),
@@ -633,6 +691,8 @@ def e1_phases(seed, e6_e1_form):
     fns = e1_fns()
     errs = {(c.name, dt): check_case(c, dt, fns) for c in cases
             for dt in ("float32", "bfloat16")}
+    for c in cases:
+        e1_same_bits(c)
 
     bf16 = torch.bfloat16
     launches.reset()
@@ -647,46 +707,104 @@ def e1_phases(seed, e6_e1_form):
     counts = dict(launches.counts)
     say(f"[e1 path] fused_mbconv_e1 forward+backward at {[c.name for c in cases]} (bf16): "
         f"counters {counts}")
-    if (counts["mbconv1.forward"], counts["mbconv1.backward"]) != (len(cases), len(cases)):
-        raise SmokeFailure(f"e1 path: expected {len(cases)} e1 kernel calls each way, "
+    want = {**dict.fromkeys(counts, 0), "mbconv1.forward": len(cases),
+            "mbconv1.backward": len(cases)}
+    if counts != want:
+        raise SmokeFailure(f"e1 path: expected {len(cases)} e1 calls each way and no other, "
                            f"got {counts}")
 
-    lib = cuda_lib.load()
     rows = []
     for c in cases:
         x, g, p = c.x.to(bf16), c.gout.to(bf16), c.params
-        k = E1Passes(lib, x, c.C2)
-        _, stats, (s_mean, gate) = _e1_forward(k, x, p, c.delta, 1e-3)
-        with torch.no_grad():
-            k_fwd = time_ms(lambda: _e1_forward(k, x, p, c.delta, 1e-3))
-            k_bwd = time_ms(lambda: _e1_backward(k, x, p, c.delta, stats, s_mean, gate, g, 1e-3))
-            p_fwd = time_ms(lambda: plain_fused_mbconv_e1(x, p, c.delta))
+        e1_form_kernels_only(c.name, f"{c.name}_e1_entry")
+        check_held("e1", c.name, held_bytes(fns[0], c))
         xr = x.clone().requires_grad_(True)
         pr = type(p)(*[t.clone().requires_grad_(True) for t in p])
-        out, _ = plain_fused_mbconv_e1(xr, pr, c.delta)
-        p_bwd = time_ms(lambda: torch.autograd.grad(out, [xr, *pr], g, retain_graph=True))
-        del out
-
-        def forward_backward():
-            _, st, (sm, gt) = _e1_forward(k, x, p, c.delta, 1e-3)
-            _e1_backward(k, x, p, c.delta, st, sm, gt, g, 1e-3)
-
-        say(f"[e1 passes] {c.name} bf16, device us per forward+backward: "
-            + pass_breakdown(forward_backward))
-        held = held_bytes(fns[0], c)
-        (e6_fwd, e6_bwd), e6_held = e6_e1_form[c.name + "_e1"]
-        for direction, ms, plain, e6_ms in (("forward", k_fwd, p_fwd, e6_fwd),
-                                            ("backward", k_bwd, p_bwd, e6_bwd)):
-            bound_ms, bound_by = c.bound(direction)
-            say(f"[e1 time] {c.name} {direction} bf16 N={c.N} {c.H}x{c.W}: kernel {ms:.3f} ms, "
-                f"plain {plain:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-                f"e6 kernel's e=1 form {e6_ms:.3f} ms")
+        out, _ = fused_mbconv_e1(xr, pr, c.delta)
+        fwd = lambda: fused_mbconv_e1(x, p, c.delta)
+        bwd = lambda: torch.autograd.grad(out, [xr, *pr], g, retain_graph=True)
+        with torch.no_grad():
+            k_fwd, d_fwd = time_ms(fwd), device_ms(fwd)
+            p_fwd = device_ms(lambda: plain_fused_mbconv_e1(x, p, c.delta))
+        k_bwd, d_bwd = time_ms(bwd), device_ms(bwd)
+        outp, _ = plain_fused_mbconv_e1(xr, pr, c.delta)
+        p_bwd = device_ms(lambda: torch.autograd.grad(outp, [xr, *pr], g, retain_graph=True))
+        del outp
+        e6_fwd, e6_bwd = e6_e1_form[c.name + "_e1"]
+        for direction, ms, dev, plain, e6_ms in (("forward", k_fwd, d_fwd, p_fwd, e6_fwd),
+                                                 ("backward", k_bwd, d_bwd, p_bwd, e6_bwd)):
+            bound_ms, bound_by, which = c.bound(direction)
+            say(f"[e1 time] {c.name} {direction} bf16 N={c.N} {c.H}x{c.W}: fused_mbconv_e1 "
+                f"device {dev:.4f} ms (CUDA events {ms:.4f} ms), plain device {plain:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({which}), the e=1 form's passes in phase 4 "
+                f"{e6_ms:.4f} ms (CUDA events)")
             rows.append(dict(case=c.name, direction=direction, err=errs[c.name, "bfloat16"],
-                             ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
-                             launches=counts[f"mbconv1.{direction}"]))
-        say(f"[e1 memory] {c.name}: held from forward to backward beyond x and the outputs: "
-            f"e1 kernel {held} B, e6 kernel's e=1 form {e6_held} B")
+                             ms=dev, event_ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                             bound_by=bound_by, launches=counts[f"mbconv1.{direction}"]))
+        del out
     return rows
+
+
+def e1_same_bits(case):
+    """fused_mbconv_e1 and fused_mbconv_e6 over the whole image (valid_h = H,
+    valid_w = W) on the same bf16 inputs: out, the stats, dx and every parameter
+    gradient must be the same bits."""
+    import torch
+
+    from mammo_clip_tpu_torch.ops.mbconv import fused_mbconv_e1
+    from mammo_clip_tpu_torch.ops.mbconv6 import fused_mbconv_e6
+
+    runs = [case.run(fn, torch.bfloat16) for fn in (
+        lambda x, p, d, vh, vw: fused_mbconv_e1(x, p, d),
+        lambda x, p, d, vh, vw: fused_mbconv_e6(x, p, d, case.H, case.W))]
+    flat = [[r[0], *r[1], r[2], *r[3]] for r in runs]
+    same = [torch.equal(a, b) for a, b in zip(*flat)]
+    say(f"[e1 check] {case.name} bf16: fused_mbconv_e1 against fused_mbconv_e6(x, p, delta, "
+        f"{case.H}, {case.W}): out, 4 stats, dx and {len(case.params)} parameter gradients "
+        f"bit-identical: {all(same)}")
+    if not all(same):
+        raise SmokeFailure(f"{case.name}: fused_mbconv_e1 and the e=1 form differ: {same}")
+
+
+E1_FORM_KERNELS = ("sweep", "bwd_v", "bwd_x", "out", "sum_blocks", "prep1", "dx_pad")
+
+
+def e1_form_kernels_only(name, case):
+    """Fails unless every kernel of the package's own library that one forward
+    and one backward through fused_mbconv_e1 launch is one of the e=1 form's
+    kernels of csrc/mbconv6_e6.cu (its pass kernels with EXPAND false, and the
+    kernels it shares or adds); prints them with their launches and device us
+    per pass. The trace comes from a process of its own (``e6_timing.py --case
+    case``, this checkout, the same shape): minutes into this script on an H100
+    (torch 2.11) torch.profiler kept only part of a call's kernels, or none,
+    while every fresh process traced them all."""
+    from mammo_clip_tpu_torch.benchmarks import e6_timing
+
+    rec = e6_timing.run_process(ROOT, case)
+    times = {}
+    for kernels in (rec["kernels_fwd"], rec["kernels_bwd"]):
+        for n, (calls, us) in kernels.items():
+            c0, t0 = times.get(n, (0, 0.0))
+            times[n] = (c0 + calls, t0 + us)
+    seen, bad = {}, []
+    for n, (calls, _) in times.items():
+        if not re.match(r"(void )?\(anonymous namespace\)::", n):
+            continue  # a kernel of PyTorch's, not of the package's library
+        m = re.search(r"::(\w+)_kernel(<[^()]*>)?", n)
+        base = m.group(1) if m else n
+        ok = base in E1_FORM_KERNELS and (base not in ("sweep", "bwd_v", "bwd_x")
+                                          or m.group(2).rstrip().endswith("false>"))
+        key = pass_name(n) + ("" if ok else " (not the e=1 form's)")
+        seen[key] = seen.get(key, 0) + calls
+        if not ok:
+            bad.append(n)
+    say(f"[e1 kernels] {name}: the library's kernels of one forward and one backward through "
+        f"fused_mbconv_e1 ({case}, a process of its own): "
+        + ", ".join(f"{k} x{v}" for k, v in sorted(seen.items())))
+    say(f"[e1 passes] {name} bf16, device us per forward+backward through the wrapper: "
+        + breakdown(times, calls=1))
+    if bad or not seen:
+        raise SmokeFailure(f"{name}: fused_mbconv_e1 launched other kernels: {bad or 'none'}")
 
 
 # --------------------------------------------------------------------------
@@ -717,8 +835,12 @@ def pass_name(name):
         else short_name(name)
 
 
-def pass_breakdown(fn, reps=3):
-    """Device time per call of each kernel ``fn`` launches, from torch.profiler."""
+TRACED_CALLS = 3
+
+
+def traced_kernels(fn, calls=TRACED_CALLS):
+    """{kernel name: (launches, total device us)} of ``calls`` calls of ``fn``
+    (after one untraced call), from torch.profiler's trace."""
     import tempfile
 
     import torch
@@ -726,19 +848,29 @@ def pass_breakdown(fn, reps=3):
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as d:
         prof.export_chrome_trace(f"{d}/trace.json")
         events = json.loads(Path(f"{d}/trace.json").read_text())["traceEvents"]
-    times = {}
-    for name, (n, t) in kernel_times(events).items():
+    return kernel_times(events)
+
+
+def breakdown(times, calls=TRACED_CALLS):
+    """A trace's kernels ({name: (launches, device us)} of ``calls`` calls) as
+    device us per call of each pass, the largest 8."""
+    per = {}
+    for name, (n, t) in times.items():
         key = pass_name(name)
-        times[key] = times.get(key, 0.0) + t / reps
-    total = sum(times.values())
-    top = sorted(times.items(), key=lambda kv: -kv[1])
-    return f"total {total:.1f}: " + ", ".join(f"{k} {v:.1f}" for k, v in top[:8])
+        per[key] = per.get(key, 0.0) + t / calls
+    top = sorted(per.items(), key=lambda kv: -kv[1])
+    return f"total {sum(per.values()):.1f}: " + ", ".join(f"{k} {v:.1f}" for k, v in top[:8])
+
+
+def pass_breakdown(fn):
+    """Device time per call of each kernel ``fn`` launches, from torch.profiler."""
+    return breakdown(traced_kernels(fn))
 
 
 def step_trace_summary(path):
@@ -880,11 +1012,13 @@ def run_cli(seed):
 # --------------------------------------------------------------------------
 
 
-def bound(nbytes, flops, peak=BF16_FLOPS):
-    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    operations over the peak rate of their type."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+def bound(nbytes, ops):
+    """(bound_ms, bound_by, which): the largest of bytes over the HBM rate and,
+    for each unit, its operations over its peak rate (``ops``: name -> (flops,
+    peak)). bound_by is "bytes" or "operations"; which names the part."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S, **{k: f / pk for k, (f, pk) in ops.items()}}
+    which = max(times, key=times.get)
+    return times[which] * 1e3, ("bytes" if which == "bytes" else "operations"), which
 
 
 def flash_inputs(shape, dtype, seed):
@@ -1018,15 +1152,18 @@ def flash_kernel_report(lib_path, ptxas_log):
                            f"with atomics {atomics}")
 
 
-def flash_phases(seed):
-    """Phase 8. Returns the forward and backward rows of the kernels line."""
+def flash_phases(seed, earlier=None):
+    """Phase 8. Returns the forward and backward rows of the kernels line; with
+    ``earlier`` (parent_turns'), their earlier_host_us."""
     import torch
     import torch.nn.functional as F
 
+    from mammo_clip_tpu_torch.benchmarks import layout_timing
     from mammo_clip_tpu_torch.benchmarks import probe_flash_attention as probe
     from mammo_clip_tpu_torch.benchmarks.layout_timing import device_ms
     from mammo_clip_tpu_torch.models.bert import attention
     from mammo_clip_tpu_torch.ops import cuda_lib
+    from mammo_clip_tpu_torch.ops import flash_attention as flash_module
     from mammo_clip_tpu_torch.ops.flash_attention import (
         flash_backward,
         flash_forward,
@@ -1051,7 +1188,6 @@ def flash_phases(seed):
     if min(counts.values()) < 1:
         raise SmokeFailure(f"flash path launched no kernel in one direction: {counts}")
 
-    lib = cuda_lib.load()
     q, k, v, g = flash_inputs(shape, torch.bfloat16, seed)
     scale = probe.D ** -0.5
     mask = torch.ones(shape[0], shape[2], dtype=torch.bool, device="cuda")
@@ -1060,8 +1196,8 @@ def flash_phases(seed):
         "einsum": lambda q, k, v: attention(q * scale, k, v, mask, amp_scores=True),
         "sdpa": lambda q, k, v: F.scaled_dot_product_attention(q, k, v, scale=scale),
     }
-    o, lse = flash_forward(lib, q, k, v, scale)
-    first, second = (flash_backward(lib, q, k, v, o, lse, g, scale) for _ in range(2))
+    o, lse = flash_forward(q, k, v, scale)
+    first, second = (flash_backward(q, k, v, o, lse, g, scale) for _ in range(2))
     torch.cuda.synchronize()
     same = [torch.equal(a, b) for a, b in zip(first, second)]
     say(f"[flash check] {shape} bf16 backward twice on the same inputs: dq, dk, dv "
@@ -1069,9 +1205,9 @@ def flash_phases(seed):
     if not all(same):
         raise SmokeFailure(f"flash backward is not deterministic: {same}")
     calls = {"kernel": (  # the launches alone, uncounted
-        lambda: flash_forward(lib, q, k, v, scale),
-        lambda: flash_backward(lib, q, k, v, o, lse, g, scale),
-        lambda: flash_backward(lib, q, k, v, *flash_forward(lib, q, k, v, scale), g, scale))}
+        lambda: flash_forward(q, k, v, scale),
+        lambda: flash_backward(q, k, v, o, lse, g, scale),
+        lambda: flash_backward(q, k, v, *flash_forward(q, k, v, scale), g, scale))}
     for name, fn in fns.items():
         qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
         out = fn(qr, kr, vr)
@@ -1086,14 +1222,25 @@ def flash_phases(seed):
         device[name] = tuple(device_ms(c) for c in (fwd, bwd, both))
     elems, s2 = q.numel(), shape[0] * shape[1] * shape[2] ** 2 * shape[3]
     stats = 4 * shape[0] * shape[1] * shape[2]
-    bounds = [bound(4 * 2 * elems + stats, 4 * s2),             # q, k, v in; o, lse out
-              bound(8 * 2 * elems + stats, 10 * s2),            # q, k, v, o, dO, lse in; dq, dk, dv out
-              bound(8 * 2 * elems, 14 * s2)]                    # q, k, v, dO in; o, dq, dk, dv out
+    mm = lambda flops: {"products": (flops, BF16_FLOPS)}
+    bounds = [bound(4 * 2 * elems + stats, mm(4 * s2)),   # q, k, v in; o, lse out
+              bound(8 * 2 * elems + stats, mm(10 * s2)),  # q, k, v, o, dO, lse in; dq, dk, dv out
+              bound(8 * 2 * elems, mm(14 * s2))]          # q, k, v, dO in; o, dq, dk, dv out
     for i, what in enumerate(("forward", "backward", "forward+backward")):
         say(f"[flash time] {shape} bf16 {what}, ms (CUDA events | device time): " + ", ".join(
             f"{name} {times[name][i]:.4f} | {device[name][i]:.4f}"
             for name in ("kernel", "plain", "einsum", "sdpa"))
             + f"; bound {bounds[i][0]:.4f} ms ({bounds[i][1]})")
+    # the host's cost per call of the public wrapper (layout_timing.flash_calls,
+    # forward and backward in turns); the parent's, from parent_turns
+    host = dict(zip(("forward", "backward"),
+                    layout_timing.compare(*layout_timing.flash_calls(flash_module))))
+    for direction, t in host.items():
+        old = (earlier or {}).get("flash", {}).get(direction)
+        say(f"[flash launch] {direction} through flash_attention: host us per call "
+            f"{t['host_us']:.2f}" + (f", the parent's {old:.2f} (in turns, layout_timing)"
+                                     if old is not None else "")
+            + f"; CUDA-event ms {t['ms']:.4f}, device ms {t['device_ms']:.4f}")
     rows = []
     for i, direction in enumerate(("forward", "backward")):
         rows.append({
@@ -1103,7 +1250,9 @@ def flash_phases(seed):
             "launches": counts[f"flash_attention.{direction}"],
             "max_abs_err": errs["probe", "bfloat16"][i], "ms": device["kernel"][i],
             "plain_ms": device["plain"][i], "bound_ms": bounds[i][0], "bound_by": bounds[i][1],
-            "library_ms": device["sdpa"][i], "event_ms": times["kernel"][i]})
+            "library_ms": device["sdpa"][i], "event_ms": times["kernel"][i],
+            "host_us": host[direction]["host_us"],
+            "earlier_host_us": (earlier or {}).get("flash", {}).get(direction)})
     return rows
 
 
@@ -1119,8 +1268,39 @@ JAX_LAYOUT_SUMS = {"concat_aligned": 49139.430, "reshape_collapse": 48681.105,
                    "reshape_collapse_rows10": 60836.828, "reshape_split_rows10": 102.065}
 
 
-def probe_phases():
-    """Phase 9. Returns the grid and layout rows of the kernels line."""
+def probe_label(mangled):
+    """'grid_compute' for the grid compute kernel of csrc/probes.cu; None else."""
+    return "grid_compute" if "grid_compute_kernel" in mangled else None
+
+
+def grid_compute_report(C):
+    """Phase 9's look at the grid compute kernel in the built library: registers,
+    shared and local memory (cuobjdump), spill stores (ptxas), dynamic shared
+    memory and blocks per SM at C (pr_grid_compute_info), its HMMA and atomic
+    counts in the SASS (chiprun_out/probes.sass). Fails without HMMA or with an
+    atomic."""
+    import ctypes
+
+    from mammo_clip_tpu_torch.ops import cuda_lib
+
+    usage, counts, spills = library_report(cuda_lib.build_info.path, cuda_lib.build_info.ptxas,
+                                           probe_label, "probes.sass")
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    rc = cuda_lib.load().pr_grid_compute_info(C, ctypes.byref(smem), ctypes.byref(blocks))
+    if rc:
+        raise SmokeFailure(f"pr_grid_compute_info failed with CUDA error {rc}")
+    u, (hmma, atomics) = usage.get("grid_compute", {}), counts.get("grid_compute", (0, 0))
+    say(f"[probe kernels] grid_compute: REG {u.get('REG')}, SHARED {u.get('SHARED')}, STACK "
+        f"{u.get('STACK')}, LOCAL {u.get('LOCAL')}, spill stores "
+        f"{spills.get('grid_compute', 'not read (built earlier)')} B, dynamic shared "
+        f"{smem.value} B at C = {C}, blocks per SM {blocks.value}, HMMA {hmma}, atomics {atomics}")
+    if hmma == 0 or atomics:
+        raise SmokeFailure(f"grid compute SASS: HMMA {hmma}, atomics {atomics}")
+
+
+def probe_phases(earlier=None):
+    """Phase 9. Returns the grid and layout rows of the kernels line; with
+    ``earlier`` (parent_turns'), the grid compute row's earlier_ms."""
     import numpy as np
     import torch
 
@@ -1136,33 +1316,45 @@ def probe_phases():
     # kernel is checked twice: as is (the bank term), and with vec = -k[:, 0:1, :],
     # which cancels the bank exactly and leaves the x part alone.
     vec0 = (-k[:, 0:1, :]).contiguous()
-    # name: wrapper (checked), raw launch (timed, uncounted), plain, tol, bytes, flops
+    # name: wrapper (checked), raw launch (timed, uncounted), plain, tol, bytes, and
+    # the operations of each unit that does them (bound's ops): sums off the
+    # tensor cores (fp32 peak). The compute kernel's, by the units its code uses:
+    # on the tensor cores z = We^T x and the taps' fp32 sums, one m16n8k16 mma
+    # (4,096 flop) with a 0/1 selector per tap for 8 channels x 32 columns of a
+    # row, 144 flop an output; off them the 9 rounded tap products of an output,
+    # two a packed bf16 multiply, which issues at the rate the fp32 peak counts
+    # as one FMA of two operations, so 67 T products/s.
+    fp32 = lambda n: {"sums": (n, FP32_FLOPS)}
+    outputs = N * H * W * E
     grid = {
         "base": (lambda: probes.grid_base(x), lambda: probes.grid_sum_kernel(0, x),
-                 lambda: probes.plain_grid_base(x), 1e-4, x.numel() * 2, x.numel()),
+                 lambda: probes.plain_grid_base(x), 1e-4, x.numel() * 2, fp32(x.numel())),
         "halo": (lambda: probes.grid_halo(x), lambda: probes.grid_sum_kernel(1, x),
-                 lambda: probes.plain_grid_halo(x), 1e-4, x.numel() * 2, x.numel() * 1.25),
+                 lambda: probes.plain_grid_halo(x), 1e-4, x.numel() * 2,
+                 fp32(x.numel() * 1.25)),
         "const": (lambda: probes.grid_const(x, k, vec),
                   lambda: probes.grid_sum_kernel(2, x, k, vec),
                   lambda: probes.plain_grid_const(x, k, vec), 1e-4,
-                  x.numel() * 2 + 2 * E * W * 2, x.numel() + 2 * E * W),
+                  x.numel() * 2 + 2 * E * W * 2, fp32(x.numel() + 2 * E * W)),
         "compute": (lambda: probes.grid_compute(x, we, k),
                     lambda: probes.grid_compute_kernel(x, we, k),
                     lambda: probes.plain_grid_compute(x, we, k), 1e-3,
                     x.numel() * 2 + we.numel() * 2 + k.numel() * 2,
-                    2 * N * H * W * C * E + 2 * 9 * N * H * W * E),
+                    {"tensor cores (z, tap sums)": (2 * N * H * W * C * E + 144 * outputs,
+                                                    BF16_FLOPS),
+                     "tap products (bf16x2)": (9 * outputs, FP32_FLOPS)}),
     }
     rows8, wl, flat10 = layout_timing.layout_inputs("cuda")
     n8 = rows8.numel()
     layout = {
         "gram": (lambda: probes.gram_rows(rows8), lambda: probes.plain_gram_rows(rows8),
-                 1e-5, 4 * (n8 + 256), 2 * 16 * n8),
+                 1e-5, 4 * (n8 + 256), fp32(2 * 16 * n8)),
         "copy_scale": (lambda: probes.copy_scale(flat10, (16, 10, 384), 2.0),
                        lambda: probes.plain_copy_scale(flat10, (16, 10, 384), 2.0), 0.0,
-                       8 * flat10.numel(), flat10.numel()),
+                       8 * flat10.numel(), fp32(flat10.numel())),
         "channel_mix": (lambda: probes.channel_mix(rows8, wl),
                         lambda: probes.plain_channel_mix(rows8, wl), 1e-5,
-                        8 * n8 + 4 * 256, 2 * 16 * n8),
+                        8 * n8 + 4 * 256, fp32(2 * 16 * n8)),
     }
     # one PyTorch call of the same function, where there is one (timed as library_ms)
     library = {"base": lambda: torch.sum(x, (0, 2, 3), dtype=torch.float32).view(-1, 1, 1)}
@@ -1173,6 +1365,9 @@ def probe_phases():
     checks.insert(3, ("grid", "const (bank cancelled, x part alone)",
                       lambda: probes.grid_const(x, k, vec0), lambda: probes.plain_grid_base(x),
                       1e-4))
+    checks.append(("grid", "compute, all E channel sums",
+                   lambda: probes.grid_compute_channel_sums(x, we, k),
+                   lambda: probes.plain_grid_compute_channel_sums(x, we, k), 1e-3))
     checks += [("layout", name, wrap, plain, tol) for name, (wrap, plain, tol, _, _)
                in layout.items()]
     errs = {}
@@ -1194,6 +1389,12 @@ def probe_phases():
     if not torch.equal(*gram_bits):
         raise SmokeFailure("two calls of the Gram kernel on the same input gave other bits")
     say("[probe check] two Gram kernel calls on the same input: the same bits")
+    sums_bits = [probes.grid_compute_channel_sums(x, we, k) for _ in range(2)]
+    if not torch.equal(*sums_bits):
+        raise SmokeFailure("two calls of the grid compute kernel on the same input gave other bits")
+    say(f"[probe check] two grid compute kernel calls on the same input: the same bits for all "
+        f"{E} channel sums")
+    grid_compute_report(C)
     x3, w3 = rows8.cpu().numpy(), wl.cpu().numpy()
     want = np.einsum("chw,cd->hdw", x3, w3)
     mix_err = float(np.abs(probes.channel_mix(rows8, wl).cpu().numpy() - want).max())
@@ -1212,12 +1413,12 @@ def probe_phases():
         say(f"[probe sums] {name}: card {got:.3f}, JAX script (interpret mode) {want_sum:.3f}")
         if abs(got - want_sum) > 1e-5 * abs(want_sum) + 2e-3:
             raise SmokeFailure(f"layout probe {name}: sum {got} vs the JAX script's {want_sum}")
-    timed = {("grid", name): (raw, plain, nbytes, flops)
-             for name, (_, raw, plain, _, nbytes, flops) in grid.items()}
-    timed.update({("layout", name): (wrap, plain, nbytes, flops)
-                  for name, (wrap, plain, _, nbytes, flops) in layout.items()})
+    timed = {("grid", name): (raw, plain, nbytes, ops)
+             for name, (_, raw, plain, _, nbytes, ops) in grid.items()}
+    timed.update({("layout", name): (wrap, plain, nbytes, ops)
+                  for name, (wrap, plain, _, nbytes, ops) in layout.items()})
     rows = []
-    for (kind, name), (kern, plain, nbytes, flops) in timed.items():
+    for (kind, name), (kern, plain, nbytes, ops) in timed.items():
         plain_ms = time_ms(plain, reps=3)
         if kind == "layout":
             # host-bound at this size: the median of 5 x 200 calls, device time
@@ -1227,17 +1428,18 @@ def probe_phases():
         else:
             ms = time_ms(kern)
             library_ms = time_ms(library[name]) if name in library else None
-        peak = BF16_FLOPS if kind == "grid" else FP32_FLOPS
-        bound_ms, bound_by = bound(nbytes, flops, peak)
+        bound_ms, bound_by, which = bound(nbytes, ops)
         per_block = f", {ms * 1e3 / blocks:.3f} us per block" if kind == "grid" else ""
         lib_txt = f"{library_ms:.4f} ms" if library_ms is not None else "none"
         say(f"[probe time] {kind} {name}: kernel {ms:.4f} ms{per_block}, plain "
-            f"{plain_ms:.4f} ms, library {lib_txt}, bound {bound_ms:.4f} ms ({bound_by})")
+            f"{plain_ms:.4f} ms, library {lib_txt}, bound {bound_ms:.4f} ms ({which})")
         line = {"grid": {"base": "193", "halo": "209", "const": "231", "compute": "259"},
                 "layout": dict.fromkeys(layout, "27")}[kind][name]
         err = errs[name][1]
         if name == "const":
             err = max(err, errs["const (bank cancelled, x part alone)"][1])
+        if name == "compute":
+            err = max(err, errs["compute, all E channel sums"][1])
         row = {
             "name": f"probe_{kind}[{name}]", "route": "cuda",
             "source": "mammo_clip_tpu_torch/csrc/probes.cu",
@@ -1245,6 +1447,8 @@ def probe_phases():
             "launches": counts[f"probe_{kind}.{name}"], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+        if name == "compute":
+            row["earlier_ms"] = earlier["grid_compute"] if earlier else None
         if kind == "layout":
             say(f"[probe time] layout {name}: kernel device {ours['device_ms']:.4f} ms, host "
                 f"{ours['host_us']:.2f} us per call; library device {lib_t['device_ms']:.4f} ms,"
@@ -1320,8 +1524,8 @@ def main(argv=None) -> int:
                                                               indent=1))
 
     # 8. flash attention; 9. the probe kernels
-    flash_rows = flash_phases(args.seed)
-    probe_rows = probe_phases()
+    flash_rows = flash_phases(args.seed, earlier)
+    probe_rows = probe_phases(earlier)
 
     lines = []
     for k in kernels:
@@ -1345,14 +1549,16 @@ def main(argv=None) -> int:
         lines.append({
             "name": f"fused_mbconv_e1[{k['case']}].{direction}",
             "route": "cuda",
-            "source": "mammo_clip_tpu_torch/csrc/mbconv1.cu",
+            "source": "mammo_clip_tpu_torch/csrc/mbconv6_e6.cu",
             "replaces": "mammo_clip_tpu/ops/mbconv_pallas.py:"
                         + ("476" if direction == "forward" else "577"),
             "launches": k["launches"],
             "max_abs_err": err_out if direction == "forward" else err_dx,
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": None,
+            "bound_by": k["bound_by"], "library_ms": None, "event_ms": k["event_ms"],
         })
+        old = (earlier or {}).get(f"{k['case']}_e1_entry")
+        lines[-1]["earlier_ms"] = old[direction + "_device"] if old else None
     lines += flash_rows + probe_rows
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": lines}))

@@ -1,6 +1,6 @@
-"""Time ``fused_mbconv_e6`` at one of B5's main-path shapes, and the compat
-slice's peak memory, through the public API only, so that an older checkout of
-the port is measured the same way.
+"""Time ``fused_mbconv_e6`` (or ``fused_mbconv_e1``) at one of B5's main-path
+shapes, and the compat slice's peak memory, through the public API only, so that
+an older checkout of the port is measured the same way.
 
     python mammo_clip_tpu_torch/benchmarks/e6_timing.py [--root DIR] [--case C] [--slice]
     python mammo_clip_tpu_torch/benchmarks/e6_timing.py --turns OLD_ROOT [--case C] [--slice]
@@ -9,9 +9,15 @@ One run prints one JSON line for the package under ``--root`` (default: this
 checkout) at ``--case`` (bf16, N=2, seeded inputs): ``block4_e6`` (the default:
 the expanding form, C=C2=40, E=240, 380x228 valid in 384x232), ``block0_e1``
 (the e=1 form, 48 -> 24, 760x456) or ``block1_e1`` (24 -> 24 with the
-residual, 760x456); ``fwd_ms`` and ``bwd_ms`` (CUDA events, median of 5 trials of
-10 calls after a second of forward calls and 2 warm-ups; the backward is ``torch.autograd.grad`` through the
-wrapper with the graph kept), ``held_bytes`` (what one forward keeps allocated
+residual, 760x456), or ``block0_e1_entry`` / ``block1_e1_entry`` (block0_e1's
+or block1_e1's inputs through ``fused_mbconv_e1``, the e=1 block's own entry
+point); ``fwd_ms`` and ``bwd_ms`` (CUDA events, median of 5 trials of 10 calls
+after a second of forward calls and 2 warm-ups; the backward is
+``torch.autograd.grad`` through the wrapper with the graph kept),
+``kernels_fwd`` and ``kernels_bwd`` (each kernel one forward and one backward
+launch, by name: launches and device us, from torch.profiler's trace),
+``fwd_device_ms`` and ``bwd_device_ms`` (the same calls' device time, the host's
+enqueue hidden behind a sleep kernel: ``layout_timing.device_ms``), ``held_bytes`` (what one forward keeps allocated
 for its backward beyond out and the stats, as the caching allocator counts it,
 which rounds a large block such as out's up to whole 2 MiB;
 ``held_requested_bytes``, the same in the bytes the tensors asked for;
@@ -39,9 +45,11 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[2]
 
 
-# case -> (form, C, C2, valid_h, valid_w)
+# case -> (form, C, C2, valid_h, valid_w); a *_entry case is its e1 case through
+# fused_mbconv_e1 (ops/mbconv.py), whose image has no pad region
 CASES = {"block4_e6": ("e6", 40, 40, 380, 228), "block0_e1": ("e1", 48, 24, 760, 456),
-         "block1_e1": ("e1", 24, 24, 760, 456)}
+         "block1_e1": ("e1", 24, 24, 760, 456), "block0_e1_entry": ("e1", 48, 24, 760, 456),
+         "block1_e1_entry": ("e1", 24, 24, 760, 456)}
 
 
 def make_case(name="block4_e6", seed=0):
@@ -90,8 +98,10 @@ def median_ms(fn, trials=5, reps=10, warmup=2):
 
 
 def kernels_of(fn):
-    """(hand, all): kernels one call of ``fn`` launches, by torch.profiler; the
-    package's own kernels live in anonymous namespaces of its CUDA sources."""
+    """{kernel name: [launches, device us]} of one call of ``fn``, from
+    torch.profiler's trace."""
+    import tempfile
+
     import torch
 
     fn()
@@ -99,30 +109,50 @@ def kernels_of(fn):
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum("anonymous namespace" in n for n in names), len(names)
+    with tempfile.TemporaryDirectory() as d:
+        prof.export_chrome_trace(f"{d}/trace.json")
+        events = json.loads(Path(f"{d}/trace.json").read_text())["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            n, t = out.get(e["name"], (0, 0.0))
+            out[e["name"]] = [n + 1, t + e["dur"]]
+    return out
+
+
+def launch_counts(kernels):
+    """(hand, all) launches of kernels_of's result; the package's own kernels live
+    in anonymous namespaces of its CUDA sources."""
+    return (sum(n for name, (n, _) in kernels.items() if "anonymous namespace" in name),
+            sum(n for n, _ in kernels.values()))
 
 
 def measure(case):
     import torch
 
+    from mammo_clip_tpu_torch.benchmarks.layout_timing import device_ms
+    from mammo_clip_tpu_torch.ops.mbconv import fused_mbconv_e1
     from mammo_clip_tpu_torch.ops.mbconv6 import fused_mbconv_e6
 
     x, p, delta, gout, (vh, vw) = make_case(case)
+    if case.endswith("_entry"):
+        block = lambda x, p, delta, vh, vw: fused_mbconv_e1(x, p, delta)
+    else:
+        block = fused_mbconv_e6
     xr = x.clone().requires_grad_(True)
     pr = type(p)(*[t.clone().requires_grad_(True) for t in p])
     with torch.no_grad():
-        fwd = lambda: fused_mbconv_e6(x, p, delta, vh, vw)
+        fwd = lambda: block(x, p, delta, vh, vw)
         t0 = time.perf_counter()
         while time.perf_counter() - t0 < 1.0:  # the card's clocks up from idle first
             fwd()
             torch.cuda.synchronize()
-        fwd_ms = median_ms(fwd)
-        hand_f, all_f = kernels_of(fwd)
+        fwd_ms, fwd_device_ms = median_ms(fwd), device_ms(fwd)
+        kernels_f = kernels_of(fwd)
     torch.cuda.synchronize()
     requested = lambda: torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
     base, base_req = torch.cuda.memory_allocated(), requested()
-    out, stats = fused_mbconv_e6(xr, pr, delta, vh, vw)
+    out, stats = block(xr, pr, delta, vh, vw)
     torch.cuda.synchronize()
     outputs = sum(t.numel() * t.element_size() for t in (out, *stats))
     held = torch.cuda.memory_allocated() - base - outputs
@@ -132,12 +162,14 @@ def measure(case):
              for t in out.grad_fn.saved_tensors}
     saved_bytes = sum(v for k, v in saved.items() if k not in before)
     bwd = lambda: torch.autograd.grad(out, [xr, *pr], gout, retain_graph=True)
-    bwd_ms = median_ms(bwd)
-    hand_b, all_b = kernels_of(bwd)
-    return dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, held_bytes=held, held_requested_bytes=held_requested,
+    bwd_ms, bwd_device_ms = median_ms(bwd), device_ms(bwd)
+    kernels_b = kernels_of(bwd)
+    (hand_f, all_f), (hand_b, all_b) = launch_counts(kernels_f), launch_counts(kernels_b)
+    return dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_device_ms=fwd_device_ms,
+                bwd_device_ms=bwd_device_ms, held_bytes=held, held_requested_bytes=held_requested,
                 saved_bytes=saved_bytes,
                 hand_fwd=hand_f, all_fwd=all_f,
-                hand_bwd=hand_b, all_bwd=all_b)
+                hand_bwd=hand_b, all_bwd=all_b, kernels_fwd=kernels_f, kernels_bwd=kernels_b)
 
 
 def slice_peaks(steps=3, seed=0):
@@ -179,20 +211,25 @@ def run(root: Path, with_slice: bool, case: str = "block4_e6") -> dict:
     return res
 
 
+def run_process(root: Path, case: str, with_slice: bool = False) -> dict:
+    """``run`` in a process of its own (this file against ``root``): its record."""
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--root", str(root), "--case", case]
+    res = subprocess.run(cmd + (["--slice"] if with_slice else []), capture_output=True,
+                         text=True, env=dict(os.environ, PYTHONPATH=str(root)), timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError(f"e6_timing on {root} failed:\n{res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
 def turns(old: Path, with_slice: bool, case: str = "block4_e6"):
     """old, new, new, old: one process each, this file run against each root;
     with ``with_slice`` the first old and new processes also run the slice."""
     lines = []
     for i, root in enumerate((old, HERE, HERE, old)):
-        cmd = [sys.executable, str(Path(__file__).resolve()), "--root", str(root), "--case", case]
-        res = subprocess.run(cmd + (["--slice"] if with_slice and i < 2 else []),
-                             capture_output=True,
-                             text=True, env=dict(os.environ, PYTHONPATH=str(root)), timeout=900)
-        if res.returncode != 0:
-            raise RuntimeError(f"e6_timing on {root} failed:\n{res.stderr[-3000:]}")
-        line = json.loads(res.stdout.strip().splitlines()[-1])
+        line = run_process(root, case, with_slice and i < 2)
         line["side"] = "old" if root == old else "new"
-        print(json.dumps(line), flush=True)
+        print(json.dumps({k: v for k, v in line.items() if not k.startswith("kernels_")}),
+              flush=True)
         lines.append(line)
     return lines
 

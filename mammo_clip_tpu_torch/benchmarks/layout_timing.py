@@ -13,15 +13,23 @@ their library calls (``torch.mm``, ``torch.mul``, ``torch.einsum``):
              (5 turns of 200) with no synchronise between the calls of a turn
 
 The kernel's and the library call's trials are taken in turns, so that a drift
-of the host's speed falls on both.
+of the host's speed falls on both. The same three numbers are taken for the
+flash attention wrapper at the probe's (16, 12, 256, 64) bf16
+(``flash_attention``; ``flash.forward`` a call on tensors that need no
+gradient, ``flash.backward`` ``torch.autograd.grad`` through a kept graph),
+its forward and backward trials in turns.
+
+With ``--grid`` it times the grid probe's compute chain instead: ``probes.grid_compute``
+at the probe's shape (x (16, 40, 232, 384), E = 240, bf16), ``ms`` the median
+CUDA-event time per call of 5 trials of 10 calls after 3 warm-up calls.
 
 Usage, on the card:
 
-  python mammo_clip_tpu_torch/benchmarks/layout_timing.py [--root DIR] [--turns OLD_DIR]
+  python mammo_clip_tpu_torch/benchmarks/layout_timing.py [--root DIR] [--turns OLD_DIR] [--grid]
 
-``--root`` imports ``ops/probes.py`` from another checkout (for example a parent
-commit unpacked with ``git archive``), so that two versions of the wrappers are
-timed by the same code. ``--turns OLD_DIR`` runs OLD_DIR, this checkout, this
+``--root`` imports ``ops/probes.py`` and ``ops/flash_attention.py`` from another
+checkout (for example a parent commit unpacked with ``git archive``), so that two
+versions of the wrappers and their launch paths are timed by the same code. ``--turns OLD_DIR`` runs OLD_DIR, this checkout, this
 checkout and OLD_DIR, one process each, and prints each one's JSON line and
 then, per function, the two versions' medians side by side.
 """
@@ -92,18 +100,17 @@ def host_s(fn, calls):
     return elapsed
 
 
-def compare(kernel, library, trials=5, calls=200, warmup=20):
-    """``ms``, ``device_ms`` and ``host_us`` of a kernel's wrapper and of its library
-    call. Their trials are taken in turns (kernel, library, kernel, ...), so
-    that a drift of the host's speed during the run falls on both: ``ms`` is
-    the median of ``trials`` CUDA-event trials of ``calls`` calls after
-    ``warmup`` calls, ``host_us`` the host's time over ``trials`` x ``calls``
-    calls (1,000 by default) divided by their number."""
-    fns = (kernel, library)
+def compare(*fns, trials=5, calls=200, warmup=20):
+    """``ms``, ``device_ms`` and ``host_us`` of each of ``fns`` (a kernel's wrapper
+    and its library call, say). Their trials are taken in turns (first, second,
+    first, ...), so that a drift of the host's speed during the run falls on
+    all: ``ms`` is the median of ``trials`` CUDA-event trials of ``calls`` calls
+    after ``warmup`` calls, ``host_us`` the host's time over ``trials`` x
+    ``calls`` calls (1,000 by default) divided by their number."""
     for fn in fns:
         for _ in range(warmup):
             fn()
-    events, host = ([], []), [0.0, 0.0]
+    events, host = tuple([] for _ in fns), [0.0] * len(fns)
     for _ in range(trials):
         for i, fn in enumerate(fns):
             events[i].append(event_ms(fn, calls))
@@ -133,14 +140,46 @@ def layout_calls(probes, x, w, flat):
     }
 
 
-def run(root: Path):
-    """One JSON-able record: each wrapper's and library call's three numbers."""
-    sys.path.insert(0, str(root))
-    from mammo_clip_tpu_torch.ops import probes
+def flash_calls(fa):
+    """(forward, backward) of ``fa.flash_attention`` (the module
+    ``ops/flash_attention.py`` of some checkout) at the probe's seeded (16, 12,
+    256, 64) bf16 q, k, v: the forward on tensors that need no gradient, the
+    backward ``torch.autograd.grad`` through one kept graph."""
+    f = lambda seed: torch.from_numpy(0.3 * np.random.default_rng(seed).standard_normal(
+        (16, 12, 256, 64)).astype(np.float32)).to(torch.bfloat16).cuda()
+    q, k, v, g = (f(seed) for seed in range(4))
+    scale = 64 ** -0.5
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = fa.flash_attention(qr, kr, vr, scale)
+    return (lambda: fa.flash_attention(q, k, v, scale),
+            lambda: torch.autograd.grad(out, (qr, kr, vr), g, retain_graph=True))
 
-    if not Path(probes.__file__).resolve().is_relative_to(root.resolve()):
-        raise RuntimeError(f"ops/probes.py came from {probes.__file__}, not from {root}")
+
+def grid_compute_ms(probes, trials=5, calls=10, warmup=3):
+    """Median CUDA-event ms per call of ``probes.grid_compute`` at the grid probe's
+    seeded inputs (the same as ``probe_mosaic.grid_inputs``)."""
+    f = lambda seed, shape: torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32)).to(torch.bfloat16).cuda()
+    x, k, we = f(0, (16, 40, 232, 384)), f(1, (240, 9, 384)), f(3, (40, 240))
+    for _ in range(warmup):
+        probes.grid_compute(x, we, k)
+    return statistics.median(event_ms(lambda: probes.grid_compute(x, we, k), calls)
+                             for _ in range(trials))
+
+
+def run(root: Path, grid: bool = False):
+    """One JSON-able record: each wrapper's and library call's three numbers and
+    the flash wrapper's, or with ``grid`` the grid compute chain's ms."""
+    sys.path.insert(0, str(root))
+    from mammo_clip_tpu_torch.ops import flash_attention, probes
+
+    for mod in (probes, flash_attention):
+        if not Path(mod.__file__).resolve().is_relative_to(root.resolve()):
+            raise RuntimeError(f"{mod.__name__} came from {mod.__file__}, not from {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
+    if grid:
+        return {"root": str(root), "device": torch.cuda.get_device_name(0),
+                "grid_compute": {"ms": grid_compute_ms(probes)}}
     calls = layout_calls(probes, *layout_inputs("cuda"))
     for wrap, _ in calls.values():
         wrap()  # builds the library on the first call
@@ -148,16 +187,17 @@ def run(root: Path):
     out = {"root": str(root), "device": torch.cuda.get_device_name(0)}
     for name, (wrap, library) in calls.items():
         out[name], out[f"{name}.library"] = compare(wrap, library)
+    out["flash.forward"], out["flash.backward"] = compare(*flash_calls(flash_attention))
     return out
 
 
-def turns(old: Path):
+def turns(old: Path, grid: bool = False):
     """old, this checkout, this checkout, old: one process each."""
     script = str(Path(__file__).resolve())
     records = []
     for root in (old, HERE_ROOT, HERE_ROOT, old):
-        res = subprocess.run([sys.executable, script, "--root", str(root)], capture_output=True,
-                             text=True)
+        res = subprocess.run([sys.executable, script, "--root", str(root)]
+                             + (["--grid"] if grid else []), capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"timing {root} failed ({res.returncode}):\n{res.stderr[-4000:]}")
         line = res.stdout.strip().splitlines()[-1]
@@ -165,7 +205,7 @@ def turns(old: Path):
         records.append(json.loads(line))
     olds, news = (records[0], records[3]), (records[1], records[2])
     for key in (k for k in records[0] if isinstance(records[0][k], dict)):
-        for field in ("ms", "device_ms", "host_us"):
+        for field in records[0][key]:
             a = statistics.median(r[key][field] for r in olds)
             b = statistics.median(r[key][field] for r in news)
             print(f"TURNS {key} {field}: old {a:.6g}, new {b:.6g}, new/old {b / a:.3f}")
@@ -175,15 +215,17 @@ def turns(old: Path):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=HERE_ROOT,
-                    help="checkout whose ops/probes.py is timed (default: this one)")
+                    help="checkout whose wrappers are timed (default: this one)")
     ap.add_argument("--turns", type=Path, metavar="OLD_DIR",
                     help="time OLD_DIR and this checkout in turns: old, new, new, old")
+    ap.add_argument("--grid", action="store_true",
+                    help="time the grid probe's compute chain instead of the layout kernels")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: layout_timing measures the card")
     if args.turns is not None:
-        return turns(args.turns)
-    res = run(args.root)
+        return turns(args.turns, args.grid)
+    res = run(args.root, args.grid)
     print(json.dumps(res), flush=True)
     return res
 

@@ -66,6 +66,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -417,52 +419,6 @@ constexpr int kTcThreads = 128;   // 4 warps, 16 rows of a 64-row tile each
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// Asynchronous copies to shared memory; a source size of 0 writes zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of row
-// l % 8 of matrix l / 8 and gets row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1
-// of each (of its transpose with .trans).
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a b for one m16n8k16 tile: a 16 x 16 bf16 (row-major), b 16 x 8 bf16
-// (column-major), d 16 x 8 fp32. Lane l = 4 g + t holds d rows g and g + 8,
-// columns 2t and 2t + 1.
-__device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<unsigned*>(&h);
@@ -596,7 +552,7 @@ __global__ void __launch_bounds__(kTcThreads) fwd_tc_kernel(const bf16* q, const
   __syncthreads();
   unsigned qf[kKd][4];
 #pragma unroll
-  for (int kk = 0; kk < kKd; ++kk) ldsm_x4(qf[kk], a_addr<kS>(qs, warp * 16, kk * 16, lane));
+  for (int kk = 0; kk < kKd; ++kk) ldsm(qf[kk], a_addr<kS>(qs, warp * 16, kk * 16, lane));
 
   float acc[kNd][4] = {};
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // l: this thread's partial sums
@@ -614,9 +570,9 @@ __global__ void __launch_bounds__(kTcThreads) fwd_tc_kernel(const bf16* q, const
 #pragma unroll
       for (int j2 = 0; j2 < 4; ++j2) {
         unsigned b[4];
-        ldsm_x4(b, b_addr<kS>(kt, 16 * j2, 16 * kk, lane));
-        mma16816(s[2 * j2], qf[kk], b[0], b[1]);
-        mma16816(s[2 * j2 + 1], qf[kk], b[2], b[3]);
+        ldsm(b, b_addr<kS>(kt, 16 * j2, 16 * kk, lane));
+        mma(s[2 * j2], qf[kk], b[0], b[1]);
+        mma(s[2 * j2 + 1], qf[kk], b[2], b[3]);
       }
     // online softmax in log2 units; this thread holds rows g (e < 2) and g + 8
     const int key = it * kTile + 2 * t;
@@ -660,9 +616,9 @@ __global__ void __launch_bounds__(kTcThreads) fwd_tc_kernel(const bf16* q, const
 #pragma unroll
       for (int n2 = 0; n2 < kNd / 2; ++n2) {
         unsigned b[4];
-        ldsm_x4_t(b, bt_addr<kS>(vt, 16 * kk, 16 * n2, lane));
-        mma16816(acc[2 * n2], a, b[0], b[1]);
-        mma16816(acc[2 * n2 + 1], a, b[2], b[3]);
+        ldsm_t(b, bt_addr<kS>(vt, 16 * kk, 16 * n2, lane));
+        mma(acc[2 * n2], a, b[0], b[1]);
+        mma(acc[2 * n2 + 1], a, b[2], b[3]);
       }
     }
     cp_async_wait_all();
@@ -760,17 +716,17 @@ __global__ void __launch_bounds__(kTcThreads) dkdv_tc_kernel(const bf16* q, cons
 #pragma unroll
     for (int kk = 0; kk < kKd; ++kk) {
       unsigned ka[4], va[4];
-      ldsm_x4(ka, a_addr<kS>(ks, warp * 16, 16 * kk, lane));
-      ldsm_x4(va, a_addr<kS>(vs, warp * 16, 16 * kk, lane));
+      ldsm(ka, a_addr<kS>(ks, warp * 16, 16 * kk, lane));
+      ldsm(va, a_addr<kS>(vs, warp * 16, 16 * kk, lane));
 #pragma unroll
       for (int j2 = 0; j2 < 4; ++j2) {
         unsigned bq[4], bg[4];
-        ldsm_x4(bq, b_addr<kS>(qt, 16 * j2, 16 * kk, lane));
-        ldsm_x4(bg, b_addr<kS>(gt, 16 * j2, 16 * kk, lane));
-        mma16816(s[2 * j2], ka, bq[0], bq[1]);
-        mma16816(s[2 * j2 + 1], ka, bq[2], bq[3]);
-        mma16816(dp[2 * j2], va, bg[0], bg[1]);
-        mma16816(dp[2 * j2 + 1], va, bg[2], bg[3]);
+        ldsm(bq, b_addr<kS>(qt, 16 * j2, 16 * kk, lane));
+        ldsm(bg, b_addr<kS>(gt, 16 * j2, 16 * kk, lane));
+        mma(s[2 * j2], ka, bq[0], bq[1]);
+        mma(s[2 * j2 + 1], ka, bq[2], bq[3]);
+        mma(dp[2 * j2], va, bg[0], bg[1]);
+        mma(dp[2 * j2 + 1], va, bg[2], bg[3]);
       }
     }
     // P^T and scale * dS^T; columns are queries it*64 + c
@@ -791,12 +747,12 @@ __global__ void __launch_bounds__(kTcThreads) dkdv_tc_kernel(const bf16* q, cons
 #pragma unroll
       for (int n2 = 0; n2 < kNd / 2; ++n2) {
         unsigned b[4];
-        ldsm_x4_t(b, bt_addr<kS>(gt, 16 * kk, 16 * n2, lane));
-        mma16816(dva[2 * n2], ap, b[0], b[1]);
-        mma16816(dva[2 * n2 + 1], ap, b[2], b[3]);
-        ldsm_x4_t(b, bt_addr<kS>(qt, 16 * kk, 16 * n2, lane));
-        mma16816(dka[2 * n2], ad, b[0], b[1]);
-        mma16816(dka[2 * n2 + 1], ad, b[2], b[3]);
+        ldsm_t(b, bt_addr<kS>(gt, 16 * kk, 16 * n2, lane));
+        mma(dva[2 * n2], ap, b[0], b[1]);
+        mma(dva[2 * n2 + 1], ap, b[2], b[3]);
+        ldsm_t(b, bt_addr<kS>(qt, 16 * kk, 16 * n2, lane));
+        mma(dka[2 * n2], ad, b[0], b[1]);
+        mma(dka[2 * n2 + 1], ad, b[2], b[3]);
       }
     }
     cp_async_wait_all();
@@ -857,17 +813,17 @@ __global__ void __launch_bounds__(kTcThreads) dq_tc_kernel(const bf16* q, const 
 #pragma unroll
     for (int kk = 0; kk < kKd; ++kk) {
       unsigned qa[4], ga[4];
-      ldsm_x4(qa, a_addr<kS>(qs, warp * 16, 16 * kk, lane));
-      ldsm_x4(ga, a_addr<kS>(gs, warp * 16, 16 * kk, lane));
+      ldsm(qa, a_addr<kS>(qs, warp * 16, 16 * kk, lane));
+      ldsm(ga, a_addr<kS>(gs, warp * 16, 16 * kk, lane));
 #pragma unroll
       for (int j2 = 0; j2 < 4; ++j2) {
         unsigned bk[4], bv[4];
-        ldsm_x4(bk, b_addr<kS>(kt, 16 * j2, 16 * kk, lane));
-        ldsm_x4(bv, b_addr<kS>(vt, 16 * j2, 16 * kk, lane));
-        mma16816(s[2 * j2], qa, bk[0], bk[1]);
-        mma16816(s[2 * j2 + 1], qa, bk[2], bk[3]);
-        mma16816(dp[2 * j2], ga, bv[0], bv[1]);
-        mma16816(dp[2 * j2 + 1], ga, bv[2], bv[3]);
+        ldsm(bk, b_addr<kS>(kt, 16 * j2, 16 * kk, lane));
+        ldsm(bv, b_addr<kS>(vt, 16 * j2, 16 * kk, lane));
+        mma(s[2 * j2], qa, bk[0], bk[1]);
+        mma(s[2 * j2 + 1], qa, bk[2], bk[3]);
+        mma(dp[2 * j2], ga, bv[0], bv[1]);
+        mma(dp[2 * j2 + 1], ga, bv[2], bv[3]);
       }
     }
     const int key = it * kTile + 2 * t;
@@ -886,9 +842,9 @@ __global__ void __launch_bounds__(kTcThreads) dq_tc_kernel(const bf16* q, const 
 #pragma unroll
       for (int n2 = 0; n2 < kNd / 2; ++n2) {
         unsigned b[4];
-        ldsm_x4_t(b, bt_addr<kS>(kt, 16 * kk, 16 * n2, lane));
-        mma16816(dqa[2 * n2], a, b[0], b[1]);
-        mma16816(dqa[2 * n2 + 1], a, b[2], b[3]);
+        ldsm_t(b, bt_addr<kS>(kt, 16 * kk, 16 * n2, lane));
+        mma(dqa[2 * n2], a, b[0], b[1]);
+        mma(dqa[2 * n2 + 1], a, b[2], b[3]);
       }
     }
     cp_async_wait_all();
@@ -957,13 +913,16 @@ int backward_tc(const void* q, const void* k, const void* v, const void* o, cons
 
 // ---------------------------------------------------------------------------
 // C interface, loaded with ctypes. (B, N, S, D) tensors are contiguous; BN = B * N.
-// Every launcher enqueues on `stream`, does not synchronise, and returns a CUDA
+// Every launcher runs its kernels on CUDA device `device` (made current only if it
+// is not), enqueues them on `stream`, does not synchronise, and returns a CUDA
 // error code (0 on success; cudaErrorInvalidValue for a D the kernels do not take).
 // bf16 runs the tensor-core kernels, fp32 the fp32-FMA kernels.
 // ---------------------------------------------------------------------------
 
 #define FA_DISPATCH(fp32_fn, bf16_fn, ...)                                    \
   if (S < 1 || D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;         \
+  DeviceGuard guard(device);                                                  \
+  if (guard.err) return guard.err;                                            \
   cudaStream_t s = (cudaStream_t)stream;                                      \
   if (bf16_io) {                                                              \
     if (D <= 32) return bf16_fn<32>(__VA_ARGS__, s);                          \
@@ -978,14 +937,14 @@ extern "C" {
 
 // o (BN, S, D) in the input dtype, lse (BN, S) fp32.
 int fa_forward(const void* q, const void* k, const void* v, int bf16_io, void* o, float* lse,
-               int BN, int S, int D, float scale, void* stream) {
+               int BN, int S, int D, float scale, int device, void* stream) {
   FA_DISPATCH(forward, forward_tc, q, k, v, o, lse, BN, S, D, scale)
 }
 
 // g = dL/do; dvec (BN, S) fp32 scratch; dq, dk, dv in the input dtype.
 int fa_backward(const void* q, const void* k, const void* v, const void* o, const void* g,
                 const float* lse, int bf16_io, float* dvec, void* dq, void* dk, void* dv, int BN,
-                int S, int D, float scale, void* stream) {
+                int S, int D, float scale, int device, void* stream) {
   FA_DISPATCH(backward, backward_tc, q, k, v, o, g, lse, dvec, dq, dk, dv, BN, S, D, scale)
 }
 

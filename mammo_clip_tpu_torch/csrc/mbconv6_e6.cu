@@ -96,6 +96,8 @@
 
 #include <type_traits>
 
+#include "common.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -186,59 +188,12 @@ __device__ __forceinline__ float dsilu(float x) {
   return s * (1.f + x * (1.f - s));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 // Sum over the 8 lanes that share lane % 4 (the rows of an mma C fragment).
 __device__ __forceinline__ float group_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 4);
   v += __shfl_xor_sync(0xffffffffu, v, 8);
   v += __shfl_xor_sync(0xffffffffu, v, 16);
   return v;
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// Asynchronous 4-byte copy to shared memory; a source size of 0 writes zero.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of row
-// l % 8 of matrix l / 8 and gets row l / 4, columns 2 (l % 4), +1 of each (of
-// its transpose with .trans).
-__device__ __forceinline__ void ldsm(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_t(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a b for one m16n8k16 tile: a 16 x 16 bf16 (row-major), b 16 x 8 bf16
-// (column-major), d 16 x 8 fp32. Lane l = 4 g + t holds d rows g and g + 8,
-// columns 2t and 2t + 1.
-__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                    unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ldmatrix row addresses (lane's row, its column offset) for the four operand
@@ -1887,18 +1842,6 @@ sum_blocks_kernel(const float* __restrict__ part, int N, int bpi, int K, int kim
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-
-struct DeviceGuard {
-  int prev = -1, want;
-  int err;
-  explicit DeviceGuard(int device) : want(device) {
-    err = (int)cudaGetDevice(&prev);
-    if (!err && prev != want) err = (int)cudaSetDevice(want);
-  }
-  ~DeviceGuard() {
-    if (prev >= 0 && prev != want) cudaSetDevice(prev);
-  }
-};
 
 template <typename K>
 int launch_big(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t s, const P6& p) {

@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas kernels of that script:
 //   grid probes (probe_grid_overhead, :184-264), over x (N, C, H, W) bf16 in 8-row
-//   tiles, one thread block per (image n, tile i) as the TPU grid (N, H/8) has:
+//   tiles (base, halo and const: one thread block per (image n, tile i), as the
+//   TPU grid (N, H/8) has):
 //     base     o[c] = sum_{n,h,w} x[n,c,h,w]                                  (:184)
 //     halo     base + each tile's clamped halo rows 8*max(i-1,0)+7 and
 //              8*min(i+1,H/8-1), broadcast over its 8 rows                    (:197)
@@ -11,7 +12,8 @@
 //     compute  per tile z = We^T x (fp32 sums, stored bf16), w = SiLU(z) (bf16),
 //              d[e,h,w] = sum_{a,b<3} bf16(wpad[e,h,w+b] * k[e,3a+b,w]) in fp32
 //              (zero padding in w, no vertical halo), o[c] += sum_{h,w} d[c,h,w]
-//              for c < C                                                      (:235)
+//              for c < C (the kernel sums all E channels; ops/probes.py
+//              returns the first C)                                           (:235)
 //   layout probes (_run, :25-27, over the probes at :37-140), whose functions are:
 //     gram         X X^T (C x C, fp32) of each channel's rows flattened
 //                  (concat_aligned with its 380 -> 384 zero padding,
@@ -24,12 +26,14 @@
 // the partials of all blocks in a fixed order: no float atomics, so every run
 // gives the same bits. In the base, halo and const kernels each warp sums whole
 // channels of the block's 8-row slab (contiguous in memory) with bf16x2 loads
-// and warp shuffles. The compute kernel walks its tile in chunks of 30 columns
-// plus a 1-column halo (8 x 32 = 256 positions, one per thread): the chunk of x
-// and We sit in shared memory as fp32, each thread computes z and SiLU for its
-// position and 8 expanded channels at a time, then each warp owns one expanded
-// channel and each lane one column for the 9 taps, keeping the probe's rounding
-// points (z, SiLU and each tap product rounded to bf16, sums in fp32).
+// and warp shuffles. The compute kernel (grid_compute_kernel, whose comment has
+// the details) keeps the probe's rounding points (z, SiLU and each tap product
+// rounded to bf16, sums in fp32) with its products on the tensor cores: a block
+// owns 64 columns x 64 expanded channels and walks a run of 8-row tiles, so that
+// its slice of the tap bank k is read once, into registers, and not once per
+// tile; z = x We is an mma.sync product, each pair of tap products one
+// mul.rn.bf16x2, and their sums mma.sync products with a 0/1 selector; the next
+// tile of x is loaded by cp.async while the current one computes.
 //
 // The Gram kernel takes one block per 2 x 2 tile (ti <= tj) of channel pairs:
 // each unordered pair once (inside a diagonal tile only q <= p; 136 at C = 16),
@@ -43,16 +47,21 @@
 // thread with no loop (a grid-stride loop measured ~9% slower at 61,440 floats),
 // the grid sized to the work, 32-bit indices below 2^31 elements.
 //
-// What bounds them on an H100 (3.35 TB/s, 989 TFLOP/s bf16): x is 114 MB in bf16
-// at the probe's (16, 40, 232, 384), so every grid probe is bound by reading it
-// (~34 us); the compute probe's z alone is 27.4 GFLOP (~28 us at the bf16 peak).
+// What bounds them on an H100 (3.35 TB/s, 989 TFLOP/s bf16, 67 TFLOP/s fp32 off
+// the tensor cores): x is 114 MB in bf16 at the probe's (16, 40, 232, 384), so
+// the base, halo and const probes are bound by reading it (~34 us). The compute
+// kernel's work, priced at the units that do it: on the tensor cores z (27.4
+// GFLOP) and the taps' selector mmas (144 flop an output, 49.3 GFLOP), ~77 us,
+// which bounds it; off them the 3.08 G packed tap products, two an instruction
+// at the fp32 FMA rate (~46 us). On chip it takes ~9x that (PERF.md): the z
+// phase (per position and channel a SiLU, two MUFU operations) and the taps
+// run between barriers and add up, and x's loads are hardly overlapped.
 // The layout probes move well under 1 MB: their device work is 2-3.5 us a call
 // (benchmarks/layout_timing.py, NVIDIA H100 80GB HBM3, 700.00 W), below the
 // host's cost of a launch, which bounds a call (ops/probes.py launches through
-// cuda_lib.launcher for that reason). The grid kernels'
-// per-block work and the compute kernel's fp32 FMA loops are the per-block
-// costs of the halo tiling csrc/mbconv*.cu use, which is what the probe
-// measures.
+// cuda_lib.launcher for that reason). The grid kernels' per-block work is the
+// per-tile cost of the halo tiling csrc/mbconv6_e6.cu uses, which is what the
+// probe measures.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -61,6 +70,10 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "common.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -68,23 +81,23 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 8;                 // rows of a grid tile (the probe's h_tile)
-constexpr int kChunk = 30;               // output columns of a compute chunk
-constexpr int kSpan = kChunk + 2;        // with the 1-column halo: 8 x 32 = 256 positions
-constexpr int kGroup = 8;                // expanded channels per compute round (one per warp)
-constexpr size_t kMaxSmem = 232448;
 constexpr int kGramUnits = 4;            // Gram row units a thread keeps in flight
 
-static_assert(kRows * kSpan == kThreads, "one compute position per thread");
-static_assert(kGroup == kWarps, "one expanded channel per warp in the tap stage");
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
+// The compute kernel (grid_compute_kernel): a block owns 64 columns x 64 expanded
+// channels and walks a run of 8-row tiles with 16 warps.
+constexpr int kCT = 512;                 // threads: 16 warps
+constexpr int kCTW = kCT / 32;
+constexpr int kCols = 64;                // columns of a block
+constexpr int kHalf = kCols / 2;         // columns of a warp in the taps (one per lane)
+constexpr int kGE = 64;                  // expanded channels of a block: 8 octets
+constexpr int kMaxCC = 48;               // C at most: 3 k16 steps of the expand product
+constexpr int kXS = kRows * kCols + 8;   // channel stride (bf16) of the x tile: 1040 B
+constexpr int kHS = 16 + 8;              // channel stride (bf16) of the halo tile: 48 B
+constexpr int kPos = kCols + 2;          // positions of a row of w: the columns and their halo
+constexpr int kWS = kGE / 8 * kRows * kPos * 4;  // words of the w tile (4 channel pairs a position)
+static_assert(kCTW == 2 * kRows && kCTW == 2 * (kGE / 8), "z: a warp per row and channel half; "
+              "taps: a warp per octet and column half");
+constexpr size_t kMaxSmem = 232448;
 
 // Sum of n (even) contiguous bf16 values starting at p (4-byte aligned), over a warp.
 __device__ float slab_sum(const bf16* p, int n, int lane) {
@@ -143,65 +156,293 @@ __global__ void __launch_bounds__(kThreads) grid_sum_kernel(const bf16* x, const
   }
 }
 
-// grid (H / 8, N); part (N * H / 8, E): each block's sum of d over its tile, per
-// expanded channel. we (C, E), k (E, 9, W), x bf16.
-__global__ void __launch_bounds__(kThreads) grid_compute_kernel(const bf16* x, const bf16* we,
-                                                                const bf16* k, float* part,
-                                                                int C, int E, int H, int W) {
-  extern __shared__ float smem[];
-  float* xs = smem;                        // [C][8][32]: the chunk of x with its halo columns
-  float* wes = xs + C * kThreads;          // [C][E]
-  float* ws = wes + C * E;                 // [8 channels][8][32]: SiLU(z) in bf16 values
-  float* esum = ws + kGroup * kThreads;    // [E]
-  const int i = blockIdx.x, n = blockIdx.y, ntl = gridDim.x;
-  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
-  const int r = t / kSpan, cc = t % kSpan;
-  for (int idx = t; idx < C * E; idx += kThreads) wes[idx] = __bfloat162float(we[idx]);
-  for (int e = t; e < E; e += kThreads) esum[e] = 0.f;
-  const bf16* tile = x + (size_t)n * C * H * W + (size_t)i * kRows * W;
-
-  for (int w0 = 0; w0 < W; w0 += kChunk) {
-    __syncthreads();  // the previous chunk's readers are done
-    const int col = w0 - 1 + cc;             // this thread's column (halo included)
-    const bool in = col >= 0 && col < W;
-    for (int c = 0; c < C; ++c)
-      xs[c * kThreads + t] = in ? __bfloat162float(tile[((size_t)c * H + r) * W + col]) : 0.f;
-    for (int e0 = 0; e0 < E; e0 += kGroup) {
-      __syncthreads();  // xs written, or the previous group's taps are done with ws
-      float z[kGroup] = {};
-      for (int c = 0; c < C; ++c) {
-        const float xv = xs[c * kThreads + t];
-        for (int g = 0; g < kGroup; ++g)
-          if (e0 + g < E) z[g] = fmaf(wes[c * E + e0 + g], xv, z[g]);
-      }
-      for (int g = 0; g < kGroup; ++g) {
-        const float zb = round_bf16(z[g]);
-        ws[g * kThreads + t] = in ? round_bf16(zb / (1.f + expf(-zb))) : 0.f;
-      }
-      __syncthreads();
-      // taps: warp g owns expanded channel e0 + g, lane the output column w0 + lane - 1
-      const int e = e0 + warp, w = w0 + lane - 1;
-      float s = 0.f;
-      if (e < E && lane >= 1 && lane <= kChunk && w < W) {
-        float tap[9];
-        for (int j = 0; j < 9; ++j) tap[j] = __bfloat162float(k[((size_t)e * 9 + j) * W + w]);
-        const float* row = ws + warp * kThreads;
-        for (int rr = 0; rr < kRows; ++rr) {
-          float d = 0.f;
-          for (int a = 0; a < 3; ++a)
-            for (int b = 0; b < 3; ++b)
-              d += round_bf16(row[rr * kSpan + lane - 1 + b] * tap[3 * a + b]);
-          s += d;
-        }
-      }
-      s = warp_sum(s);
-      if (lane == 0 && e < E) esum[e] += s;
-    }
-  }
-  __syncthreads();
-  for (int e = t; e < E; e += kThreads) part[((size_t)n * ntl + i) * E + e] = esum[e];
+__device__ __forceinline__ unsigned short bf16_bits(const bf16* p, size_t i) {
+  return reinterpret_cast<const unsigned short*>(p)[i];
+}
+__device__ __forceinline__ unsigned pack2(unsigned short lo, unsigned short hi) {
+  return (unsigned)lo | ((unsigned)hi << 16);
+}
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
 }
 
+// Two bf16 products at once, each the exact product rounded to bf16 (to nearest,
+// ties to even): the same value as bf16(float(a) * float(b)), since a product of
+// two bf16 values is exact in fp32.
+__device__ __forceinline__ unsigned bmul2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// SiLU of z0 and z1 rounded to bf16, in fp32: z / (1 + exp(-z)) by __expf and a
+// fast reciprocal (__fdividef; both a few ulp from the exact value, so w's bf16
+// rounding is the plain version's but where z's SiLU lies within a few ulp of a
+// rounding boundary). For z < -87 the divisor overflows and w is 0, not a
+// subnormal of at most 1e-36.
+__device__ __forceinline__ float2 silu_of_bf16(float z0, float z1) {
+  const float2 z = __bfloat1622float2(__floats2bfloat162_rn(z0, z1));
+  return make_float2(__fdividef(z.x, 1.f + __expf(-z.x)), __fdividef(z.y, 1.f + __expf(-z.y)));
+}
+
+size_t compute_smem(int Cp) {
+  return sizeof(bf16) * 2 * ((size_t)Cp * kXS + (size_t)Cp * kHS) +
+         sizeof(unsigned) * (size_t)kWS + sizeof(float) * kCTW * 8;
+}
+
+// grid (ceil(W / 64) * ceil(E / 64), segments); part (segments * ceil(W / 64), E):
+// block (column range cr, channel group grp, segment seg) walks the 8-row tiles
+// [seg * T / S, (seg + 1) * T / S) of the T = N * H / 8 tiles (image-major) and
+// writes, for each channel e of its group, the sum over those tiles and its 64
+// columns of d[e, h, w] = sum_{a,b<3} bf16(w[e, h, w + b - 1] * k[e, 3a + b, w]),
+// w = bf16(SiLU(bf16(sum_c x[c] we[c, e]))). x (N, C, H, W), we (C, E), k (E, 9, W)
+// bf16; vec: 16-byte x loads (W % 8 == 0 and x 16-byte aligned).
+//
+// Per tile (8 rows, 64 columns and their two halo columns, 64 channels):
+//   z, w   warp w takes row w / 2 and the 32 channels (w % 2): the expand product
+//          z = We^T x on the tensor cores, channels as M (We's A fragments in
+//          registers for the whole walk), positions as N (the bf16 x tile in
+//          shared memory, B fragments by ldmatrix.trans, each reused by both
+//          m16 tiles), C as K; warps 0 and 1 also take the 16 halo positions
+//          (spreading them over four warps measured no faster).
+//          SiLU of the rounded z, rounded to bf16, goes to the block's w tile
+//          ([octet][row][position][channel pair], 16 bytes a position: the
+//          pairs' stores and the taps' loads are conflict-free); a shuffle
+//          pairs the neighbouring channels of each position.
+//   taps   warp w takes the channel octet w / 2 and the 32-column half w % 2,
+//          lane = column: its 36 tap pairs k[e, j, w], k[e + 1, j, w] live in
+//          registers for the whole walk, a position's 8 channels are one
+//          16-byte load, each product pair is one mul.rn.bf16x2, and the sums
+//          run on the tensor cores too: the four product pairs of a tap (8
+//          channels) are the A operand of an mma whose B is a 0/1 selector,
+//          B[k][n] = [k >= 8 == n >= 4 and k % 2 == n % 2], so that column n of
+//          the fp32 accumulator collects one channel (exact bf16 values in, fp32
+//          sums). The accumulators are emptied into fp32 registers every tile.
+// x's next tile is loaded by cp.async (its halo columns into registers) while
+// the current one computes; two barriers a tile. One partial per (block,
+// channel), no atomics.
+__global__ void __launch_bounds__(kCT, 1)
+    grid_compute_kernel(const bf16* __restrict__ x, const bf16* __restrict__ we,
+                        const bf16* __restrict__ k, float* __restrict__ part, int N, int C,
+                        int E, int H, int W, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Cp = (C + 15) / 16 * 16, kc = Cp / 16;
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);                          // [2][Cp][kXS]
+  bf16* xh = xs + 2 * (size_t)Cp * kXS;                                  // [2][Cp][kHS]
+  unsigned* ws = reinterpret_cast<unsigned*>(xh + 2 * (size_t)Cp * kHS);  // [8][kRows][kPos][4]
+  float* red = reinterpret_cast<float*>(ws + kWS);                       // [kCTW][8]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int groups = (E + kGE - 1) / kGE;
+  const int grp = blockIdx.x % groups, cr = blockIdx.x / groups, c0 = cr * kCols;
+  const int e0 = grp * kGE;
+  // the z phase's row and channel half; the taps' octet and column half
+  const int zr = warp >> 1, zh = warp & 1, oct = warp >> 1, half = warp & 1;
+  const bool z_active = e0 + zh * (kGE / 2) < E, active = e0 + oct * 8 < E;
+  const int col = c0 + half * kHalf + lane;  // the lane's output column
+  const int ntl = H / kRows;
+  const long long T = (long long)N * ntl;
+  const int tb = (int)(T * blockIdx.y / gridDim.y), te = (int)(T * (blockIdx.y + 1) / gridDim.y);
+
+  // channels C..Cp-1 of both x and both halo buffers stay zero
+  for (int i = tid; i < 2 * (Cp - C) * kXS; i += kCT) {
+    const int b = i / ((Cp - C) * kXS), r = i % ((Cp - C) * kXS);
+    xs[(size_t)b * Cp * kXS + (size_t)C * kXS + r] = __float2bfloat16(0.f);
+  }
+  for (int i = tid; i < 2 * (Cp - C) * kHS; i += kCT) {
+    const int b = i / ((Cp - C) * kHS), r = i % ((Cp - C) * kHS);
+    xh[(size_t)b * Cp * kHS + (size_t)C * kHS + r] = __float2bfloat16(0.f);
+  }
+
+  // We^T's A fragments for the warp's 32 channels (2 m16 tiles, 3 k16 steps)
+  unsigned aw[2][3][4] = {};
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int kk = 0; kk < 3; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = e0 + zh * (kGE / 2) + m * 16 + g + (i & 1) * 8;
+        const int c = kk * 16 + 2 * t + (i >> 1) * 8;
+        const unsigned short lo = (c < C && e < E) ? bf16_bits(we, (size_t)c * E + e) : 0;
+        const unsigned short hi = (c + 1 < C && e < E) ? bf16_bits(we, (size_t)(c + 1) * E + e) : 0;
+        if (kk < kc) aw[m][kk][i] = pack2(lo, hi);
+      }
+  // the lane's taps for its octet's 4 channel pairs
+  unsigned kr[4][9];
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int j = 0; j < 9; ++j) {
+      const int ea = e0 + oct * 8 + 2 * p;
+      const bool in = col < W;
+      const unsigned short lo = (in && ea < E) ? bf16_bits(k, ((size_t)ea * 9 + j) * W + col) : 0;
+      const unsigned short hi =
+          (in && ea + 1 < E) ? bf16_bits(k, ((size_t)(ea + 1) * 9 + j) * W + col) : 0;
+      kr[p][j] = pack2(lo, hi);
+    }
+  // the adder's selector: b0 rows k < 8, b1 rows k >= 8, of column n = g
+  const unsigned one = (g & 1) ? 0x3F800000u : 0x00003F80u;
+  const unsigned sel0 = g < 4 ? one : 0u, sel1 = g < 4 ? 0u : one;
+
+  const unsigned short* xu = reinterpret_cast<const unsigned short*>(x);
+  auto tile_src = [&](int tt, int c, int r) {  // x[n, c, row0 + r, 0]
+    const int n = tt / ntl, row0 = (tt - n * ntl) * kRows;
+    return ((size_t)(n * C + c) * H + row0 + r) * W;
+  };
+  // x's tile tt (its 64 columns) into buffer b by cp.async, zero past W
+  auto load_tile = [&](int tt, int b) {
+    bf16* dst = xs + (size_t)b * Cp * kXS;
+    if (vec) {
+      for (int i = tid; i < C * kRows * (kCols / 8); i += kCT) {
+        const int c = i / (kRows * kCols / 8), r = (i / (kCols / 8)) % kRows, q = i % (kCols / 8);
+        const int cc = c0 + q * 8;
+        const bool in = cc < W;
+        cp_async16(dst + c * kXS + r * kCols + q * 8, in ? x + tile_src(tt, c, r) + cc : x,
+                   in ? 16 : 0);
+      }
+    } else {
+      for (int i = tid; i < C * kRows * (kCols / 2); i += kCT) {
+        const int c = i / (kRows * kCols / 2), r = (i / (kCols / 2)) % kRows, q = i % (kCols / 2);
+        const int cc = c0 + q * 2;
+        const bool in = cc < W;
+        cp_async4(dst + c * kXS + r * kCols + q * 2, in ? x + tile_src(tt, c, r) + cc : x,
+                  in ? 4 : 0);
+      }
+    }
+  };
+  // tile tt's halo columns: position 2r + s is column c0 - 1 (s = 0) or c0 + 64
+  // (s = 1) of row r; up to 2 values a thread (C <= 48)
+  constexpr int kHaloPer = (kMaxCC * 16 + kCT - 1) / kCT;
+  auto load_halo = [&](int tt, unsigned short (&v)[kHaloPer]) {
+#pragma unroll
+    for (int u = 0; u < kHaloPer; ++u) {
+      const int i = tid + u * kCT, c = i / 16, pos = i % 16;
+      const int cc = (pos & 1) ? c0 + kCols : c0 - 1;
+      v[u] = (c < C && cc >= 0 && cc < W) ? xu[tile_src(tt, c, pos >> 1) + cc] : 0;
+    }
+  };
+  auto store_halo = [&](int b, const unsigned short (&v)[kHaloPer]) {
+    unsigned short* dst = reinterpret_cast<unsigned short*>(xh + (size_t)b * Cp * kHS);
+#pragma unroll
+    for (int u = 0; u < kHaloPer; ++u) {
+      const int i = tid + u * kCT;
+      if (i < C * 16) dst[(i / 16) * kHS + i % 16] = v[u];
+    }
+  };
+  // z for 16 positions (two n8 tiles; B from rows kk * 16 + .. of src, stride ld)
+  // and the warp's 32 channels; w into the w tile at pos(q) = (row, position).
+  auto z_pair = [&](const bf16* src, int ld, auto pos) {
+    const int br = (lane & 7) + ((lane >> 3) & 1) * 8, bc = (lane >> 4) * 8;
+    float z[2][2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < 3; ++kk) {
+      if (kk < kc) {
+        unsigned b[4];
+        ldsm_t(b, src + (kk * 16 + br) * ld + bc);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          mma(z[m][0], aw[m][kk], b[0], b[1]);
+          mma(z[m][1], aw[m][kk], b[2], b[3]);
+        }
+      }
+    }
+    // lane 4g + t holds channels g (z[.][.][0..1]) and g + 8 ([2..3]) of each m16
+    // tile at positions 2t, 2t + 1 of each n8 tile; the lane with g even keeps
+    // position 2t of channels (g, g + 1), its partner (lane ^ 4) position 2t + 1
+    const bool odd = g & 1;
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 s = silu_of_bf16(z[m][n][2 * h], z[m][n][2 * h + 1]);
+          const float other = __shfl_xor_sync(0xffffffffu, odd ? s.x : s.y, 4);
+          const int o = zh * 4 + m * 2 + h;  // the octet of channels g (+ 8 h)
+          const int2 rp = pos(n * 8 + 2 * t + odd);
+          ws[((o * kRows + rp.x) * kPos + rp.y) * 4 + (g >> 1)] =
+              odd ? pack_bf16(other, s.y) : pack_bf16(s.x, other);
+        }
+  };
+
+  float tot[4] = {0.f, 0.f, 0.f, 0.f};
+  unsigned short hv[kHaloPer];
+  if (tb < te) {
+    load_tile(tb, 0);
+    cp_async_commit();
+    load_halo(tb, hv);
+    store_halo(0, hv);
+  }
+  for (int tt = tb, b = 0; tt < te; ++tt, b ^= 1) {
+    const bool more = tt + 1 < te;
+    if (more) load_tile(tt + 1, b ^ 1);
+    cp_async_commit();
+    if (more) load_halo(tt + 1, hv);
+    cp_async_wait_prior();
+    __syncthreads();  // tile tt's x and halo are in shared memory; the w tile is free
+    if (z_active) {
+      const bf16* xb = xs + (size_t)b * Cp * kXS + zr * kCols;
+#pragma unroll
+      for (int j = 0; j < kCols / 16; ++j)
+        z_pair(xb + j * 16, kXS, [&](int q) { return make_int2(zr, 1 + j * 16 + q); });
+      if (zr == 0)  // the halo: position 2r + s of the halo tile
+        z_pair(xh + (size_t)b * Cp * kHS, kHS,
+               [](int q) { return make_int2(q >> 1, (q & 1) ? kPos - 1 : 0); });
+    }
+    __syncthreads();  // the w tile is complete
+    if (active) {
+      // taps: output (r, col) takes w at positions (r, 32 half + lane + bb), bb < 3
+      float acc[3][4] = {};
+      const uint4* wt = reinterpret_cast<const uint4*>(ws) + oct * kRows * kPos + half * kHalf + lane;
+#pragma unroll 4
+      for (int r = 0; r < kRows; ++r) {
+        uint4 wv[3];
+#pragma unroll
+        for (int bb = 0; bb < 3; ++bb) wv[bb] = wt[r * kPos + bb];
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+#pragma unroll
+          for (int bb = 0; bb < 3; ++bb) {
+            const unsigned pr[4] = {bmul2(wv[bb].x, kr[0][3 * a + bb]),
+                                    bmul2(wv[bb].y, kr[1][3 * a + bb]),
+                                    bmul2(wv[bb].z, kr[2][3 * a + bb]),
+                                    bmul2(wv[bb].w, kr[3][3 * a + bb])};
+            mma(acc[a], pr, sel0, sel1);
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) tot[j] += (acc[0][j] + acc[1][j]) + acc[2][j];
+    }
+    if (more) store_halo(b ^ 1, hv);
+  }
+
+  // lane 4g + t: tot = channels 0-3 (t < 2) or 4-7 (t >= 2) of the octet, summed over g
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    tot[j] += __shfl_xor_sync(0xffffffffu, tot[j], 4);
+    tot[j] += __shfl_xor_sync(0xffffffffu, tot[j], 8);
+    tot[j] += __shfl_xor_sync(0xffffffffu, tot[j], 16);
+  }
+  if (lane == 0 || lane == 2)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[warp * 8 + (lane == 2 ? 4 : 0) + j] = tot[j];
+  __syncthreads();
+  if (tid < kGE) {
+    const int e = e0 + tid, w0 = 2 * (tid / 8), j = tid % 8;
+    if (e < E)
+      part[((size_t)blockIdx.y * ((W + kCols - 1) / kCols) + cr) * E + e] =
+          red[w0 * 8 + j] + red[(w0 + 1) * 8 + j];
+  }
+}
+
+// out[i] = bmul2(a[i], b[i]) for n pairs: the tap products of grid_compute_kernel,
+// held to fp32-multiply-then-round bit for bit by tests/test_torch_cuda.py.
+__global__ void bf16_mul_kernel(const unsigned* a, const unsigned* b, unsigned* out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = bmul2(a[i], b[i]);
+}
 // out[c] = sum_b part[b * stride + c] for c < K, blocks b in order.
 __global__ void reduce_kernel(const float* part, float* out, int blocks, int K, int stride) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
@@ -351,30 +592,12 @@ __global__ void channel_mix_kernel(const float* x, const float* wm, float* out, 
   }
 }
 
-size_t compute_smem(int C, int E) {
-  return sizeof(float) * ((size_t)C * kThreads + (size_t)C * E + kGroup * kThreads + E);
-}
-
 // Blocks of the channel-mix kernel's grid-stride loop over n elements: one per
 // kThreads, at most 1024.
 int flat_blocks(long long n) {
   const long long b = (n + kThreads - 1) / kThreads;
   return b < 1 ? 1 : (b > 1024 ? 1024 : (int)b);
 }
-
-// Makes `device` current for the launcher's life when it is not already (the
-// kernels run on the device of their tensors), and restores the caller's device.
-struct DeviceGuard {
-  int prev = -1, want;
-  int err;
-  explicit DeviceGuard(int device) : want(device) {
-    err = (int)cudaGetDevice(&prev);
-    if (!err && prev != want) err = (int)cudaSetDevice(want);
-  }
-  ~DeviceGuard() {
-    if (prev >= 0 && prev != want) cudaSetDevice(prev);
-  }
-};
 
 int finish(const float* part, float* out, int blocks, int K, int stride, cudaStream_t s) {
   int rc;
@@ -389,15 +612,17 @@ int finish(const float* part, float* out, int blocks, int K, int stride, cudaStr
 // C interface, loaded with ctypes. Every launcher runs its kernels on CUDA device
 // `device` (made current only if it is not) and enqueues them on `stream`, does
 // not synchronise, and returns a CUDA error code (0 on success). Grid launchers
-// take x (N, C, H, W) bf16 with H % 8 == 0 and W even, a scratch `part` of
-// (N * H / 8, C) floats ((N * H / 8, E) for compute) and write out (C,) fp32.
+// take x (N, C, H, W) bf16 with H % 8 == 0, W even and x 4-byte aligned (else
+// cudaErrorInvalidValue, never a misaligned load) and a scratch `part`; pr_grid_sum's is (N * H / 8, C) floats and it writes out (C,)
+// fp32.
 // ---------------------------------------------------------------------------
 
 extern "C" {
 
 int pr_grid_sum(int kind, const void* x, const void* k, const void* vec, float* part, float* out,
                 int N, int C, int E, int H, int W, int device, void* stream) {
-  if (kind < 0 || kind > 2 || H % kRows || W % 2 || C < 1) return (int)cudaErrorInvalidValue;
+  if (kind < 0 || kind > 2 || H % kRows || W % 2 || C < 1 || (uintptr_t)x % 4)
+    return (int)cudaErrorInvalidValue;
   DeviceGuard guard(device);
   if (guard.err) return guard.err;
   cudaStream_t s = (cudaStream_t)stream;
@@ -407,21 +632,56 @@ int pr_grid_sum(int kind, const void* x, const void* k, const void* vec, float* 
   return finish(part, out, N * H / kRows, C, C, s);
 }
 
-int pr_grid_compute(const void* x, const void* we, const void* k, float* part, float* out, int N,
-                    int C, int E, int H, int W, int device, void* stream) {
-  const size_t smem = compute_smem(C, E);
-  if (H % kRows || C < 1 || E < C || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+// part holds `parts` rows of E floats (at least pr_grid_compute's segments times
+// ceil(W / 64), which N * H / 8 * ceil(W / 64) always is); out (E,): the channel
+// sums of d for all E channels. C <= 48.
+int pr_grid_compute(const void* x, const void* we, const void* k, float* part, int parts,
+                    float* out, int N, int C, int E, int H, int W, int device, void* stream) {
+  if (N < 1 || H < kRows || H % kRows || W < 2 || W % 2 || C < 1 || C > kMaxCC || E < C ||
+      (uintptr_t)x % 4)
+    return (int)cudaErrorInvalidValue;
   DeviceGuard guard(device);
   if (guard.err) return guard.err;
-  int rc;
+  int sms, rc;
+  if ((rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device))) return rc;
+  // about two waves of one block per SM, each block a run of whole tiles
+  const int cols = (W + kCols - 1) / kCols, groups = (E + kGE - 1) / kGE;
+  const int tiles = N * (H / kRows);
+  const int segs = std::max(1, std::min(tiles, (2 * sms + cols * groups - 1) / (cols * groups)));
+  if ((long long)segs * cols > parts) return (int)cudaErrorInvalidValue;
+  const size_t smem = compute_smem((C + 15) / 16 * 16);
   if ((rc = (int)cudaFuncSetAttribute(grid_compute_kernel,
                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
     return rc;
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid(H / kRows, N);
-  grid_compute_kernel<<<grid, kThreads, smem, s>>>((const bf16*)x, (const bf16*)we,
-                                                   (const bf16*)k, part, C, E, H, W);
-  return finish(part, out, N * H / kRows, C, E, s);
+  const int vec = W % 8 == 0 && (uintptr_t)x % 16 == 0;
+  grid_compute_kernel<<<dim3(cols * groups, segs), kCT, smem, s>>>(
+      (const bf16*)x, (const bf16*)we, (const bf16*)k, part, N, C, E, H, W, vec);
+  return finish(part, out, segs * cols, E, E, s);
+}
+
+// The compute kernel's dynamic shared memory at C and how many of its blocks an SM
+// holds, on the current device.
+int pr_grid_compute_info(int C, int* smem, int* blocks) {
+  if (C < 1 || C > kMaxCC) return (int)cudaErrorInvalidValue;
+  *smem = (int)compute_smem((C + 15) / 16 * 16);
+  int rc;
+  if ((rc = (int)cudaFuncSetAttribute(grid_compute_kernel,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, *smem)))
+    return rc;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, grid_compute_kernel, kCT,
+                                                            *smem);
+}
+
+// out = the compute kernel's packed bf16 products of n pairs of bf16 pairs (for the
+// bit check of tests/test_torch_cuda.py; on no probe's path).
+int pr_bf16_mul(const void* a, const void* b, void* out, int n, int device, void* stream) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  DeviceGuard guard(device);
+  if (guard.err) return guard.err;
+  bf16_mul_kernel<<<(n + kThreads - 1) / kThreads + (n == 0), kThreads, 0, (cudaStream_t)stream>>>(
+      (const unsigned*)a, (const unsigned*)b, (unsigned*)out, n);
+  return (int)cudaGetLastError();
 }
 
 // x (C, R, ld) fp32 with 1 <= W <= ld; out (C, C).

@@ -2,17 +2,18 @@
 
 The sources under ``mammo_clip_tpu_torch/csrc/*.cu`` have a plain ``extern "C"``
 interface (no PyTorch headers), so one ``nvcc`` call builds them in seconds
-into a shared library that ``ctypes`` loads. The library lands at first use in
+into a shared library that ``ctypes`` loads; they share the device helpers of
+``csrc/*.cuh``. The library lands at first use in
 ``mammo_clip_tpu_torch/build/`` (listed in ``.gitignore``), named by a hash of
-the sources and flags, so a changed source is rebuilt and an unchanged one is
-reused by later processes.
+the sources, the headers and the flags, so a changed source or header is
+rebuilt and an unchanged one is reused by later processes.
 
 Nothing here runs at import: ``load()`` builds on its first call and raises if
 ``nvcc`` is missing or the build fails.
 
 ``launcher(name)`` is the lean way to call a launcher that takes the CUDA device
-index and the stream as its last two arguments (``csrc/probes.cu``, and
-``m6_pass`` of ``csrc/mbconv6_e6.cu``): it binds
+index and the stream as its last two arguments (``csrc/probes.cu``,
+``csrc/flash_attention.cu`` and ``m6_pass`` of ``csrc/mbconv6_e6.cu``): it binds
 the ctypes function once, on its first call, and then costs the host one
 ctypes call and one lookup of PyTorch's current raw stream per launch, with no
 ``torch.cuda.Stream`` object and no device context (the C launcher switches
@@ -44,22 +45,14 @@ SIGNATURES: Dict[str, List] = {
     "m6_pass": [_I, *[_P] * 33, _F, *[_I] * 10, _I, _P],
     "m6_scratch": [_I] * 10,
     "m6_kernel_info": [_I, _I, _I, _I, _P, _P],
-    # csrc/mbconv1.cu
-    "mb1_p1": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
-    "mb1_p2": [_P, _I, *[_P] * 5, _I, _I, _I, _I, _P],
-    "mb1_p3": [_P, _I, *[_P] * 10, _I, _P, *[_I] * 5, _P],
-    "mb1_b1": [_P, _P, _I, *[_P] * 10, *[_I] * 5, _P],
-    "mb1_b2": [_P, _P, _I, *[_P] * 15, *[_I] * 5, _P],
-    "mb1_b3": [_P, _P, _I, *[_P] * 16, _I, _P, *[_I] * 5, _P],
-    "mb1_reduce_tiles": [_P, _P, _P, _I, _I, _I, _P],
-    "mb1_rows": [],
-    "mb1_max_channels": [],
-    # csrc/flash_attention.cu
-    "fa_forward": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _P],
-    "fa_backward": [*[_P] * 6, _I, *[_P] * 4, _I, _I, _I, _F, _P],
+    # csrc/flash_attention.cu: ..., the device index, the stream
+    "fa_forward": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _I, _P],
+    "fa_backward": [*[_P] * 6, _I, *[_P] * 4, _I, _I, _I, _F, _I, _P],
     # csrc/probes.cu: ..., the device index, the stream
     "pr_grid_sum": [_I, *[_P] * 5, *[_I] * 6, _P],
-    "pr_grid_compute": [*[_P] * 5, *[_I] * 6, _P],
+    "pr_grid_compute": [*[_P] * 4, _I, _P, *[_I] * 6, _P],
+    "pr_grid_compute_info": [_I, _P, _P],
+    "pr_bf16_mul": [_P, _P, _P, _I, _I, _P],
     "pr_gram": [_P, _P, *[_I] * 5, _P],
     "pr_copy_scale": [_P, _P, _LL, _F, _I, _P],
     "pr_channel_mix": [_P, _P, _P, *[_I] * 5, _P],
@@ -80,7 +73,13 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def _sources() -> List[Path]:
+    """The sources nvcc compiles."""
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _inputs() -> List[Path]:
+    """Everything the build reads: the sources and the headers they include."""
+    return sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")])
 
 
 def _nvcc() -> str:
@@ -96,7 +95,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha1()
-    for src in _sources():
+    for src in _inputs():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -105,7 +104,7 @@ def library_path() -> Path:
 
 def build(ptxas_verbose: bool = False) -> Path:
     """Compile every ``csrc/*.cu`` into one shared library (skipped when the
-    library for these exact sources and flags exists). With ``ptxas_verbose``
+    library for these exact sources, headers and flags exists). With ``ptxas_verbose``
     the compiler's per-kernel register/shared-memory report is kept in
     ``build_info.ptxas``."""
     extra = ["-Xptxas", "-v"] if ptxas_verbose else []

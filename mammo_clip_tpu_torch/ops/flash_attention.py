@@ -13,16 +13,20 @@ and dS rounded to bf16 before their products as the TPU kernel rounds them,
 fp32 in fp32 FMA. D may be at most 128 and S is free. A CPU tensor takes the
 plain PyTorch version (``plain_flash_attention``), which materializes the
 scores in fp32 and rounds once at the output. ``launches`` counts the kernel
-path's calls.
+path's calls. The kernels launch through ``cuda_lib.launcher`` (the device index
+and PyTorch's current raw stream passed to the C launcher, no device context
+and no ``Stream`` object per call).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .mbconv import LaunchCounter, _check
+from .cuda_lib import launcher
+from .mbconv import LaunchCounter
 
 launches = LaunchCounter(("flash_attention.forward", "flash_attention.backward"))
+_fa_forward, _fa_backward = launcher("fa_forward"), launcher("fa_backward")
 
 
 def plain_flash_attention(q, k, v, sm_scale: float):
@@ -32,44 +36,32 @@ def plain_flash_attention(q, k, v, sm_scale: float):
     return (torch.softmax(s, dim=-1) @ v.float()).to(q.dtype)
 
 
-def _lib():
-    from .cuda_lib import load
-
-    return load()
-
-
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def flash_forward(lib, q, k, v, sm_scale: float):
+def flash_forward(q, k, v, sm_scale: float):
     """One launch of the forward kernel: (o, lse) with lse (B, N, S) fp32."""
     B, N, S, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(B, N, S, device=q.device, dtype=torch.float32)
-    _check(lib.fa_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), int(q.dtype == torch.bfloat16),
-                          o.data_ptr(), lse.data_ptr(), B * N, S, D, float(sm_scale),
-                          _stream(q)), "fa_forward")
+    _fa_forward(q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                int(q.dtype == torch.bfloat16), o.data_ptr(), lse.data_ptr(), B * N, S, D,
+                float(sm_scale))
     return o, lse
 
 
-def flash_backward(lib, q, k, v, o, lse, g, sm_scale: float):
+def flash_backward(q, k, v, o, lse, g, sm_scale: float):
     """The backward's three launches: (dq, dk, dv) in q's dtype."""
     B, N, S, D = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dvec = torch.empty(B, N, S, device=q.device, dtype=torch.float32)
-    _check(lib.fa_backward(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
-                           lse.data_ptr(), int(q.dtype == torch.bfloat16), dvec.data_ptr(),
-                           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * N, S, D,
-                           float(sm_scale), _stream(q)), "fa_backward")
+    _fa_backward(q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 g.data_ptr(), lse.data_ptr(), int(q.dtype == torch.bfloat16), dvec.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * N, S, D, float(sm_scale))
     return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, sm_scale):
-        with torch.cuda.device(q.device):
-            o, lse = flash_forward(_lib(), q, k, v, sm_scale)
+        o, lse = flash_forward(q, k, v, sm_scale)
         launches.add("flash_attention.forward")
         ctx.sm_scale = sm_scale
         ctx.save_for_backward(q, k, v, o, lse)
@@ -79,8 +71,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, o, lse = ctx.saved_tensors
         g = g.to(q.dtype).contiguous()
-        with torch.cuda.device(q.device):
-            dq, dk, dv = flash_backward(_lib(), q, k, v, o, lse, g, ctx.sm_scale)
+        dq, dk, dv = flash_backward(q, k, v, o, lse, g, ctx.sm_scale)
         launches.add("flash_attention.backward")
         return dq, dk, dv, None
 

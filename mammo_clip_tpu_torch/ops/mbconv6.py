@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from .cuda_lib import launcher
 from .mbconv import (
     BN_EPS,
+    E1_MAX_C,
     MBConvParams,
     _bn,
     _se_gate,
@@ -210,7 +211,6 @@ _PTRS = ("x", "g", "out", "we", "wp", "k9", "m0", "v0", "g0", "b0", "s1", "g1", 
          "dxa", "dwe", "part", "red", "red_n", "stats")
 _INDEX = {k: i for i, k in enumerate(_PTRS)}
 E6_MAX_C, E6_MAX_E = 48, 256  # the expanding form's limits on C and C2, and on E
-E1_MAX_C = 64  # the e=1 form's limit on C (= E) and C2
 _FRAG_FLOATS = 24 * 32 * 4  # the weights' B fragments per chunk of 16 channels (prep_kernel)
 _m6_pass = launcher("m6_pass")
 

@@ -12,6 +12,9 @@ returning a (C, 1, 1) fp32 sum as the Pallas kernels do:
   grid_compute(x, we, k)   per tile z = We^T x (stored bf16), SiLU in bf16, the
                            9-tap horizontal depthwise sum with bf16 products and
                            fp32 sums, then the sum of its first C channels
+  grid_compute_channel_sums(x, we, k)
+                           the same chain's sums for all E channels (E,): what
+                           the kernel computes; grid_compute is its first C
 
 Layout probes (``_run`` over the Mosaic probes), fp32:
 
@@ -46,6 +49,7 @@ ROWS = 8  # the probe's tile height
 launches = LaunchCounter([f"probe_grid.{k}" for k in ("base", "halo", "const", "compute")]
                          + [f"probe_layout.{k}" for k in ("gram", "copy_scale", "channel_mix")])
 _grid_sum, _grid_compute = launcher("pr_grid_sum"), launcher("pr_grid_compute")
+COMPUTE_COLS, COMPUTE_MAX_C = 64, 48  # the compute kernel's column range, and its limit on C
 _gram, _copy_scale = launcher("pr_gram"), launcher("pr_copy_scale")
 _channel_mix = launcher("pr_channel_mix")
 _F32 = torch.float32
@@ -79,17 +83,23 @@ def plain_grid_const(x, k, vec):
     return (x.float().sum((0, 2, 3)) + N * (H // ROWS) * ROWS * W * bank).view(-1, 1, 1)
 
 
-def plain_grid_compute(x, we, k):
+def plain_grid_compute_channel_sums(x, we, k):
     """The compute chain over the whole image at once (no tile touches another:
-    the depthwise sum has no vertical halo), at the probe's rounding points."""
-    C, W = x.shape[1], x.shape[3]
+    the depthwise sum has no vertical halo), at the probe's rounding points: the
+    sum of d over (n, h, w) for each of the E expanded channels."""
+    W = x.shape[3]
     z = torch.einsum("ce,nchw->nehw", we.float(), x.float()).to(torch.bfloat16)
     wpad = F.pad(F.silu(z.float()).to(torch.bfloat16), (1, 1))
     d = torch.zeros(z.shape, device=x.device, dtype=torch.float32)
     for a in range(3):
         for b in range(3):
             d = d + (wpad[..., b:b + W] * k[None, :, 3 * a + b, None, :]).float()
-    return d[:, :C].sum((0, 2, 3)).view(-1, 1, 1)
+    return d.sum((0, 2, 3))
+
+
+def plain_grid_compute(x, we, k):
+    """The probe's output: the channel sums of its first C channels, (C, 1, 1)."""
+    return plain_grid_compute_channel_sums(x, we, k)[:x.shape[1]].view(-1, 1, 1)
 
 
 def plain_gram_rows(x, width=None):
@@ -122,6 +132,8 @@ def _check_grid_x(x):
     if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.shape[3] % 2:
         raise TypeError(f"x must be contiguous bfloat16 with an even W, got {x.dtype}, "
                         f"{tuple(x.shape)}")
+    if x.data_ptr() % 4:
+        raise ValueError("x must start on a 4-byte boundary (the kernels read bf16 pairs)")
     return x.get_device()
 
 
@@ -146,12 +158,16 @@ def grid_sum_kernel(kind: int, x, k=None, vec=None):
 
 
 def grid_compute_kernel(x, we, k):
+    """One call of the compute kernel and its reduction: the (E,) channel sums
+    (uncounted: the wrappers count). ``part`` has room for the most partial rows
+    the launcher can ask for: one per tile and 64-column range."""
     N, C, H, W = x.shape
     E = we.shape[1]
-    part = x.new_empty((N * H // ROWS, E), dtype=_F32)
-    out = x.new_empty((C, 1, 1), dtype=_F32)
+    parts = N * H // ROWS * -(-W // COMPUTE_COLS)
+    part = x.new_empty((parts, E), dtype=_F32)
+    out = x.new_empty((E,), dtype=_F32)
     _grid_compute(x.get_device(), x.data_ptr(), we.data_ptr(), k.data_ptr(), part.data_ptr(),
-                  out.data_ptr(), N, C, E, H, W)
+                  parts, out.data_ptr(), N, C, E, H, W)
     return out
 
 
@@ -187,20 +203,28 @@ def grid_const(x, k, vec):
     return out
 
 
-def grid_compute(x, we, k):
-    """we (C, E) with E >= C and k (E, 9, W), bf16 on the card."""
+def grid_compute_channel_sums(x, we, k):
+    """we (C, E) with E >= C and k (E, 9, W), bf16 on the card (C <= 48 there):
+    the compute chain's (E,) channel sums."""
     device = _check_grid_x(x)
     C, W = x.shape[1], x.shape[3]
     if we.dim() != 2 or we.shape[0] != C or we.shape[1] < C or k.shape != (we.shape[1], 9, W):
         raise ValueError(f"we must be ({C}, E >= {C}) and k (E, 9, {W}), got "
                          f"{tuple(we.shape)}, {tuple(k.shape)}")
     if device < 0:
-        return plain_grid_compute(x, we, k)
+        return plain_grid_compute_channel_sums(x, we, k)
+    if C > COMPUTE_MAX_C:
+        raise ValueError(f"the compute kernel takes C <= {COMPUTE_MAX_C}, got {C}")
     _check_on(we, device, tuple(we.shape), "we")
     _check_on(k, device, tuple(k.shape), "k")
     out = grid_compute_kernel(x, we, k)
     launches.add("probe_grid.compute")
     return out
+
+
+def grid_compute(x, we, k):
+    """The probe's output (C, 1, 1): the first C of ``grid_compute_channel_sums``."""
+    return grid_compute_channel_sums(x, we, k)[:x.shape[1]].view(-1, 1, 1)
 
 
 def _layout_device(x, w=None):

@@ -277,10 +277,11 @@ def _e1_case(c1, c2, h, w, seed=0):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("c1,c2,h,w", [(8, 8, 48, 12), (16, 8, 48, 12), (24, 24, 16, 70)])
 def test_cuda_e1_kernel_matches_plain(c1, c2, h, w, dtype):
-    """fused_mbconv_e1 (csrc/mbconv1.cu) against its plain version: out, stats,
-    dx and every parameter gradient, with and without the residual, with a
-    width that is not a multiple of the kernel's 32-column chunk. Same
-    tolerances as the e6 kernel (module docstring)."""
+    """fused_mbconv_e1 (the e=1 form's passes of csrc/mbconv6_e6.cu over the
+    whole image) against its plain version: out, stats, dx and every parameter
+    gradient, with and without the residual, with a width that is not a
+    multiple of the passes' 32-column tile. Same tolerances as the e6 kernel
+    (module docstring)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -307,6 +308,33 @@ def test_cuda_e1_kernel_matches_plain(c1, c2, h, w, dtype):
     assert _rel(dxk, dxp) < (1e-2 if bf16 else 1e-3)
     for name, a, b in zip(MBConvParams._fields, gk, gp):
         assert _rel(a, b) < 1e-3, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c1,c2,h,w", [(16, 8, 48, 12), (24, 24, 16, 70)])
+def test_cuda_e1_entry_gives_the_bits_of_the_e1_form(c1, c2, h, w):
+    """fused_mbconv_e1 runs the e=1 form of fused_mbconv_e6 over the whole image:
+    the same bits for out, the stats, dx and every parameter gradient (bf16),
+    counted under mbconv1.* only."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    x0, p0, delta, gout = _e1_case(c1, c2, h, w, seed=2)
+    runs = []
+    for fn in (lambda x, p: fused_mbconv_e1(x, p, delta),
+               lambda x, p: fused_mbconv_e6(x, p, delta, h, w)):
+        before = dict(launches.counts)
+        x = x0.bfloat16().requires_grad_(True)
+        p = MBConvParams(*[t.clone().requires_grad_(True) for t in p0])
+        out, stats = fn(x, p)
+        out.backward(gout.bfloat16())
+        torch.cuda.synchronize()
+        runs.append(([out.detach(), *stats, x.grad, *[t.grad for t in p]],
+                     {k: v - before[k] for k, v in launches.counts.items() if v != before[k]}))
+    (a, na), (b, nb) = runs
+    assert na == {"mbconv1.forward": 1, "mbconv1.backward": 1}
+    assert nb == {"mbconv6.e1.forward": 1, "mbconv6.e1.backward": 1}
+    for i, (u, v) in enumerate(zip(a, b)):
+        assert torch.equal(u, v), i
 
 
 @pytest.mark.cuda
@@ -593,6 +621,62 @@ def test_cuda_probe_kernels_run_on_a_tensor_of_another_device():
     assert torch.equal(copy.cpu(), probes.plain_copy_scale(x_cpu, (16, 3072), 2.0))
 
 
+# (N, C, E, H, W): W not a multiple of the 64-column range (70, 38; 4-byte loads),
+# E not a multiple of the 64-channel group (24, 72, and E = C = 8), C = 40 padded
+# to K = 48 (the probe's channels, 16-byte loads at W = 384), one row tile (H = 8)
+GRID_COMPUTE_CASES = [(2, 8, 24, 32, 70), (1, 8, 8, 16, 38), (1, 40, 240, 16, 384),
+                      (2, 40, 72, 8, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GRID_COMPUTE_CASES)
+def test_cuda_grid_compute_kernel_matches_plain_on_every_channel(shape):
+    """The compute kernel's sums for all E expanded channels against the plain
+    version within 1e-3 of the largest (a bf16 rounding of z or SiLU may flip
+    one ulp; fp32 sums in another order), the probe's output as their first C,
+    and two calls with the same bits (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from mammo_clip_tpu_torch.ops import probes
+
+    N, C, E, H, W = shape
+    x, k, _, we = _grid_inputs(*shape, seed=7)
+    before = probes.launches.counts["probe_grid.compute"]
+    first, second = (probes.grid_compute_channel_sums(x, we, k) for _ in range(2))
+    out = probes.grid_compute(x, we, k)
+    want = probes.plain_grid_compute_channel_sums(x, we, k)
+    torch.cuda.synchronize()
+    assert first.shape == (E,) and first.dtype == torch.float32
+    assert _rel(first, want) <= 1e-3, _rel(first, want)
+    assert torch.equal(first, second)
+    assert torch.equal(out, first[:C].view(C, 1, 1))
+    assert probes.launches.counts["probe_grid.compute"] - before == 3
+
+
+@pytest.mark.cuda
+def test_cuda_tap_products_are_fp32_products_rounded_to_bf16():
+    """The compute kernel's packed bf16 multiply against fp32 multiply then round,
+    bit for bit: every finite bf16 value whose exponent keeps the products
+    normal (|a| in [2^-60, 2^60)), each times 256 seeded values of either sign."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from mammo_clip_tpu_torch.ops.cuda_lib import launcher
+
+    bits = torch.arange(1 << 16, dtype=torch.int32)
+    expo = (bits >> 7) & 0xFF
+    a = bits[(expo >= 127 - 60) & (expo < 127 + 60)].to(torch.int16).view(torch.bfloat16)
+    g = torch.Generator(device="cpu").manual_seed(8)
+    b = (torch.randn(256, generator=g) * torch.rand(256, generator=g) * 8).to(torch.bfloat16)
+    a2 = a[:, None].expand(-1, 256).contiguous()
+    b2 = b[None, :].expand(len(a), -1).contiguous()
+    ac, bc = a2.cuda(), b2.cuda()
+    got = torch.empty_like(ac)
+    launcher("pr_bf16_mul")(0, ac.data_ptr(), bc.data_ptr(), got.data_ptr(), ac.numel() // 2)
+    want = (a2.float() * b2.float()).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
 @pytest.mark.cuda
 def test_cuda_probe_wrappers_reject_what_the_kernels_do_not_take():
     if not torch.cuda.is_available():
@@ -602,12 +686,24 @@ def test_cuda_probe_wrappers_reject_what_the_kernels_do_not_take():
     x, k, vec, we = _grid_inputs()
     with pytest.raises(TypeError):
         probes.grid_base(x.float())
+    # a contiguous view one bf16 past a 4-byte boundary: refused, not a misaligned load
+    odd = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+    odd.copy_(x)
+    for call in (lambda: probes.grid_base(odd), lambda: probes.grid_compute(odd, we, k)):
+        with pytest.raises(ValueError, match="4-byte"):
+            call()
+    got = probes.grid_base(x)  # the process's CUDA context is still usable
+    torch.cuda.synchronize()
+    assert _rel(got, probes.plain_grid_base(x)) <= 1e-4
     with pytest.raises(ValueError):
         probes.grid_halo(x[:, :, :12].contiguous())  # H % 8 != 0
     with pytest.raises(TypeError):
         probes.grid_const(x, k.float(), vec)
     with pytest.raises(ValueError):
         probes.grid_compute(x, we[:, :4].contiguous(), k)  # E < C
+    wide, _, _, we_wide = _grid_inputs(C=56, E=56)
+    with pytest.raises(ValueError):
+        probes.grid_compute(wide, we_wide, k[:1].expand(56, -1, -1).contiguous())  # C > 48
     with pytest.raises(TypeError):
         probes.gram_rows(x[0].float().bfloat16())
     with pytest.raises(TypeError):

@@ -170,3 +170,20 @@ def test_probe_script_runs_on_the_cpu(capsys):
                                                    "flash", "sdpa"]
     assert res["rel"] < 1e-2 and set(res["ms"]) == {"einsum", "flash", "sdpa"}
     assert all(np.isfinite(res["loss"][v]) for v in res["loss"])
+
+
+def test_flash_launcher_signatures_match_the_c_interface():
+    """fa_forward and fa_backward take as many arguments as their ctypes
+    signatures declare, the device index and the stream last, as
+    ``cuda_lib.launcher`` passes them."""
+    import re
+
+    from mammo_clip_tpu_torch.ops import cuda_lib
+
+    src = (cuda_lib.CSRC_DIR / "flash_attention.cu").read_text()
+    protos = dict(re.findall(r"^int (fa_\w+)\(([^)]*)\)", src, re.M))
+    assert set(protos) == {k for k in cuda_lib.SIGNATURES if k.startswith("fa_")}
+    for name, params in protos.items():
+        params = [" ".join(p.split()) for p in params.split(",")]
+        assert len(params) == len(cuda_lib.SIGNATURES[name]), name
+        assert params[-2:] == ["int device", "void* stream"], name

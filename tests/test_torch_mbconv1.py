@@ -2,13 +2,12 @@
 ``fused_mbconv_e1`` run in Pallas interpret mode, at the shapes of
 tests/test_mbconv_pallas.py, from the same seeded numpy inputs.
 
-On CPU tensors the port's wrapper runs its plain version; its CUDA kernels
-(csrc/mbconv1.cu) are held to that plain version on a card by
-tests/test_torch_cuda.py and chip_smoke.py. The kernel path's host-side
-arithmetic between the passes (the BN2 stats from the per-image second
-moments, the SE backward from the bilinear sums T1/T2, dK from the 27 tap sums)
-is checked here too: ``_e1_forward``/``_e1_backward`` run with ``TorchPasses``,
-a plain-torch stand-in for the six passes that returns the same reductions.
+On CPU tensors the port's wrapper runs its plain version. On a card it runs
+the e=1 form of ``fused_mbconv_e6`` (the passes of csrc/mbconv6_e6.cu) over the
+whole image, held to the plain version there by tests/test_torch_cuda.py and
+chip_smoke.py; here that form's plain version over the whole image is held to
+JAX's fused_mbconv_e1 too, and the card path's sequence of launches is checked
+against a fake library.
 
 Tolerances are the JAX test's: forward out and stats 2e-5, the loss and every
 gradient 1e-4 (fp32, other summation order), bf16 I/O rtol 0.1 / atol 0.15.
@@ -22,13 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from mammo_clip_tpu.ops import mbconv_pallas as jax_e1
-from mammo_clip_tpu_torch.ops.mbconv import (
-    MBConvParams,
-    _e1_backward,
-    _e1_forward,
-    depthwise3x3,
-    fused_mbconv_e1,
-)
+from mammo_clip_tpu_torch.ops.mbconv import MBConvParams, fused_mbconv_e1
+from mammo_clip_tpu_torch.ops.mbconv6 import plain_fused_mbconv_e6
 
 N, H, W = 2, 48, 12
 EPS = 1e-3
@@ -128,105 +122,70 @@ def test_height_not_multiple_of_8_raises_in_both():
                         torch.tensor(delta), EPS)
 
 
-class TorchPasses:
-    """Plain-torch stand-in for ``ops.mbconv.E1Passes``: each pass's reductions
-    computed from whole fp32 tensors, in the layout the kernels return."""
-
-    def __init__(self, x, c2):
-        self.x, self.c2 = x.float(), c2
-        self.dtype = x.dtype
-        self.C = x.shape[1]
-
-    def _v(self, k9, m1, a1, b1):
-        d = depthwise3x3(self.x, k9.reshape(self.C, 3, 3))
-        dhat = (d - m1[:, None, None]) * a1[:, None, None] + b1[:, None, None]
-        return d, dhat, F.silu(dhat)
-
-    def _dy(self, g, k9, m1, a1, b1, gate, wp, m2, inv2, k2, alpha, beta_r, delta):
-        d, dhat, v = self._v(k9, m1, a1, b1)
-        u = v * gate[:, :, None, None]
-        ybar = (torch.einsum("nchw,cd->ndhw", u, wp) - m2[:, None, None]) * inv2[:, None, None]
-        dyh = g.float() * delta[:, None, None, None]
-        dy = k2[:, None, None] * dyh - alpha[:, None, None] - ybar * beta_r[:, None, None]
-        return d, dhat, u, dy
-
-    def _dd_hat(self, g, k9, m1, inv1, a1, b1, gate, wp, m2, inv2, k2, alpha, beta_r, ds_hw,
-                delta):
-        d, dhat, u, dy = self._dy(g, k9, m1, a1, b1, gate, wp, m2, inv2, k2, alpha, beta_r,
-                                  delta)
-        du = torch.einsum("ndhw,cd->nchw", dy, wp)
-        s = torch.sigmoid(dhat)
-        ddh = (du * gate[:, :, None, None] + ds_hw[:, :, None, None]) * s * (1 + dhat * (1 - s))
-        dbar = (d - m1[:, None, None]) * inv1[:, None, None]
-        return u, dy, ddh, dbar
-
-    def p1(self, k9):
-        d = depthwise3x3(self.x, k9.reshape(self.C, 3, 3))
-        return torch.cat([d.sum((0, 2, 3)), (d * d).sum((0, 2, 3))])
-
-    def p2(self, k9, m1, a1, b1):
-        _, _, v = self._v(k9, m1, a1, b1)
-        m = torch.einsum("nchw,nehw->nce", v, v).flatten(1)
-        return torch.cat([v.sum((2, 3)), m], 1)
-
-    def p3(self, k9, m1, a1, b1, gate, wp, m2, a2, b2, delta):
-        _, _, v = self._v(k9, m1, a1, b1)
-        y = torch.einsum("nchw,cd->ndhw", v * gate[:, :, None, None], wp)
-        out = delta[:, None, None, None] * ((y - m2[:, None, None]) * a2[:, None, None]
-                                            + b2[:, None, None])
-        if self.c2 == self.C:
-            out = out + self.x
-        return out.to(self.dtype)
-
-    def b1(self, g, k9, m1, a1, b1, gate, wp, m2, inv2, delta):
-        _, _, v = self._v(k9, m1, a1, b1)
-        y = torch.einsum("nchw,cd->ndhw", v * gate[:, :, None, None], wp)
-        ybar = (y - m2[:, None, None]) * inv2[:, None, None]
-        dyh = g.float() * delta[:, None, None, None]
-        tn = torch.cat([dyh.sum((2, 3)), (dyh * ybar).sum((2, 3)),
-                        torch.einsum("nchw,ndhw->ncd", v, dyh).flatten(1),
-                        torch.einsum("nchw,ndhw->ncd", v, ybar).flatten(1)], 1)
-        return tn, tn.sum(0)
-
-    def b2(self, g, k9, m1, inv1, a1, b1, gate, wp, m2, inv2, k2, alpha, beta_r, ds_hw, delta):
-        u, dy, ddh, dbar = self._dd_hat(g, k9, m1, inv1, a1, b1, gate, wp, m2, inv2, k2, alpha,
-                                        beta_r, ds_hw, delta)
-        H, W = self.x.shape[2:]
-        xp = F.pad(self.x, (1, 1, 1, 1))
-        taps = []
-        for a in range(3):
-            for b in range(3):
-                xs = xp[:, :, a:a + H, b:b + W]
-                taps.append(torch.stack([xs.sum((0, 2, 3)), (xs * dbar).sum((0, 2, 3)),
-                                         (xs * ddh).sum((0, 2, 3))], 1))
-        return torch.cat([ddh.sum((0, 2, 3)), (ddh * dbar).sum((0, 2, 3)),
-                          torch.einsum("nchw,ndhw->cd", u, dy).flatten(),
-                          torch.stack(taps, 1).flatten()])
-
-    def b3(self, g, k9, m1, inv1, a1, b1, gate, wp, m2, inv2, k2, alpha, beta_r, ds_hw, r1a,
-           r1b, delta):
-        _, _, ddh, dbar = self._dd_hat(g, k9, m1, inv1, a1, b1, gate, wp, m2, inv2, k2, alpha,
-                                       beta_r, ds_hw, delta)
-        dd = a1[:, None, None] * ddh - r1a[:, None, None] - dbar * r1b[:, None, None]
-        dx = depthwise3x3(dd, k9.reshape(self.C, 3, 3).flip(1, 2))
-        if self.c2 == self.C:
-            dx = dx + g.float()
-        return dx.to(self.dtype)
+def _e1_form_plain(x, p, delta):
+    """The e=1 form of fused_mbconv_e6's plain version over the whole image: the
+    function fused_mbconv_e1's card path computes (valid_h = H, valid_w = W)."""
+    return plain_fused_mbconv_e6(x, p, delta, x.shape[2], x.shape[3], EPS)
 
 
 @pytest.mark.parametrize("name,seed", [("residual", 0), ("projecting", 1)])
-def test_kernel_path_host_arithmetic_matches_jax(jax_results, name, seed):
-    """``_e1_forward``/``_e1_backward`` (the kernel path's sequencing and
-    host-side math) over TorchPasses equal JAX's outputs, stats and gradients."""
+def test_e1_form_over_the_whole_image_matches_jax(jax_results, name, seed):
+    """The card path runs the e=1 form's passes of csrc/mbconv6_e6.cu with no pad
+    region; that form's plain version equals JAX's fused_mbconv_e1: out, stats,
+    the loss and its gradient in x and in all 10 MBConvParams fields."""
     x, p, delta, w_out = _torch_case(name, seed)
-    x, p = x.detach(), MBConvParams(*[t.detach() for t in p])
-    k = TorchPasses(x, SHAPES[name][1])
-    out, stats, (s_mean, gate) = _e1_forward(k, x, p, delta, EPS)
-    dx, grads = _e1_backward(k, x, p, delta, stats, s_mean, gate, w_out, EPS)
+    out, stats = _e1_form_plain(x, p, delta)
     want = jax_results[name]
-    np.testing.assert_allclose(out.numpy(), want["out"], rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(out.detach().numpy(), want["out"], rtol=2e-5, atol=2e-5)
     for a, b in zip(stats, want["stats"]):
         np.testing.assert_allclose(a.numpy(), b, rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(dx.numpy(), want["dx"], rtol=1e-4, atol=1e-4)
-    for field, a, b in zip(MBConvParams._fields, grads, want["grads"]):
-        np.testing.assert_allclose(a.numpy(), b, rtol=1e-4, atol=1e-4, err_msg=field)
+    loss = (out * w_out).sum()
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), want["loss"], rtol=1e-5)
+    np.testing.assert_allclose(x.grad.numpy(), want["dx"], rtol=1e-4, atol=1e-4)
+    for field, t, g in zip(MBConvParams._fields, p, want["grads"]):
+        np.testing.assert_allclose(t.grad.numpy(), g, rtol=1e-4, atol=1e-4, err_msg=field)
+
+
+@pytest.mark.parametrize("name", ["residual", "projecting"])
+def test_card_path_launches_only_the_e1_forms_passes(monkeypatch, name):
+    """fused_mbconv_e1's kernel path, driven here on CPU tensors against a fake
+    library: every launch is an m6_pass call of the e=1 form (expand 0) over the
+    full H x W, 4 in the forward and 3 in the backward, the calls count under
+    mbconv1.* and not under mbconv6.*, and delta's gradient is zero."""
+    from mammo_clip_tpu_torch.ops import cuda_lib, mbconv6
+    from mammo_clip_tpu_torch.ops.mbconv import _FusedMBConvE1, launches
+
+    passes, bound = [], []
+
+    class Lib:
+        def __getattr__(self, fn):
+            bound.append(fn)
+            return lambda *args: (passes.append(args), 0)[1]
+
+    monkeypatch.setattr(cuda_lib, "load", Lib)
+    monkeypatch.setattr(cuda_lib, "_raw_stream", None)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda d: 0, raising=False)
+    monkeypatch.setattr(mbconv6, "_m6_pass", cuda_lib.launcher("m6_pass"))
+    monkeypatch.setattr(mbconv6, "_scratch_floats", lambda ints: 4096)
+    x, p, delta, w_out = _torch_case(name, 0)
+    c2 = SHAPES[name][1]
+    before = dict(launches.counts)
+    xr = x.detach().requires_grad_(True)
+    dr = delta.clone().requires_grad_(True)
+    out, *stats = _FusedMBConvE1.apply(xr, dr, EPS, *p)
+    assert out.shape == (N, c2, H, W) and len(stats) == 4
+    n_fwd = len(passes)
+    out.backward(w_out)
+    assert bound == ["m6_pass"]
+    ids = [args[0] for args in passes]
+    assert ids[:n_fwd] == [mbconv6.F2, mbconv6.F3, mbconv6.F4, mbconv6.OUT]
+    assert ids[n_fwd:] == [mbconv6.B1, mbconv6.BWD_V, mbconv6.BWD_X]
+    for args in passes:
+        # pass, 33 pointers, eps, the form and its 9 shape ints, the device, the stream
+        expand, bf16, n, c, e, cc2, h, w, vh, vw = args[35:45]
+        assert (expand, bf16, n, c, e, cc2, h, w, vh, vw) == (0, 0, N, x.shape[1], x.shape[1],
+                                                              c2, H, W, H, W)
+    counts = {k: v - before[k] for k, v in launches.counts.items()}
+    assert counts == {**dict.fromkeys(counts, 0), "mbconv1.forward": 1, "mbconv1.backward": 1}
+    assert not dr.grad.any()

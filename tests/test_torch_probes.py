@@ -156,6 +156,28 @@ def test_grid_functions_match_numpy_formulas():
         probes.grid_compute(x, we[:, :2], k)  # E < C
 
 
+def test_grid_compute_channel_sums_match_numpy_for_every_channel():
+    """The compute chain's sums for all E expanded channels (what the kernel
+    computes, so that no channel >= C can be skipped unseen) against numpy, and
+    the probe's output as their first C."""
+    N, C, E, H, W = 2, 4, 8, 32, 24
+    r = np.random.default_rng(6)
+    arrays = [_bf16(r.standard_normal(s)) for s in ((N, C, H, W), (E, 9, W), (E, 1, W), (C, E))]
+    x, k, _, we = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
+    xd, kd, wd = (a.astype(np.float64) for a in (arrays[0], arrays[1], arrays[3]))
+    z = _bf16(np.einsum("ce,nchw->nehw", wd, xd))
+    s = _bf16(z.astype(np.float64) / (1 + np.exp(-z.astype(np.float64))))
+    pad = np.pad(s, ((0, 0), (0, 0), (0, 0), (1, 1)))
+    want = sum(_bf16(pad[..., b:b + W] * kd[None, :, 3 * a + b, None, :]).astype(np.float64)
+               for a in range(3) for b in range(3)).sum((0, 2, 3))
+    got = probes.plain_grid_compute_channel_sums(x, we, k)
+    assert got.shape == (E,) and got.dtype == torch.float32
+    assert np.abs(got.numpy() - want).max() <= 1e-3 * np.abs(want).max()
+    assert torch.equal(probes.grid_compute_channel_sums(x, we, k), got)
+    assert torch.equal(probes.plain_grid_compute(x, we, k), got[:C].view(C, 1, 1))
+    assert torch.equal(probes.grid_compute(x, we, k), got[:C].view(C, 1, 1))
+
+
 def test_grid_probe_script_times_each_kernel_on_the_cpu(monkeypatch, capsys):
     small = [torch.randn(2, 4, 16, 24), torch.randn(8, 9, 24), torch.randn(8, 1, 24),
              torch.randn(4, 8)]
@@ -197,17 +219,22 @@ def test_launcher_binds_once_and_passes_the_device_and_its_stream(monkeypatch):
 
 
 def test_probe_launcher_signatures_match_the_c_interface():
-    """Each ``pr_*`` launcher of csrc/probes.cu takes as many arguments as its
-    ctypes signature declares, the device index and the stream last."""
+    """Each ``pr_*`` function of csrc/probes.cu takes as many arguments as its
+    ctypes signature declares; each launcher (all but the ``_info`` query) the
+    device index and the stream last. pr_grid_compute takes the capacity of its
+    partial sums after their pointer."""
     from mammo_clip_tpu_torch.ops import cuda_lib
 
     src = (cuda_lib.CSRC_DIR / "probes.cu").read_text()
     protos = dict(re.findall(r"^int (pr_\w+)\(([^)]*)\)", src, re.M))
     assert set(protos) == {k for k in cuda_lib.SIGNATURES if k.startswith("pr_")}
     for name, params in protos.items():
-        params = [p.strip() for p in params.split(",")]
+        params = [" ".join(p.split()) for p in params.split(",")]
         assert len(params) == len(cuda_lib.SIGNATURES[name]), name
-        assert params[-2:] == ["int device", "void* stream"], name
+        if not name.endswith("_info"):
+            assert params[-2:] == ["int device", "void* stream"], name
+    compute = [" ".join(p.split()) for p in protos["pr_grid_compute"].split(",")]
+    assert compute[3:6] == ["float* part", "int parts", "float* out"]
 
 
 def test_wrappers_check_the_device_before_any_launch(monkeypatch):
