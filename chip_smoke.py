@@ -29,12 +29,14 @@ Phases, each reported on its own lines:
      their public wrappers (``benchmarks/e6_timing.py --turns --case``: old,
      new, new, old processes), with the compat slice's peak memory in the
      first old and new processes of block 4's turns, then the e1 entry point
-     at blocks 0 and 1-2, the grid compute chain at the probe's shape, and the
-     layout and flash wrappers' host cost the same way (``e6_timing.py --case
-     block0_e1_entry`` / ``block1_e1_entry``, ``layout_timing.py --grid``,
-     ``layout_timing.py``), and the fused, e1 and grid compute rows of the
-     kernels line carry the old ``earlier_ms`` (the e1 rows' in device time),
-     the flash rows the old ``earlier_host_us``;
+     at blocks 0 and 1-2, the grid compute, const and base kernels at the
+     probe's shape, and the layout and flash wrappers' host cost the same way
+     (``e6_timing.py --case block0_e1_entry`` / ``block1_e1_entry``,
+     ``layout_timing.py --grid``, ``layout_timing.py``), and the fused, e1
+     and grid compute, const and base rows of the kernels line carry the old
+     ``earlier_ms`` (the e1 rows' in device time), the flash rows the old
+     ``earlier_host_us``, the channel-mix row the old ``earlier_ms``,
+     ``earlier_device_ms`` and ``earlier_host_us``;
   5. a small-input reference check (tiny CLIP step on the card with the kernels
      against the same step on the CPU with the plain version), then the slice:
      the full-width compat B5 CLIP (B5 at 1520x912, BERT-base, 256 tokens,
@@ -87,10 +89,11 @@ Phases, each reported on its own lines:
      are all device times, ``event_ms`` the kernel's CUDA-event time;
   9. the probe kernels (csrc/probes.cu): the four grid kernels at the probe's
      (16, 40, 232, 384) bf16 (the const kernel also with its bank cancelled, so
-     that the x part is held alone) and the three layout kernels at the JAX
-     script's shapes, each through its wrapper against its plain version (the
-     grid kernels are timed through their raw launchers, uncounted), the layout
-     sums beside what the JAX script prints; their path, the port of
+     that the x part is held alone) and
+     the three layout kernels at the JAX script's shapes, each through its
+     wrapper against its plain version (the grid kernels are timed through
+     their raw launchers, uncounted), the layout sums beside what the JAX
+     script prints; their path, the port of
      ``benchmarks/probe_mosaic.py`` (all probes), driven once with the counters
      read around it; then their times, us per grid block, and bounds (the
      part that bounds printed; the grid compute kernel's work priced at the
@@ -98,13 +101,19 @@ Phases, each reported on its own lines:
      cores, the packed bf16 tap products off them), and for
      the grid base and the three layout kernels the time of one PyTorch call of
      the same function (``torch.sum``, ``torch.mm``, ``torch.mul``,
-     ``torch.einsum``; each first checked against the plain version). Two Gram
-     calls on the same input must give the same bits. The grid compute kernel
-     is also held to the plain version on all E channel sums (its C outputs
-     are their first C), must give the same bits on two calls, and its
-     registers, spills, shared memory, blocks per SM and HMMA and atomic
-     counts are printed (it fails without HMMA or with an atomic; the SASS
-     goes to chiprun_out/probes.sass). The layout kernels and
+     ``torch.einsum``; each first checked against the plain version; for the
+     const kernel, which no single call computes, the time of ``torch.sum``
+     of x plus the bank term, ``composite_ms``). Two calls on the same input
+     must give the same bits for the Gram, grid compute, const and channel-mix
+     kernels. The grid compute kernel is also held to the plain version on
+     all E channel sums (its C outputs are their first C). The grid compute,
+     const and channel-mix kernels' registers, spills, shared memory, blocks
+     per SM and HMMA, atomic and bulk-copy (``UBLKCP``) counts are printed
+     (it fails if the compute kernel has no HMMA, any of them an atomic, the
+     const kernel's ring no bulk copy, or a const or channel-mix kernel
+     spills; the SASS goes to chiprun_out/probes.sass). The device time of
+     an empty kernel's launch, the least any launch takes, is printed and
+     put beside the layout rows (``empty_device_ms``). The layout kernels and
      their library calls are host-bound at this size, so each gets three
      numbers (``benchmarks/layout_timing.py``, kernel and library trials taken
      in turns): ``ms``, the median CUDA-event time per call of 5 trials of 200
@@ -502,13 +511,14 @@ def parent_turns(parent):
     and the e1 entry point at blocks 0 and 1-2, through their public wrappers,
     old, new, new, old, one process each (``benchmarks/e6_timing.py --turns
     --case``); the first old and new processes of block 4's turns also run the
-    compat slice for its peak memory. Then the grid compute chain through
-    ``probes.grid_compute`` (``benchmarks/layout_timing.py --grid``), and the
-    layout wrappers and the flash wrapper's host cost per call
-    (``layout_timing.py``), in the same turns. Returns {case: {forward,
-    backward: the old CUDA-event ms, forward_device, backward_device: the old
-    device ms}}, the peaks, the old grid compute ms and {"flash": {forward,
-    backward: the old host us}}."""
+    compat slice for its peak memory. Then the grid compute chain, const and
+    base kernels through their public wrappers (``benchmarks/layout_timing.py
+    --grid``), and the layout wrappers (channel mix: ms, device ms, host us)
+    and the flash wrapper's host cost per call (``layout_timing.py``), in the
+    same turns. Returns {case: {forward, backward: the old CUDA-event ms,
+    forward_device, backward_device: the old device ms}}, the peaks, the old
+    grid_compute, grid_const and grid_base ms, {"flash": {forward, backward:
+    the old host us}} and {"channel_mix": the old ms, device_ms, host_us}."""
     from mammo_clip_tpu_torch.benchmarks import e6_timing
 
     earlier = {}
@@ -536,13 +546,18 @@ def parent_turns(parent):
     from mammo_clip_tpu_torch.benchmarks import layout_timing
 
     records = layout_timing.turns(parent.resolve(), grid=True)
-    ms = [round(r["grid_compute"]["ms"], 4) for r in records]
-    say(f"[turns] grid compute (probe_grid[compute], through probes.grid_compute) ms: old "
-        f"{[ms[0], ms[3]]}, new {ms[1:3]}")
-    earlier["grid_compute"] = (ms[0] + ms[3]) / 2
+    for name in ("grid_compute", "grid_const", "grid_base"):
+        ms = [round(r[name]["ms"], 4) for r in records]
+        say(f"[turns] {name} (probe_grid[{name[5:]}], through probes.{name}) ms: old "
+            f"{[ms[0], ms[3]]}, new {ms[1:3]}")
+        earlier[name] = (ms[0] + ms[3]) / 2
     records = layout_timing.turns(parent.resolve())
-    earlier["flash"] = {d: (records[0][f"flash.{d}"]["host_us"] + records[3][f"flash.{d}"]["host_us"])
-                        / 2 for d in ("forward", "backward")}
+    old = lambda key, field: (records[0][key][field] + records[3][key][field]) / 2
+    earlier["flash"] = {d: old(f"flash.{d}", "host_us") for d in ("forward", "backward")}
+    earlier["channel_mix"] = {f: old("channel_mix", f) for f in ("ms", "device_ms", "host_us")}
+    say(f"[turns] channel_mix device ms: old {[records[i]['channel_mix']['device_ms'] for i in (0, 3)]},"
+        f" new {[records[i]['channel_mix']['device_ms'] for i in (1, 2)]}; empty kernel device ms "
+        f"(new only) {[records[i]['empty']['device_ms'] for i in (1, 2)]}")
     return earlier
 
 
@@ -1087,7 +1102,8 @@ def library_report(lib_path, ptxas_log, label, sass_name):
     """The built library's kernels that ``label`` names: each one's registers,
     static shared memory, stack and local memory (``cuobjdump
     --dump-resource-usage``), its counts of HMMA (tensor-core) and atomic
-    instructions in the SASS, and its spill stores (the build's ptxas log, when
+    instructions in the SASS and its bulk-copy instructions (``UBLKCP``, as
+    the SASS names them), and its spill stores (the build's ptxas log, when
     it compiled now). Their SASS goes to chiprun_out/``sass_name``."""
     from mammo_clip_tpu_torch.ops import cuda_lib
 
@@ -1117,7 +1133,8 @@ def library_report(lib_path, ptxas_log, label, sass_name):
         lab = label(chunk.split("\n", 1)[0])
         if lab:
             counts[lab] = (len(re.findall(r"\bHMMA\.", chunk)),
-                           len(re.findall(r"\b(?:ATOMS|ATOMG|ATOM|RED)\.", chunk)))
+                           len(re.findall(r"\b(?:ATOMS|ATOMG|ATOM|RED)\.", chunk)),
+                           re.findall(r"\bU?BLKCP[.\w]*", chunk))
     spills = {label(n): b for n, b in re.findall(
         r"Function properties for (\S+)\n\s*\d+ bytes stack frame, (\d+) bytes spill stores",
         ptxas_log or "") if label(n)}
@@ -1146,7 +1163,7 @@ def flash_kernel_report(lib_path, ptxas_log):
             f"{spills.get(label, 'not read (built earlier)')} B, HMMA {counts[label][0]}, "
             f"atomics {counts[label][1]}")
     missing = [k for k in tc if counts[k][0] == 0]
-    atomics = [k for k, (_, a) in counts.items() if a]
+    atomics = [k for k, c in counts.items() if c[1]]
     if len(tc) != 9 or missing or atomics:
         raise SmokeFailure(f"flash SASS: tensor-core kernels {tc}, without HMMA {missing}, "
                            f"with atomics {atomics}")
@@ -1268,34 +1285,63 @@ JAX_LAYOUT_SUMS = {"concat_aligned": 49139.430, "reshape_collapse": 48681.105,
                    "reshape_collapse_rows10": 60836.828, "reshape_split_rows10": 102.065}
 
 
+# the const kernel's designs and the channel-mix kernel's load widths, by template argument
+PROBE_ARGS = {"grid_const": {"0": "ring", "1": "regs4"},
+              "channel_mix": {"1": "vec", "0": "scalar"}}
+
+
 def probe_label(mangled):
-    """'grid_compute' for the grid compute kernel of csrc/probes.cu; None else."""
-    return "grid_compute" if "grid_compute_kernel" in mangled else None
+    """'grid_compute', 'grid_const<ring>', 'const_finish', 'channel_mix<vec>' ... for
+    the kernels of csrc/probes.cu that phase 9 reports on; None else."""
+    m = re.search(r"(grid_compute|grid_const|const_finish|channel_mix)_kernel(?:IL[ib](\d+)E)?",
+                  mangled)
+    if not m:
+        return None
+    return m.group(1) + (f"<{PROBE_ARGS[m.group(1)][m.group(2)]}>" if m.group(2) else "")
 
 
-def grid_compute_report(C):
-    """Phase 9's look at the grid compute kernel in the built library: registers,
-    shared and local memory (cuobjdump), spill stores (ptxas), dynamic shared
-    memory and blocks per SM at C (pr_grid_compute_info), its HMMA and atomic
-    counts in the SASS (chiprun_out/probes.sass). Fails without HMMA or with an
-    atomic."""
+def probe_kernel_report(C):
+    """Phase 9's look at the grid compute, grid const and channel-mix kernels in the
+    built library: registers, shared and local memory (cuobjdump), spill stores
+    (ptxas), dynamic shared memory and blocks per SM (the compute kernel's at C,
+    pr_grid_compute_info; the const ring's, pr_grid_const_info), their HMMA,
+    atomic and bulk-copy counts in the SASS (chiprun_out/probes.sass). Fails if
+    the compute kernel has no HMMA, any of them an atomic, the const kernel's
+    ring no bulk copy, or a const or channel-mix kernel spills."""
     import ctypes
 
     from mammo_clip_tpu_torch.ops import cuda_lib
 
     usage, counts, spills = library_report(cuda_lib.build_info.path, cuda_lib.build_info.ptxas,
                                            probe_label, "probes.sass")
-    smem, blocks = ctypes.c_int(), ctypes.c_int()
-    rc = cuda_lib.load().pr_grid_compute_info(C, ctypes.byref(smem), ctypes.byref(blocks))
-    if rc:
-        raise SmokeFailure(f"pr_grid_compute_info failed with CUDA error {rc}")
-    u, (hmma, atomics) = usage.get("grid_compute", {}), counts.get("grid_compute", (0, 0))
-    say(f"[probe kernels] grid_compute: REG {u.get('REG')}, SHARED {u.get('SHARED')}, STACK "
-        f"{u.get('STACK')}, LOCAL {u.get('LOCAL')}, spill stores "
-        f"{spills.get('grid_compute', 'not read (built earlier)')} B, dynamic shared "
-        f"{smem.value} B at C = {C}, blocks per SM {blocks.value}, HMMA {hmma}, atomics {atomics}")
-    if hmma == 0 or atomics:
-        raise SmokeFailure(f"grid compute SASS: HMMA {hmma}, atomics {atomics}")
+    lib = cuda_lib.load()
+    smem, blocks, csmem, cblocks = (ctypes.c_int() for _ in range(4))
+    for rc, name in ((lib.pr_grid_compute_info(C, ctypes.byref(smem), ctypes.byref(blocks)),
+                      "pr_grid_compute_info"),
+                     (lib.pr_grid_const_info(ctypes.byref(csmem), ctypes.byref(cblocks)),
+                      "pr_grid_const_info")):
+        if rc:
+            raise SmokeFailure(f"{name} failed with CUDA error {rc}")
+    dynamic = {"grid_compute": f"{smem.value} B at C = {C}, blocks per SM {blocks.value}",
+               "grid_const<ring>": f"{csmem.value} B, blocks per SM {cblocks.value}"}
+    for label in sorted(counts):
+        u, (hmma, atomics, bulk) = usage.get(label, {}), counts[label]
+        say(f"[probe kernels] {label}: REG {u.get('REG')}, SHARED {u.get('SHARED')}, STACK "
+            f"{u.get('STACK')}, LOCAL {u.get('LOCAL')}, spill stores "
+            f"{spills.get(label, 'not read (built earlier)')} B, dynamic shared "
+            f"{dynamic.get(label, '0 B')}, HMMA {hmma}, atomics {atomics}, bulk copies "
+            f"{len(bulk)} {sorted(set(bulk))}")
+    faults = [f"{k}: atomics {a}" for k, (_, a, _) in counts.items() if a]
+    if counts.get("grid_compute", (0,))[0] == 0:
+        faults.append("grid_compute: no HMMA")
+    if not counts.get("grid_const<ring>", (0, 0, []))[2]:
+        faults.append("grid_const<ring>: no bulk copy")
+    faults += [f"{k}: spills {b} B" for k, b in spills.items()
+               if k.startswith(("grid_const", "channel_mix")) and int(b)]
+    expected = {"grid_compute", "const_finish", "grid_const<ring>", "grid_const<regs4>",
+                "channel_mix<vec>", "channel_mix<scalar>"}
+    if faults or set(counts) != expected:
+        raise SmokeFailure(f"probe kernels' SASS: {faults}, kernels found {sorted(counts)}")
 
 
 def probe_phases(earlier=None):
@@ -1333,7 +1379,7 @@ def probe_phases(earlier=None):
                  lambda: probes.plain_grid_halo(x), 1e-4, x.numel() * 2,
                  fp32(x.numel() * 1.25)),
         "const": (lambda: probes.grid_const(x, k, vec),
-                  lambda: probes.grid_sum_kernel(2, x, k, vec),
+                  lambda: probes.grid_const_kernel(x, k, vec),
                   lambda: probes.plain_grid_const(x, k, vec), 1e-4,
                   x.numel() * 2 + 2 * E * W * 2, fp32(x.numel() + 2 * E * W)),
         "compute": (lambda: probes.grid_compute(x, we, k),
@@ -1389,12 +1435,15 @@ def probe_phases(earlier=None):
     if not torch.equal(*gram_bits):
         raise SmokeFailure("two calls of the Gram kernel on the same input gave other bits")
     say("[probe check] two Gram kernel calls on the same input: the same bits")
-    sums_bits = [probes.grid_compute_channel_sums(x, we, k) for _ in range(2)]
-    if not torch.equal(*sums_bits):
-        raise SmokeFailure("two calls of the grid compute kernel on the same input gave other bits")
-    say(f"[probe check] two grid compute kernel calls on the same input: the same bits for all "
-        f"{E} channel sums")
-    grid_compute_report(C)
+    twice = {"grid compute (all E channel sums)": lambda: probes.grid_compute_channel_sums(x, we, k),
+             "grid const": lambda: probes.grid_const(x, k, vec),
+             "grid const (bank cancelled)": lambda: probes.grid_const(x, k, vec0),
+             "channel mix": lambda: probes.channel_mix(rows8, wl)}
+    for name, call in twice.items():
+        if not torch.equal(call(), call()):
+            raise SmokeFailure(f"two calls of the {name} kernel on the same input gave other bits")
+        say(f"[probe check] two {name} kernel calls on the same input: the same bits")
+    probe_kernel_report(C)
     x3, w3 = rows8.cpu().numpy(), wl.cpu().numpy()
     want = np.einsum("chw,cd->hdw", x3, w3)
     mix_err = float(np.abs(probes.channel_mix(rows8, wl).cpu().numpy() - want).max())
@@ -1417,6 +1466,18 @@ def probe_phases(earlier=None):
              for name, (_, raw, plain, _, nbytes, ops) in grid.items()}
     timed.update({("layout", name): (wrap, plain, nbytes, ops)
                   for name, (wrap, plain, _, nbytes, ops) in layout.items()})
+    # the card's least device time per launch: a one-thread kernel that does nothing
+    empty_ms = layout_timing.device_ms(probes.empty_kernel, reps=100)
+    say(f"[probe time] empty kernel: device {empty_ms:.4f} ms per launch")
+    # the const kernel's yardstick: no single PyTorch call computes it; the sum of x
+    # and the bank term, two reductions and the arithmetic between them
+    composite = lambda: torch.sum(x, (0, 2, 3), dtype=torch.float32).view(-1, 1, 1) + N * H * W * (
+        k[:, 0, :].sum(dtype=torch.float32) + vec.sum(dtype=torch.float32))
+    err = max_rel(composite(), probes.plain_grid_const(x, k, vec))
+    say(f"[probe check] the const composite (torch.sum of x plus the bank term) against the plain "
+        f"version: {err:.2e}")
+    if not err <= 1e-5:
+        raise SmokeFailure(f"the const composite computes another function: {err}")
     rows = []
     for (kind, name), (kern, plain, nbytes, ops) in timed.items():
         plain_ms = time_ms(plain, reps=3)
@@ -1447,14 +1508,23 @@ def probe_phases(earlier=None):
             "launches": counts[f"probe_{kind}.{name}"], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
-        if name == "compute":
-            row["earlier_ms"] = earlier["grid_compute"] if earlier else None
+        if kind == "grid" and name != "halo":
+            row["earlier_ms"] = earlier[f"grid_{name}"] if earlier else None
+        if name == "const":
+            row["composite_ms"] = time_ms(composite)
+            say(f"[probe time] grid const: the composite (torch.sum plus the bank term) "
+                f"{row['composite_ms']:.4f} ms")
         if kind == "layout":
             say(f"[probe time] layout {name}: kernel device {ours['device_ms']:.4f} ms, host "
                 f"{ours['host_us']:.2f} us per call; library device {lib_t['device_ms']:.4f} ms,"
                 f" host {lib_t['host_us']:.2f} us per call")
             row.update(device_ms=ours["device_ms"], host_us=ours["host_us"],
-                       library_device_ms=lib_t["device_ms"], library_host_us=lib_t["host_us"])
+                       library_device_ms=lib_t["device_ms"], library_host_us=lib_t["host_us"],
+                       empty_device_ms=empty_ms)
+            if name == "channel_mix":
+                old = (earlier or {}).get("channel_mix", {})
+                row.update(earlier_ms=old.get("ms"), earlier_device_ms=old.get("device_ms"),
+                           earlier_host_us=old.get("host_us"))
         rows.append(row)
     return rows
 

@@ -19,9 +19,15 @@ flash attention wrapper at the probe's (16, 12, 256, 64) bf16
 gradient, ``flash.backward`` ``torch.autograd.grad`` through a kept graph),
 its forward and backward trials in turns.
 
-With ``--grid`` it times the grid probe's compute chain instead: ``probes.grid_compute``
-at the probe's shape (x (16, 40, 232, 384), E = 240, bf16), ``ms`` the median
-CUDA-event time per call of 5 trials of 10 calls after 3 warm-up calls.
+The device time of one launch of a kernel that does nothing
+(``probes.empty_kernel``, where the checkout has it) is taken the same way:
+the least device time any launch can take, beside the layout kernels' bounds.
+
+With ``--grid`` it times the grid probe's kernels instead: ``probes.grid_compute``,
+``probes.grid_const`` and ``probes.grid_base`` (a control, when two checkouts share its
+kernel) at the probe's shape (x (16, 40, 232, 384), E = 240,
+bf16), ``ms`` the median CUDA-event time per call of 5 trials of 10 calls after 3
+warm-up calls each.
 
 Usage, on the card:
 
@@ -155,16 +161,23 @@ def flash_calls(fa):
             lambda: torch.autograd.grad(out, (qr, kr, vr), g, retain_graph=True))
 
 
-def grid_compute_ms(probes, trials=5, calls=10, warmup=3):
-    """Median CUDA-event ms per call of ``probes.grid_compute`` at the grid probe's
-    seeded inputs (the same as ``probe_mosaic.grid_inputs``)."""
+def grid_ms(probes, trials=5, calls=10, warmup=3):
+    """Median CUDA-event ms per call of the grid probe's compute chain, const and
+    base kernels through their public wrappers at the probe's seeded inputs (the
+    same as ``probe_mosaic.grid_inputs``)."""
     f = lambda seed, shape: torch.from_numpy(np.random.default_rng(seed).standard_normal(
         shape).astype(np.float32)).to(torch.bfloat16).cuda()
-    x, k, we = f(0, (16, 40, 232, 384)), f(1, (240, 9, 384)), f(3, (40, 240))
-    for _ in range(warmup):
-        probes.grid_compute(x, we, k)
-    return statistics.median(event_ms(lambda: probes.grid_compute(x, we, k), calls)
-                             for _ in range(trials))
+    x, k, vec, we = (f(0, (16, 40, 232, 384)), f(1, (240, 9, 384)), f(2, (240, 1, 384)),
+                     f(3, (40, 240)))
+    fns = {"grid_compute": lambda: probes.grid_compute(x, we, k),
+           "grid_const": lambda: probes.grid_const(x, k, vec),
+           "grid_base": lambda: probes.grid_base(x)}
+    out = {}
+    for name, fn in fns.items():
+        for _ in range(warmup):
+            fn()
+        out[name] = {"ms": statistics.median(event_ms(fn, calls) for _ in range(trials))}
+    return out
 
 
 def run(root: Path, grid: bool = False):
@@ -178,8 +191,7 @@ def run(root: Path, grid: bool = False):
             raise RuntimeError(f"{mod.__name__} came from {mod.__file__}, not from {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     if grid:
-        return {"root": str(root), "device": torch.cuda.get_device_name(0),
-                "grid_compute": {"ms": grid_compute_ms(probes)}}
+        return {"root": str(root), "device": torch.cuda.get_device_name(0), **grid_ms(probes)}
     calls = layout_calls(probes, *layout_inputs("cuda"))
     for wrap, _ in calls.values():
         wrap()  # builds the library on the first call
@@ -188,6 +200,8 @@ def run(root: Path, grid: bool = False):
     for name, (wrap, library) in calls.items():
         out[name], out[f"{name}.library"] = compare(wrap, library)
     out["flash.forward"], out["flash.backward"] = compare(*flash_calls(flash_attention))
+    if hasattr(probes, "empty_kernel"):
+        out["empty"] = {"device_ms": device_ms(probes.empty_kernel, reps=100)}
     return out
 
 
@@ -204,10 +218,13 @@ def turns(old: Path, grid: bool = False):
         print(line, flush=True)
         records.append(json.loads(line))
     olds, news = (records[0], records[3]), (records[1], records[2])
-    for key in (k for k in records[0] if isinstance(records[0][k], dict)):
-        for field in records[0][key]:
-            a = statistics.median(r[key][field] for r in olds)
+    for key in (k for k in records[1] if isinstance(records[1][k], dict)):
+        for field in records[1][key]:
             b = statistics.median(r[key][field] for r in news)
+            if key not in records[0]:
+                print(f"TURNS {key} {field}: new {b:.6g} (not in the old checkout)")
+                continue
+            a = statistics.median(r[key][field] for r in olds)
             print(f"TURNS {key} {field}: old {a:.6g}, new {b:.6g}, new/old {b / a:.3f}")
     return records
 

@@ -1,7 +1,8 @@
 // Device helpers shared by the package's CUDA sources (flash_attention.cu,
 // mbconv6_e6.cu, probes.cu): the PTX of Hopper's warp-level matrix product
-// (mma.sync with ldmatrix operands), asynchronous copies to shared memory, a warp
-// sum, and the launchers' device guard. Each source includes it once, so every
+// (mma.sync with ldmatrix operands), asynchronous copies to shared memory
+// (cp.async, and bulk copies completing on mbarriers), programmatic dependent
+// launch, a warp sum, and the launchers' device guard. Each source includes it once, so every
 // translation unit keeps its own copy (anonymous namespace). The build hashes
 // and recompiles on a change of any csrc/*.cuh as of any csrc/*.cu
 // (ops/cuda_lib.py).
@@ -35,6 +36,62 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // Waits for all but the newest committed group.
 __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Shared-memory barriers (mbarrier) and the Tensor Memory Accelerator's 1-D bulk
+// copy, global to shared, whose completion counts `bytes` against the barrier's
+// expected transaction bytes (src and dst 16-byte aligned, bytes a multiple of 16).
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// Makes the barriers' initialisation visible to the async proxy (the bulk copies).
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Waits until the barrier's phase of parity `parity` has completed. A wait that
+// has not completed after 2^26 polls traps, so that a broken protocol fails the
+// launch instead of holding the device.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  for (unsigned polls = 0;; ++polls) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Programmatic dependent launch: a kernel launched with the programmatic stream
+// serialization attribute may start while the kernel before it on the stream
+// runs, once every block of that kernel has called grid_dependents_launch (or
+// exited); grid_dependency_wait then waits until that kernel has completed and
+// its memory writes are visible. Without the attribute the wait returns at once.
+__device__ __forceinline__ void grid_dependents_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // Four 8x8 bf16 matrices from shared memory; lane l gives the address of row

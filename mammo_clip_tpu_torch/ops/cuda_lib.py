@@ -49,13 +49,16 @@ SIGNATURES: Dict[str, List] = {
     "fa_forward": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _I, _P],
     "fa_backward": [*[_P] * 6, _I, *[_P] * 4, _I, _I, _I, _F, _I, _P],
     # csrc/probes.cu: ..., the device index, the stream
-    "pr_grid_sum": [_I, *[_P] * 5, *[_I] * 6, _P],
+    "pr_grid_sum": [_I, *[_P] * 3, *[_I] * 5, _P],
+    "pr_grid_const": [*[_P] * 4, _I, _P, *[_I] * 6, _P],
+    "pr_grid_const_info": [_P, _P],
     "pr_grid_compute": [*[_P] * 4, _I, _P, *[_I] * 6, _P],
     "pr_grid_compute_info": [_I, _P, _P],
     "pr_bf16_mul": [_P, _P, _P, _I, _I, _P],
     "pr_gram": [_P, _P, *[_I] * 5, _P],
     "pr_copy_scale": [_P, _P, _LL, _F, _I, _P],
     "pr_channel_mix": [_P, _P, _P, *[_I] * 5, _P],
+    "pr_empty": [_I, _P],
 }
 
 

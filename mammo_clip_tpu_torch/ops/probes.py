@@ -26,6 +26,10 @@ Layout probes (``_run`` over the Mosaic probes), fp32:
                                  ``dot_3d_rank3rhs`` means; the JAX probe
                                  contracts the wrong axis and fails, fault R6)
 
+``empty_kernel(device)`` launches a kernel that does nothing: the least device
+time a launch takes, timed beside the layout kernels (uncounted, on no probe's
+path).
+
 On a CUDA tensor each wrapper launches its kernel (grid kernels take bf16 x,
 the layout kernels fp32) or raises; a CPU tensor takes the plain version.
 ``launches`` counts the kernel paths' calls. The wrappers launch through
@@ -48,10 +52,12 @@ from .mbconv import LaunchCounter
 ROWS = 8  # the probe's tile height
 launches = LaunchCounter([f"probe_grid.{k}" for k in ("base", "halo", "const", "compute")]
                          + [f"probe_layout.{k}" for k in ("gram", "copy_scale", "channel_mix")])
-_grid_sum, _grid_compute = launcher("pr_grid_sum"), launcher("pr_grid_compute")
+_grid_sum, _grid_const = launcher("pr_grid_sum"), launcher("pr_grid_const")
+_grid_compute = launcher("pr_grid_compute")
+CONST_PARTS = 2048  # partial rows the const kernel may use: its grid is at most this
 COMPUTE_COLS, COMPUTE_MAX_C = 64, 48  # the compute kernel's column range, and its limit on C
 _gram, _copy_scale = launcher("pr_gram"), launcher("pr_copy_scale")
-_channel_mix = launcher("pr_channel_mix")
+_channel_mix, _empty = launcher("pr_channel_mix"), launcher("pr_empty")
 _F32 = torch.float32
 
 
@@ -144,16 +150,26 @@ def _check_on(t, device, shape, name):
         raise TypeError(f"{name} must be contiguous bfloat16 on cuda:{device}")
 
 
-def grid_sum_kernel(kind: int, x, k=None, vec=None):
-    """One call of the base (0), halo (1) or const (2) kernel and its reduction
-    (uncounted: the wrappers count)."""
+def grid_sum_kernel(kind: int, x):
+    """One call of the base (0) or halo (1) kernel and its reduction (uncounted:
+    the wrappers count)."""
     N, C, H, W = x.shape
-    E = 0 if k is None else k.shape[0]
     part = x.new_empty((N * H // ROWS, C), dtype=_F32)
     out = x.new_empty((C, 1, 1), dtype=_F32)
-    _grid_sum(x.get_device(), kind, x.data_ptr(), None if k is None else k.data_ptr(),
-              None if vec is None else vec.data_ptr(), part.data_ptr(), out.data_ptr(),
-              N, C, E, H, W)
+    _grid_sum(x.get_device(), kind, x.data_ptr(), part.data_ptr(), out.data_ptr(), N, C, H, W)
+    return out
+
+
+def grid_const_kernel(x, k, vec):
+    """One call of the const kernel and its reduction (uncounted: the wrappers
+    count). x streams through the bulk-copy ring when it is 16-byte aligned, else
+    by 4-byte loads into registers."""
+    N, C, H, W = x.shape
+    parts = min(N * C * H // ROWS, CONST_PARTS)
+    part = x.new_empty((parts, C + 1), dtype=_F32)
+    out = x.new_empty((C, 1, 1), dtype=_F32)
+    _grid_const(x.get_device(), x.data_ptr(), k.data_ptr(), vec.data_ptr(), part.data_ptr(), parts,
+                out.data_ptr(), N, C, k.shape[0], H, W)
     return out
 
 
@@ -198,7 +214,7 @@ def grid_const(x, k, vec):
         return plain_grid_const(x, k, vec)
     _check_on(k, device, (E, 9, W), "k")
     _check_on(vec, device, (E, 1, W), "vec")
-    out = grid_sum_kernel(2, x, k, vec)
+    out = grid_const_kernel(x, k, vec)
     launches.add("probe_grid.const")
     return out
 
@@ -286,3 +302,10 @@ def channel_mix(x, w):
     _channel_mix(device, x.data_ptr(), w.data_ptr(), out.data_ptr(), C, w.shape[1], H, W)
     launches.add("probe_layout.channel_mix")
     return out
+
+
+def empty_kernel(device: int = 0):
+    """One launch of a kernel that does nothing, on CUDA device ``device``: the
+    card's least time per launch, timed beside the layout kernels (on no probe's
+    path, uncounted)."""
+    _empty(device)

@@ -612,11 +612,14 @@ def test_cuda_probe_kernels_run_on_a_tensor_of_another_device():
 
     x_cpu = torch.randn(16, 8, 384, generator=torch.Generator(device="cpu").manual_seed(5))
     x = x_cpu.to("cuda:1")
+    xg, k, vec, _ = (t.to("cuda:1") for t in _grid_inputs())
     with torch.cuda.device(0):
         gram, copy = probes.gram_rows(x), probes.copy_scale(x, (16, 3072), 2.0)
+        const = probes.grid_const(xg, k, vec)
         assert torch.cuda.current_device() == 0
     torch.cuda.synchronize(1)
-    assert gram.device == x.device and copy.device == x.device
+    assert gram.device == x.device and copy.device == x.device and const.device == x.device
+    assert _rel(const, probes.plain_grid_const(xg, k, vec)) <= 1e-4
     assert _rel(gram.cpu(), probes.plain_gram_rows(x_cpu)) <= 1e-5
     assert torch.equal(copy.cpu(), probes.plain_copy_scale(x_cpu, (16, 3072), 2.0))
 
@@ -651,6 +654,77 @@ def test_cuda_grid_compute_kernel_matches_plain_on_every_channel(shape):
     assert torch.equal(first, second)
     assert torch.equal(out, first[:C].view(C, 1, 1))
     assert probes.launches.counts["probe_grid.compute"] - before == 3
+
+
+# (N, C, E, H, W, offset): the probe's shape; one slab a plane (N = 1, H = 8); W % 8
+# != 0 (24, 26); C = 3; E = 7, whose E W pairs split unevenly over the blocks' bank
+# shares; x a view 2 bf16 (4 bytes) into its buffer, off 16-byte alignment, which
+# takes the kernel's 4-byte register loads instead of the bulk-copy ring.
+GRID_CONST_CASES = [(16, 40, 240, 232, 384, 0), (1, 8, 24, 8, 70, 0), (2, 8, 24, 32, 24, 0),
+                    (2, 8, 24, 32, 26, 0), (2, 3, 24, 32, 384, 0), (2, 8, 7, 32, 70, 0),
+                    (2, 8, 24, 32, 70, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GRID_CONST_CASES)
+def test_cuda_grid_const_kernel_matches_plain(shape):
+    """The const kernel (the bulk-copy ring, or the 4-byte register loads for an x
+    off 16-byte alignment) against the plain version within 1e-4 of the largest entry (fp32 sums in another
+    order), as is and with vec = -k[:, 0:1, :], which cancels the bank exactly so
+    that the x part is held to the base sum alone; two calls give the same bits,
+    and each call of the wrapper counts one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from mammo_clip_tpu_torch.ops import probes
+
+    N, C, E, H, W, offset = shape
+    x0, k, vec, _ = _grid_inputs(N, C, E, H, W, seed=9)
+    x = torch.empty(x0.numel() + offset, dtype=x0.dtype, device="cuda")[offset:].view(x0.shape)
+    x.copy_(x0)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0) and x.data_ptr() % 4 == 0
+    vec0 = (-k[:, 0:1, :]).contiguous()
+    want, base = probes.plain_grid_const(x, k, vec), probes.plain_grid_base(x)
+    before = probes.launches.counts["probe_grid.const"]
+    first, second = probes.grid_const(x, k, vec), probes.grid_const(x, k, vec)
+    cancelled = probes.grid_const(x, k, vec0)
+    torch.cuda.synchronize()
+    assert probes.launches.counts["probe_grid.const"] - before == 3
+    assert first.shape == (C, 1, 1) and first.dtype == torch.float32
+    for got, ref in ((first, want), (cancelled, base)):
+        assert _rel(got, ref) <= 1e-4, _rel(got, ref)
+    assert torch.equal(first, second)
+
+
+# (C, C2, H, W, offset): the probe's shape, C2 != C both ways, W % 4 != 0, and x a
+# view one float into its buffer (4-byte aligned only): the last two take the
+# value-by-value loads and stores.
+CHANNEL_MIX_CASES = [(16, 16, 8, 384, 0), (16, 24, 8, 384, 0), (5, 3, 8, 384, 0),
+                     (16, 16, 8, 381, 0), (16, 16, 8, 384, 1), (40, 70, 3, 130, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CHANNEL_MIX_CASES)
+def test_cuda_channel_mix_kernel_matches_plain(shape):
+    """The channel-mix kernel against the plain version within 1e-5 of the largest
+    entry (fp32 sums in c order by fmaf, against the library's order), the same
+    bits on two calls, one launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from mammo_clip_tpu_torch.ops import probes
+
+    C, C2, H, W, offset = shape
+    g = torch.Generator(device="cpu").manual_seed(10)
+    buf = torch.randn(C * H * W + offset, generator=g).cuda()
+    x, w = buf[offset:].view(C, H, W), torch.randn(C, C2, generator=g).cuda()
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    before = probes.launches.counts["probe_layout.channel_mix"]
+    first, second = probes.channel_mix(x, w), probes.channel_mix(x, w)
+    want = probes.plain_channel_mix(x, w)
+    torch.cuda.synchronize()
+    assert first.shape == (H, C2, W) and first.dtype == torch.float32
+    assert _rel(first, want) <= 1e-5, _rel(first, want)
+    assert torch.equal(first, second)
+    assert probes.launches.counts["probe_layout.channel_mix"] - before == 2
 
 
 @pytest.mark.cuda
@@ -689,7 +763,8 @@ def test_cuda_probe_wrappers_reject_what_the_kernels_do_not_take():
     # a contiguous view one bf16 past a 4-byte boundary: refused, not a misaligned load
     odd = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
     odd.copy_(x)
-    for call in (lambda: probes.grid_base(odd), lambda: probes.grid_compute(odd, we, k)):
+    for call in (lambda: probes.grid_base(odd), lambda: probes.grid_compute(odd, we, k),
+                 lambda: probes.grid_const(odd, k, vec)):
         with pytest.raises(ValueError, match="4-byte"):
             call()
     got = probes.grid_base(x)  # the process's CUDA context is still usable
@@ -699,6 +774,13 @@ def test_cuda_probe_wrappers_reject_what_the_kernels_do_not_take():
         probes.grid_halo(x[:, :, :12].contiguous())  # H % 8 != 0
     with pytest.raises(TypeError):
         probes.grid_const(x, k.float(), vec)
+    for kk, vv in ((k[:, :8].contiguous(), vec), (k, vec[:, :, :8].contiguous()),
+                   (k[:5].contiguous(), vec)):  # k not (E, 9, W), vec not (E, 1, W)
+        with pytest.raises(ValueError):
+            probes.grid_const(x, kk, vv)
+    for kk, vv in ((k.cpu(), vec), (k, vec.cpu()), (k, vec.float())):  # k, vec off x's device
+        with pytest.raises(TypeError):
+            probes.grid_const(x, kk, vv)
     with pytest.raises(ValueError):
         probes.grid_compute(x, we[:, :4].contiguous(), k)  # E < C
     wide, _, _, we_wide = _grid_inputs(C=56, E=56)

@@ -13,13 +13,18 @@ Grid probes: the four functions of ``probe_grid_overhead`` against numpy
 versions of their formulas at a small shape (N=2, C=4, E=8, H=32, W=24): sums in
 float64 against the port's fp32, within 1e-5 of the largest entry; the compute
 chain rounds z, SiLU and each tap product to bf16 on both sides (numpy through
-float32 bit rounding), within 1e-3 (a rounding tie may flip one ulp).
+float32 bit rounding), within 1e-3 (a rounding tie may flip one ulp). The base,
+halo and const functions are also held to the JAX script's own Pallas kernels,
+run once each under ``pltpu.force_tpu_interpret_mode()`` at the probe's full
+seeded inputs, within 1e-5 of the largest entry (fp32 sums in another order;
+the const sums are ~3e8, where fp32 resolves ~30).
 """
 
 import importlib.util
 import os
 import re
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -178,6 +183,78 @@ def test_grid_compute_channel_sums_match_numpy_for_every_channel():
     assert torch.equal(probes.grid_compute(x, we, k), got[:C].view(C, 1, 1))
 
 
+@pytest.fixture(scope="module")
+def jax_grid_sums():
+    """The JAX script's base, halo and const Pallas kernels at the probe's inputs:
+    ``probe_grid_overhead`` under interpret mode, its ``_timed`` (on the loaded
+    module object only) replaced by one run of each kernel; the compute kernel is
+    skipped (minutes of interpret mode on one core)."""
+    jax_probe = _load_jax_probe()
+    sums = {}
+
+    def once(name, f, *args, **_):
+        if not name.startswith("grid_compute"):
+            sums[name.split("(")[0]] = np.asarray(jax.jit(f)(*args))
+
+    jax_probe._timed = once
+    with pltpu.force_tpu_interpret_mode():
+        jax_probe.probe_grid_overhead()
+    return sums
+
+
+@pytest.fixture(scope="module")
+def grid_inputs_cpu():
+    return port_probe.grid_inputs("cpu")
+
+
+@pytest.mark.parametrize("name", ["grid_base", "grid_halo", "grid_const"])
+def test_grid_probes_match_the_jax_scripts_kernels(jax_grid_sums, grid_inputs_cpu, name):
+    """Each port function against the JAX kernel's output, within 1e-5 of the
+    largest entry. For const that entry is the bank term's, N H W * bank ~3e8 a
+    channel, so the limit (~3e3) holds the bank term alone: the x part (~1e3 a
+    channel) is below it. The x part is held to JAX through the base case, since
+    ``plain_grid_const`` forms it by ``plain_grid_base``'s expression."""
+    x, k, vec, _ = grid_inputs_cpu
+    got = {"grid_base": lambda: probes.grid_base(x), "grid_halo": lambda: probes.grid_halo(x),
+           "grid_const": lambda: probes.grid_const(x, k, vec)}[name]()
+    want = jax_grid_sums[name]
+    assert got.shape == want.shape == (x.shape[1], 1, 1) and got.dtype == torch.float32
+    err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+    assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize("C,C2,H,W", [(16, 16, 8, 384), (16, 24, 8, 384), (5, 3, 8, 384),
+                                      (16, 16, 8, 381)])
+def test_channel_mix_matches_numpy_at_other_widths(C, C2, H, W):
+    """The CPU path of ``channel_mix`` at the card tests' shapes (C2 != C, W % 4 != 0)."""
+    r = np.random.default_rng(7)
+    x, w = r.standard_normal((C, H, W)).astype(np.float32), r.standard_normal((C, C2)).astype(
+        np.float32)
+    got = probes.channel_mix(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.shape == (H, C2, W)
+    np.testing.assert_allclose(got.numpy(), np.einsum("chw,cd->hdw", x, w), rtol=1e-5, atol=1e-5)
+
+
+def test_const_kernel_call_sizes_its_scratch_from_the_slabs(monkeypatch):
+    """``grid_const_kernel`` hands the launcher a scratch of min(N C H / 8, CONST_PARTS)
+    rows of C + 1 floats (each block's channel partials and its bank share), its
+    row count and E, on the tensor's device."""
+    shapes, args = [], []
+    new_empty = torch.Tensor.new_empty
+    monkeypatch.setattr(torch.Tensor, "new_empty", lambda self, shape, dtype=None: (
+        shapes.append(tuple(shape)), new_empty(self, shape, dtype=dtype))[1])
+    monkeypatch.setattr(probes, "_grid_const", lambda *a: args.append(a))
+    x = torch.zeros(2, 3, 16, 24, dtype=torch.bfloat16)
+    k, vec = torch.zeros(5, 9, 24), torch.zeros(5, 1, 24)
+    tall = torch.zeros(2, 3, 8 * 400, 2, dtype=torch.bfloat16)
+    probes.grid_const_kernel(x, k, vec)
+    probes.grid_const_kernel(tall, k[:, :, :2], vec[:, :, :2])
+    parts = probes.CONST_PARTS
+    assert shapes == [(12, 4), (3, 1, 1), (parts, 4), (3, 1, 1)]
+    assert [a[0] for a in args] == [-1, -1] and [a[5] for a in args] == [12, parts]
+    assert [a[7:] for a in args] == [(2, 3, 5, 16, 24), (2, 3, 5, 3200, 2)]
+
+
 def test_grid_probe_script_times_each_kernel_on_the_cpu(monkeypatch, capsys):
     small = [torch.randn(2, 4, 16, 24), torch.randn(8, 9, 24), torch.randn(8, 1, 24),
              torch.randn(4, 8)]
@@ -227,6 +304,7 @@ def test_probe_launcher_signatures_match_the_c_interface():
 
     src = (cuda_lib.CSRC_DIR / "probes.cu").read_text()
     protos = dict(re.findall(r"^int (pr_\w+)\(([^)]*)\)", src, re.M))
+    assert {"pr_grid_const", "pr_grid_const_info", "pr_empty"} <= set(protos)
     assert set(protos) == {k for k in cuda_lib.SIGNATURES if k.startswith("pr_")}
     for name, params in protos.items():
         params = [" ".join(p.split()) for p in params.split(",")]
@@ -235,6 +313,12 @@ def test_probe_launcher_signatures_match_the_c_interface():
             assert params[-2:] == ["int device", "void* stream"], name
     compute = [" ".join(p.split()) for p in protos["pr_grid_compute"].split(",")]
     assert compute[3:6] == ["float* part", "int parts", "float* out"]
+    const = [" ".join(p.split()) for p in protos["pr_grid_const"].split(",")]
+    assert const[3:6] == ["float* part", "int parts", "float* out"]
+    assert const[6:-2] == ["int N", "int C", "int E", "int H", "int W"]
+    grid_sum = [" ".join(p.split()) for p in protos["pr_grid_sum"].split(",")]
+    assert grid_sum[:4] == ["int kind", "const void* x", "float* part", "float* out"]
+    assert protos["pr_empty"].split(",")[0].strip() == "int device"
 
 
 def test_wrappers_check_the_device_before_any_launch(monkeypatch):
@@ -243,7 +327,8 @@ def test_wrappers_check_the_device_before_any_launch(monkeypatch):
     def refuse(*args):
         raise AssertionError("a tensor that is not on a card reached a launcher")
 
-    for name in ("_gram", "_copy_scale", "_channel_mix", "_grid_sum", "_grid_compute"):
+    for name in ("_gram", "_copy_scale", "_channel_mix", "_grid_sum", "_grid_const",
+                 "_grid_compute", "_empty"):
         monkeypatch.setattr(probes, name, refuse)
     before = dict(probes.launches.counts)
     x, w = torch.randn(4, 3, 8), torch.randn(4, 5)
@@ -251,11 +336,14 @@ def test_wrappers_check_the_device_before_any_launch(monkeypatch):
     assert torch.equal(probes.copy_scale(x, (4, 24), 2.0), probes.plain_copy_scale(x, (4, 24), 2.0))
     assert torch.equal(probes.channel_mix(x, w), probes.plain_channel_mix(x, w))
     xg = torch.randn(1, 2, 8, 4).bfloat16()
+    kg, vg = torch.randn(3, 9, 4).bfloat16(), torch.randn(3, 1, 4).bfloat16()
     assert torch.equal(probes.grid_base(xg), probes.plain_grid_base(xg))
+    assert torch.equal(probes.grid_const(xg, kg, vg), probes.plain_grid_const(xg, kg, vg))
     meta = torch.empty(4, 3, 8, device="meta")
     for call in (lambda: probes.gram_rows(meta), lambda: probes.copy_scale(meta, (4, 24)),
                  lambda: probes.channel_mix(meta, w.to("meta")),
-                 lambda: probes.grid_base(xg.to("meta"))):
+                 lambda: probes.grid_base(xg.to("meta")),
+                 lambda: probes.grid_const(xg.to("meta"), kg, vg)):
         with pytest.raises(ValueError):
             call()
     assert probes.launches.counts == before
