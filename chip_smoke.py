@@ -66,6 +66,27 @@ Phases, each reported on its own lines:
      14+14 e6 calls per step and that no thread is left behind, and prints the
      per-step ms, the checkpoint write and read seconds, and the kernel time and
      device busy share of its second step, profiled by ``train.profile_at_step``;
+     its run directory is kept for phase 10, which runs next;
+ 10. serving, the evaluation entry points on the card, fp32: (a)
+     ``cli/zeroshot`` on phase 7's ``best/`` (32 VinDr-style rows with both
+     classes of each label, ``synthetic://`` images at 1520x912), finite AUROCs
+     in [0, 1]; (b) ``cli/retrieval`` on it (32 rows, 8 unique reports): each
+     Recall@K in [0, 1] and not falling as K grows, 1 <= MeanRank <= 8; (c)
+     ``cli/validate`` on phase 7's run: a finite loss for every checkpointed
+     step and ``best_step`` their argmin, printed beside the validation loss
+     the trainer logged at those steps (bf16 activations there, fp32 here, so
+     not gated); (d) a fake reference ``.tar`` at the full B5 shapes
+     (``parity/fake_checkpoint.py``, 1520x912, 256 tokens) through
+     ``cli/zeroshot``, then that ``.tar`` and ``best/`` each loaded by
+     ``load_clip_for_eval`` on the card and on the CPU, 2 images (a synthetic
+     one and a ramp) and 2 texts embedded on both: max |diff| of the unit-norm
+     embeddings <= 1e-3 with TF32 off (the two inputs' own distance printed
+     beside it); (e) ``EmbeddingExtractor`` on (d)'s card model: images/s at
+     batch 16 and texts/s at batch 16 x 256 tokens over 4 batches after one
+     warm-up batch (host clock around work that ends in a synchronise), peak
+     device memory, the phase's seconds, beside the card's name and power
+     limit. The fused MBConv launch counters must read 0 over (a)-(e): eval
+     takes the unfused blocks, as in the JAX package;
   8. the hand-written flash attention (csrc/flash_attention.cu): first a look
      into the built library, each flash kernel's registers, shared and local
      memory (``cuobjdump --dump-resource-usage``), spill stores (ptxas) and its
@@ -136,6 +157,7 @@ import argparse
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -918,8 +940,9 @@ def write_pretrain_csv(path, n):
 
 def run_cli(seed):
     """``cli/pretrain.main`` at full width: 1 epoch of 3 steps (6 train rows, batch
-    2; 2 validation rows in fold 0), then ``--resume`` for a second epoch."""
-    import shutil
+    2; 2 validation rows in fold 0), then ``--resume`` for a second epoch.
+    Returns (numbers, its temporary directory): the run under ``<dir>/run`` is
+    phase 10's input, and the caller removes the directory (here only on failure)."""
     import tempfile
     import threading
 
@@ -1015,11 +1038,246 @@ def run_cli(seed):
         say(f"[cli] checkpoint write s {[round(t, 2) for t in seconds['write']]}, "
             f"read s {[round(t, 2) for t in seconds['read']]}, no thread left behind")
         return dict(counts=counts, step_ms=step_ms, write_s=seconds["write"],
-                    read_s=seconds["read"], losses=[r["loss/total"] for r in train])
+                    read_s=seconds["read"], losses=[r["loss/total"] for r in train]), tmp
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
     finally:
         trainer_mod.save_checkpoint, trainer_mod.restore_checkpoint = save0, restore0
-        shutil.rmtree(tmp, ignore_errors=True)
 
+
+
+# --------------------------------------------------------------------------
+# phase 10: serving (the evaluation entry points)
+# --------------------------------------------------------------------------
+
+SERVE_ROWS = 32
+SERVE_BATCH = 16
+SERVE_TIMED_BATCHES = 4
+REF_EMBED_TOL = 1e-3
+
+
+def write_zeroshot_csv(path, n):
+    """n VinDr-style rows with both classes of Mass and Suspicious_Calcification."""
+    import csv
+
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["patient_id", "image_id", "Mass", "Suspicious_Calcification"])
+        for i in range(n):
+            w.writerow([f"s{i}", f"v{i}.png", i % 2, (i // 2) % 2])
+    return path
+
+
+def write_retrieval_csv(path, n, n_texts):
+    """n rows whose reports repeat every ``n_texts`` rows."""
+    import csv
+
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["patient_id", "image", "text"])
+        for i in range(n):
+            w.writerow([f"r{i}", str([f"r{i}a.png", f"r{i}b.png"]),
+                        str([f"finding {i % n_texts}.", "no interval change."])])
+    return path
+
+
+def host_timed(fn):
+    """Host seconds of ``fn()``, which ends in a copy to the host, bracketed by
+    ``torch.cuda.synchronize()``."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def card_vs_cpu(path):
+    """Load ``path`` with ``load_clip_for_eval`` on the card and on the CPU and
+    embed the same 2 images (a synthetic one and a ramp) and 2 texts on both.
+    Returns (numbers, the card's model, its config)."""
+    import numpy as np
+
+    from mammo_clip_tpu_torch.data.images import SyntheticImageStore
+    from mammo_clip_tpu_torch.data.tokenizer import load_tokenizer
+    from mammo_clip_tpu_torch.eval.embeddings import EmbeddingExtractor
+    from mammo_clip_tpu_torch.eval.loading import load_clip_for_eval
+
+    texts = ["there is a mass in the left breast.", "no suspicious calcification."]
+    embs, loads, kept = {}, {}, None
+    for device in ("cuda", "cpu"):
+        t = time.perf_counter()
+        model, cfg = load_clip_for_eval(path, device=device)
+        loads[device] = time.perf_counter() - t
+        h, w = cfg.data.image_size_h, cfg.data.image_size_w
+        ramp = np.broadcast_to(np.linspace(0, 255, w).astype(np.uint8), (h, w))
+        images = np.stack([SyntheticImageStore((h, w)).get("d0", "a.png"), ramp])[..., None]
+        ex = EmbeddingExtractor(model, cfg.data.mean, cfg.data.std, batch_size=2)
+        tok = load_tokenizer({"vocab_size": cfg.model.text_encoder.vocab_size,
+                              "name": cfg.model.text_encoder.name})
+        enc = tok(texts, max_length=cfg.data.text_max_length)
+        embs[device] = (ex.encode_images(images),
+                        ex.encode_texts(enc["input_ids"], enc["attention_mask"]))
+        if device == "cuda":
+            kept = (model, cfg)
+        del model, ex
+    (img_c, txt_c), (img_h, txt_h) = embs["cuda"], embs["cpu"]
+    res = dict(err_images=float(np.abs(img_c - img_h).max()),
+               err_texts=float(np.abs(txt_c - txt_h).max()),
+               spread_images=float(np.abs(img_c[0] - img_c[1]).max()),
+               spread_texts=float(np.abs(txt_c[0] - txt_c[1]).max()),
+               load_cuda_s=loads["cuda"], load_cpu_s=loads["cpu"])
+    return (res,) + kept
+
+
+def serving_phase(seed, workdir):
+    """Phase 10: cli/zeroshot, cli/retrieval and cli/validate on phase 7's run
+    (``workdir``), a fake reference .tar at the full B5 shapes through
+    cli/zeroshot and load_clip_for_eval on the card and on the CPU, then the
+    extractor's images/s and texts/s; the fused MBConv counters must read 0."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mammo_clip_tpu_torch.cli import retrieval, validate, zeroshot
+    from mammo_clip_tpu_torch.eval.embeddings import EmbeddingExtractor
+    from mammo_clip_tpu_torch.ops.mbconv import launches
+    from mammo_clip_tpu_torch.parity.fake_checkpoint import make_fake_public_tar
+    from mammo_clip_tpu_torch.train.checkpoint import all_steps
+
+    card = card_line()
+    say(f"[serve] phase 10 on {card}")
+    t_phase = time.perf_counter()
+    launches.reset()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    out = {}
+    try:
+        best = str(workdir / "best")
+        common = ["--image-dir", "synthetic://", "--batch-size", str(SERVE_BATCH),
+                  "--device", "cuda"]
+
+        # (a) zero-shot on the pretraining run's best/
+        zs_csv = str(write_zeroshot_csv(tmp / "zs.csv", SERVE_ROWS))
+        t = time.perf_counter()
+        zs = zeroshot.main(["--checkpoint", best, "--csv", zs_csv] + common)
+        out["zeroshot"], out["zeroshot_s"] = zs, time.perf_counter() - t
+        if set(zs) != {"mass", "suspicious_calcification"} or \
+                not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in zs.values()):
+            raise SmokeFailure(f"zero-shot on best/: {zs}")
+        say(f"[serve] (a) cli/zeroshot on best/ ({SERVE_ROWS} rows): AUROC {zs}, "
+            f"{out['zeroshot_s']:.1f} s")
+
+        # (b) retrieval over rows whose reports repeat
+        n_texts = SERVE_ROWS // 4
+        ret_csv = str(write_retrieval_csv(tmp / "ret.csv", SERVE_ROWS, n_texts))
+        t = time.perf_counter()
+        ret = retrieval.main(["--checkpoint", best, "--csv", ret_csv] + common)["retrieval_i2t"]
+        out["retrieval"], out["retrieval_s"] = ret, time.perf_counter() - t
+        recalls = [ret[f"Recall@{k}"] for k in (1, 5, 10, 15)]
+        if not (all(0.0 <= r <= 1.0 for r in recalls)
+                and all(a <= b for a, b in zip(recalls, recalls[1:]))
+                and 1.0 <= ret["MeanRank"] <= n_texts):
+            raise SmokeFailure(f"retrieval on best/: {ret} ({n_texts} unique texts)")
+        say(f"[serve] (b) cli/retrieval on best/ ({SERVE_ROWS} rows, {n_texts} unique texts): "
+            f"{ret}, {out['retrieval_s']:.1f} s")
+
+        # (c) validate every checkpointed step of the run
+        t = time.perf_counter()
+        summary = validate.main(["--workdir", str(workdir), "--device", "cuda"])
+        out["validate_s"] = time.perf_counter() - t
+        losses = summary["losses"]
+        steps = all_steps(str(workdir / "checkpoints"))
+        if sorted(losses) != steps or not all(math.isfinite(v) for v in losses.values()) \
+                or summary["best_step"] != min(losses, key=losses.get):
+            raise SmokeFailure(f"validate: {summary}, checkpointed steps {steps}")
+        logged = {r["step"]: r["loss/contrastive"] for r in map(
+            json.loads, (workdir / "metrics.jsonl").read_text().splitlines())
+            if r["prefix"] == "valid"}
+        out["validate"] = {"losses": losses, "best_step": summary["best_step"],
+                           "trainer_logged": {s_: logged.get(s_) for s_ in steps}}
+        say(f"[serve] (c) cli/validate: contrastive {losses}, best step "
+            f"{summary['best_step']}, {out['validate_s']:.1f} s; the trainer's logged "
+            f"validation loss at those steps (bf16 activations, validate's fp32: printed, "
+            f"not gated): {out['validate']['trainer_logged']}")
+
+        # (d) the reference-format route at the full B5 shapes
+        t = time.perf_counter()
+        tar = make_fake_public_tar(str(tmp / "b5-model-best-epoch-7.tar"), variant="b5",
+                                   image_hw=(1520, 912), text_max_length=256, seed=seed)
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        zs_ref = zeroshot.main(["--checkpoint", tar, "--csv", zs_csv] + common)
+        out["reference_zeroshot"], out["reference_zeroshot_s"] = zs_ref, time.perf_counter() - t
+        if not all(math.isfinite(v) for v in zs_ref.values()):
+            raise SmokeFailure(f"zero-shot on the reference-format .tar: {zs_ref}")
+        n_params, serve_model, serve_cfg = None, None, None
+        for name, path in (("reference .tar", tar), ("best/", best)):
+            res, model, cfg = card_vs_cpu(path)
+            out["reference" if path == tar else "best_card_vs_cpu"] = res
+            if path == tar:
+                n_params = sum(p.numel() for p in model.parameters())
+                serve_model, serve_cfg = model, cfg
+                say(f"[serve] (d) fake reference .tar at B5 ({n_params} params, "
+                    f"{cfg.data.image_size_h}x{cfg.data.image_size_w}, "
+                    f"{cfg.data.text_max_length} tokens; written in {write_s:.1f} s): "
+                    f"cli/zeroshot {zs_ref} in {out['reference_zeroshot_s']:.1f} s")
+            del model
+            say(f"[serve] (d) {name}: load_clip_for_eval {res['load_cuda_s']:.1f} s (cuda), "
+                f"{res['load_cpu_s']:.1f} s (cpu); unit-norm embeddings card vs CPU max|diff| "
+                f"images {res['err_images']:.2e}, texts {res['err_texts']:.2e} (tol "
+                f"{REF_EMBED_TOL:g}, TF32 off); between the two inputs on the card: images "
+                f"{res['spread_images']:.2e}, texts {res['spread_texts']:.2e}")
+            if not (res["err_images"] <= REF_EMBED_TOL and res["err_texts"] <= REF_EMBED_TOL):
+                raise SmokeFailure(f"{name}: card vs CPU embeddings differ by "
+                                   f"{res['err_images']:.2e} / {res['err_texts']:.2e} "
+                                   f"(tol {REF_EMBED_TOL:g})")
+        out["reference"]["params"] = n_params
+
+        # (e) the extractor's throughput at batch 16, fp32
+        ex = EmbeddingExtractor(serve_model, serve_cfg.data.mean, serve_cfg.data.std,
+                                batch_size=SERVE_BATCH)
+        rng = np.random.default_rng(seed)
+        n = SERVE_BATCH * SERVE_TIMED_BATCHES
+        h, w = serve_cfg.data.image_size_h, serve_cfg.data.image_size_w
+        imgs = rng.integers(0, 256, (SERVE_BATCH + n, h, w, 1), dtype=np.uint8)
+        s_len = serve_cfg.data.text_max_length
+        ids = rng.integers(4, serve_cfg.model.text_encoder.vocab_size,
+                           (SERVE_BATCH + n, s_len)).astype(np.int32)
+        mask = np.ones_like(ids)
+        phase_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ex.encode_images(imgs[:SERVE_BATCH])  # warm-up batch
+        img_s = host_timed(lambda: ex.encode_images(imgs[SERVE_BATCH:]))
+        ex.encode_texts(ids[:SERVE_BATCH], mask[:SERVE_BATCH])
+        txt_s = host_timed(lambda: ex.encode_texts(ids[SERVE_BATCH:], mask[SERVE_BATCH:]))
+        serve_peak = torch.cuda.max_memory_allocated()
+        phase_peak = max(phase_peak, serve_peak)
+        out["throughput"] = dict(images_per_s=n / img_s, texts_per_s=n / txt_s,
+                                 image_batch_ms=1e3 * img_s / SERVE_TIMED_BATCHES,
+                                 text_batch_ms=1e3 * txt_s / SERVE_TIMED_BATCHES,
+                                 peak_bytes=serve_peak, phase_peak_bytes=phase_peak, card=card)
+        del serve_model, ex
+        counts = dict(launches.counts)
+        out["fused_counts"] = counts
+        out["seconds"] = time.perf_counter() - t_phase
+        say(f"[serve] (e) {card}: encode_images {n / img_s:.2f} images/s "
+            f"({1e3 * img_s / SERVE_TIMED_BATCHES:.1f} ms a batch of {SERVE_BATCH} at {h}x{w}, "
+            f"fp32, {SERVE_TIMED_BATCHES} batches after 1 warm-up, host clock); encode_texts "
+            f"{n / txt_s:.1f} texts/s ({1e3 * txt_s / SERVE_TIMED_BATCHES:.1f} ms a batch of "
+            f"{SERVE_BATCH} x {s_len} tokens); peak memory {serve_peak} B "
+            f"({serve_peak / 2**30:.2f} GiB) in (e), {phase_peak} B "
+            f"({phase_peak / 2**30:.2f} GiB) in the phase; phase {out['seconds']:.1f} s")
+        say(f"[serve] fused MBConv launch counters over (a)-(e): {counts}")
+        if any(counts.values()):
+            raise SmokeFailure(f"serving launched a fused MBConv kernel: {counts} (eval takes "
+                               "the unfused blocks)")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # --------------------------------------------------------------------------
@@ -1587,11 +1845,15 @@ def main(argv=None) -> int:
             f"the parent's {earlier['old_peak']} B ({earlier['old_peak'] / 2**30:.2f} GiB), "
             f"this package's {earlier['new_peak']} B ({earlier['new_peak'] / 2**30:.2f} GiB)")
 
-    # 6. the standalone e1 kernel; 7. the pretraining entry point
+    # 6. the standalone e1 kernel; 7. the pretraining entry point; 10. serving on its run
     e1_rows = e1_phases(args.seed, e6_e1_form)
-    cli = run_cli(args.seed)
-    (OUT_DIR / "chip_smoke_steps.json").write_text(json.dumps(dict(slice=rows, cli=cli),
-                                                              indent=1))
+    cli, cli_tmp = run_cli(args.seed)
+    try:
+        serving = serving_phase(args.seed, cli_tmp / "run")
+    finally:
+        shutil.rmtree(cli_tmp, ignore_errors=True)
+    (OUT_DIR / "chip_smoke_steps.json").write_text(
+        json.dumps(dict(slice=rows, cli=cli, serving=serving), indent=1))
 
     # 8. flash attention; 9. the probe kernels
     flash_rows = flash_phases(args.seed, earlier)

@@ -1,10 +1,11 @@
-"""JAX parameter tree -> the port's state dict.
+"""JAX parameter tree <-> the port's state dict.
 
 The port names its parameters and buffers after the Flax tree of the JAX
 package (``image_encoder.block_4.bn1.scale``, ``text_encoder.layer_0.attention
 .query.kernel``...). Conversion flattens ``{"params", "batch_stats"}`` (nested
 dicts of numpy arrays) with dotted keys and turns 4-D conv kernels from Flax's
-HWIO into torch's OIHW; every other leaf keeps its shape.
+HWIO into torch's OIHW; every other leaf keeps its shape. The BatchNorm
+running statistics (``mean``, ``var``) are the ``batch_stats`` collection.
 """
 
 from __future__ import annotations
@@ -41,3 +42,21 @@ def load_jax_variables(model: torch.nn.Module, variables: Mapping) -> None:
     if missing or unexpected:
         raise KeyError(f"JAX tree does not match the model: missing {missing[:5]}, "
                        f"unexpected {unexpected[:5]}")
+
+
+def variables_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+    """The inverse of ``state_dict_from_jax``: the port's state dict ->
+    {"params": ..., "batch_stats": ...} as nested dicts of fp32 numpy arrays,
+    4-D conv kernels back in HWIO."""
+    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for name, t in state_dict.items():
+        path = name.split(".")
+        arr = t.detach().cpu().float().numpy()
+        collection = "batch_stats" if path[-1] in ("mean", "var") else "params"
+        if collection == "params" and path[-1] == "kernel" and arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        node = out[collection]
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = arr
+    return out

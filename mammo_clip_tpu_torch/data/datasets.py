@@ -1,14 +1,15 @@
 """Dataset classes (host side; port of ``mammo_clip_tpu/data/datasets.py``).
 
-The pretraining kinds of the reference dataset zoo
+The pretraining and retrieval kinds of the reference dataset zoo
 (reference: breastclip/data/datasets/__init__.py:9-24 dispatch):
 
   imagetext               -> ImageTextDataset          (pretraining workhorse)
   imagetext_contrastive   -> ImageTextContrastiveDataset
+  imagetext_retrieval     -> ImageTextRetrievalDataset (retrieval eval)
 
-The retrieval, classification and aligner kinds belong to the evaluation and
-downstream slices. A dataset takes the ``Table`` of ``data/metadata.py`` (row
-dicts) where the JAX one takes a DataFrame; sampling is the same: one
+The classification and aligner kinds belong to the downstream slices. A dataset
+takes the ``Table`` of ``data/metadata.py`` (row dicts) where the JAX one takes
+a DataFrame; sampling is the same: one
 ``random.Random`` per (epoch seed, index), so an item is a pure function of
 (seed, epoch, index).
 
@@ -186,12 +187,34 @@ class ImageTextContrastiveDataset:
         return out
 
 
+class ImageTextRetrievalDataset:
+    """Image + full text for recall@K retrieval eval (reference:
+    imagetext_retrieval.py:28-116): the first image of the row's ``image`` list
+    under its ``patient_id``, and its ``text`` list joined by spaces."""
+
+    def __init__(self, df: Table, image_store):
+        self.df = df
+        self.store = image_store
+
+    def __len__(self) -> int:
+        return len(self.df)
+
+    def __getitem__(self, index: int) -> Dict:
+        row = self.df[index]
+        images = list(parse_list_cell(row["image"]))
+        image = self.store.get(str(row["patient_id"]), images[0])
+        texts = list(parse_list_cell(row["text"]))
+        return {"image": image, "text": " ".join(texts)}
+
+
 def load_dataset(data_type: str, **kwargs):
     """Factory mirroring reference breastclip/data/datasets/__init__.py:9-24."""
     table = {
         "imagetext": ImageTextDataset,
         "imagetext_contrastive": ImageTextContrastiveDataset,
+        "imagetext_retrieval": ImageTextRetrievalDataset,
     }
     if data_type not in table:
-        raise KeyError(f"data_type not ported (the pretraining kinds are): {data_type}")
+        raise KeyError(f"data_type not ported (the pretraining and retrieval kinds are): "
+                       f"{data_type}")
     return table[data_type](**kwargs)

@@ -34,6 +34,11 @@ def _steps(directory: str) -> List[int]:
                   if n.isdigit() and os.path.exists(os.path.join(directory, n, PAYLOAD)))
 
 
+def all_steps(directory: str) -> List[int]:
+    """The steps with a checkpoint under ``directory``, ascending."""
+    return _steps(os.path.abspath(directory))
+
+
 def latest_step(directory: str) -> Optional[int]:
     steps = _steps(os.path.abspath(directory))
     return steps[-1] if steps else None

@@ -790,3 +790,64 @@ def test_cuda_probe_wrappers_reject_what_the_kernels_do_not_take():
         probes.gram_rows(x[0].float().bfloat16())
     with pytest.raises(TypeError):
         probes.channel_mix(x[0].float(), we.float().cpu()[:, :8])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("image_dtype", ["uint8", "float32"])
+def test_cuda_embedding_extractor_matches_the_cpu(image_dtype):
+    """The serving path (eval mode: the unfused blocks, no hand kernel) on the
+    card against the same weights on the CPU: the tiny CLIP, N = 5 at batch 2,
+    images and texts, within 1e-4 (fp32 with TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    import numpy as np
+
+    from mammo_clip_tpu_torch.core.config import tiny_test_config
+    from mammo_clip_tpu_torch.eval.embeddings import EmbeddingExtractor
+    from mammo_clip_tpu_torch.models import build_model
+
+    cfg = tiny_test_config()
+    cfg.model.image_encoder.fused_mbconv = True  # eval takes the unfused blocks all the same
+    cpu = build_model(cfg.model.to_dict(), device="cpu",
+                      generator=torch.Generator().manual_seed(0))
+    card = build_model(cfg.model.to_dict(), device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    h, w, s = cfg.data.image_size_h, cfg.data.image_size_w, cfg.data.text_max_length
+    images = rng.integers(0, 256, (5, h, w, 1)).astype(image_dtype)
+    mask = (np.arange(s)[None, :] < rng.integers(2, s + 1, 5)[:, None]).astype(np.int32)
+    ids = rng.integers(4, cfg.model.text_encoder.vocab_size, (5, s)).astype(np.int32) * mask
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = dict(launches.counts)
+        outs = []
+        for model in (card, cpu):
+            ex = EmbeddingExtractor(model, cfg.data.mean, cfg.data.std, batch_size=2)
+            outs.append((ex.encode_images(images), ex.encode_texts(ids, mask)))
+        assert launches.counts == before  # no fused-kernel launch while serving
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    (img_card, txt_card), (img_cpu, txt_cpu) = outs
+    assert img_card.dtype == np.float32 and img_card.shape == (5, cfg.model.projection_head.proj_dim)
+    np.testing.assert_allclose(img_card, img_cpu, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(txt_card, txt_cpu, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_device_index_past_the_last_card_is_refused(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from mammo_clip_tpu_torch.cli import validate, zeroshot
+    from mammo_clip_tpu_torch.utils.device import resolve_device
+
+    missing = f"cuda:{torch.cuda.device_count()}"
+    with pytest.raises(RuntimeError, match="only"):
+        resolve_device(missing)
+    with pytest.raises(RuntimeError, match="only"):
+        zeroshot.main(["--checkpoint", str(tmp_path), "--csv", str(tmp_path / "none.csv"),
+                       "--image-dir", "synthetic://", "--device", missing])
+    with pytest.raises(RuntimeError, match="only"):
+        validate.main(["--workdir", str(tmp_path), "--device", missing])
+    assert resolve_device("cuda").type == "cuda"
+    torch.zeros(1, device="cuda").sum().item()  # the process's CUDA context is still usable

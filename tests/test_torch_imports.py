@@ -1,8 +1,9 @@
 """Import hygiene of the port: it needs nothing beyond the standard library,
 torch, numpy, scipy and einops (the card machine has no JAX, Flax, optax, Orbax,
-yaml, transformers, PIL, pandas or OpenCV), and no file of it imports JAX or
-the JAX package. The pretraining CLI runs (and resumes) with all of those
-blocked, as it must on the card."""
+yaml, transformers, PIL, pandas, scikit-learn or OpenCV), and no file of it
+imports JAX or the JAX package. The pretraining CLI runs (and resumes), and the
+evaluation CLIs run on what it wrote, with all of those blocked, as they must on
+the card."""
 
 import os
 import re
@@ -13,7 +14,7 @@ import textwrap
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "mammo_clip_tpu_torch")
 BLOCKED = ["jax", "jaxlib", "flax", "optax", "orbax", "yaml", "transformers", "PIL", "pandas",
-           "cv2", "mammo_clip_tpu"]
+           "sklearn", "cv2", "mammo_clip_tpu"]
 
 
 def _port_modules():
@@ -38,7 +39,11 @@ def test_port_imports_without_jax_and_host_extras():
     for name in ("ops.mbconv6", "cli.pretrain", "train.trainer", "train.checkpoint",
                  "data.datamodule", "data.pipeline", "data.metadata", "utils.logging",
                  "ops.flash_attention", "ops.probes", "benchmarks.probe_flash_attention",
-                 "benchmarks.probe_mosaic", "benchmarks.layout_timing", "benchmarks.e6_timing"):
+                 "benchmarks.probe_mosaic", "benchmarks.layout_timing", "benchmarks.e6_timing",
+                 "eval", "eval.metrics", "eval.retrieval", "eval.zeroshot", "eval.embeddings",
+                 "eval.loading", "convert.torch_import", "convert.torch_export",
+                 "cli.zeroshot", "cli.retrieval", "cli.validate", "parity.fake_checkpoint",
+                 "parity.run_parity"):
         assert f"mammo_clip_tpu_torch.{name}" in mods
     assert len(mods) > 30
     code = textwrap.dedent(f"""
@@ -71,7 +76,8 @@ def test_no_source_names_jax_or_the_jax_package():
 def test_cli_trains_and_resumes_without_host_extras(tmp_path):
     """cli/pretrain on the CPU at the tiny config's sizes, its config from the
     defaults and JSON-valued overrides (no --config: that needs PyYAML), then
-    --resume; every module of BLOCKED is unimportable throughout."""
+    --resume, then cli/validate, cli/zeroshot and cli/retrieval on the run;
+    every module of BLOCKED is unimportable throughout."""
     code = textwrap.dedent(f"""
         import csv, json, os, sys, threading
         for name in {BLOCKED!r}:
@@ -100,6 +106,20 @@ def test_cli_trains_and_resumes_without_host_extras(tmp_path):
         assert state.step == 3, state.step
         state = pretrain.main(flags + ["--resume"] + tiny + ["scheduler.epochs=2"])
         assert state.step == 6, state.step
+        # the evaluation entry points on that run
+        from mammo_clip_tpu_torch.cli import retrieval, validate, zeroshot
+        run = os.path.join(work, "run")
+        summary = validate.main(["--workdir", run, "--device", "cpu"])
+        assert sorted(summary["losses"]) == [3, 6], summary
+        zs = os.path.join(work, "zs.csv")
+        with open(zs, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["patient_id", "image_id", "Mass", "Suspicious_Calcification"])
+            for i in range(6):
+                w.writerow([f"p{{i}}", f"i{{i}}.png", i % 2, (i // 2) % 2])
+        common = ["--checkpoint", run, "--image-dir", "synthetic://", "--device", "cpu"]
+        assert set(zeroshot.main(common + ["--csv", zs])) == {{"mass", "suspicious_calcification"}}
+        assert "Recall@1" in retrieval.main(common + ["--csv", path])["retrieval_i2t"]
         assert threading.active_count() == 1, threading.enumerate()
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
                         and sys.modules[m] is not None)
