@@ -87,6 +87,33 @@ Phases, each reported on its own lines:
      device memory, the phase's seconds, beside the card's name and power
      limit. The fused MBConv launch counters must read 0 over (a)-(e): eval
      takes the unfused blocks, as in the JAX package;
+ 11. the downstream classifier, on phase 7's run, whose directory is kept
+     until this phase ends: (a) ``fused_mbconv_e6`` at the ft arm's shapes,
+     block 4 (e6), block 0 (e=1) and blocks 1-2 (e=1 with the residual) at
+     N=8 in fp32, against its plain version (out, the stats, dx and every
+     gradient, phase 3's fp32 tolerances), its times beside the plain
+     version's and the bound (each fp32 product once, at the TF32 peak), and
+     its held bytes; (b) one
+     ft step of a tiny classifier (b0 at 64x48, fused route on, 2 images) on
+     the card with the kernel against the CPU with the plain version, same
+     weights: loss and head gradient within 1e-3; (c) ``cli/classifier`` on
+     ``best/``, ``--arch lp`` then ``--arch ft``, each ``--epochs 1`` then
+     ``--epochs 2 --resume``, on a 52-row RSNA-style CSV of ``synthetic://``
+     images at 1520x912 (32 training rows: 4 steps at batch 8; 20 validation
+     rows, 16 (patient, laterality) groups with both classes, so the last
+     validation batch is padded): the JSON line's ``best_metric`` finite in
+     [0, 1], ``best/`` with ``arrays.npz`` holding one prediction per group,
+     the resumed run starting at epoch 1 with a history of 2, and the fused
+     counters read around every step: 7 forward and 7 backward per ft train
+     step, 0 for every lp step and every validation batch; every step with
+     TF32 off, though the CLI is entered with torch's default (cuDNN's TF32
+     on); (d)
+     ``cli/rescore`` on each ``best/``: its ``auroc`` equals the CLI's
+     ``best_metric`` within 1e-9; (e) printed, not gated: the train steps'
+     ms after step 0 of each run (host clock, ending in a synchronise),
+     images/s, the validation batches' ms, peak device memory per arm, the
+     checkpoint write seconds and the phase's seconds, beside the card's name
+     and power limit;
   8. the hand-written flash attention (csrc/flash_attention.cu): first a look
      into the built library, each flash kernel's registers, shared and local
      memory (``cuobjdump --dump-resource-usage``), spill stores (ptxas) and its
@@ -144,8 +171,8 @@ Phases, each reported on its own lines:
      line: ``device_ms``, ``host_us``, ``library_device_ms``,
      ``library_host_us``).
 The line before the last is a JSON object with one entry per kernel (e6 entries
-counted on the CLI slice, e1, flash and probe entries on their own paths); the
-last line is
+counted on the CLI slice, the N=8 fp32 e6 entries on the classifier's ft arm,
+e1, flash and probe entries on their own paths); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
 checkout of the repository, the script exits non-zero and prints no result.
 Long logs go to chiprun_out/.
@@ -167,6 +194,7 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # dense tensor-core bf16
+TF32_FLOPS = 495e12  # dense tensor-core TF32
 FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 BATCH = 2
 STEPS = 3
@@ -222,7 +250,7 @@ class Case:
         x = torch.zeros(N, C, self.H, self.W, device="cuda")
         x[:, :, :vh, :vw] = torch.randn(N, C, vh, vw, generator=g, device="cuda")
         self.x = x
-        self.delta = torch.tensor([1.0 / 0.8, 1.0][:N], device="cuda")
+        self.delta = torch.tensor(([1.0 / 0.8, 1.0] * N)[:N], device="cuda")
         self.gout = torch.zeros(N, C2, self.H, self.W, device="cuda")
         self.gout[:, :, :vh, :vw] = torch.randn(N, C2, vh, vw, generator=g, device="cuda")
 
@@ -238,20 +266,25 @@ class Case:
         return out.detach().float(), [s.float() for s in stats], x.grad.float(), \
             [t.grad for t in p]
 
-    def bound(self, direction):
-        """(bound_ms, bound_by, which) for one bf16 call: I/O bytes over the HBM
-        rate, the channel products over the bf16 tensor-core peak and the
-        depthwise stencil (fp32 sums, off the tensor cores) over the fp32 peak."""
+    def bound(self, direction, dtype_name="bfloat16"):
+        """(bound_ms, bound_by, which) for one call: I/O bytes over the HBM
+        rate, the channel products over the tensor-core peak for their type
+        (bf16, or TF32 for fp32 activations: the card's fastest fp32 product)
+        and the depthwise stencil (fp32 sums, off the tensor cores) over the
+        fp32 peak. Each product of the function counts once, however many
+        the kernel takes for it; in fp32 the activations take 4 bytes."""
         P = self.N * self.H * self.W
         nparam = sum(t.numel() for t in self.params)
         prod = 2 * P * self.E * self.C2 + (2 * P * self.C * self.E if self.form == "e6" else 0)
         stencil = 2 * 9 * P * self.E
+        bf16 = dtype_name == "bfloat16"
+        item = 2 if bf16 else 4
         if direction == "forward":
-            nbytes = 2 * P * (self.C + self.C2) + 4 * nparam
+            nbytes = item * P * (self.C + self.C2) + 4 * nparam
         else:
-            nbytes = 2 * P * (2 * self.C + self.C2) + 8 * nparam
+            nbytes = item * P * (2 * self.C + self.C2) + 8 * nparam
             prod, stencil = 2 * prod, 2 * stencil
-        return bound(nbytes, {"channel products": (prod, BF16_FLOPS),
+        return bound(nbytes, {"channel products": (prod, BF16_FLOPS if bf16 else TF32_FLOPS),
                               "stencil": (stencil, FP32_FLOPS)})
 
 
@@ -320,46 +353,48 @@ def time_ms(fn, reps=10, warmup=2):
     return t0.elapsed_time(t1) / reps
 
 
-def case_fns(case):
+def case_fns(case, dtype_name="bfloat16"):
     """(forward, backward) of the case's form through its pass sequence
     (``_e6_forward`` / ``_e6_backward`` or ``_e1_forward`` / ``_e1_backward``),
-    bf16, the backward on one forward's statistics and kept vectors."""
+    bf16 unless asked, the backward on one forward's statistics and kept vectors."""
     import torch
 
     from mammo_clip_tpu_torch.ops import mbconv6
 
     fwd_fn, bwd_fn = ((mbconv6._e6_forward, mbconv6._e6_backward) if case.form == "e6"
                       else (mbconv6._e1_forward, mbconv6._e1_backward))
-    x, g = case.x.to(torch.bfloat16), case.gout.to(torch.bfloat16)
+    dtype = getattr(torch, dtype_name)
+    x, g = case.x.to(dtype), case.gout.to(dtype)
     args = (x, case.params, case.delta, case.vh, case.vw, 1e-3)
     _, stats, kept = fwd_fn(*args)
     return (lambda: fwd_fn(*args)), (lambda: bwd_fn(*args, g, stats, kept))
 
 
-def time_case(case):
-    """Phase 4 (bf16, the main path's type): forward and backward ms of the
-    form's passes and of the plain version."""
+def time_case(case, dtype_name="bfloat16", reps=10):
+    """Phase 4 (bf16, the main path's type; phase 11 fp32): forward and backward
+    ms of the form's passes and of the plain version."""
     import torch
 
     from mammo_clip_tpu_torch.ops.mbconv6 import plain_fused_mbconv_e6
 
-    x = case.x.to(torch.bfloat16)
-    g = case.gout.to(torch.bfloat16)
+    dtype = getattr(torch, dtype_name)
+    x = case.x.to(dtype)
+    g = case.gout.to(dtype)
     p = case.params
     args = (x, p, case.delta, case.vh, case.vw, 1e-3)
-    fwd, bwd = case_fns(case)
+    fwd, bwd = case_fns(case, dtype_name)
     with torch.no_grad():
-        k_fwd, k_bwd = time_ms(fwd), time_ms(bwd)
-        p_fwd = time_ms(lambda: plain_fused_mbconv_e6(*args))
+        k_fwd, k_bwd = time_ms(fwd, reps), time_ms(bwd, reps)
+        p_fwd = time_ms(lambda: plain_fused_mbconv_e6(*args), reps)
     xr = x.clone().requires_grad_(True)
     pr = type(p)(*[t.clone().requires_grad_(True) for t in p])
     out, _ = plain_fused_mbconv_e6(xr, pr, case.delta, case.vh, case.vw)
-    p_bwd = time_ms(lambda: torch.autograd.grad(out, [xr, *pr], g, retain_graph=True))
+    p_bwd = time_ms(lambda: torch.autograd.grad(out, [xr, *pr], g, retain_graph=True), reps)
     return k_fwd, k_bwd, p_fwd, p_bwd
 
 
-def held_bytes(fn, case):
-    """Device bytes that one bf16 forward of ``fn`` keeps for its backward beyond
+def held_bytes(fn, case, dtype_name="bfloat16"):
+    """Device bytes that one forward of ``fn`` (bf16 unless asked) keeps for its backward beyond
     its inputs and outputs (the saved intermediates), as (allocated, requested):
     ``memory_allocated()`` counts the caching allocator's blocks, which round a
     large output up to whole 2 MiB pages once or twice by the allocator's state;
@@ -368,7 +403,7 @@ def held_bytes(fn, case):
     import torch
 
     requested = lambda: torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
-    x = case.x.to(torch.bfloat16).requires_grad_(True)
+    x = case.x.to(getattr(torch, dtype_name), copy=True).requires_grad_(True)
     p = type(case.params)(*[t.detach().clone().requires_grad_(True) for t in case.params])
     torch.cuda.synchronize()
     base, base_req = torch.cuda.memory_allocated(), requested()
@@ -1281,6 +1316,247 @@ def serving_phase(seed, workdir):
 
 
 # --------------------------------------------------------------------------
+# phase 11: the downstream classifier
+# --------------------------------------------------------------------------
+
+CLF_BATCH = 8
+CLF_TRAIN_ROWS = 32
+CLF_VALID_ROWS = 20
+# validation fold: patient ids of unequal length (the RSNA aggregation sorts
+# them as the strings they are), laterality L for rows 0-7 and 16-19, R for
+# 8-15: 16 (patient, laterality) groups, both classes
+CLF_PATIENTS = ["3", "17", "250", "41", "5", "1999", "60", "8"]
+
+
+def write_classifier_csv(path):
+    """CLF_TRAIN_ROWS training rows (folds 1-3) and CLF_VALID_ROWS validation
+    rows (fold 0); returns the count of validation (patient, laterality) groups."""
+    import csv
+
+    valid = [(CLF_PATIENTS[j % 8], "LR"[(j // 8) % 2], (j % 8) % 2)
+             for j in range(CLF_VALID_ROWS)]
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["patient_id", "image_id", "laterality", "cancer", "fold"])
+        for i in range(CLF_TRAIN_ROWS):
+            w.writerow([f"t{i}", f"t{i}.png", "LR"[i % 2], i % 2, 1 + i % 3])
+        for j, (p, lat, c) in enumerate(valid):
+            w.writerow([p, f"v{j}.png", lat, c, 0])
+    return len({(p, lat) for p, lat, _ in valid})
+
+
+def classifier_kernel_cases(seed):
+    """(a): the fused block at the ft arm's shapes, N=8, fp32: each form against
+    its plain version (out, stats, dx, every gradient), its times beside the
+    plain version's and the bound, and its held bytes. Returns kernel rows."""
+    import torch
+
+    rows = []
+    for case in (Case("block4_e6_n8_fp32", "e6", CLF_BATCH, 40, 40, 380, 228, seed + 20),
+                 Case("block0_e1_n8_fp32", "e1", CLF_BATCH, 48, 24, 760, 456, seed + 21),
+                 Case("block1_e1_n8_fp32", "e1", CLF_BATCH, 24, 24, 760, 456, seed + 22)):
+        err = check_case(case, "float32")
+        k_fwd, k_bwd, p_fwd, p_bwd = time_case(case, "float32", reps=5)
+        from mammo_clip_tpu_torch.ops.mbconv6 import fused_mbconv_e6
+
+        allocated, requested = held_bytes(fused_mbconv_e6, case, "float32")
+        say(f"[clf kernel] {case.name}: held from forward to backward beyond x and the "
+            f"outputs: {requested} B requested ({allocated} B allocated)")
+        for direction, ms, plain in (("forward", k_fwd, p_fwd), ("backward", k_bwd, p_bwd)):
+            bound_ms, bound_by, which = case.bound(direction, "float32")
+            say(f"[clf kernel] {case.name} {direction} fp32 N={case.N} {case.H}x{case.W}: "
+                f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bound_ms:.4f} ms ({which})")
+            rows.append(dict(case=case.name, form=case.form, direction=direction, err=err,
+                             ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
+                             held_requested=requested))
+        del case
+        torch.cuda.empty_cache()
+    return rows
+
+
+def classifier_reference_check(seed):
+    """(b): one ft step of a tiny classifier (b0 at 64x48, fused route on, 2
+    images) on the card with the kernel against the same step on the CPU with
+    the plain version, from the same weights: loss and head gradient."""
+    import torch
+
+    from mammo_clip_tpu_torch.downstream.classify import MammoClassifier
+    from mammo_clip_tpu_torch.losses.classification import bce_with_logits_loss
+    from mammo_clip_tpu_torch.models import init_parameters
+    from mammo_clip_tpu_torch.ops.mbconv import launches
+
+    enc = {"name": "efficientnet-b0", "fused_mbconv": True, "drop_connect_rate": 0.0}
+    cpu = MammoClassifier(enc)
+    init_parameters(cpu, torch.Generator().manual_seed(seed))
+    images = torch.randn(2, 64, 48, 1, generator=torch.Generator().manual_seed(seed + 1))
+    labels = torch.tensor([0.0, 1.0])
+    results = []
+    for device in ("cuda", "cpu"):
+        model = MammoClassifier(enc).to(device)
+        model.load_state_dict(cpu.state_dict())
+        f0 = launches.total("mbconv6", "forward")
+        loss = bce_with_logits_loss(model(images.to(device), train=True)["logits"][:, 0],
+                                    labels.to(device))
+        loss.backward()
+        results.append((loss.item(), model.head.kernel.grad.cpu(),
+                        launches.total("mbconv6", "forward") - f0))
+    (lk, gk, nk), (lc, gc, nc) = results
+    err_l, err_g = abs(lk - lc), float((gk - gc).abs().max())
+    say(f"[clf reference] tiny classifier ft step, kernels (card) vs plain (CPU): loss "
+        f"{lk:.6f} vs {lc:.6f} (|diff| {err_l:.2e}, tol 1e-3), head gradient max|diff| "
+        f"{err_g:.2e} (tol 1e-3), kernel forward calls {nk} (card) / {nc} (CPU)")
+    if not (err_l <= 1e-3 and err_g <= 1e-3 and nk > 0 and nc == 0):
+        raise SmokeFailure("tiny classifier ft step on the card disagrees with the CPU")
+
+
+def classifier_phase(seed, workdir):
+    """Phase 11 on phase 7's run (``workdir``): (a) the kernel at N=8 fp32,
+    (b) a tiny ft step on the card against the CPU, (c) cli/classifier lp and ft
+    on ``best/`` (1 epoch, then --resume to 2) with the fused counters read per
+    train and validation step, (d) cli/rescore on each best/, (e) numbers."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from mammo_clip_tpu_torch.cli import classifier, rescore
+    from mammo_clip_tpu_torch.downstream import experiments
+    from mammo_clip_tpu_torch.ops.mbconv import launches
+    from mammo_clip_tpu_torch.train.checkpoint import load_checkpoint_arrays
+
+    card = card_line()
+    say(f"[clf] phase 11 on {card}")
+    t_phase = time.perf_counter()
+    out = {"kernels": classifier_kernel_cases(seed)}
+    classifier_reference_check(seed)
+
+    # instrument the training loop: per-step host ms (ending in a synchronise) and the
+    # fused counters around every train and validation step; checkpoint writes
+    steps = []
+    make0, save0 = experiments.make_classifier_steps, experiments.save_checkpoint
+
+    def counted(kind, fn):
+        def wrapped(*a, **k):
+            f0, b0 = launches.total("mbconv6", "forward"), launches.total("mbconv6", "backward")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            steps.append(dict(kind=kind, ms=(time.perf_counter() - t) * 1e3,
+                              fwd=launches.total("mbconv6", "forward") - f0,
+                              bwd=launches.total("mbconv6", "backward") - b0,
+                              tf32=torch.backends.cuda.matmul.allow_tf32
+                              or torch.backends.cudnn.allow_tf32))
+            return res
+        return wrapped
+
+    def instrumented(*a, **k):
+        train_step, eval_step = make0(*a, **k)
+        return counted("train", train_step), counted("valid", eval_step)
+
+    writes = []
+
+    def timed_save(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        save0(*a, **k)
+        writes.append(time.perf_counter() - t)
+
+    experiments.make_classifier_steps, experiments.save_checkpoint = instrumented, timed_save
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_clf_"))
+    try:
+        n_groups = write_classifier_csv(tmp / "rsna.csv")
+        best = str(workdir / "best")
+        out["arms"] = {}
+        launches.reset()
+        # torch's default, which a user's process has: the CLI must run its steps in full fp32
+        torch.backends.cudnn.allow_tf32 = True
+        for arch in ("lp", "ft"):
+            torch.cuda.reset_peak_memory_stats()
+            arm = out["arms"][arch] = {"runs": []}
+            work = tmp / arch
+            flags = ["--clip-checkpoint", best, "--csv", str(tmp / "rsna.csv"),
+                     "--image-dir", "synthetic://", "--arch", arch,
+                     "--batch-size", str(CLF_BATCH), "--weighted-bce", "--device", "cuda",
+                     "--workdir", str(work)]
+            for extra in (["--epochs", "1"], ["--epochs", "2", "--resume"]):
+                del steps[:]
+                buf = io.StringIO()
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    res = classifier.main(flags + extra)
+                seconds = time.perf_counter() - t
+                lines = buf.getvalue().strip().splitlines()
+                train = [s_ for s_ in steps if s_["kind"] == "train"]
+                valid = [s_ for s_ in steps if s_["kind"] == "valid"]
+                run = dict(argv=extra, result=res, seconds=seconds, train=train, valid=valid,
+                           writes=list(writes))
+                del writes[:]
+                arm["runs"].append(run)
+                resumed = "--resume" in extra
+                say(f"[clf] {arch} {' '.join(extra)}: {seconds:.1f} s, best_metric "
+                    f"{res['best_metric']:.6f}, history {res['history']}, train steps "
+                    f"{len(train)}, validation batches {len(valid)}, train ms "
+                    f"{[round(s_['ms'], 1) for s_ in train]}, checkpoint write s "
+                    f"{[round(w_, 2) for w_ in run['writes']]}")
+                if json.loads(lines[-1]) != res:
+                    raise SmokeFailure(f"{arch}: the CLI's JSON line is not its result")
+                if not (math.isfinite(res["best_metric"]) and 0.0 <= res["best_metric"] <= 1.0):
+                    raise SmokeFailure(f"{arch}: best_metric {res['best_metric']}")
+                want_valid = -(-CLF_VALID_ROWS // CLF_BATCH)
+                if len(train) != CLF_TRAIN_ROWS // CLF_BATCH or len(valid) != want_valid:
+                    raise SmokeFailure(f"{arch} {extra}: {len(train)} train steps and "
+                                       f"{len(valid)} validation batches, expected "
+                                       f"{CLF_TRAIN_ROWS // CLF_BATCH} and {want_valid}")
+                started = any(ln.startswith("resumed classifier at epoch 1") for ln in lines)
+                if resumed and not (started and len(res["history"]) == 2):
+                    raise SmokeFailure(f"{arch}: the resumed run did not start at epoch 1 "
+                                       f"and end with a history of 2: {lines[:2]}, {res}")
+                per_step = (7, 7) if arch == "ft" else (0, 0)
+                bad = [s_ for s_ in train if (s_["fwd"], s_["bwd"]) != per_step]
+                bad += [s_ for s_ in valid if (s_["fwd"], s_["bwd"]) != (0, 0)]
+                if bad:
+                    raise SmokeFailure(f"{arch}: fused launches per step {per_step} in train "
+                                       f"and 0 in validation expected, got {bad}")
+                if any(s_["tf32"] for s_ in steps):
+                    raise SmokeFailure(f"{arch}: a step ran with TF32 on; the CLI runs fp32")
+            arm["peak_bytes"] = torch.cuda.max_memory_allocated()
+            arrays = load_checkpoint_arrays(str(work / "best"))
+            if arrays["predictions"].shape != (n_groups,) or arrays["labels"].shape != (n_groups,):
+                raise SmokeFailure(f"{arch}: best/ arrays {arrays['predictions'].shape}, "
+                                   f"expected one prediction per group ({n_groups})")
+            with contextlib.redirect_stdout(io.StringIO()):
+                scores = rescore.main(["--checkpoint", str(work / "best")])
+            arm["rescore"] = scores
+            best_metric = arm["runs"][-1]["result"]["best_metric"]
+            say(f"[clf] (d) {arch} cli/rescore on best/: {scores}; |auroc - best_metric| "
+                f"{abs(scores['auroc'] - best_metric):.2e} (tol 1e-9)")
+            if not abs(scores["auroc"] - best_metric) <= 1e-9:
+                raise SmokeFailure(f"{arch}: rescore auroc {scores['auroc']} != best_metric "
+                                   f"{best_metric}")
+            timed = [s_["ms"] for r in arm["runs"] for s_ in r["train"][1:]]
+            arm["step_ms"] = timed
+            arm["images_per_s"] = [1e3 * CLF_BATCH / m for m in timed]
+            arm["valid_ms"] = [s_["ms"] for r in arm["runs"] for s_ in r["valid"]]
+            say(f"[clf] (e) {card}: {arch} at batch {CLF_BATCH}, 1520x912 fp32: train step ms "
+                f"after step 0 of each run {[round(m, 1) for m in timed]} "
+                f"({1e3 * CLF_BATCH * len(timed) / sum(timed):.2f} images/s), validation "
+                f"batch ms {[round(m, 1) for m in arm['valid_ms']]}, peak memory "
+                f"{arm['peak_bytes']} B ({arm['peak_bytes'] / 2**30:.2f} GiB), checkpoint "
+                f"write s {[round(w_, 2) for r in arm['runs'] for w_ in r['writes']]}")
+        out["fused_counts"] = dict(launches.counts)
+        out["seconds"] = time.perf_counter() - t_phase
+        say(f"[clf] fused MBConv launch counters over (c): {out['fused_counts']}; phase "
+            f"{out['seconds']:.1f} s")
+        return out
+    finally:
+        experiments.make_classifier_steps, experiments.save_checkpoint = make0, save0
+        torch.backends.cudnn.allow_tf32 = False
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
 # phase 8: flash attention
 # --------------------------------------------------------------------------
 
@@ -1850,10 +2126,12 @@ def main(argv=None) -> int:
     cli, cli_tmp = run_cli(args.seed)
     try:
         serving = serving_phase(args.seed, cli_tmp / "run")
+        # 11. the downstream classifier, on the same run's best/
+        clf = classifier_phase(args.seed, cli_tmp / "run")
     finally:
         shutil.rmtree(cli_tmp, ignore_errors=True)
     (OUT_DIR / "chip_smoke_steps.json").write_text(
-        json.dumps(dict(slice=rows, cli=cli, serving=serving), indent=1))
+        json.dumps(dict(slice=rows, cli=cli, serving=serving, classifier=clf), indent=1))
 
     # 8. flash attention; 9. the probe kernels
     flash_rows = flash_phases(args.seed, earlier)
@@ -1891,6 +2169,20 @@ def main(argv=None) -> int:
         })
         old = (earlier or {}).get(f"{k['case']}_e1_entry")
         lines[-1]["earlier_ms"] = old[direction + "_device"] if old else None
+    for k in clf["kernels"]:  # the ft arm's path: N=8, fp32
+        direction = k["direction"]
+        err_out, err_dx = k["err"]
+        lines.append({
+            "name": f"fused_mbconv_e6[{k['case']}].{direction}",
+            "route": "cuda",
+            "source": "mammo_clip_tpu_torch/csrc/mbconv6_e6.cu",
+            "replaces": "mammo_clip_tpu/ops/mbconv6_pallas.py:"
+                        + ("536" if direction == "forward" else "702"),
+            "launches": clf["fused_counts"].get(f"mbconv6.{k['form']}.{direction}", 0),
+            "max_abs_err": err_out if direction == "forward" else err_dx,
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": None,
+        })
     lines += flash_rows + probe_rows
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": lines}))

@@ -6,6 +6,12 @@ package (``image_encoder.block_4.bn1.scale``, ``text_encoder.layer_0.attention
 dicts of numpy arrays) with dotted keys and turns 4-D conv kernels from Flax's
 HWIO into torch's OIHW; every other leaf keeps its shape. The BatchNorm
 running statistics (``mean``, ``var``) are the ``batch_stats`` collection.
+
+The same holds for the downstream classifiers' trees: ``MammoClassifier``'s
+``image_encoder`` and ``MammoEfficientNetClassifier``'s ``encoder``, each with
+a ``head`` that is a Flax Dense (``head.kernel`` (in, classes) and
+``head.bias``, kept as they are), so both packages can start from one set of
+weights.
 """
 
 from __future__ import annotations

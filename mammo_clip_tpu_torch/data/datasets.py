@@ -1,13 +1,15 @@
 """Dataset classes (host side; port of ``mammo_clip_tpu/data/datasets.py``).
 
-The pretraining and retrieval kinds of the reference dataset zoo
-(reference: breastclip/data/datasets/__init__.py:9-24 dispatch):
+The pretraining, retrieval and classification kinds of the reference dataset
+zoo (reference: breastclip/data/datasets/__init__.py:9-24 dispatch):
 
   imagetext               -> ImageTextDataset          (pretraining workhorse)
   imagetext_contrastive   -> ImageTextContrastiveDataset
   imagetext_retrieval     -> ImageTextRetrievalDataset (retrieval eval)
+  image_classification    -> ImageClassificationDataset (downstream classifiers)
+  image_classification_zs -> ImageClassificationZSDataset
 
-The classification and aligner kinds belong to the downstream slices. A dataset
+The aligner kind belongs to the interpretation slice. A dataset
 takes the ``Table`` of ``data/metadata.py`` (row dicts) where the JAX one takes
 a DataFrame; sampling is the same: one
 ``random.Random`` per (epoch seed, index), so an item is a pure function of
@@ -32,6 +34,8 @@ from __future__ import annotations
 import random
 import re
 from typing import Dict, List, Optional, Sequence
+
+import numpy as np
 
 from .metadata import Table, parse_list_cell
 from .prompts import build_prompt_bank, generate_report_from_labels
@@ -207,14 +211,49 @@ class ImageTextRetrievalDataset:
         return {"image": image, "text": " ".join(texts)}
 
 
+class ImageClassificationDataset:
+    """Image + one label column (reference: image_classification.py:14-109): the
+    row's ``image_id`` (or the first cell of its ``image`` list) under its
+    ``patient_id`` (or ``study_id``), and the label as float32."""
+
+    def __init__(self, df: Table, image_store, label_col: str = "cancer"):
+        self.df = df
+        self.store = image_store
+        self.label_col = label_col
+
+    def __len__(self) -> int:
+        return len(self.df)
+
+    def __getitem__(self, index: int) -> Dict:
+        row = self.df[index]
+        image_id = row["image_id"] if "image_id" in row else parse_list_cell(row["image"])[0]
+        sid = str(row["patient_id"]) if "patient_id" in row else str(row.get("study_id", ""))
+        return {"image": self.store.get(sid, str(image_id)),
+                "label": np.float32(row[self.label_col])}
+
+
+# label -> zero-shot task mapping (reference: image_classification_zs.py:83-99)
+ZS_LABELS = {
+    "vindr": ["Mass", "Suspicious_Calcification", "density"],
+    "rsna": ["cancer"],
+}
+
+
+class ImageClassificationZSDataset(ImageClassificationDataset):
+    """Zero-shot eval set; the same host behavior, a distinct type kept for parity
+    with the reference factory (datasets/__init__.py:9-24)."""
+
+
 def load_dataset(data_type: str, **kwargs):
     """Factory mirroring reference breastclip/data/datasets/__init__.py:9-24."""
     table = {
         "imagetext": ImageTextDataset,
         "imagetext_contrastive": ImageTextContrastiveDataset,
         "imagetext_retrieval": ImageTextRetrievalDataset,
+        "image_classification": ImageClassificationDataset,
+        "image_classification_zs": ImageClassificationZSDataset,
     }
     if data_type not in table:
-        raise KeyError(f"data_type not ported (the pretraining and retrieval kinds are): "
-                       f"{data_type}")
+        raise KeyError(f"data_type not ported (image_aligner waits for the "
+                       f"interpretation slice): {data_type}")
     return table[data_type](**kwargs)

@@ -7,8 +7,11 @@
 * ``prefetch_to_device`` does the host work of the next ``depth`` batches in a
   background thread into pinned memory, and the consumer copies each batch to
   the device with ``non_blocking=True``;
+* ``sample_weights`` draws an epoch's indices with replacement, weighted, as
+  the JAX Batcher does (the reference's WeightedRandomSampler option for the
+  classifiers, Datasets/dataset_utils.py:147-165);
 * one process drives one device: the JAX Batcher's per-process index
-  sharding and its weighted sampling (a classifier option) are not ported.
+  sharding belongs to the distribution slice.
 """
 
 from __future__ import annotations
@@ -30,13 +33,15 @@ class Batcher:
     """
 
     def __init__(self, dataset, tokenizer, batch_size: int, max_length: int = 256,
-                 shuffle: bool = True, seed: int = 0):
+                 shuffle: bool = True, seed: int = 0, sample_weights=None):
         self.dataset = dataset
         self.tokenizer = tokenizer
         self.batch_size = batch_size
         self.max_length = max_length
         self.shuffle = shuffle
         self.seed = seed
+        self.sample_weights = (None if sample_weights is None
+                               else np.asarray(sample_weights, np.float64))
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -48,9 +53,14 @@ class Batcher:
         return len(self.dataset) // self.batch_size  # the last partial batch is dropped
 
     def _indices(self) -> np.ndarray:
-        order = np.arange(len(self.dataset))
+        n = len(self.dataset)
+        rng = np.random.default_rng(self.seed * 100_003 + self.epoch)
+        if self.sample_weights is not None:
+            return rng.choice(n, size=n, replace=True,
+                              p=self.sample_weights / self.sample_weights.sum())
+        order = np.arange(n)
         if self.shuffle:
-            np.random.default_rng(self.seed * 100_003 + self.epoch).shuffle(order)
+            rng.shuffle(order)
         return order
 
     def _collate(self, items) -> Dict[str, np.ndarray]:

@@ -2,35 +2,41 @@
 
 The public checkpoints and datasets are not in this repository, so the
 quality-parity plan (BASELINE.md) is staged: the moment the inputs are at hand,
-one command emits the zero-shot rows of the BASELINE quality table::
+one command emits the zero-shot and classifier rows of the BASELINE quality
+table::
 
     python -m mammo_clip_tpu_torch.parity.run_parity \
         --checkpoint b5-model-best-epoch-7.tar \
         --vindr-csv  vindr_detection_v1_folds.csv --vindr-image-dir <pngs|shards> \
         --rsna-csv   rsna_folds.csv               --rsna-image-dir  <pngs|shards> \
-        --skip-lp --skip-det [--device cuda] --out parity_b5.json
+        [--ft] --skip-det [--device cuda] --out parity_b5.json
 
-Rows whose inputs are absent are skipped, so partial runs work. The linear-probe
-and detection rows need the classifiers and the detector, which the port does
-not have yet (ROADMAP queue 1 items 4 and 5): asking for them (an RSNA CSV
-without ``--skip-lp``, a detection CSV without ``--skip-det``) raises
-``NotImplementedError`` before any work; their recipe flags (``--fold``,
-``--lp-epochs``, ``--ft``, ``--det-*``) come with them.
+Rows whose inputs are absent are skipped, so partial runs work. The RSNA CSV
+also drives the classifier rows (``cli/classifier``, the reference README's
+recipe, README.md:433-452: lp for ``--lp-epochs`` epochs, bs 8, lr 5e-5,
+weighted BCE, fold ``--fold``; ``--ft`` adds the full finetune) unless
+``--skip-lp``. The detection row needs the detector, which the port does not
+have yet (ROADMAP queue 1 item 5): a detection CSV without ``--skip-det``
+raises ``NotImplementedError`` before any work; its recipe flags
+(``--det-*``) come with it.
 
 Parity gate (BASELINE.json): |ours - reference| <= 0.5 AUROC points per row.
 The ``expected`` slots ship as null; fill them from the MICCAI-2024 paper
 tables (or a reference-repo rerun) when scoring; the script then prints the
 gap per row and an overall PASS/FAIL.
 
-Dry run (no data; a fake of the public .tar + synthetic images):
+Dry run (no data; a fake of the public .tar + synthetic images; the zero-shot
+rows and the lp row, 1 epoch):
 
-    python -m mammo_clip_tpu_torch.parity.run_parity --selftest --skip-lp --skip-det
+    python -m mammo_clip_tpu_torch.parity.run_parity --selftest --skip-det
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
+import io
 import json
 import os
 import tempfile
@@ -49,24 +55,28 @@ EXPECTED: dict = {
 }
 GATE = 0.005  # |ours - expected| <= 0.5 AUROC points (BASELINE.json)
 
-LP_QUEUED = ("the linear-probe rows (lp_rsna, ft_rsna) need the downstream classifiers, "
-             "not ported yet (ROADMAP queue 1 item 4)")
 DET_QUEUED = ("the detection row (det_vindr) needs the detector, not ported yet "
-              "(ROADMAP queue 1 item 5)")
+              "(ROADMAP queue 1 item 5); pass --skip-det for the other rows")
 
 
-def _require_ported(want_lp: bool, want_det: bool) -> None:
-    missing = [msg for want, msg in ((want_lp, LP_QUEUED), (want_det, DET_QUEUED)) if want]
-    if missing:
-        raise NotImplementedError("; ".join(missing)
-                                  + "; pass --skip-lp --skip-det for the zero-shot rows")
+def _require_ported(want_det: bool) -> None:
+    if want_det:
+        raise NotImplementedError(DET_QUEUED)
+
+
+def _capture_json_tail(fn, argv):
+    """Run a CLI main() capturing stdout; return its last JSON line."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(argv)
+    lines = [ln for ln in buf.getvalue().strip().splitlines() if ln.strip()]
+    return json.loads(lines[-1])
 
 
 def run(args) -> dict:
-    from ..cli import zeroshot
+    from ..cli import classifier, zeroshot
 
-    _require_ported(bool(args.rsna_csv) and not args.skip_lp,
-                    bool(args.det_csv) and not args.skip_det)
+    _require_ported(bool(args.det_csv) and not args.skip_det)
     results: dict = {}
     for name, csv_path, image_dir, split in (
             ("vindr", args.vindr_csv, args.vindr_image_dir, args.vindr_split),
@@ -82,6 +92,18 @@ def run(args) -> dict:
         with open(out) as f:
             for k, v in json.load(f).items():
                 results[f"zs_{name}/{k}"] = v
+
+    if args.rsna_csv and not args.skip_lp:
+        for arch in ["lp"] + (["ft"] if args.ft else []):
+            res = _capture_json_tail(classifier.main, [
+                "--clip-checkpoint", args.checkpoint,
+                "--csv", args.rsna_csv, "--image-dir", args.rsna_image_dir,
+                "--label", "cancer", "--dataset", "rsna", "--arch", arch,
+                "--epochs", str(args.lp_epochs), "--batch-size", str(args.batch_size),
+                "--weighted-bce", "--fold", str(args.fold),
+                "--workdir", os.path.join(args.workdir, f"clf_{arch}"),
+                "--device", args.device])
+            results[f"{arch}_rsna/cancer"] = res["best_metric"]
     return results
 
 
@@ -116,10 +138,10 @@ def _write_csv(path: str, rows) -> str:
 def _selftest(args, td: str) -> dict:
     """Dry-run the pipeline on a fake of the public .tar and synthetic
     images/CSVs: the command is one edit (real paths) away from producing the
-    zero-shot rows of the quality table."""
+    zero-shot and classifier rows of the quality table."""
     from .fake_checkpoint import make_fake_public_tar
 
-    _require_ported(not args.skip_lp, not args.skip_det)
+    _require_ported(not args.skip_det)
     ckpt = make_fake_public_tar(os.path.join(td, "b2-model-best-epoch-10.tar"),
                                 variant="b2", image_hw=(128, 96))
 
@@ -140,18 +162,21 @@ def _selftest(args, td: str) -> dict:
     args.rsna_csv = _write_csv(os.path.join(td, "rsna.csv"), rsna)
     args.rsna_image_dir, args.rsna_split = "synthetic://", "valid"
     args.det_csv = None
+    args.lp_epochs = 1
     args.batch_size = 4
     args.workdir = os.path.join(td, "run")
     os.makedirs(args.workdir, exist_ok=True)
     results = run(args)
     expected_rows = {"zs_vindr/mass", "zs_vindr/suspicious_calcification",
                      "zs_rsna/malignancy"}
+    if not args.skip_lp:
+        expected_rows |= {"lp_rsna/cancer"} | ({"ft_rsna/cancer"} if args.ft else set())
     missing = expected_rows - set(results)
     if missing:
         raise RuntimeError(f"selftest did not produce rows: {missing}")
     if not all(np.isfinite(v) for v in results.values()):
         raise RuntimeError(f"selftest produced a non-finite metric: {results}")
-    print("selftest OK: every zero-shot parity row produced a finite metric")
+    print("selftest OK: every parity row produced a finite metric")
     return results
 
 
@@ -165,7 +190,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--rsna-image-dir")
     ap.add_argument("--rsna-split", default="valid")
     ap.add_argument("--det-csv")
+    ap.add_argument("--fold", type=int, default=0)
     ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument("--lp-epochs", type=int, default=30)
+    ap.add_argument("--ft", action="store_true", help="also run the full finetune arm")
     ap.add_argument("--skip-lp", action="store_true")
     ap.add_argument("--skip-det", action="store_true")
     ap.add_argument("--workdir", default="outputs/parity")

@@ -9,8 +9,15 @@ BatchNorm buffers), the optimizer's state, the step, the EMA when there is one,
 and the states of the ``torch.Generator``s passed in. It holds tensors, numbers
 and containers only, and is read back with ``weights_only=True``.
 
-A step directory is written under a temporary name and renamed into place, so
-a run stopped while writing leaves no partial step behind.
+``extra_arrays`` adds an ``arrays.npz`` sidecar (``np.savez_compressed``) to
+the step directory: the downstream trainers persist the validation
+predictions there for offline re-scoring (reference:
+Classifiers/experiments.py:193-222), and ``load_checkpoint_arrays`` reads it
+back.
+
+A step directory, sidecar included, is written under a temporary name and
+renamed into place, so a run stopped while writing leaves no partial step
+behind.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import os
 import shutil
 from typing import Any, Dict, List, Mapping, Optional
 
+import numpy as np
 import torch
 
 from ..core.config import Config
@@ -52,9 +60,11 @@ def save_checkpoint(
     extra_meta: Optional[Dict[str, Any]] = None,
     max_to_keep: Optional[int] = None,
     generators: Optional[Mapping[str, torch.Generator]] = None,
+    extra_arrays: Optional[Mapping[str, Any]] = None,
 ) -> None:
-    """Write ``state`` at ``directory/<step>``; keep the newest ``max_to_keep``
-    steps (all when None)."""
+    """Write ``state`` at ``directory/<step>``, with ``extra_arrays`` (name ->
+    array) in its ``arrays.npz``; keep the newest ``max_to_keep`` steps (all
+    when None)."""
     directory = os.path.abspath(directory)
     step = int(state.step) if step is None else int(step)
     final = os.path.join(directory, str(step))
@@ -72,12 +82,28 @@ def save_checkpoint(
     if config is not None:
         with open(os.path.join(tmp, "config.json"), "w") as f:
             f.write(Config(config).to_json())
+    if extra_arrays:
+        np.savez_compressed(os.path.join(tmp, "arrays.npz"),
+                            **{k: np.asarray(v) for k, v in extra_arrays.items()})
     if os.path.exists(final):
         shutil.rmtree(final)
     os.replace(tmp, final)
     if max_to_keep:
         for old in _steps(directory)[:-max_to_keep]:
             shutil.rmtree(os.path.join(directory, str(old)))
+
+
+def load_checkpoint_arrays(directory: str, step: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """The ``extra_arrays`` sidecar of ``directory/<step>`` (the latest when
+    None); {} when none was saved."""
+    directory = os.path.abspath(directory)
+    if step is None:
+        step = latest_step(directory)
+    path = os.path.join(directory, str(step), "arrays.npz")
+    if not os.path.exists(path):
+        return {}
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
 
 
 def restore_checkpoint(directory: str, state, step: Optional[int] = None,

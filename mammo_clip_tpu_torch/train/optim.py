@@ -1,12 +1,22 @@
 """Optimizer factory (port of ``mammo_clip_tpu/train/optim.py``).
 
-AdamW with optax's semantics: b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay
-on every parameter unless ``no_decay_patterns`` (regexes over the parameter's
-dotted name) exclude it, the learning rate read from the schedule at the
-optimizer's own update count (0 on the first update), and an optional
-global-norm clip (``grad_clip_norm``) applied to the gradients first. The
-update math is ``torch.optim.AdamW``'s, which equals optax.adamw's:
-p <- p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p).
+Three rules with optax's semantics, each with the learning rate read from the
+schedule at the optimizer's own update count (0 on the first update) and an
+optional global-norm clip (``grad_clip_norm``) applied to the gradients first:
+
+* ``adamw``: b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay on every
+  parameter unless ``no_decay_patterns`` (regexes over the parameter's dotted
+  name) exclude it. ``torch.optim.AdamW``'s update equals optax.adamw's:
+  p <- p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p).
+* ``sgd``: ``optax.chain(add_decayed_weights(wd), sgd(lr, momentum))``, the
+  decay added to the gradient of every parameter before the momentum trace
+  t <- g + wd * p + momentum * t, then p <- p - lr * t: ``torch.optim.SGD``
+  with ``weight_decay`` and ``momentum`` (no dampening, no Nesterov), whose
+  first trace is the gradient as optax's zero-initialised one is.
+* ``adam``: ``optax.adam(lr)`` at its defaults (b1 0.9, b2 0.999, eps 1e-8, no
+  decay; the JAX factory passes no other option), ``torch.optim.Adam``.
+
+As in the JAX factory, ``no_decay_patterns`` applies to ``adamw`` only.
 
 ``grad_accum_steps`` = k has ``optax.MultiSteps``' semantics: each micro-step
 folds its gradient into a running mean, ``acc += (g - acc) / (mini_step + 1)``;
@@ -28,18 +38,20 @@ import torch
 
 
 class Optimizer:
-    """AdamW over named parameters with a schedule, an optional global-norm
-    clip and optional gradient accumulation."""
+    """AdamW (or SGD, Adam: ``name``) over named parameters with a schedule, an
+    optional global-norm clip and optional gradient accumulation."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                  schedule: Callable[[int], float], b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 1e-4,
                  no_decay_patterns: Sequence[str] = (), grad_clip_norm: Optional[float] = None,
-                 accum_steps: int = 1):
-        regexes = [re.compile(p) for p in no_decay_patterns]
+                 accum_steps: int = 1, name: str = "adamw", momentum: float = 0.9):
+        if name not in ("adamw", "sgd", "adam"):
+            raise KeyError(f"unknown optimizer: {name}")
+        regexes = [re.compile(p) for p in no_decay_patterns] if name == "adamw" else []
         decay, no_decay = [], []
-        for name, p in named_params:
-            (no_decay if any(r.search(name) for r in regexes) else decay).append(p)
+        for pname, p in named_params:
+            (no_decay if any(r.search(pname) for r in regexes) else decay).append(p)
         groups = [{"params": decay, "weight_decay": weight_decay}]
         if no_decay:
             groups.append({"params": no_decay, "weight_decay": 0.0})
@@ -50,7 +62,12 @@ class Optimizer:
         self.count = 0  # inner updates applied
         self.mini_step = 0  # micro-steps folded into the running mean since the last update
         self._acc: Optional[List[torch.Tensor]] = None
-        self.inner = torch.optim.AdamW(groups, lr=0.0, betas=(b1, b2), eps=eps)
+        if name == "adamw":
+            self.inner = torch.optim.AdamW(groups, lr=0.0, betas=(b1, b2), eps=eps)
+        elif name == "sgd":
+            self.inner = torch.optim.SGD(groups, lr=0.0, momentum=momentum)
+        else:
+            self.inner = torch.optim.Adam(self.params, lr=0.0)
 
     def clip_(self) -> None:
         """optax.clip_by_global_norm: g * max_norm / ||g|| when ||g|| >= max_norm."""
@@ -104,9 +121,6 @@ class Optimizer:
 
 def build_optimizer(config: dict, schedule, named_params,
                     no_decay_patterns: Optional[Sequence[str]] = None) -> Optimizer:
-    name = config.get("name", "adamw").lower()
-    if name != "adamw":
-        raise KeyError(f"optimizer not ported yet: {name}")
     # config["flatten"] / config["flatten_small_bytes"]: TPU dispatch layouts
     # that leave the update's values unchanged; ignored here (module docstring)
     return Optimizer(named_params, schedule, b1=config.get("beta1", 0.9),
@@ -114,4 +128,6 @@ def build_optimizer(config: dict, schedule, named_params,
                      weight_decay=config.get("weight_decay", 1e-4),
                      no_decay_patterns=no_decay_patterns or (),
                      grad_clip_norm=config.get("grad_clip_norm"),
-                     accum_steps=int(config.get("grad_accum_steps", 1) or 1))
+                     accum_steps=int(config.get("grad_accum_steps", 1) or 1),
+                     name=config.get("name", "adamw").lower(),
+                     momentum=config.get("momentum", 0.9))

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -19,3 +21,15 @@ def resolve_device(device) -> torch.device:
             raise RuntimeError(f"device {device} requested, but there are only {count} "
                                "CUDA devices")
     return device
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """fp32 matrix products and cuDNN convolutions in full fp32 for the span:
+    TF32 off (torch lets cuDNN take TF32 by default), the flags restored after."""
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags

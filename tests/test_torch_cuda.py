@@ -27,7 +27,7 @@ HPAD, WPAD = 48, 16
 CASES = [("e6", C), ("e6", 6), ("e1", C), ("e1", 6)]
 
 
-def _case(form, c2, device):
+def _case(form, c2, device, n=N):
     g = torch.Generator(device="cpu").manual_seed(0)
     f = lambda *s: 0.5 * torch.randn(*s, generator=g)
     e = 4 * C if form == "e6" else C
@@ -39,12 +39,13 @@ def _case(form, c2, device):
     if form == "e6":
         p.update(we=0.5 * f(C, e), gamma0=1 + 0.1 * f(e), beta0=0.1 * f(e))
         cls = MBConv6Params
-    x = torch.zeros(N, C, HPAD, WPAD)
-    x[:, :, :H, :W] = torch.randn(N, C, H, W, generator=g)
-    gout = torch.zeros(N, c2, HPAD, WPAD)
-    gout[:, :, :H, :W] = torch.randn(N, c2, H, W, generator=g)
+    x = torch.zeros(n, C, HPAD, WPAD)
+    x[:, :, :H, :W] = torch.randn(n, C, H, W, generator=g)
+    gout = torch.zeros(n, c2, HPAD, WPAD)
+    gout[:, :, :H, :W] = torch.randn(n, c2, H, W, generator=g)
     params = cls(**{k: p[k].to(device) for k in cls._fields})
-    return x.to(device), params, torch.tensor([1.25, 0.0], device=device), gout.to(device)
+    delta = torch.tensor(([1.25, 0.0, 1.0, 1.25] * n)[:n], device=device)
+    return x.to(device), params, delta, gout.to(device)
 
 
 def _rel(a, b):
@@ -58,10 +59,23 @@ def test_cuda_kernel_matches_plain(form, c2, dtype):
     """Forward, stats, zero pads, dx and every parameter gradient."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
+    _check_kernel(form, c2, dtype, N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["e6", "e1"])
+def test_cuda_kernel_matches_plain_at_the_classifier_batch(form):
+    """The ft arm of the classifier runs the kernel at batch 8 in fp32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    _check_kernel(form, C, "float32", 8)
+
+
+def _check_kernel(form, c2, dtype, n):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dt = getattr(torch, dtype)
-    x0, p0, delta, gout = _case(form, c2, "cuda")
+    x0, p0, delta, gout = _case(form, c2, "cuda", n)
     runs = []
     for fn in (fused_mbconv_e6, plain_fused_mbconv_e6):
         x = x0.to(dt).clone().requires_grad_(True)
@@ -851,3 +865,51 @@ def test_cuda_device_index_past_the_last_card_is_refused(tmp_path):
         validate.main(["--workdir", str(tmp_path), "--device", missing])
     assert resolve_device("cuda").type == "cuda"
     torch.zeros(1, device="cuda").sum().item()  # the process's CUDA context is still usable
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["lp", "ft"])
+def test_cuda_classifier_step_matches_the_cpu(arch):
+    """One train step of a tiny classifier (b0 at 64x48, fused route on, batch
+    4, fp32 with TF32 off) on the card against the same step on the CPU from
+    the same weights: loss, head gradient and the running statistics after
+    the step. The ft step launches the fused kernel (b0's two fused blocks,
+    forward and backward), the lp step and the eval step none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from mammo_clip_tpu_torch.downstream.classify import MammoClassifier
+    from mammo_clip_tpu_torch.losses.classification import bce_with_logits_loss
+    from mammo_clip_tpu_torch.models import init_parameters
+
+    enc = {"name": "efficientnet-b0", "fused_mbconv": True, "drop_connect_rate": 0.0}
+    cpu = MammoClassifier(enc, freeze_encoder=arch == "lp")
+    init_parameters(cpu, torch.Generator().manual_seed(0))
+    card = MammoClassifier(enc, freeze_encoder=arch == "lp").cuda()
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    images = torch.randn(4, 64, 48, 1, generator=g)
+    labels = torch.tensor([0.0, 1.0, 1.0, 0.0])
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        results = []
+        for model, device in ((card, "cuda"), (cpu, "cpu")):
+            before = (launches.total("mbconv6", "forward"), launches.total("mbconv6", "backward"))
+            loss = bce_with_logits_loss(model(images.to(device), train=True)["logits"][:, 0],
+                                        labels.to(device), pos_weight=2.0)
+            loss.backward()
+            with torch.no_grad():
+                model(images.to(device), train=False)
+            after = (launches.total("mbconv6", "forward"), launches.total("mbconv6", "backward"))
+            stats = {k: v.cpu() for k, v in model.state_dict().items()
+                     if k.endswith(("mean", "var"))}
+            results.append((loss.item(), model.head.kernel.grad.cpu(), stats,
+                            (after[0] - before[0], after[1] - before[1])))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    (lk, gk, sk, nk), (lc, gc, sc, nc) = results
+    assert abs(lk - lc) <= 1e-4 * max(1.0, abs(lc))
+    assert _rel(gk, gc) < 1e-3
+    for k in sc:  # some running means are 0 up to rounding: a floor of 1 on the scale
+        assert (sk[k] - sc[k]).abs().max() <= 1e-4 * max(1.0, sc[k].abs().max().item()), k
+    assert nk == ((2, 2) if arch == "ft" else (0, 0)) and nc == (0, 0)

@@ -218,7 +218,7 @@ def test_contrastive_items_match_jax(csv_path):
     for i in range(len(ref)):
         _items_equal(ours[i], ref[i])
     with pytest.raises(KeyError):
-        datasets.load_dataset("image_classification", df=None, image_store=store)
+        datasets.load_dataset("image_aligner", df=None, image_store=store)
 
 
 def _batches_equal(a, b):

@@ -1,9 +1,9 @@
 """Import hygiene of the port: it needs nothing beyond the standard library,
 torch, numpy, scipy and einops (the card machine has no JAX, Flax, optax, Orbax,
 yaml, transformers, PIL, pandas, scikit-learn or OpenCV), and no file of it
-imports JAX or the JAX package. The pretraining CLI runs (and resumes), and the
-evaluation CLIs run on what it wrote, with all of those blocked, as they must on
-the card."""
+imports JAX or the JAX package. The pretraining CLI runs (and resumes), the
+evaluation CLIs run on what it wrote, and the classifier and rescore CLIs run,
+with all of those blocked, as they must on the card."""
 
 import os
 import re
@@ -43,7 +43,9 @@ def test_port_imports_without_jax_and_host_extras():
                  "eval", "eval.metrics", "eval.retrieval", "eval.zeroshot", "eval.embeddings",
                  "eval.loading", "convert.torch_import", "convert.torch_export",
                  "cli.zeroshot", "cli.retrieval", "cli.validate", "parity.fake_checkpoint",
-                 "parity.run_parity"):
+                 "parity.run_parity", "downstream", "downstream.classify",
+                 "downstream.experiments", "losses.classification", "cli.classifier",
+                 "cli.rescore"):
         assert f"mammo_clip_tpu_torch.{name}" in mods
     assert len(mods) > 30
     code = textwrap.dedent(f"""
@@ -131,3 +133,53 @@ def test_cli_trains_and_resumes_without_host_extras(tmp_path):
                          timeout=300, env=env, cwd=ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().splitlines()[-1] == "ok ['3', '6']"
+
+
+def test_classifier_clis_run_without_host_extras(tmp_path):
+    """cli/classifier (lp, then ft with --resume) on a tiny port CLIP
+    checkpoint, then cli/rescore on its best/, with every module of BLOCKED
+    unimportable."""
+    code = textwrap.dedent(f"""
+        import csv, os, sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import torch
+        torch.set_num_threads(1)
+        from mammo_clip_tpu_torch.cli import classifier, rescore
+        from mammo_clip_tpu_torch.core.config import tiny_test_config
+        from mammo_clip_tpu_torch.models import build_model
+        from mammo_clip_tpu_torch.train import build_optimizer, create_train_state
+        from mammo_clip_tpu_torch.train.checkpoint import save_checkpoint
+        work = {str(tmp_path)!r}
+        cfg = tiny_test_config()
+        cfg.data.image_size_h, cfg.data.image_size_w = 32, 32
+        model = build_model(cfg.model.to_dict(), device="cpu")
+        opt = build_optimizer(cfg.optimizer.to_dict(), lambda s: 1e-4, model.named_parameters())
+        save_checkpoint(os.path.join(work, "best"), create_train_state(model, opt),
+                        config=cfg.to_dict(), step=1)
+        path = os.path.join(work, "rsna.csv")
+        with open(path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["patient_id", "image_id", "laterality", "cancer", "fold"])
+            for i in range(10):
+                w.writerow([i // 2, f"i{{i}}.png", "LR"[i % 2], (i // 2) % 2, i % 2])
+        for arch, extra in (("lp", ["--epochs", "1"]), ("ft", ["--epochs", "1"]),
+                            ("ft", ["--epochs", "2", "--resume"])):
+            res = classifier.main(["--clip-checkpoint", os.path.join(work, "best"),
+                                   "--csv", path, "--image-dir", "synthetic://",
+                                   "--arch", arch, "--batch-size", "2", "--device", "cpu",
+                                   "--workdir", os.path.join(work, arch)] + extra)
+        assert len(res["history"]) == 2, res
+        scores = rescore.main(["--checkpoint", os.path.join(work, "ft", "best")])
+        assert scores["n"] == 5, scores
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
+                        and sys.modules[m] is not None)
+        assert not leaked, leaked
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env=env, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().splitlines()[-1] == "ok"
