@@ -114,6 +114,31 @@ Phases, each reported on its own lines:
      images/s, the validation batches' ms, peak device memory per arm, the
      checkpoint write seconds and the phase's seconds, beside the card's name
      and power limit;
+ 12. detection, on phase 7's run, whose directory is kept until this phase
+     ends (no hand kernel lies on this path: the detector's backbone runs in
+     eval mode, so the fused block never launches): (a) a tiny RetinaNet (b0
+     at 64x64, 3 classes, fused route on) on the card against the CPU from
+     the same weights, fp32 with TF32 off: class probabilities and deltas
+     within 1e-4 of the largest (the card's bf16 forward within 5e-2,
+     printed beside them), one ``make_detector_steps`` train step with
+     augmentation off (the focal loss's parts within 1e-4, the class head's
+     gradient within 1e-3), ``detect`` hard and soft on a seeded candidate
+     pool of distinct scores (the same valid slots, classes and scores within
+     1e-6, boxes within 1e-4); (b) ``cli/detector`` on ``best/`` at full
+     width (B5 at 512x512, batch 7, bf16), ``--epochs 1`` then ``--epochs 2
+     --resume``, on a VinDr-style CSV of ``synthetic://`` images with boxes
+     (21 training images: 3 steps a run; 9 validation images, so the last
+     validation batch is padded, fault R8 of the JAX CLI not inherited):
+     finite losses, ``best_mAP`` in [0, 1], ``arrays.npz`` with one slate
+     per validation image, the resumed run starting at epoch 1, and the fused
+     counters reading 0 around every train and validation step; (c)
+     ``--epochs 3 --resume --eval-scales 0.75,1.0,1.25 --soft-nms``: the
+     multi-scale soft-NMS validation, the same gates; (d) printed, not gated:
+     the train step's ms after step 0 of each run (host clock, ending in a
+     synchronise), images/s, ms per validation batch, the NMS's ms per batch
+     alone (decode, clip and the per-class NMS), the multi-scale batches'
+     ms, peak device memory, checkpoint write seconds and the phase's
+     seconds, beside the card's name and power limit;
   8. the hand-written flash attention (csrc/flash_attention.cu): first a look
      into the built library, each flash kernel's registers, shared and local
      memory (``cuobjdump --dump-resource-usage``), spill stores (ptxas) and its
@@ -1557,6 +1582,284 @@ def classifier_phase(seed, workdir):
 
 
 # --------------------------------------------------------------------------
+# phase 12: detection (cli/detector on phase 7's best/)
+# --------------------------------------------------------------------------
+
+DET_SIZE = 512
+DET_BATCH = 7
+DET_TRAIN_IMAGES = 21  # 3 steps a run
+DET_VALID_IMAGES = 9  # 7 + 2: the last validation batch is padded (R8)
+DET_CLASSES = ["Mass", "Suspicious Calcification", "Focal Asymmetry", "Architectural Distortion"]
+
+
+def write_detection_csv(path):
+    """A VinDr-style box CSV of ``synthetic://`` images at DET_SIZE: one box row
+    per finding, a second box on every third image, classes from DET_CLASSES."""
+    import csv
+    import random
+
+    rnd = random.Random(0)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["study_id", "image_id", "finding_categories", "resized_xmin",
+                    "resized_ymin", "resized_xmax", "resized_ymax", "split"])
+        for i in range(DET_TRAIN_IMAGES + DET_VALID_IMAGES):
+            split = "training" if i < DET_TRAIN_IMAGES else "test"
+            for j in range(1 + (i % 3 == 0)):
+                x0, y0 = rnd.uniform(10, 380), rnd.uniform(10, 380)
+                bw, bh = rnd.uniform(24, 120), rnd.uniform(24, 120)
+                w.writerow([f"s{i}", f"d{i}.png", str([DET_CLASSES[(i + j) % 4]]), round(x0, 1),
+                            round(y0, 1), round(x0 + bw, 1), round(y0 + bh, 1), split])
+
+
+def tiny_detector(seed, dtype_name="float32"):
+    """A RetinaNet over b0 (fused route on, as the compat encoder), 3 classes,
+    weights drawn from ``seed`` on the CPU."""
+    import torch
+
+    from mammo_clip_tpu_torch.models import init_parameters
+    from mammo_clip_tpu_torch.models.retinanet import RetinaNet, init_heads
+
+    enc = {"name": "efficientnet-b0", "fused_mbconv": True, "drop_connect_rate": 0.0}
+    model = RetinaNet(enc, 3, dtype=getattr(torch, dtype_name))
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    init_heads(model, torch.Generator().manual_seed(seed + 1))
+    return model
+
+
+def detector_reference_check(seed):
+    """(a): a tiny RetinaNet (b0 at 64x64, 3 classes) on the card against the
+    CPU from the same weights, fp32 with TF32 off: class probabilities and
+    deltas (and, printed beside them, the card's bf16 forward against the
+    CPU's fp32); one ``make_detector_steps`` train step with augmentation off:
+    the focal loss's parts and the class head's gradient; ``detect`` hard and
+    soft on a seeded candidate pool of distinct scores: the same valid slots,
+    classes and scores, boxes within 1e-4. Returns the errors."""
+    import torch
+
+    from mammo_clip_tpu_torch.downstream.experiments import make_detector_steps
+    from mammo_clip_tpu_torch.models.retinanet import detect
+    from mammo_clip_tpu_torch.ops.augment import minmax_standardize
+    from mammo_clip_tpu_torch.ops.boxes import build_anchors
+    from mammo_clip_tpu_torch.ops.mbconv import launches
+    from mammo_clip_tpu_torch.train import build_optimizer, create_train_state
+
+    rel = lambda a, b: float((a.float().cpu() - b).abs().max() / b.abs().max().clamp_min(1e-12))
+    err = {}
+    cpu = tiny_detector(seed)
+    images = torch.randn(2, 64, 64, 1, generator=torch.Generator().manual_seed(seed + 2))
+    with torch.no_grad():
+        want = cpu(images)
+        for dtype_name in ("float32", "bfloat16"):
+            card = tiny_detector(seed, dtype_name).cuda()
+            card.load_state_dict(cpu.state_dict())
+            got = card(images.cuda())
+            for k in ("class_probs", "box_deltas"):
+                err[f"{k}.{dtype_name}"] = rel(got[k], want[k])
+    anchors = build_anchors((64, 64))
+    g = torch.Generator().manual_seed(seed + 3)
+    imgs = torch.randint(0, 256, (2, 64, 64, 1), generator=g, dtype=torch.uint8)
+    ann = -torch.ones(2, 16, 5)
+    ann[0, 0] = torch.tensor([*anchors[40], 0])
+    ann[0, 1] = torch.tensor([5.0, 7.0, 30.0, 20.0, 2])
+    ann[1, 0] = torch.tensor([*anchors[600], 1])
+    pre = lambda b, gen: {**b, "images": minmax_standardize(b["images"], 0.3, 0.25)}
+    steps = []
+    for device in ("cuda", "cpu"):
+        model = tiny_detector(seed).to(device)
+        model.load_state_dict(cpu.state_dict())
+        state = create_train_state(model, build_optimizer(
+            {"name": "adam", "lr": 1e-4, "grad_clip_norm": 0.1}, lambda s: 1e-4,
+            model.named_parameters()))
+        grads = []
+        step = state.apply_gradients
+        state.apply_gradients = lambda: (grads.append(
+            model.class_subnet.out.kernel.grad.detach().cpu().clone()), step())[1]
+        train_step, _, _ = make_detector_steps(model, anchors, pre)
+        n0 = launches.total("mbconv6", "forward") + launches.total("mbconv6", "backward")
+        state, ld = train_step(state, {"images": imgs.to(device), "annotations": ann.to(device)},
+                               torch.Generator(device=device), seed=0)
+        n = launches.total("mbconv6", "forward") + launches.total("mbconv6", "backward") - n0
+        steps.append(({k: v.item() for k, v in ld.items()}, grads[0], n))
+    (lk, gk, nk), (lc, gc, nc) = steps
+    for k in lc:
+        err[f"loss.{k}"] = abs(lk[k] - lc[k]) / max(1.0, abs(lc[k]))
+    err["head_grad"] = rel(gk, gc)
+    A = anchors.shape[0]
+    pool = {"class_probs": torch.randperm(2 * A * 3, generator=g).float().reshape(2, A, 3)
+            / (2 * A * 3), "box_deltas": 0.5 * torch.randn(2, A, 4, generator=g)}
+    at = torch.from_numpy(anchors)
+    same = True
+    for mode in ("hard", "soft"):
+        dk = detect({k: v.cuda() for k, v in pool.items()}, at.cuda(), (64, 64),
+                    score_threshold=0.3, nms=mode)
+        dc = detect(pool, at, (64, 64), score_threshold=0.3, nms=mode)
+        same &= torch.equal(dk["valid"].cpu(), dc["valid"]) and bool(dc["valid"].any())
+        same &= torch.equal(dk["classes"].cpu(), dc["classes"])
+        err[f"detect.{mode}.scores"] = float((dk["scores"].cpu() - dc["scores"]).abs().max())
+        err[f"detect.{mode}.boxes"] = float((dk["boxes"].cpu() - dc["boxes"]).abs().max())
+    say(f"[det reference] tiny RetinaNet b0 64x64, card vs CPU (TF32 off): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in err.items())
+        + f"; focal parts card {lk}, CPU {lc}; detect valid slots and classes equal: {same}; "
+        f"fused launches in the step {nk} (card) / {nc} (CPU)")
+    ok = (err["class_probs.float32"] < 1e-4 and err["box_deltas.float32"] < 1e-4
+          and err["class_probs.bfloat16"] < 5e-2 and err["box_deltas.bfloat16"] < 5e-2
+          and all(err[f"loss.{k}"] <= 1e-4 for k in lc) and lc["regression"] > 0
+          and err["head_grad"] < 1e-3 and same and nk == nc == 0
+          and all(err[f"detect.{m}.scores"] <= 1e-6 and err[f"detect.{m}.boxes"] <= 1e-4
+                  for m in ("hard", "soft")))
+    if not ok:
+        raise SmokeFailure("tiny RetinaNet on the card disagrees with the CPU")
+    return err
+
+
+def detector_phase(seed, workdir):
+    """Phase 12 on phase 7's run (``workdir``): (a) the tiny RetinaNet card vs
+    CPU, (b) cli/detector on ``best/`` at full width (1 epoch, then --resume to
+    2) with the fused counters read around every train and validation step,
+    (c) --resume to 3 with multi-scale soft-NMS evaluation, (d) numbers."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mammo_clip_tpu_torch.cli import detector
+    from mammo_clip_tpu_torch.ops.mbconv import launches
+    from mammo_clip_tpu_torch.train.checkpoint import load_checkpoint_arrays
+
+    card = card_line()
+    say(f"[det] phase 12 on {card}")
+    t_phase = time.perf_counter()
+    out = {"reference": detector_reference_check(seed)}
+
+    # instrument the loop: host ms per step (ending in a synchronise), the fused
+    # counters around every train and validation step, the NMS alone, the writes
+    steps, writes = [], []
+    make0, detect0, save0 = detector.make_detector_steps, detector.detect, detector.save_checkpoint
+
+    def counted(kind, fn):
+        def wrapped(*a, **k):
+            n0 = launches.total("mbconv6", "forward") + launches.total("mbconv6", "backward")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            rec = dict(kind=kind, ms=(time.perf_counter() - t) * 1e3,
+                       fused=launches.total("mbconv6", "forward")
+                       + launches.total("mbconv6", "backward") - n0)
+            if kind == "train":
+                rec["losses"] = {k_: v.item() for k_, v in res[1].items()}
+            steps.append(rec)
+            return res
+        return wrapped
+
+    def instrumented(*a, **k):
+        train_step, infer_step, infer_multiscale = make0(*a, **k)
+        return (counted("train", train_step), counted("valid", infer_step),
+                counted("valid_multiscale", infer_multiscale))
+
+    def timed_save(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        save0(*a, **k)
+        writes.append(time.perf_counter() - t)
+
+    detector.make_detector_steps = instrumented
+    detector.detect = counted("nms", detect0)
+    detector.save_checkpoint = timed_save
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_det_"))
+    try:
+        write_detection_csv(tmp / "det.csv")
+        work = tmp / "det"
+        flags = ["--clip-checkpoint", str(workdir / "best"), "--csv", str(tmp / "det.csv"),
+                 "--image-dir", "synthetic://", "--resize", str(DET_SIZE),
+                 "--batch-size", str(DET_BATCH), "--device", "cuda", "--workdir", str(work)]
+        launches.reset()
+        torch.cuda.reset_peak_memory_stats()
+        out["runs"] = []
+        n_train = DET_TRAIN_IMAGES // DET_BATCH
+        n_valid = -(-DET_VALID_IMAGES // DET_BATCH)
+        for extra in (["--epochs", "1"], ["--epochs", "2", "--resume"],
+                      ["--epochs", "3", "--resume", "--eval-scales", "0.75,1.0,1.25",
+                       "--soft-nms"]):
+            del steps[:], writes[:]
+            buf = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = detector.main(flags + extra)
+            seconds = time.perf_counter() - t
+            lines = buf.getvalue().strip().splitlines()
+            by = {k: [s_ for s_ in steps if s_["kind"] == k]
+                  for k in ("train", "valid", "valid_multiscale", "nms")}
+            run = dict(argv=extra, result=res, seconds=seconds, writes=list(writes), **by)
+            out["runs"].append(run)
+            multiscale = "--eval-scales" in extra
+            valid = by["valid_multiscale"] if multiscale else by["valid"]
+            say(f"[det] {' '.join(extra)}: {seconds:.1f} s, best_mAP {res['best_mAP']:.6f}, "
+                f"losses {[round(s_['losses']['total'], 5) for s_ in by['train']]}, train ms "
+                f"{[round(s_['ms'], 1) for s_ in by['train']]}, validation batch ms "
+                f"{[round(s_['ms'], 1) for s_ in valid]}, NMS ms "
+                f"{[round(s_['ms'], 2) for s_ in by['nms']]}, checkpoint write s "
+                f"{[round(w_, 2) for w_ in writes]}")
+            if json.loads(lines[-1]) != res:
+                raise SmokeFailure("cli/detector: the JSON line is not its result")
+            if not (math.isfinite(res["best_mAP"]) and 0.0 <= res["best_mAP"] <= 1.0):
+                raise SmokeFailure(f"cli/detector: best_mAP {res['best_mAP']}")
+            if not all(math.isfinite(v) for s_ in by["train"] for v in s_["losses"].values()):
+                raise SmokeFailure("cli/detector: a loss is not finite")
+            if len(by["train"]) != n_train or len(valid) != n_valid:
+                raise SmokeFailure(f"cli/detector {extra}: {len(by['train'])} train steps and "
+                                   f"{len(valid)} validation batches, expected {n_train} and "
+                                   f"{n_valid}")
+            if len(by["nms"]) != (0 if multiscale else n_valid):
+                raise SmokeFailure(f"cli/detector {extra}: {len(by['nms'])} NMS calls")
+            if "--resume" in extra:
+                epoch = int(extra[1]) - 1
+                if not lines[0].startswith(f"resumed detector at epoch {epoch}"):
+                    raise SmokeFailure(f"the resumed run did not start at epoch {epoch}: "
+                                       f"{lines[:1]}")
+            if any(s_["fused"] for s_ in steps):
+                raise SmokeFailure(f"fused MBConv launches on the detection path: "
+                                   f"{[s_ for s_ in steps if s_['fused']]}")
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        arrays = load_checkpoint_arrays(str(work / "best"))
+        n_slots = 11 * 100
+        if (arrays["scores"].shape != (DET_VALID_IMAGES, n_slots)
+                or arrays["annotations"].shape[0] != DET_VALID_IMAGES):
+            raise SmokeFailure(f"best/ arrays {arrays['scores'].shape}, expected one slate per "
+                               f"validation image ({DET_VALID_IMAGES}, {n_slots})")
+        if not (arrays["scores"][~arrays["valid"]] == 0).all():
+            raise SmokeFailure("best/ arrays: an invalid slot with a score")
+        runs = out["runs"]
+        out["step_ms"] = [s_["ms"] for r in runs for s_ in r["train"][1:]]
+        out["images_per_s"] = 1e3 * DET_BATCH * len(out["step_ms"]) / sum(out["step_ms"])
+        out["valid_ms"] = [s_["ms"] for r in runs[:2] for s_ in r["valid"]]
+        out["multiscale_ms"] = [s_["ms"] for s_ in runs[2]["valid_multiscale"]]
+        out["nms_ms"] = [s_["ms"] for r in runs for s_ in r["nms"]]
+        out["write_s"] = [w_ for r in runs for w_ in r["writes"]]
+        out["fused_counts"] = dict(launches.counts)
+        out["seconds"] = time.perf_counter() - t_phase
+        say(f"[det] (d) {card}: cli/detector B5 at {DET_SIZE}x{DET_SIZE}, batch {DET_BATCH}, "
+            f"bf16: train step ms after step 0 of each run "
+            f"{[round(m, 1) for m in out['step_ms']]} ({out['images_per_s']:.2f} images/s), "
+            f"validation batch ms (forward + NMS) {[round(m, 1) for m in out['valid_ms']]}, "
+            f"of it NMS (decode, clip, per-class NMS over 11 classes) ms "
+            f"{[round(m, 2) for m in out['nms_ms']]}, multi-scale soft-NMS validation batch ms "
+            f"{[round(m, 1) for m in out['multiscale_ms']]}, peak memory {out['peak_bytes']} B "
+            f"({out['peak_bytes'] / 2**30:.2f} GiB), checkpoint write s "
+            f"{[round(w_, 2) for w_ in out['write_s']]}, best/ slates "
+            f"{arrays['scores'].shape[0]}, fused MBConv launches {out['fused_counts']}, phase "
+            f"{out['seconds']:.1f} s")
+        return out
+    finally:
+        detector.make_detector_steps, detector.detect = make0, detect0
+        detector.save_checkpoint = save0
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
 # phase 8: flash attention
 # --------------------------------------------------------------------------
 
@@ -2128,10 +2431,13 @@ def main(argv=None) -> int:
         serving = serving_phase(args.seed, cli_tmp / "run")
         # 11. the downstream classifier, on the same run's best/
         clf = classifier_phase(args.seed, cli_tmp / "run")
+        # 12. detection, on the same run's best/
+        det = detector_phase(args.seed, cli_tmp / "run")
     finally:
         shutil.rmtree(cli_tmp, ignore_errors=True)
     (OUT_DIR / "chip_smoke_steps.json").write_text(
-        json.dumps(dict(slice=rows, cli=cli, serving=serving, classifier=clf), indent=1))
+        json.dumps(dict(slice=rows, cli=cli, serving=serving, classifier=clf, detector=det),
+                   indent=1))
 
     # 8. flash attention; 9. the probe kernels
     flash_rows = flash_phases(args.seed, earlier)

@@ -11,7 +11,9 @@ The same holds for the downstream classifiers' trees: ``MammoClassifier``'s
 ``image_encoder`` and ``MammoEfficientNetClassifier``'s ``encoder``, each with
 a ``head`` that is a Flax Dense (``head.kernel`` (in, classes) and
 ``head.bias``, kept as they are), so both packages can start from one set of
-weights.
+weights. So it does for RetinaNet's tree: ``image_encoder`` (the backbone's
+explicit Flax name), ``fpn`` (``p3_lateral`` ... ``p7``) and ``box_subnet`` /
+``class_subnet`` (``conv0``-``conv3``, ``out``), all Flax Convs with a bias.
 """
 
 from __future__ import annotations

@@ -33,7 +33,7 @@ import torch.nn as nn
 from ..data.metadata import Table
 from ..models import init_parameters
 from ..models.bert import Dense
-from ..models.clip import load_image_encoder
+from ..models.clip import image_encoder_state, load_image_encoder
 from ..models.efficientnet import EfficientNet
 from ..ops.pooling import gem_pool
 
@@ -115,11 +115,7 @@ def classifier_from_clip_checkpoint(clip_config: Mapping, clip_state: Mapping[st
     """
     model = MammoClassifier(dict(clip_config["model"]["image_encoder"]), num_classes=num_classes,
                             freeze_encoder=freeze_encoder, dtype=dtype)
-    prefix = "image_encoder."
-    encoder = {k[len(prefix):]: v for k, v in clip_state.items() if k.startswith(prefix)}
-    if not encoder:
-        raise KeyError("CLIP checkpoint missing image_encoder")
-    model.image_encoder.load_state_dict(encoder)
+    model.image_encoder.load_state_dict(image_encoder_state(clip_state))
     init_parameters(model.head, generator or torch.Generator().manual_seed(0))
     return model.to(device)
 

@@ -1,5 +1,5 @@
-"""Downstream experiment loop: classifier fine-tuning (port of the classifier
-half of ``mammo_clip_tpu/downstream/experiments.py``).
+"""Downstream experiments: classifier fine-tuning and the detector's
+steps (port of ``mammo_clip_tpu/downstream/experiments.py``).
 
 Capability parity with the reference's experiment loop
 (reference: Classifiers/experiments.py:21-456): AdamW + per-STEP warmup-cos^2
@@ -11,9 +11,12 @@ device inside the step (``ops/augment.py``); the head and the loss are fp32.
 
 A validation batch may carry ``"n_rows"``, the count of its real rows: the
 rows after them pad the batch to the fixed shape (the last batch of a fold),
-and their predictions are dropped before scoring. The detector half
-(``make_detector_steps``) belongs to the detection slice (ROADMAP queue 1
-item 5).
+and their predictions are dropped before scoring.
+
+``make_detector_steps`` gives RetinaNet's train step (box-aware augmentation,
+focal loss, the optimizer's update), its eval forward and its multi-scale
+eval (reference: Detectors/experiments.py:24-273); ``cli/detector`` runs the
+loop.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import torch
 
 from ..eval.metrics import accuracy, auroc
 from ..losses.classification import bce_with_logits_loss, softmax_ce_loss
+from ..losses.focal import focal_loss
+from ..models.retinanet import detect_multiscale
 from ..ops.augment import AugmentConfig, augment_batch
 from ..train.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..train.optim import build_optimizer
@@ -182,3 +187,51 @@ def train_classifier(
     if logger is not None:
         logger.close()
     return {"best_metric": float(best), "history": history}
+
+
+# ------------------------------------------------------------------ detection
+
+
+def make_detector_steps(model, anchors, preprocess, alpha: float = 0.25, gamma: float = 2.0):
+    """Returns (train_step, infer_step, infer_multiscale) for a RetinaNet.
+
+    ``train_step(state, batch, generator, seed=None) -> (state, losses)``:
+    with a ``seed`` the generator is first reseeded from (seed, state.step);
+    ``preprocess(batch, generator)`` augments images and boxes, then the
+    focal loss on ``batch["annotations"]`` is backpropagated and the
+    optimizer steps (the CLI's: Adam with a global-norm clip of 0.1). The
+    backbone's BatchNorm statistics stay as they are (eval-mode backbone).
+    ``losses`` holds detached scalars: classification, regression, total.
+    ``infer_step(state, batch)`` returns the model's outputs on the
+    normalized images; ``infer_multiscale(state, batch, scales,
+    score_threshold, iou_threshold, nms)`` the merged detections of
+    ``models/retinanet.detect_multiscale``."""
+    device = next(model.parameters()).device
+    anchors = torch.as_tensor(anchors, dtype=torch.float32, device=device)
+
+    def train_step(state: TrainState, batch, generator: torch.Generator,
+                   seed: Optional[int] = None):
+        if seed is not None:
+            generator.manual_seed(step_seed(seed, state.step))
+        b = preprocess(batch, generator)
+        out = model(b["images"], train=True, generator=generator)
+        ld = focal_loss(out["class_probs"], out["box_deltas"], anchors, b["annotations"],
+                        alpha=alpha, gamma=gamma)
+        ld["total"].backward()
+        state.apply_gradients()
+        return state, {k: v.detach() for k, v in ld.items()}
+
+    def infer_step(state: TrainState, batch):
+        b = preprocess(batch, None)
+        with torch.no_grad():
+            return model(b["images"], train=False)
+
+    def infer_multiscale(state: TrainState, batch, scales, score_threshold=0.05,
+                         iou_threshold=0.5, nms="hard"):
+        b = preprocess(batch, None)
+        with torch.no_grad():
+            return detect_multiscale(lambda imgs: model(imgs, train=False), b["images"],
+                                     tuple(scales), score_threshold=score_threshold,
+                                     iou_threshold=iou_threshold, nms=nms)
+
+    return train_step, infer_step, infer_multiscale

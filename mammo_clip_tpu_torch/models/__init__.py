@@ -9,10 +9,20 @@ import torch
 
 from .bert import BertConfig, BertEncoder, pool_text
 from .clip import MammoCLIP
-from .efficientnet import EfficientNet, head_filters, scaled_block_args
+from .efficientnet import EfficientNet, default_detector_taps, head_filters, scaled_block_args
+from .retinanet import RetinaNet, anchors_for, detect, detect_multiscale, init_heads
 
-__all__ = ["BertConfig", "BertEncoder", "EfficientNet", "MammoCLIP", "build_model",
-           "head_filters", "init_parameters", "pool_text", "scaled_block_args"]
+__all__ = ["BertConfig", "BertEncoder", "EfficientNet", "MammoCLIP", "RetinaNet", "anchors_for",
+           "build_model", "default_detector_taps", "detect", "detect_multiscale",
+           "head_filters", "init_heads", "init_parameters", "pool_text", "scaled_block_args"]
+
+
+def _truncated_normal(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Standard normal truncated to [-2, 2] (``jax.random.truncated_normal``'s
+    bounds), by the inverse CDF of a uniform draw."""
+    lo = 0.5 * math.erfc(2.0 / math.sqrt(2.0))
+    u = lo + (1.0 - 2.0 * lo) * torch.rand(shape, generator=generator, device=device)
+    return torch.erfinv(2.0 * u - 1.0).clamp(-2.0, 2.0) * math.sqrt(2.0)
 
 
 @torch.no_grad()
@@ -31,8 +41,7 @@ def init_parameters(model: torch.nn.Module, generator: torch.Generator) -> None:
             else:  # Dense (in, *out)
                 fan_in = p.shape[0]
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            t = torch.randn(p.shape, generator=generator, device=p.device)
-            p.copy_(torch.clamp(t, -2.0, 2.0) * std)
+            p.copy_(_truncated_normal(p.shape, generator, p.device) * std)
         elif leaf == "embedding":
             t = torch.randn(p.shape, generator=generator, device=p.device)
             p.copy_(t / math.sqrt(p.shape[1]))

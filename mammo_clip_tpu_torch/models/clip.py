@@ -56,11 +56,12 @@ def efficientnet_variant(name: str) -> str:
 
 
 def load_image_encoder(config: Dict, dtype: torch.dtype = torch.float32) -> nn.Module:
-    """EfficientNet image encoder. ViT/Swin/ResNet and the flagship layout options
-    belong to later slices and raise here."""
+    """EfficientNet image encoder (``feature_taps``: the blocks whose outputs
+    it also returns, as ``out["taps"]``). ViT/Swin/ResNet and the flagship
+    layout options belong to later slices and raise here."""
     name = str(config.get("name", "efficientnet-b5"))
-    unported = [k for k in ("tpu_optimized", "s2d_exec", "quant_int8_k5", "packed_residuals",
-                            "feature_taps") if config.get(k)]
+    unported = [k for k in ("tpu_optimized", "s2d_exec", "quant_int8_k5", "packed_residuals")
+                if config.get(k)]
     if unported:
         raise NotImplementedError(f"image encoder options not ported yet: {unported}")
     return EfficientNet(
@@ -72,7 +73,19 @@ def load_image_encoder(config: Dict, dtype: torch.dtype = torch.float32) -> nn.M
         fused_mbconv=config.get("fused_mbconv", False),
         pooling=config.get("pooling", "avg"),
         dtype=dtype,
+        feature_taps=tuple(config.get("feature_taps", ())),
     )
+
+
+def image_encoder_state(clip_state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The image encoder's parameters and BatchNorm statistics out of a CLIP
+    model's state dict (``MammoCLIP.state_dict()``), without their
+    ``image_encoder.`` prefix."""
+    prefix = "image_encoder."
+    encoder = {k[len(prefix):]: v for k, v in clip_state.items() if k.startswith(prefix)}
+    if not encoder:
+        raise KeyError("CLIP checkpoint missing image_encoder")
+    return encoder
 
 
 class MammoCLIP(nn.Module):

@@ -13,8 +13,10 @@ returns ``{"pooled", "features", "endpoints"}`` with ``features`` and the
 endpoints NHWC. ``fused_mbconv`` routes the k=3, stride-1 blocks with an
 expanded width <= 256 through ``ops/mbconv6.fused_mbconv_e6`` in train mode
 (the CUDA kernel on a card), padding H/W once per run of fused blocks.
-The flagship ``tpu_*`` options, ``s2d_exec``, ``quant_int8_k5``,
-``packed_residuals`` and ``feature_taps`` belong to later slices.
+``feature_taps`` (block indices) adds ``"taps"``: those blocks' outputs,
+NHWC, in block order, the detector's C3/C4 (``default_detector_taps``).
+The flagship ``tpu_*`` options, ``s2d_exec``, ``quant_int8_k5`` and
+``packed_residuals`` belong to later slices.
 
 Running statistics: each block computes its forward as a pure function that
 returns its batch statistics, and the block applies the momentum update after
@@ -27,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -112,6 +114,31 @@ def stem_filters(variant: str) -> int:
 
 def head_filters(variant: str) -> int:
     return round_filters(1280, _VARIANTS[variant][0])
+
+
+def default_detector_taps(variant: str) -> Tuple[int, int]:
+    """Block indices tapped (block OUTPUT) as C3/C4 by the RetinaNet; C5 is the
+    conv-head output.
+
+    Reference: detector_model.py:374-391 hardcodes b5 source_layer_indexes
+    [26,37] (channels 176/512) and b2 [15,21] (channels 120/352). Other
+    variants take the analogous positions: the last block of the 112-filter
+    stage and the last block of the 320-filter stage.
+    """
+    if variant == "b5":
+        return (26, 37)
+    if variant == "b2":
+        return (15, 21)
+    args = scaled_block_args(variant)
+    s5_out = round_filters(112, _VARIANTS[variant][0])
+    last_s5 = max(i for i, a in enumerate(args) if a.out_filters == s5_out)
+    return (last_s5, len(args) - 1)
+
+
+def tap_channels(variant: str, taps: Sequence[int]) -> List[int]:
+    """Channels of the tapped blocks' outputs, then of the conv head."""
+    args = scaled_block_args(variant)
+    return [args[t].out_filters for t in taps] + [head_filters(variant)]
 
 
 def same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
@@ -279,9 +306,11 @@ class EfficientNet(nn.Module):
     def __init__(self, variant: str = "b5", in_channels: int = 1,
                  drop_connect_rate: float = 0.2, remat: bool = False,
                  remat_max_reduction: int = 16, fused_mbconv: bool = False,
-                 pooling: str = "avg", dtype: torch.dtype = torch.float32):
+                 pooling: str = "avg", dtype: torch.dtype = torch.float32,
+                 feature_taps: Sequence[int] = ()):
         super().__init__()
         self.variant, self.in_channels = variant, in_channels
+        self.feature_taps = tuple(feature_taps)
         self.drop_connect_rate = drop_connect_rate
         self.remat, self.remat_max_reduction = remat, remat_max_reduction
         self.fused_mbconv, self.pooling, self.dtype = fused_mbconv, pooling, dtype
@@ -314,6 +343,7 @@ class EfficientNet(nn.Module):
 
         nhwc = lambda t: t.permute(0, 2, 3, 1)
         endpoints: Dict[str, torch.Tensor] = {}
+        taps: List[torch.Tensor] = []
         cur_h, cur_w = x.shape[2:]
         pad_hw = None  # (hpad, wpad) while x carries the fused run's zero pads
         unpadded = lambda t: t[:, :, :cur_h, :cur_w] if pad_hw is not None else t
@@ -348,6 +378,8 @@ class EfficientNet(nn.Module):
                 endpoints[f"reduction_{len(endpoints) + 1}"] = nhwc(prev)
             elif idx == n_blocks - 1:
                 endpoints[f"reduction_{len(endpoints) + 1}"] = nhwc(unpadded(x))
+            if idx in self.feature_taps:
+                taps.append(nhwc(unpadded(x)))
             prev = unpadded(x)
         x = unpadded(x)
         x, stats = self.head_bn(self.head_conv(x), train)
@@ -356,4 +388,5 @@ class EfficientNet(nn.Module):
         x = F.silu(x)
         endpoints[f"reduction_{len(endpoints) + 1}"] = nhwc(x)
         pooled = gem_pool(x, p=3.0) if self.pooling == "gem" else global_avg_pool(x)
-        return {"pooled": pooled, "features": nhwc(x), "endpoints": endpoints}
+        return {"pooled": pooled, "features": nhwc(x), "endpoints": endpoints,
+                "taps": tuple(taps)}

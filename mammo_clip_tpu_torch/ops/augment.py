@@ -8,7 +8,8 @@ bilinear gather per image with a constant (background) border. Random draws
 come from an explicit ``torch.Generator``, so they differ from the JAX
 package's; the distributions are the same. The JAX package's two-pass
 gather-free warp (``ops/warp.py``) is a TPU reformulation of ``warp_bilinear``
-and is not ported.
+and is not ported. ``augment_batch_with_boxes`` warps the same way and maps
+detection boxes through the same transform.
 """
 
 from __future__ import annotations
@@ -196,3 +197,89 @@ def augment_two_views(images, views, generator, cfg: AugmentConfig, mean: float,
     out = augment_batch(torch.cat([images, views], 0), generator, cfg, mean, std,
                         train=train, out_dtype=out_dtype)
     return out[:B], out[B:]
+
+
+def augment_batch_with_boxes(images: torch.Tensor, boxes: torch.Tensor,
+                             generator: Optional[torch.Generator], cfg: AugmentConfig,
+                             mean: float, std: float, train: bool = True,
+                             matrices: Optional[torch.Tensor] = None,
+                             lowres: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Box-aware augmentation for detection (reference: imgaug's box-tracking
+    Sequential incl. ElasticTransformation, Datasets/dataset_utils.py:54-73):
+    the images are warped with the sampled flips/affine/elastic field, and the
+    box corners (``boxes`` (B, N, 5) xyxy + class, -1-padded rows) are mapped
+    through the SAME composed transform; padded rows stay -1.
+
+    ``matrices`` (B, 2, 3) and ``lowres`` (B, hh, ww, 2) replace the draws when
+    given (the elastic field is drawn only when ``cfg.elastic_p > 0``).
+
+    Elastic corner tracking: the warp reads out[d] = in[A·d + t + disp(d)], so
+    a source point s lands at the d solving s = A·d + t + disp(d). To first
+    order in the smooth, small field: d ~= d_aff - A^{-1}·disp(d_aff) with
+    d_aff = A^{-1}(s - t); the correction evaluates the low-res field at the
+    affine-mapped corner."""
+    x = minmax_standardize(images, mean, std)
+    if not train:
+        return x, boxes
+    B, H, W, _ = x.shape
+    mats = (matrices if matrices is not None
+            else sample_affine_matrices(generator, B, H, W, cfg, x.device))
+    if lowres is None and cfg.elastic_p > 0:
+        lowres = sample_elastic_lowres(generator, B, H, W, cfg, x.device)
+    disp = upsample_displacement(lowres, H, W) if lowres is not None else None
+    warped = apply_warp(x, mats, disp, mean, std)
+
+    boxes = boxes.float()
+    valid = boxes[..., 4:5] >= 0
+    corners = torch.stack([boxes[..., [0, 1]], boxes[..., [2, 1]], boxes[..., [0, 3]],
+                           boxes[..., [2, 3]]], dim=2)  # (B, N, 4, 2)
+    N = corners.shape[1]
+    mapped = transform_points(mats, corners.reshape(B, N * 4, 2))
+    if lowres is not None:
+        d_at = elastic_at_points(lowres, mapped, H, W)
+        mapped = mapped - torch.einsum("bij,bnj->bni", _inverse_2x2(mats), d_at)
+    mapped = mapped.reshape(B, N, 4, 2)
+    lo, hi = mapped.amin(dim=2), mapped.amax(dim=2)
+    new_boxes = torch.cat([lo[..., 0:1].clamp(0, W - 1), lo[..., 1:2].clamp(0, H - 1),
+                           hi[..., 0:1].clamp(0, W - 1), hi[..., 1:2].clamp(0, H - 1),
+                           boxes[..., 4:5]], dim=-1)
+    return warped, torch.where(valid, new_boxes, torch.full_like(new_boxes, -1.0))
+
+
+def elastic_at_points(lowres: torch.Tensor, points_xy: torch.Tensor, height: int,
+                      width: int) -> torch.Tensor:
+    """The low-res displacement field (B, hh, ww, 2) bilinearly interpolated at
+    full-res pixel coords (B, P, 2) (x, y) -> (B, P, 2), with the half-pixel
+    centers of ``upsample_displacement``: the value the image warp used there."""
+    B, hh, ww, _ = lowres.shape
+    u = ((points_xy[..., 0] + 0.5) * (ww / width) - 0.5).clamp(0.0, ww - 1.0)
+    v = ((points_xy[..., 1] + 0.5) * (hh / height) - 0.5).clamp(0.0, hh - 1.0)
+    u0 = torch.floor(u).clamp(0, ww - 2) if ww > 1 else torch.zeros_like(u)
+    v0 = torch.floor(v).clamp(0, hh - 2) if hh > 1 else torch.zeros_like(v)
+    fu, fv = (u - u0)[..., None], (v - v0)[..., None]
+    flat = lowres.reshape(B, hh * ww, 2)
+
+    def tap(vi, ui):
+        idx = (vi * ww + ui).long()[..., None].expand(*vi.shape, 2)
+        return torch.gather(flat, 1, idx)
+
+    top = tap(v0, u0) * (1 - fu) + tap(v0, u0 + 1) * fu
+    bot = tap(v0 + 1, u0) * (1 - fu) + tap(v0 + 1, u0 + 1) * fu
+    return top * (1 - fv) + bot * fv
+
+
+def _inverse_2x2(matrices: torch.Tensor) -> torch.Tensor:
+    """(B, 2, 2) inverse of the linear part of (B, 2, 3) dst->src maps."""
+    a = matrices[:, :, :2]
+    det = a[:, 0, 0] * a[:, 1, 1] - a[:, 0, 1] * a[:, 1, 0]
+    return torch.stack([torch.stack([a[:, 1, 1] / det, -a[:, 0, 1] / det], dim=-1),
+                        torch.stack([-a[:, 1, 0] / det, a[:, 0, 0] / det], dim=-1)], dim=1)
+
+
+def transform_points(matrices: torch.Tensor, points_xy: torch.Tensor) -> torch.Tensor:
+    """Map points (B, N, 2) with the FORWARD transform, given the inverse
+    (dst->src) maps (B, 2, 3) of ``sample_affine_matrices``:
+    src = A dst + t  =>  dst = A^-1 (src - t)."""
+    rel = points_xy - matrices[:, :, 2][:, None, :]
+    return torch.einsum("bij,bnj->bni", _inverse_2x2(matrices), rel)

@@ -2,23 +2,24 @@
 
 The public checkpoints and datasets are not in this repository, so the
 quality-parity plan (BASELINE.md) is staged: the moment the inputs are at hand,
-one command emits the zero-shot and classifier rows of the BASELINE quality
+one command emits the zero-shot, classifier and detection rows of the BASELINE quality
 table::
 
     python -m mammo_clip_tpu_torch.parity.run_parity \
         --checkpoint b5-model-best-epoch-7.tar \
         --vindr-csv  vindr_detection_v1_folds.csv --vindr-image-dir <pngs|shards> \
         --rsna-csv   rsna_folds.csv               --rsna-image-dir  <pngs|shards> \
-        [--ft] --skip-det [--device cuda] --out parity_b5.json
+        --det-csv    vindr_detection_v1_folds.csv [--det-image-dir <pngs|shards>] \
+        [--ft] [--device cuda] --out parity_b5.json
 
 Rows whose inputs are absent are skipped, so partial runs work. The RSNA CSV
 also drives the classifier rows (``cli/classifier``, the reference README's
 recipe, README.md:433-452: lp for ``--lp-epochs`` epochs, bs 8, lr 5e-5,
 weighted BCE, fold ``--fold``; ``--ft`` adds the full finetune) unless
-``--skip-lp``. The detection row needs the detector, which the port does not
-have yet (ROADMAP queue 1 item 5): a detection CSV without ``--skip-det``
-raises ``NotImplementedError`` before any work; its recipe flags
-(``--det-*``) come with it.
+``--skip-lp``. The detection CSV drives the detection row (``cli/detector``
+at ``--det-resize`` for ``--det-epochs`` epochs, batch ``--batch-size``; its
+images from ``--det-image-dir``, else ``--vindr-image-dir``) unless
+``--skip-det``.
 
 Parity gate (BASELINE.json): |ours - reference| <= 0.5 AUROC points per row.
 The ``expected`` slots ship as null; fill them from the MICCAI-2024 paper
@@ -26,9 +27,9 @@ tables (or a reference-repo rerun) when scoring; the script then prints the
 gap per row and an overall PASS/FAIL.
 
 Dry run (no data; a fake of the public .tar + synthetic images; the zero-shot
-rows and the lp row, 1 epoch):
+rows, the lp row and the detection row at 64x64, 1 epoch each):
 
-    python -m mammo_clip_tpu_torch.parity.run_parity --selftest --skip-det
+    python -m mammo_clip_tpu_torch.parity.run_parity --selftest
 """
 
 from __future__ import annotations
@@ -55,15 +56,6 @@ EXPECTED: dict = {
 }
 GATE = 0.005  # |ours - expected| <= 0.5 AUROC points (BASELINE.json)
 
-DET_QUEUED = ("the detection row (det_vindr) needs the detector, not ported yet "
-              "(ROADMAP queue 1 item 5); pass --skip-det for the other rows")
-
-
-def _require_ported(want_det: bool) -> None:
-    if want_det:
-        raise NotImplementedError(DET_QUEUED)
-
-
 def _capture_json_tail(fn, argv):
     """Run a CLI main() capturing stdout; return its last JSON line."""
     buf = io.StringIO()
@@ -74,9 +66,8 @@ def _capture_json_tail(fn, argv):
 
 
 def run(args) -> dict:
-    from ..cli import classifier, zeroshot
+    from ..cli import classifier, detector, zeroshot
 
-    _require_ported(bool(args.det_csv) and not args.skip_det)
     results: dict = {}
     for name, csv_path, image_dir, split in (
             ("vindr", args.vindr_csv, args.vindr_image_dir, args.vindr_split),
@@ -104,6 +95,17 @@ def run(args) -> dict:
                 "--workdir", os.path.join(args.workdir, f"clf_{arch}"),
                 "--device", args.device])
             results[f"{arch}_rsna/cancer"] = res["best_metric"]
+
+    if args.det_csv and not args.skip_det:
+        res = _capture_json_tail(detector.main, [
+            "--clip-checkpoint", args.checkpoint,
+            "--csv", args.det_csv,
+            "--image-dir", args.det_image_dir or args.vindr_image_dir,
+            "--resize", str(args.det_resize), "--epochs", str(args.det_epochs),
+            "--batch-size", str(args.batch_size),
+            "--workdir", os.path.join(args.workdir, "det"),
+            "--device", args.device])
+        results["det_vindr/mAP"] = res["best_mAP"]
     return results
 
 
@@ -138,10 +140,9 @@ def _write_csv(path: str, rows) -> str:
 def _selftest(args, td: str) -> dict:
     """Dry-run the pipeline on a fake of the public .tar and synthetic
     images/CSVs: the command is one edit (real paths) away from producing the
-    zero-shot and classifier rows of the quality table."""
+    zero-shot, classifier and detection rows of the quality table."""
     from .fake_checkpoint import make_fake_public_tar
 
-    _require_ported(not args.skip_det)
     ckpt = make_fake_public_tar(os.path.join(td, "b2-model-best-epoch-10.tar"),
                                 variant="b2", image_hw=(128, 96))
 
@@ -155,14 +156,23 @@ def _selftest(args, td: str) -> dict:
     vindr[1]["Suspicious_Calcification"] = 1
     rsna = [{"patient_id": f"p{i}", "image_id": f"im{i}", "laterality": "L",
              "cancer": int(i % 2), "fold": i % 3} for i in range(24)]
+    det = []
+    for i in range(12):
+        x0, y0 = rng.integers(2, 30, 2)
+        det.append({"study_id": f"s{i}", "image_id": f"im{i}",
+                    "finding_categories": str(["Mass"]),
+                    "resized_xmin": int(x0), "resized_ymin": int(y0),
+                    "resized_xmax": int(x0 + 20), "resized_ymax": int(y0 + 20),
+                    "split": "training" if i < 8 else "test"})
 
     args.checkpoint = ckpt
     args.vindr_csv = _write_csv(os.path.join(td, "vindr.csv"), vindr)
     args.vindr_image_dir, args.vindr_split = "synthetic://", "valid"
     args.rsna_csv = _write_csv(os.path.join(td, "rsna.csv"), rsna)
     args.rsna_image_dir, args.rsna_split = "synthetic://", "valid"
-    args.det_csv = None
-    args.lp_epochs = 1
+    args.det_csv = _write_csv(os.path.join(td, "det.csv"), det)
+    args.det_image_dir = "synthetic://"
+    args.lp_epochs, args.det_epochs, args.det_resize = 1, 1, 64
     args.batch_size = 4
     args.workdir = os.path.join(td, "run")
     os.makedirs(args.workdir, exist_ok=True)
@@ -171,6 +181,8 @@ def _selftest(args, td: str) -> dict:
                      "zs_rsna/malignancy"}
     if not args.skip_lp:
         expected_rows |= {"lp_rsna/cancer"} | ({"ft_rsna/cancer"} if args.ft else set())
+    if not args.skip_det:
+        expected_rows.add("det_vindr/mAP")
     missing = expected_rows - set(results)
     if missing:
         raise RuntimeError(f"selftest did not produce rows: {missing}")
@@ -190,9 +202,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--rsna-image-dir")
     ap.add_argument("--rsna-split", default="valid")
     ap.add_argument("--det-csv")
+    ap.add_argument("--det-image-dir")
+    ap.add_argument("--det-resize", type=int, default=512)
     ap.add_argument("--fold", type=int, default=0)
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--lp-epochs", type=int, default=30)
+    ap.add_argument("--det-epochs", type=int, default=120)
     ap.add_argument("--ft", action="store_true", help="also run the full finetune arm")
     ap.add_argument("--skip-lp", action="store_true")
     ap.add_argument("--skip-det", action="store_true")

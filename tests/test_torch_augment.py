@@ -18,6 +18,18 @@ import torch
 from mammo_clip_tpu.ops import augment as jax_aug
 from mammo_clip_tpu_torch.ops import augment
 
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """1 intra-op thread: the suite runs its files in parallel
+    processes, and torch's default of one thread per core in each oversubscribes
+    the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 CFG = augment.AugmentConfig()
 JCFG = jax_aug.AugmentConfig()
 

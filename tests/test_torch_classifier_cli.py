@@ -54,11 +54,11 @@ VALID = [("11", "L", 1), ("11", "L", 1), ("9", "R", 0), ("100", "L", 0), ("9", "
 
 @pytest.fixture(scope="module", autouse=True)
 def few_threads():
-    """2 intra-op threads: the suite runs its files in parallel
+    """1 intra-op thread: the suite runs its files in parallel
     processes, and torch's default of one thread per core in each oversubscribes
     the cores."""
     before = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
 

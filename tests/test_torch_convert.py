@@ -34,6 +34,17 @@ from mammo_clip_tpu_torch.parity import fake_checkpoint
 from parity import fake_checkpoint as jax_fake
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """1 intra-op thread: the suite runs its files in parallel
+    processes, and torch's default of one thread per core in each oversubscribes
+    the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _flat(tree, prefix=()):
     for k, v in tree.items():
         if isinstance(v, dict):

@@ -1,5 +1,8 @@
 """The port's hand-written CUDA kernels (``fused_mbconv_e6``, ``fused_mbconv_e1``,
 flash attention and the probe kernels) against their plain PyTorch versions, on a card. Every test here is marked ``cuda`` and skips itself without a card.
+The paths that run no hand kernel (the embedding extractor, a classifier's
+lp step, the NMS, a RetinaNet's forward, ``detect`` and train step) are held
+on the card against the same computation on the CPU.
 
 This file imports neither JAX nor the JAX package, so it also runs on a card
 machine that has only PyTorch: ``python -m pytest --noconftest -m cuda
@@ -913,3 +916,142 @@ def test_cuda_classifier_step_matches_the_cpu(arch):
     for k in sc:  # some running means are 0 up to rounding: a floor of 1 on the scale
         assert (sk[k] - sc[k]).abs().max() <= 1e-4 * max(1.0, sc[k].abs().max().item()), k
     assert nk == ((2, 2) if arch == "ft" else (0, 0)) and nc == (0, 0)
+
+
+def _det_pool(device, n_slates=6, A=400, seed=0):
+    """A seeded candidate pool with distinct scores: clustered boxes (A, 4) and
+    (n_slates, A) scores spread over [0, 1), a twentieth of them under the 0.05
+    threshold."""
+    g = torch.Generator().manual_seed(seed)
+    centers = 20 + 200 * torch.rand(12, 2, generator=g)
+    c = centers[torch.randint(0, 12, (A,), generator=g)] + 6 * torch.randn(A, 2, generator=g)
+    wh = 16 + 24 * torch.rand(A, 2, generator=g)
+    boxes = torch.cat([c - wh / 2, c + wh / 2], 1)
+    scores = torch.randperm(n_slates * A, generator=g).float().reshape(n_slates, A)
+    return boxes.to(device), (scores / (n_slates * A)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["hard", "gaussian", "linear"])
+def test_cuda_nms_matches_the_cpu(mode):
+    """The shape-static NMS on the card against the CPU, batched over 6 slates
+    (top 100 of 400): the same valid slots and scores, boxes within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from mammo_clip_tpu_torch.ops.nms import soft_nms, static_nms
+
+    out = []
+    for device in ("cuda", "cpu"):
+        boxes, scores = _det_pool(device)
+        if mode == "hard":
+            res = static_nms(boxes[None], scores, 0.5, 0.05, 100)
+        else:
+            res = soft_nms(boxes[None], scores, 0.5, 0.3, 0.05, 100, mode)
+        out.append([t.cpu() for t in res])
+    (bk, sk, vk), (bc, sc, vc) = out
+    assert torch.equal(vk, vc) and vk.any() and not vk.all()
+    assert (bk - bc).abs().max() <= 1e-4
+    assert (sk - sc).abs().max() <= 1e-6
+
+
+def _tiny_detector(freeze=False):
+    from mammo_clip_tpu_torch.models import init_parameters
+    from mammo_clip_tpu_torch.models.retinanet import RetinaNet, init_heads
+
+    enc = {"name": "efficientnet-b0", "fused_mbconv": True, "drop_connect_rate": 0.0}
+    model = RetinaNet(enc, 3, freeze_backbone=freeze)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    init_heads(model, torch.Generator().manual_seed(1))
+    return model
+
+
+@pytest.mark.cuda
+def test_cuda_retinanet_forward_and_detect_match_the_cpu():
+    """A tiny RetinaNet (b0 at 64x64, 3 classes, fused route on) on the card
+    against the CPU from the same weights, fp32 with TF32 off: class
+    probabilities and deltas within 1e-4 of the largest; no fused launch (the
+    backbone runs in eval mode); ``detect`` hard and soft on a seeded pool of
+    distinct scores: the same valid slots, classes and scores, boxes within
+    1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from mammo_clip_tpu_torch.models.retinanet import detect
+    from mammo_clip_tpu_torch.ops.boxes import build_anchors
+    from mammo_clip_tpu_torch.utils.device import full_fp32
+
+    cpu = _tiny_detector()
+    card = _tiny_detector().cuda()
+    card.load_state_dict(cpu.state_dict())
+    images = torch.randn(2, 64, 64, 1, generator=torch.Generator().manual_seed(2))
+    before = launches.total("mbconv6", "forward")
+    with full_fp32(), torch.no_grad():
+        got, want = card(images.cuda()), cpu(images)
+    assert launches.total("mbconv6", "forward") == before
+    for k in ("class_probs", "box_deltas"):
+        assert _rel(got[k].cpu(), want[k]) < 1e-4, k
+    anchors = torch.from_numpy(build_anchors((64, 64)))
+    g = torch.Generator().manual_seed(3)
+    A = anchors.shape[0]
+    pool = {"class_probs": torch.randperm(2 * A * 3, generator=g).float().reshape(2, A, 3)
+            / (2 * A * 3), "box_deltas": 0.5 * torch.randn(2, A, 4, generator=g)}
+    for mode in ("hard", "soft"):
+        dk = detect({k: v.cuda() for k, v in pool.items()}, anchors.cuda(), (64, 64),
+                    score_threshold=0.3, nms=mode)
+        dc = detect(pool, anchors, (64, 64), score_threshold=0.3, nms=mode)
+        assert torch.equal(dk["valid"].cpu(), dc["valid"]) and dc["valid"].any(), mode
+        assert torch.equal(dk["classes"].cpu(), dc["classes"]), mode
+        assert (dk["scores"].cpu() - dc["scores"]).abs().max() <= 1e-6, mode
+        assert (dk["boxes"].cpu() - dc["boxes"]).abs().max() <= 1e-4, mode
+
+
+@pytest.mark.cuda
+def test_cuda_detector_step_matches_the_cpu():
+    """One ``make_detector_steps`` train step (augmentation off, Adam with the
+    CLI's clip, fp32 with TF32 off) on the card against the CPU from the same
+    weights: the focal loss's parts within 1e-4 relative, the class head's
+    gradient within 1e-3 of its largest entry, the backbone's running
+    statistics unchanged, no fused launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from mammo_clip_tpu_torch.downstream.experiments import make_detector_steps
+    from mammo_clip_tpu_torch.ops.augment import minmax_standardize
+    from mammo_clip_tpu_torch.ops.boxes import build_anchors
+    from mammo_clip_tpu_torch.train import build_optimizer, create_train_state
+    from mammo_clip_tpu_torch.utils.device import full_fp32
+
+    anchors = build_anchors((64, 64))
+    g = torch.Generator().manual_seed(4)
+    images = torch.randint(0, 256, (2, 64, 64, 1), generator=g, dtype=torch.uint8)
+    ann = -torch.ones(2, 16, 5)
+    ann[0, 0] = torch.tensor([*anchors[40], 0])
+    ann[0, 1] = torch.tensor([5.0, 7.0, 30.0, 20.0, 2])
+    ann[1, 0] = torch.tensor([*anchors[600], 1])
+    pre = lambda b, gen: {**b, "images": minmax_standardize(b["images"], 0.3, 0.25)}
+    cpu = _tiny_detector()
+    results = []
+    for device in ("cuda", "cpu"):
+        model = _tiny_detector().to(device)
+        model.load_state_dict(cpu.state_dict())
+        stats = {k: v.clone() for k, v in model.named_buffers()}
+        state = create_train_state(model, build_optimizer(
+            {"name": "adam", "lr": 1e-4, "grad_clip_norm": 0.1}, lambda s: 1e-4,
+            model.named_parameters()))
+        grads = []
+        step = state.apply_gradients
+        state.apply_gradients = lambda: (grads.append(
+            model.class_subnet.out.kernel.grad.detach().cpu().clone()), step())[1]
+        train_step, _, _ = make_detector_steps(model, anchors, pre)
+        before = launches.total("mbconv6", "forward") + launches.total("mbconv6", "backward")
+        with full_fp32():
+            state, ld = train_step(state, {"images": images.to(device),
+                                           "annotations": ann.to(device)},
+                                   torch.Generator(device=device), seed=0)
+        n = launches.total("mbconv6", "forward") + launches.total("mbconv6", "backward") - before
+        assert all(torch.equal(v, stats[k]) for k, v in model.named_buffers())
+        results.append(({k: v.item() for k, v in ld.items()}, grads[0], n))
+    (lk, gk, nk), (lc, gc, nc) = results
+    for k in ("classification", "regression", "total"):
+        assert abs(lk[k] - lc[k]) <= 1e-4 * max(1.0, abs(lc[k])), (k, lk[k], lc[k])
+    assert lc["regression"] > 0
+    assert _rel(gk, gc) < 1e-3
+    assert nk == nc == 0

@@ -31,6 +31,18 @@ from mammo_clip_tpu_torch.data import datamodule, datasets, images, metadata, pi
 from mammo_clip_tpu_torch.data import tokenizer as tok
 from mammo_clip_tpu_torch.utils.logging import AverageMeter, MetricsLogger
 
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """1 intra-op thread: the suite runs its files in parallel
+    processes, and torch's default of one thread per core in each oversubscribes
+    the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 TEXTS = ["There is a MASS in the upper-outer quadrant.", "no evidence; benign (BI-RADS 2)",
          "", "calcifications, clustered, café-au-lait spot", "breakfast ma mass"]
 VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "the", "there", "is", "a", "mass", "ma", "##ss",

@@ -43,6 +43,17 @@ from mammo_clip_tpu_torch.train.checkpoint import save_checkpoint
 from mammo_clip_tpu_torch.train.schedule import warmup_cosine_sq_schedule
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """1 intra-op thread: the suite runs its files in parallel
+    processes, and torch's default of one thread per core in each oversubscribes
+    the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _sk_pr_auc(gt, pred):
     precision, recall, _ = skm.precision_recall_curve(gt, pred)
     return skm.auc(recall, precision)

@@ -2,8 +2,8 @@
 torch, numpy, scipy and einops (the card machine has no JAX, Flax, optax, Orbax,
 yaml, transformers, PIL, pandas, scikit-learn or OpenCV), and no file of it
 imports JAX or the JAX package. The pretraining CLI runs (and resumes), the
-evaluation CLIs run on what it wrote, and the classifier and rescore CLIs run,
-with all of those blocked, as they must on the card."""
+evaluation CLIs run on what it wrote, and the classifier, rescore and detector
+CLIs run, with all of those blocked, as they must on the card."""
 
 import os
 import re
@@ -45,7 +45,8 @@ def test_port_imports_without_jax_and_host_extras():
                  "cli.zeroshot", "cli.retrieval", "cli.validate", "parity.fake_checkpoint",
                  "parity.run_parity", "downstream", "downstream.classify",
                  "downstream.experiments", "losses.classification", "cli.classifier",
-                 "cli.rescore"):
+                 "cli.rescore", "ops.boxes", "ops.nms", "losses.focal", "models.retinanet",
+                 "downstream.detect", "cli.detector"):
         assert f"mammo_clip_tpu_torch.{name}" in mods
     assert len(mods) > 30
     code = textwrap.dedent(f"""
@@ -173,6 +174,57 @@ def test_classifier_clis_run_without_host_extras(tmp_path):
         assert len(res["history"]) == 2, res
         scores = rescore.main(["--checkpoint", os.path.join(work, "ft", "best")])
         assert scores["n"] == 5, scores
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
+                        and sys.modules[m] is not None)
+        assert not leaked, leaked
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env=env, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_detector_cli_runs_without_host_extras(tmp_path):
+    """cli/detector (1 epoch, then --resume to 2 with multi-scale soft-NMS
+    evaluation) on a tiny port CLIP checkpoint, with every module of BLOCKED
+    unimportable; every validation image is scored."""
+    code = textwrap.dedent(f"""
+        import csv, os, sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import torch
+        torch.set_num_threads(1)
+        from mammo_clip_tpu_torch.cli import detector
+        from mammo_clip_tpu_torch.core.config import tiny_test_config
+        from mammo_clip_tpu_torch.models import build_model
+        from mammo_clip_tpu_torch.train import build_optimizer, create_train_state
+        from mammo_clip_tpu_torch.train.checkpoint import load_checkpoint_arrays, save_checkpoint
+        work = {str(tmp_path)!r}
+        cfg = tiny_test_config()
+        model = build_model(cfg.model.to_dict(), device="cpu")
+        opt = build_optimizer(cfg.optimizer.to_dict(), lambda s: 1e-4, model.named_parameters())
+        save_checkpoint(os.path.join(work, "best"), create_train_state(model, opt),
+                        config=cfg.to_dict(), step=1)
+        path = os.path.join(work, "det.csv")
+        with open(path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["study_id", "image_id", "finding_categories", "resized_xmin",
+                        "resized_ymin", "resized_xmax", "resized_ymax", "split"])
+            for i in range(7):
+                w.writerow([f"s{{i}}", f"i{{i}}", str(["Mass"]), 4 + i, 6, 30 + i, 40,
+                            "training" if i < 4 else "test"])
+        flags = ["--clip-checkpoint", os.path.join(work, "best"), "--csv", path,
+                 "--image-dir", "synthetic://", "--resize", "64", "--batch-size", "2",
+                 "--device", "cpu", "--workdir", os.path.join(work, "det")]
+        detector.main(flags + ["--epochs", "1"])
+        res = detector.main(flags + ["--epochs", "2", "--resume", "--soft-nms",
+                                     "--eval-scales", "1.0,1.5"])
+        assert 0.0 <= res["best_mAP"] <= 1.0, res
+        arrays = load_checkpoint_arrays(os.path.join(work, "det", "best"))
+        assert arrays["scores"].shape[0] == 3, arrays["scores"].shape
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
                         and sys.modules[m] is not None)
         assert not leaked, leaked

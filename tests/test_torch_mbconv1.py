@@ -24,6 +24,18 @@ from mammo_clip_tpu.ops import mbconv_pallas as jax_e1
 from mammo_clip_tpu_torch.ops.mbconv import MBConvParams, fused_mbconv_e1
 from mammo_clip_tpu_torch.ops.mbconv6 import plain_fused_mbconv_e6
 
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """1 intra-op thread: the suite runs its files in parallel
+    processes, and torch's default of one thread per core in each oversubscribes
+    the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 N, H, W = 2, 48, 12
 EPS = 1e-3
 # (C_in, C_out): the residual block of test_mbconv_pallas.py and its projecting one

@@ -37,6 +37,18 @@ from mammo_clip_tpu_torch.ops.mbconv6 import (
     plain_fused_mbconv_e6,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """1 intra-op thread: the suite runs its files in parallel
+    processes, and torch's default of one thread per core in each oversubscribes
+    the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 N, C, H, W = 2, 8, 44, 12  # H and W off the pad multiple: exercises pad + mask
 HPAD, WPAD = 48, 16
 EPS = 1e-3

@@ -33,6 +33,18 @@ from mammo_clip_tpu_torch.models import build_model
 from mammo_clip_tpu_torch.models.bert import BertConfig, BertEncoder, pool_text
 from mammo_clip_tpu_torch.models.efficientnet import EfficientNet
 
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """1 intra-op thread: the suite runs its files in parallel
+    processes, and torch's default of one thread per core in each oversubscribes
+    the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 IMG = np.random.default_rng(0).standard_normal((2, 64, 44, 1)).astype(np.float32)
 
 

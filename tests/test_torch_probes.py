@@ -33,6 +33,18 @@ from jax.experimental.pallas import tpu as pltpu
 from mammo_clip_tpu_torch.benchmarks import probe_mosaic as port_probe
 from mammo_clip_tpu_torch.ops import probes
 
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """1 intra-op thread: the suite runs its files in parallel
+    processes, and torch's default of one thread per core in each oversubscribes
+    the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAYOUT = ["concat_aligned", "reshape_collapse", "reshape_split", "sublane_stack", "dot_3d",
           "reshape_collapse_rows10", "reshape_split_rows10"]

@@ -52,6 +52,18 @@ from mammo_clip_tpu_torch.train import (
     warmup_cosine_sq_schedule,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """1 intra-op thread: the suite runs its files in parallel
+    processes, and torch's default of one thread per core in each oversubscribes
+    the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 LR, TOTAL, WARMUP = 1e-3, 50, 0
 ADAM_EPS = 1e-3
 MEAN, STD = 0.3089279, 0.25053555408335154
