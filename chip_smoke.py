@@ -139,6 +139,41 @@ Phases, each reported on its own lines:
      alone (decode, clip and the per-class NMS), the multi-scale batches'
      ms, peak device memory, checkpoint write seconds and the phase's
      seconds, beside the card's name and power limit;
+ 13. offline preprocessing into training, on phase 7's run, whose directory is
+     kept until this phase ends (host code: numpy and the port's C++ library,
+     built with g++; the card runs the training it feeds): (a) the native
+     library built from ``preprocess/native/`` (its seconds; a failed build
+     fails the phase, no numpy fallback), and whether the GDCM headers are
+     there; (b) 12 seeded synthetic uint16 mammograms at RSNA scale,
+     2800x2300 (a breast-shaped region on the left or right, MONOCHROME1 and
+     2 mixed, a burned-in border the 5-pixel trim removes): the native
+     normalize bit-equal to its plain version, the native crop bounds equal to
+     ``breast_roi_bounds``, the fused pipeline's bounds equal and its resize to
+     1520x912 within 1 grey level of the plain version (the count of pixels
+     that differ printed), ms per image native against plain beside the host
+     CPU's model and cores; (c) with GDCM: each image written as a DICOM in
+     the four transfer syntaxes and read back bit-exact, ``dicom_tool.main``
+     through the pool and with ``--threads 1`` (shards and bounds CSVs
+     byte-equal, and equal to (b)'s images), the pool's images/s at 1 thread
+     and at all threads; without GDCM a line says so and (b)'s native outputs
+     stand for the tool's, their bounds CSV written by ``write_table``; (d)
+     shards at 1520x912 and 512x512 through ``write_packed_shards``, read back
+     bit-equal through ``open_image_store``; (e) a pretraining CSV built from
+     synthetic report rows (``build_pretrain_rows``, ``assign_group_folds``,
+     ``augment_pretrain_csv``, ``write_table``) and ``cli/pretrain --device
+     cuda`` on it with the 1520x912 shards as ``image_dir``: the compat B5
+     recipe with the fused route and remat on, batch 2, 1 epoch of 3 steps;
+     finite losses, 14 forward and 14 backward fused calls a step, and every
+     image read from those shards; (f) a detection CSV from boxes drawn in the
+     original frame, rescaled by ``rescale_detection_boxes`` through the
+     bounds CSV to 512x512 (every box inside the frame), and ``cli/detector``
+     on the 512x512 shards from phase 7's ``best/``, batch 4, 1 epoch: finite
+     losses, ``best_mAP`` in [0, 1], every validation image scored, every
+     image read from those shards; (g) a PNG tree of the 1520x912 images
+     written by the port's encoder (rows filtered with all five types) read
+     through ``DirectoryImageStore`` bit-equal, its 512x512 resize equal to
+     the native area resize, and the native PNG unfilter equal to its plain
+     version; (h) the phase's seconds beside the card's name and power limit;
   8. the hand-written flash attention (csrc/flash_attention.cu): first a look
      into the built library, each flash kernel's registers, shared and local
      memory (``cuobjdump --dump-resource-usage``), spill stores (ptxas) and its
@@ -998,6 +1033,17 @@ def write_pretrain_csv(path, n):
                         str([f"a mass in sample {i}.", f"imp {i}."]), i % 4])
 
 
+def pretrain_overrides(csv_path, image_dir, seed):
+    """cli/pretrain's dotted overrides that make the default B5 config the
+    compat recipe with the fused route and remat on, at batch BATCH."""
+    entry = json.dumps([{"csv": str(csv_path), "image_dir": str(image_dir),
+                         "data_type": "imagetext"}])
+    return ["model.image_encoder.remat=true", "model.image_encoder.fused_mbconv=true",
+            f"data.train={entry}", f"data.valid={entry}",
+            f"data.batch_size_per_device={BATCH}", "scheduler.warmup_epochs=0",
+            "train.log_every=1", f"seed={seed}"]
+
+
 def run_cli(seed):
     """``cli/pretrain.main`` at full width: 1 epoch of 3 steps (6 train rows, batch
     2; 2 validation rows in fold 0), then ``--resume`` for a second epoch.
@@ -1031,14 +1077,9 @@ def run_cli(seed):
     try:
         csv_path = tmp / "pretrain.csv"
         write_pretrain_csv(csv_path, 8)
-        entry = json.dumps([{"csv": str(csv_path), "image_dir": "synthetic://",
-                             "data_type": "imagetext"}])
         workdir = tmp / "run"
         flags = ["--workdir", str(workdir), "--device", "cuda"]
-        overrides = ["model.image_encoder.remat=true", "model.image_encoder.fused_mbconv=true",
-                     f"data.train={entry}", f"data.valid={entry}",
-                     f"data.batch_size_per_device={BATCH}", "scheduler.warmup_epochs=0",
-                     "train.log_every=1", f"seed={seed}"]
+        overrides = pretrain_overrides(csv_path, "synthetic://", seed)
         # run 1 records a torch.profiler trace of its second step (train.profile_at_step)
         profile = ["train.profile_at_step=1", "train.profile_num_steps=1"]
         launches.reset()
@@ -1860,6 +1901,412 @@ def detector_phase(seed, workdir):
 
 
 # --------------------------------------------------------------------------
+# phase 13: offline preprocessing into training
+# --------------------------------------------------------------------------
+
+PRE_IMAGES = 12
+PRE_RAW = (2800, 2300)  # RSNA-scale raw frames (benchmarks/bench_preprocess.py:31-32)
+PRE_SIZE = (1520, 912)  # the B5 recipe's input
+PRE_DET = (DET_SIZE, DET_SIZE)
+PRE_TRIM = 5  # dicom_tool's edge trim
+PRE_DET_BATCH = 4
+PRE_REPORTS = [
+    ("There is a mass in the upper outer quadrant of the breast. Scattered fibroglandular "
+     "densities are seen.", "No mammographic evidence of malignancy is seen."),
+    ("Grouped calcifications are noted in the subareolar region. The skin is unremarkable.",
+     "Findings are suspicious for malignancy and a biopsy is advised."),
+    ("The breast is heterogeneously dense. No suspicious mass is identified.",
+     "Benign findings are stable compared to prior."),
+]
+
+
+def host_cpu() -> str:
+    """The host CPU's model and its cores, as this process sees them."""
+    import os
+    import platform
+
+    model = ""
+    try:
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            if line.startswith("model name"):
+                model = line.split(":", 1)[1].strip()
+                break
+    except OSError:
+        pass
+    return (f"host CPU {model or 'unknown'} ({platform.machine()}), {os.cpu_count()} cores, "
+            f"{len(os.sched_getaffinity(0))} usable")
+
+
+def raw_mammograms(seed, n=PRE_IMAGES, shape=PRE_RAW):
+    """n seeded uint16 frames of 12-bit values: a textured breast-shaped
+    half-ellipse on the left (even k) or right side over background noise,
+    and a burned-in 3-pixel border that the trim removes; every third frame is
+    MONOCHROME1 (stored inverted). Returns [(frame, monochrome1, laterality)]."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    yy = np.arange(h, dtype=np.float32)[:, None]
+    xx = np.arange(w, dtype=np.float32)[None, :]
+    out = []
+    for k in range(n):
+        lat = "L" if k % 2 == 0 else "R"
+        cx = 0.0 if lat == "L" else w - 1.0
+        ry, rx = h * rng.uniform(0.36, 0.46), w * rng.uniform(0.5, 0.75)
+        cy = h * rng.uniform(0.45, 0.55)
+        inside = ((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2 < 1
+        texture = 2200 + 600 * np.sin(yy / rng.uniform(30, 90)) * np.cos(xx / rng.uniform(30, 90))
+        noise = rng.normal(0, 120, shape).astype(np.float32)
+        frame = np.where(inside, texture + noise, np.abs(noise) * 0.8)
+        frame[:3], frame[-3:], frame[:, :3], frame[:, -3:] = 4095, 4095, 4095, 4095
+        v = np.clip(frame, 0, 4095).astype(np.uint16)
+        mono1 = k % 3 == 0
+        out.append((4095 - v if mono1 else v, mono1, lat))
+    return out
+
+
+def preprocess_host(seed, tmp, n=PRE_IMAGES, shape=PRE_RAW, size=PRE_SIZE, det=PRE_DET):
+    """Phase 13's host steps (a)-(d) and (g) and its CSVs, in ``tmp``; the
+    card steps (e) and (f) read what this writes. Fails on any mismatch."""
+    import numpy as np
+
+    from mammo_clip_tpu_torch.data import images
+    from mammo_clip_tpu_torch.data.metadata import Table, load_metadata, write_table
+    from mammo_clip_tpu_torch.data.png import encode_png, write_png
+    from mammo_clip_tpu_torch.preprocess import dicom_native, dicom_tool, native_bindings as nb
+    from mammo_clip_tpu_torch.preprocess import text, vindr_csv, write_packed_shards
+    from mammo_clip_tpu_torch.preprocess.breast_crop import breast_roi_bounds
+
+    out = {}
+    # (a) build: a failed build fails the phase
+    path = nb.build_native()
+    out["build_s"] = nb.build_info["mammo_native"].seconds
+    line = (f"[pre] (a) g++ build of {path.name}: {out['build_s']:.2f} s (compiled now: "
+            f"{nb.build_info['mammo_native'].compiled})")
+    if not nb.native_available():
+        raise SmokeFailure("the native preprocessing library does not load")
+    gdcm = dicom_native.gdcm_found()
+    if gdcm:
+        path = dicom_native.build_dicom()
+        line += f", {path.name} {nb.build_info['mammo_dicom'].seconds:.2f} s"
+        if not dicom_native.dicom_available():
+            raise SmokeFailure("the native DICOM library does not load")
+    say(f"{line}; GDCM headers in {dicom_native.gdcm_include()}: "
+        f"{'found' if gdcm else 'not found'}")
+
+    # (b) native against plain at RSNA scale
+    t = time.perf_counter()
+    frames = raw_mammograms(seed, n, shape)
+    ids = [f"m{k:02d}" for k in range(n)]
+    say(f"[pre] (b) {n} seeded {shape[0]}x{shape[1]} uint16 frames "
+        f"({sum(f[1] for f in frames)} MONOCHROME1) made in {time.perf_counter() - t:.1f} s")
+    native_ms, plain_ms, big, bounds, n_diff, max_diff = [], [], {}, {}, 0, 0
+    for image_id, (raw, mono1, _) in zip(ids, frames):
+        trimmed = np.ascontiguousarray(raw[PRE_TRIM:-PRE_TRIM, PRE_TRIM:-PRE_TRIM])
+        norm = nb.normalize_native(trimmed, mono1)
+        if not np.array_equal(norm, nb.normalize_u16_to_u8_plain(trimmed, mono1)):
+            raise SmokeFailure(f"{image_id}: native normalize != its plain version")
+        if nb.breast_crop_bounds_native(norm) != breast_roi_bounds(norm):
+            raise SmokeFailure(f"{image_id}: native crop bounds != breast_roi_bounds")
+        t = time.perf_counter()
+        img, b = nb.preprocess_mammogram_native(trimmed, size, mono1)
+        native_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        ref, ref_b = nb.preprocess_mammogram_plain(trimmed, size, mono1)
+        plain_ms.append((time.perf_counter() - t) * 1e3)
+        diff = np.abs(img.astype(np.int16) - ref)
+        n_diff += int((diff > 0).sum())
+        max_diff = max(max_diff, int(diff.max()))
+        if b != ref_b or diff.max() > 1:
+            raise SmokeFailure(f"{image_id}: fused pipeline bounds {b} vs {ref_b}, resize "
+                               f"max |diff| {diff.max()} (limit 1)")
+        if b[1] - b[0] >= trimmed.shape[0] and b[3] - b[2] >= trimmed.shape[1]:
+            raise SmokeFailure(f"{image_id}: the breast crop kept the whole frame {b}")
+        big[image_id], bounds[image_id] = img, b
+    out.update(native_ms=native_ms, plain_ms=plain_ms, resize_pixels_differing=n_diff)
+    say(f"[pre] (b) native against plain: normalize bit-equal, bounds equal, the fused "
+        f"resize to {size[0]}x{size[1]} within {max_diff} grey level ({n_diff} of "
+        f"{n * size[0] * size[1]} pixels differ); ms per image native "
+        f"{np.median(native_ms):.1f} (median of {n}), plain {np.median(plain_ms):.1f}; "
+        f"{host_cpu()}")
+
+    # (c) DICOM
+    bounds_csv = tmp / "bounds.csv"
+    if gdcm:
+        t = time.perf_counter()
+        syntaxes = [dicom_native.TS_RAW, dicom_native.TS_J2K, dicom_native.TS_JLS,
+                    dicom_native.TS_JPEG_LOSSLESS]
+        (tmp / "syntaxes").mkdir()
+        (tmp / "dicoms").mkdir()
+        for k, (image_id, (raw, mono1, _)) in enumerate(zip(ids, frames)):
+            for ts in syntaxes:
+                p = tmp / "syntaxes" / f"{image_id}_{ts}.dcm"
+                dicom_native.write_dicom_u16(str(p), raw, ts=ts, monochrome1=mono1)
+                back, back_mono1 = dicom_native.read_dicom_u16(str(p))
+                if not np.array_equal(back, raw) or back_mono1 != mono1:
+                    raise SmokeFailure(f"{p.name}: the DICOM round trip is not bit-exact")
+            (tmp / "syntaxes" / f"{image_id}_{syntaxes[k % 4]}.dcm").rename(
+                tmp / "dicoms" / f"{image_id}.dcm")
+        say(f"[pre] (c) {n} x 4 DICOMs (raw, JPEG-2000, JPEG-LS, JPEG lossless) written and "
+            f"read back bit-exact in {time.perf_counter() - t:.1f} s")
+        common = ["--in-dir", str(tmp / "dicoms"), "--height", str(size[0]), "--width",
+                  str(size[1])]
+        dicom_tool.main(common + ["--out-dir", str(tmp / "tool_pool"), "--bounds-csv",
+                                  str(bounds_csv)])
+        dicom_tool.main(common + ["--out-dir", str(tmp / "tool_serial"), "--threads", "1",
+                                  "--bounds-csv", str(tmp / "bounds_serial.csv")])
+        for f in sorted((tmp / "tool_pool").iterdir()):
+            if f.read_bytes() != (tmp / "tool_serial" / f.name).read_bytes():
+                raise SmokeFailure(f"dicom_tool: {f.name} differs between the pool and "
+                                   f"--threads 1")
+        if bounds_csv.read_bytes() != (tmp / "bounds_serial.csv").read_bytes():
+            raise SmokeFailure("dicom_tool: the bounds CSVs of the pool and --threads 1 differ")
+        store = images.open_image_store(str(tmp / "tool_pool"))
+        for image_id in ids:
+            if not np.array_equal(store.get("", image_id), big[image_id]):
+                raise SmokeFailure(f"dicom_tool: {image_id} differs from (b)'s native image")
+        paths = sorted(str(p) for p in (tmp / "dicoms").iterdir())
+        rates = {}
+        for threads in (1, 0):
+            t = time.perf_counter()
+            _, _, status = dicom_native.batch_preprocess(paths, size, n_threads=threads)
+            rates[threads] = len(paths) / (time.perf_counter() - t)
+            if status.any():
+                raise SmokeFailure(f"the DICOM pool failed: status {status.tolist()}")
+        out["pool_images_per_s"] = rates
+        say(f"[pre] (c) dicom_tool through the pool and with --threads 1: shards and bounds "
+            f"CSVs byte-equal; the pool {rates[1]:.2f} images/s at 1 thread, {rates[0]:.2f} "
+            f"at all threads; {host_cpu()}")
+    else:
+        say(f"[pre] (c) GDCM headers not found in {dicom_native.gdcm_include()}: no DICOM "
+            f"codec on this machine; the raw arrays went through preprocess_mammogram_native "
+            f"with the same {PRE_TRIM}-pixel trim in (b)")
+        write_table(Table([{"image_id": i, "y0": b[0], "y1": b[1], "x0": b[2], "x1": b[3]}
+                           for i, b in bounds.items()], dicom_tool.BOUNDS_COLUMNS),
+                    str(bounds_csv))
+
+    # (d) shards at both sizes, read back bit-equal
+    small = {}
+    for image_id, (raw, mono1, _) in zip(ids, frames):
+        trimmed = np.ascontiguousarray(raw[PRE_TRIM:-PRE_TRIM, PRE_TRIM:-PRE_TRIM])
+        small[image_id], b = nb.preprocess_mammogram_native(trimmed, det, mono1)
+        if b != bounds[image_id]:
+            raise SmokeFailure(f"{image_id}: bounds differ between output sizes")
+    for name, imgs, hw in (("shards", big, size), ("shards_det", small, det)):
+        t = time.perf_counter()
+        index = write_packed_shards([(i, i) for i in ids], str(tmp / name), hw, shard_size=5,
+                                    loader=imgs.__getitem__)
+        store = images.open_image_store(str(tmp / name))
+        if not isinstance(store, images.PackedShardStore) or len(index) != n:
+            raise SmokeFailure(f"{name}: not read back as packed shards")
+        for i in ids:
+            if not np.array_equal(store.get("", i), imgs[i]):
+                raise SmokeFailure(f"{name}: {i} does not read back bit-equal")
+        say(f"[pre] (d) {n} images at {hw[0]}x{hw[1]} -> {1 + (n - 1) // 5} shards "
+            f"({sum(f.stat().st_size for f in (tmp / name).iterdir())} B) in "
+            f"{time.perf_counter() - t:.2f} s, read back bit-equal through open_image_store")
+
+    # the pretraining CSV from report rows; the detection CSV from boxes drawn in
+    # the original (trimmed) frame, rescaled through the tool's bounds
+    reports = []
+    for k, (image_id, (_, _, lat)) in enumerate(zip(ids, frames)):
+        findings, impressions = PRE_REPORTS[(k // 2) % len(PRE_REPORTS)]
+        reports.append({"patient_id": str(1000 + k // 2), "laterality": lat,
+                        "image_id": image_id, "view_position": ("CC", "MLO")[(k // 2) % 2],
+                        "findings": findings, "impressions": impressions})
+    write_table(Table(reports, list(reports[0])), str(tmp / "reports.csv"))
+    t = time.perf_counter()
+    translator = text.BackTranslator()  # MarianMT when transformers and its weights are here
+    rows = text.build_pretrain_rows(load_metadata(str(tmp / "reports.csv")),
+                                    view_col="view_position")
+    rows = text.augment_pretrain_csv(text.assign_group_folds(rows, n_folds=2, seed=seed),
+                                     translator)
+    write_table(rows, str(tmp / "pretrain.csv"))
+    n_train = sum(r["fold"] != 0 for r in load_metadata(str(tmp / "pretrain.csv")))
+    if len(rows) != n or n_train != STEPS * BATCH:
+        raise SmokeFailure(f"pretraining CSV: {len(rows)} rows, {n_train} training")
+    say(f"[pre] pretraining CSV: {len(rows)} rows (6 patients x L/R), {n_train} training, text "
+        f"augmented by {'MarianMT' if translator.available else 'RuleParaphraser'},"
+        f" in {time.perf_counter() - t:.2f} s")
+    ann = []
+    for k, image_id in enumerate(ids):
+        y0, y1, x0, x1 = bounds[image_id]
+        for j in range(1 + (k % 3 == 0)):
+            bx0 = x0 + (x1 - x0) * (0.15 + 0.3 * j)
+            by0 = y0 + (y1 - y0) * (0.3 + 0.1 * (k % 4))
+            ann.append({"study_id": str(1000 + k // 2), "image_id": image_id,
+                        "finding_categories": str([DET_CLASSES[(k + j) % 4]]),
+                        "xmin": round(bx0, 1), "ymin": round(by0, 1),
+                        "xmax": round(bx0 + 0.2 * (x1 - x0), 1),
+                        "ymax": round(by0 + 0.15 * (y1 - y0), 1),
+                        "split": "training" if k < n - PRE_DET_BATCH else "test"})
+    write_table(Table(ann, list(ann[0])), str(tmp / "annotations.csv"))
+    det_rows = vindr_csv.rescale_detection_boxes(load_metadata(str(tmp / "annotations.csv")),
+                                                 load_metadata(str(bounds_csv)), out_size=det)
+    for r in det_rows:
+        box = [float(r[c]) for c in vindr_csv.BOX_COLUMNS]
+        if not (0 <= box[0] < box[2] <= det[1] - 1 and 0 <= box[1] < box[3] <= det[0] - 1):
+            raise SmokeFailure(f"{r['image_id']}: rescaled box {box} outside the "
+                               f"{det[0]}x{det[1]} frame")
+    write_table(det_rows, str(tmp / "det.csv"))
+    say(f"[pre] detection CSV: {len(det_rows)} boxes on {n} images, rescaled to "
+        f"{det[0]}x{det[1]}, every box inside the frame")
+
+    # (g) a PNG tree written by the port's encoder (all five row filters)
+    t = time.perf_counter()
+    for r in reports:
+        (tmp / "pngs" / r["patient_id"]).mkdir(parents=True, exist_ok=True)
+        write_png(tmp / "pngs" / r["patient_id"] / f"{r['image_id']}.png", big[r["image_id"]],
+                  level=1, filters=(0, 1, 2, 3, 4))
+    t_write = time.perf_counter() - t
+    full = images.open_image_store(str(tmp / "pngs"))
+    resized = images.DirectoryImageStore(str(tmp / "pngs"), det)
+    if not isinstance(full, images.DirectoryImageStore):
+        raise SmokeFailure("the PNG tree did not open as a DirectoryImageStore")
+    t = time.perf_counter()
+    for r in reports:
+        if not np.array_equal(full.get(r["patient_id"], f"{r['image_id']}.png"),
+                              big[r["image_id"]]):
+            raise SmokeFailure(f"PNG tree: {r['image_id']} is not bit-equal to its source")
+    t_read = time.perf_counter() - t
+    for r in reports:
+        if not np.array_equal(resized.get(r["patient_id"], f"{r['image_id']}.png"),
+                              nb.area_resize_native(big[r["image_id"]], det)):
+            raise SmokeFailure(f"PNG tree: {r['image_id']}'s resize is not the area resize's")
+    import zlib
+
+    data = encode_png(small[ids[0]], level=1, filters=(0, 1, 2, 3, 4))
+    raw = zlib.decompress(data[data.index(b"IDAT") + 4:])  # one IDAT chunk
+    t = time.perf_counter()
+    plain = nb.png_unfilter_plain(raw, det[0], det[1])
+    t_plain = time.perf_counter() - t
+    if not np.array_equal(nb.png_unfilter_native(raw, det[0], det[1]), plain) or \
+            not np.array_equal(plain, small[ids[0]]):
+        raise SmokeFailure("the native PNG unfilter differs from its plain version")
+    say(f"[pre] (g) PNG tree of {n} images at {size[0]}x{size[1]} (filters 0-4): written in "
+        f"{t_write:.2f} s, read back bit-equal through DirectoryImageStore in "
+        f"{1e3 * t_read / n:.1f} ms an image, its {det[0]}x{det[1]} resize equal to the area "
+        f"resize; the native unfilter equal to the plain one ({1e3 * t_plain:.0f} ms plain at "
+        f"{det[0]}x{det[1]})")
+    out.update(png_write_s=t_write, png_read_ms=1e3 * t_read / n)
+    return out
+
+
+def preprocess_phase(seed, workdir):
+    """Phase 13 on phase 7's run (``workdir``): the host steps, then (e)
+    cli/pretrain on the port-written 1520x912 shards and (f) cli/detector on
+    the 512x512 shards from ``best/``, (h) the phase's seconds."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from mammo_clip_tpu_torch.cli import detector, pretrain
+    from mammo_clip_tpu_torch.data import images
+    from mammo_clip_tpu_torch.ops.mbconv import launches
+    from mammo_clip_tpu_torch.train.checkpoint import load_checkpoint_arrays
+
+    card = card_line()
+    say(f"[pre] phase 13 on {card}")
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_pre_"))
+    reads = []
+    get0, make0 = images.PackedShardStore.get, detector.make_detector_steps
+
+    def counted_get(self, study_id, image_id):
+        reads.append(str(self.root))
+        return get0(self, study_id, image_id)
+
+    images.PackedShardStore.get = counted_get
+    try:
+        out = preprocess_host(seed, tmp)
+        # (e) pretraining on the 1520x912 shards, full width
+        del reads[:]
+        launches.reset()
+        t = time.perf_counter()
+        state = pretrain.main(["--workdir", str(tmp / "run"), "--device", "cuda"]
+                              + pretrain_overrides(tmp / "pretrain.csv", tmp / "shards", seed)
+                              + ["scheduler.epochs=1"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        nf, nb_ = launches.total("mbconv6", "forward"), launches.total("mbconv6", "backward")
+        rows = [json.loads(line) for line in (tmp / "run" / "metrics.jsonl").read_text()
+                .splitlines()]
+        train = [r for r in rows if r["prefix"] == "train"]
+        losses = [r["loss/total"] for r in train]
+        if state.step != STEPS or len(train) != STEPS:
+            raise SmokeFailure(f"pretraining on shards: step {state.step}, {len(train)} train "
+                               f"rows, expected {STEPS}")
+        if not all(math.isfinite(r["loss/total"]) for r in rows):
+            raise SmokeFailure("pretraining on shards: a loss is not finite")
+        if (nf, nb_) != (14 * STEPS, 14 * STEPS):
+            raise SmokeFailure(f"pretraining on shards: expected 14 forward and 14 backward "
+                               f"fused calls per step, got {nf} and {nb_} in {STEPS}")
+        if not reads or set(reads) != {str(tmp / "shards")}:
+            raise SmokeFailure(f"pretraining did not read the port's shards: {set(reads)}")
+        del state
+        step_ms = [1e3 * BATCH / r["perf/images_per_sec"] for r in train]
+        out["pretrain"] = dict(seconds=seconds, losses=losses, step_ms=step_ms,
+                               fused=[nf, nb_], counts=dict(launches.counts),
+                               shard_reads=len(reads))
+        say(f"[pre] (e) cli/pretrain on the port's {PRE_SIZE[0]}x{PRE_SIZE[1]} shards (compat "
+            f"B5, fused route and remat on, batch {BATCH}, 1 epoch): {seconds:.1f} s, step "
+            f"{STEPS}, losses {[round(x, 6) for x in losses]}, per-step ms "
+            f"{[round(m, 1) for m in step_ms]}, fused calls fwd {nf} bwd {nb_} "
+            f"(14 + 14 a step; by form {dict(launches.counts)}), {len(reads)} shard reads")
+        shutil.rmtree(tmp / "run", ignore_errors=True)
+
+        # (f) detection on the 512x512 shards from phase 7's best/
+        losses = []
+
+        def instrumented(*a, **k):
+            train_step, infer_step, infer_multiscale = make0(*a, **k)
+
+            def step(*a_, **k_):
+                res = train_step(*a_, **k_)
+                losses.append({key: v.item() for key, v in res[1].items()})
+                return res
+            return step, infer_step, infer_multiscale
+
+        detector.make_detector_steps = instrumented
+        del reads[:]
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = detector.main(["--clip-checkpoint", str(workdir / "best"), "--csv",
+                                 str(tmp / "det.csv"), "--image-dir", str(tmp / "shards_det"),
+                                 "--resize", str(PRE_DET[0]), "--batch-size",
+                                 str(PRE_DET_BATCH), "--epochs", "1", "--device", "cuda",
+                                 "--workdir", str(tmp / "det")])
+        seconds = time.perf_counter() - t
+        n_valid = PRE_DET_BATCH
+        arrays = load_checkpoint_arrays(str(tmp / "det" / "best"))
+        if not (math.isfinite(res["best_mAP"]) and 0.0 <= res["best_mAP"] <= 1.0):
+            raise SmokeFailure(f"detection on shards: best_mAP {res['best_mAP']}")
+        if len(losses) != (PRE_IMAGES - n_valid) // PRE_DET_BATCH or not all(
+                math.isfinite(v) for s_ in losses for v in s_.values()):
+            raise SmokeFailure(f"detection on shards: train losses {losses}")
+        if arrays["scores"].shape[0] != n_valid:
+            raise SmokeFailure(f"detection on shards: {arrays['scores'].shape[0]} validation "
+                               f"images scored, expected {n_valid}")
+        if not reads or set(reads) != {str(tmp / "shards_det")}:
+            raise SmokeFailure(f"detection did not read the port's shards: {set(reads)}")
+        out["detector"] = dict(seconds=seconds, best_mAP=res["best_mAP"], losses=losses)
+        say(f"[pre] (f) cli/detector on the port's {PRE_DET[0]}x{PRE_DET[1]} shards from "
+            f"phase 7's best/ (batch {PRE_DET_BATCH}, 1 epoch): {seconds:.1f} s, best_mAP "
+            f"{res['best_mAP']:.6f}, losses {[round(s_['total'], 5) for s_ in losses]}, "
+            f"{arrays['scores'].shape[0]} validation images scored, {len(reads)} shard reads")
+        out["seconds"] = time.perf_counter() - t_phase
+        say(f"[pre] (h) phase 13: {out['seconds']:.1f} s on {card}; {host_cpu()}")
+        return out
+    finally:
+        images.PackedShardStore.get = get0
+        detector.make_detector_steps = make0
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
 # phase 8: flash attention
 # --------------------------------------------------------------------------
 
@@ -2433,11 +2880,13 @@ def main(argv=None) -> int:
         clf = classifier_phase(args.seed, cli_tmp / "run")
         # 12. detection, on the same run's best/
         det = detector_phase(args.seed, cli_tmp / "run")
+        # 13. offline preprocessing into training, cli/detector on the same best/
+        pre = preprocess_phase(args.seed, cli_tmp / "run")
     finally:
         shutil.rmtree(cli_tmp, ignore_errors=True)
     (OUT_DIR / "chip_smoke_steps.json").write_text(
-        json.dumps(dict(slice=rows, cli=cli, serving=serving, classifier=clf, detector=det),
-                   indent=1))
+        json.dumps(dict(slice=rows, cli=cli, serving=serving, classifier=clf, detector=det,
+                        preprocess=pre), indent=1))
 
     # 8. flash attention; 9. the probe kernels
     flash_rows = flash_phases(args.seed, earlier)

@@ -2,8 +2,10 @@
 
 ``PackedShardStore`` format: ``<root>/shard_{k:05d}.npy`` each (N, H, W) uint8
 plus ``index.csv`` mapping image_id -> (shard, row), read here with ``csv``.
-``DirectoryImageStore`` reads the reference's PNG tree with OpenCV, imported
-when an image is read. ``SyntheticImageStore`` makes seeded pseudo-images for
+``DirectoryImageStore`` reads the reference's PNG tree with the port's own
+8-bit greyscale PNG decoder (``data/png.py``) and resizes with the area resize
+of ``preprocess/native_bindings.py`` (native, else its plain version); it needs
+no OpenCV. ``SyntheticImageStore`` makes seeded pseudo-images for
 tests and benchmarks (``synthetic://``).
 """
 
@@ -25,15 +27,12 @@ class DirectoryImageStore:
         self.image_size = image_size
 
     def get(self, study_id: str, image_id: str) -> np.ndarray:
-        import cv2
+        from ..preprocess.native_bindings import area_resize
+        from .png import read_png
 
-        path = self.root / str(study_id) / str(image_id)
-        img = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
-        if img is None:
-            raise FileNotFoundError(path)
-        if self.image_size is not None and img.shape[:2] != tuple(self.image_size):
-            h, w = self.image_size
-            img = cv2.resize(img, (w, h), interpolation=cv2.INTER_AREA)
+        img = read_png(self.root / str(study_id) / str(image_id))
+        if self.image_size is not None and img.shape != tuple(self.image_size):
+            img = area_resize(img, tuple(self.image_size))
         return img  # (H, W) uint8
 
 

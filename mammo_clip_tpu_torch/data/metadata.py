@@ -18,6 +18,10 @@ as the JAX module uses them:
   valid <- fold == cur_fold (datamodule.py:59-64);
 * ``subsample`` draws the rows ``DataFrame.sample(frac, random_state=seed)``
   draws (numpy's RandomState permutation).
+
+``write_table`` is the counterpart of ``DataFrame.to_csv(index=False)``: the
+same bytes for the columns the port's preprocessing writes (strings, ints,
+float64 and float32, lists as ``str(list)``, None and NaN as empty cells).
 """
 
 from __future__ import annotations
@@ -126,3 +130,26 @@ def subsample(table: Table, data_frac: float, seed: int = 0) -> Table:
     n = len(table)
     order = np.random.RandomState(seed).choice(n, size=round(data_frac * n), replace=False)
     return table.select(int(i) for i in order)
+
+
+def format_cell(value: Any) -> str:
+    """One cell as ``DataFrame.to_csv`` writes it: None and NaN empty, a numpy
+    float32 in numpy's shortest form (``str(np.float32(v))``), any other value
+    (a list too) as ``str``."""
+    if value is None:
+        return ""
+    if isinstance(value, (float, np.floating)) and np.isnan(value):
+        return ""
+    return str(value)
+
+
+def write_table(table: Table, path: str) -> None:
+    """Write ``table`` as pandas' ``to_csv(index=False)`` would: the standard
+    library's csv writer with QUOTE_MINIMAL quoting and ``\n`` line ends. Each
+    column must hold one type, as in a DataFrame (pandas writes an int in a
+    float column as a float)."""
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(table.columns)
+        for row in table:
+            w.writerow([format_cell(row.get(c)) for c in table.columns])

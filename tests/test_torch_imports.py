@@ -2,8 +2,10 @@
 torch, numpy, scipy and einops (the card machine has no JAX, Flax, optax, Orbax,
 yaml, transformers, PIL, pandas, scikit-learn or OpenCV), and no file of it
 imports JAX or the JAX package. The pretraining CLI runs (and resumes), the
-evaluation CLIs run on what it wrote, and the classifier, rescore and detector
-CLIs run, with all of those blocked, as they must on the card."""
+evaluation CLIs run on what it wrote, the classifier, rescore and detector
+CLIs run, and the offline preprocessing (the DICOM tool, the PNG reader
+behind DirectoryImageStore, the shard writer) runs, with all of those
+blocked, as they must on the card."""
 
 import os
 import re
@@ -46,7 +48,10 @@ def test_port_imports_without_jax_and_host_extras():
                  "parity.run_parity", "downstream", "downstream.classify",
                  "downstream.experiments", "losses.classification", "cli.classifier",
                  "cli.rescore", "ops.boxes", "ops.nms", "losses.focal", "models.retinanet",
-                 "downstream.detect", "cli.detector"):
+                 "downstream.detect", "cli.detector", "data.png", "preprocess",
+                 "preprocess.breast_crop", "preprocess.native_bindings",
+                 "preprocess.dicom_native", "preprocess.dicom_tool", "preprocess.shard_writer",
+                 "preprocess.text", "preprocess.vindr_csv"):
         assert f"mammo_clip_tpu_torch.{name}" in mods
     assert len(mods) > 30
     code = textwrap.dedent(f"""
@@ -235,3 +240,71 @@ def test_detector_cli_runs_without_host_extras(tmp_path):
                          timeout=300, env=env, cwd=ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_preprocessing_runs_without_host_extras(tmp_path):
+    """The DICOM tool (shards with --bounds-csv through the pool, then --png),
+    DirectoryImageStore on the PNG tree (with and without a resize) and the
+    shard writer's default PNG loader, with every module of BLOCKED and pydicom
+    unimportable. Without GDCM the DICOM part is replaced by PNGs of the raw
+    arrays through the fused pipeline, and the run says so."""
+    code = textwrap.dedent(f"""
+        import os, sys
+        for name in {BLOCKED!r} + ["pydicom"]:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        from mammo_clip_tpu_torch.data.images import DirectoryImageStore, open_image_store
+        from mammo_clip_tpu_torch.data.png import write_png
+        from mammo_clip_tpu_torch.preprocess import dicom_native, dicom_tool, native_bindings
+        from mammo_clip_tpu_torch.preprocess import write_packed_shards
+        work = {str(tmp_path)!r}
+        rng = np.random.default_rng(0)
+        raws = []
+        for i in range(3):
+            raw = rng.integers(0, 200, (96, 72)).astype(np.uint16)
+            raw[10:80, : 40 + 5 * i] += 3000 + rng.integers(0, 900, (70, 40 + 5 * i)).astype(
+                np.uint16)
+            raws.append(raw)
+        pngs = os.path.join(work, "pngs", "study")
+        os.makedirs(pngs)
+        if dicom_native.dicom_available():
+            os.makedirs(os.path.join(work, "dicoms"))
+            for i, raw in enumerate(raws):
+                dicom_native.write_dicom_u16(os.path.join(work, "dicoms", f"c{{i}}.dcm"), raw,
+                                             ts=dicom_native.TS_J2K, monochrome1=i == 1)
+            args = ["--in-dir", os.path.join(work, "dicoms"), "--height", "40", "--width", "32"]
+            dicom_tool.main(args + ["--out-dir", os.path.join(work, "shards"),
+                                    "--bounds-csv", os.path.join(work, "bounds.csv")])
+            dicom_tool.main(args + ["--out-dir", pngs, "--png"])
+            shards = open_image_store(os.path.join(work, "shards"))
+            assert open(os.path.join(work, "bounds.csv")).readline() == "image_id,y0,y1,x0,x1\\n"
+            mode = "dicom"
+        else:
+            for i, raw in enumerate(raws):
+                write_png(os.path.join(pngs, f"c{{i}}.png"),
+                          native_bindings.preprocess_mammogram_plain(raw[5:-5, 5:-5],
+                                                                       (40, 32))[0])
+            mode = "no GDCM"
+        store = DirectoryImageStore(os.path.join(work, "pngs"))
+        small = DirectoryImageStore(os.path.join(work, "pngs"), (20, 16))
+        for i in range(3):
+            img = store.get("study", f"c{{i}}.png")
+            assert img.shape == (40, 32) and img.dtype == np.uint8 and img.max() > 100
+            assert small.get("study", f"c{{i}}.png").shape == (20, 16)
+            if mode == "dicom":
+                np.testing.assert_array_equal(shards.get("", f"c{{i}}"), img)
+        index = write_packed_shards([(f"c{{i}}", os.path.join(pngs, f"c{{i}}.png"))
+                                     for i in range(3)], os.path.join(work, "from_png"),
+                                    (20, 16), shard_size=2)
+        assert [r["shard"] for r in index] == [0, 0, 1], index
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r} + ["pydicom"]
+                        and sys.modules[m] is not None)
+        assert not leaked, leaked
+        print("ok", mode)
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env=env, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().splitlines()[-1].startswith("ok")
