@@ -174,6 +174,31 @@ Phases, each reported on its own lines:
      through ``DirectoryImageStore`` bit-equal, its 512x512 resize equal to
      the native area resize, and the native PNG unfilter equal to its plain
      version; (h) the phase's seconds beside the card's name and power limit;
+ 14. the flagship pretraining path (no hand kernel lies on it: the fused route
+     is refused under ``tpu_optimized``), on phase 7's run, whose directory is
+     kept until this phase ends: (a) the tiny flagship CLIP (b0 at 64x48,
+     fp32) on the card against the CPU from the same weights: eval and train
+     embeddings within 1e-3, the loss, the gradients' relative norm and the
+     loss after one AdamW step within 1e-3 (the update's own distance
+     printed); (b) the flagship bench step at full width
+     (``bench_recipe_config(compat=False)``: B5 ``tpu_optimized`` at 1520x912,
+     no remat, BERT-base with bf16 attention scores, bf16 activations, batch
+     8, K=5 steps a call through ``build_bench_train``): one warm-up call and
+     2 timed calls (host clock ending in a synchronise), ms a step, images/s
+     (16 views a step) and peak memory, a step that does not fit the card
+     failing the phase; (c) the ``--trimmed`` recipe, one call of 5 steps,
+     timed; (d) ``cli/pretrain`` with the flagship overrides
+     (``model.image_encoder.tpu_optimized=true``, ``train.steps_per_call=5``,
+     ``optimizer.warm_start_lr_scale=0.25``; 14 rows at batch 2: 1 call of 5
+     steps an epoch) and ``--warm-start-from`` phase 7's ``best/``, 1 epoch,
+     then ``--resume`` to 2: the config equal to the recipe's, the peak LR
+     scaled by 0.25, every tensor right after the warm start equal to
+     ``warm_start_state_dict`` of that checkpoint (the fresh ones unchanged),
+     how many were seeded and kept fresh, finite losses, the checkpoints;
+     (e) ``cli/zeroshot`` (16 rows at 1520x912) and ``cli/detector`` (512x512,
+     batch 7, 1 epoch; its FPN built on the flagship's 128, 512 and 2048
+     channels) on (d)'s ``best/``; the fused counters read 0 over (b)-(e);
+     (f) the phase's seconds beside the card's name and power limit;
   8. the hand-written flash attention (csrc/flash_attention.cu): first a look
      into the built library, each flash kernel's registers, shared and local
      memory (``cuobjdump --dump-resource-usage``), spill stores (ptxas) and its
@@ -2307,6 +2332,388 @@ def preprocess_phase(seed, workdir):
 
 
 # --------------------------------------------------------------------------
+# phase 14: the flagship pretraining path
+# --------------------------------------------------------------------------
+
+FLAG_TIMED_CALLS = 2
+FLAG_CLI_ROWS = 14  # 10 training rows (5 steps at BATCH), 4 validation rows (fold 0)
+FLAG_ZS_ROWS = 16
+
+
+def fused_total(launches):
+    return launches.total("mbconv6", "forward") + launches.total("mbconv6", "backward")
+
+
+def flagship_reference_check(seed):
+    """(a) The tiny flagship CLIP (b0 at 64x48, in fp32): the same weights on the
+    card and on the CPU, the eval embeddings, one train-mode forward and
+    backward, one AdamW step and the loss after it. The update itself is
+    printed, not gated: AdamW's first step moves each parameter by about the LR
+    whatever the size of its gradient, so a gradient of rounding size (a bias
+    feeding a BatchNorm) steps either way on the two sides."""
+    import torch
+
+    from mammo_clip_tpu_torch.core.config import tiny_test_config
+    from mammo_clip_tpu_torch.losses import build_loss
+    from mammo_clip_tpu_torch.models import build_model
+    from mammo_clip_tpu_torch.ops.augment import minmax_standardize
+    from mammo_clip_tpu_torch.ops.mbconv import launches
+    from mammo_clip_tpu_torch.train import build_optimizer, create_train_state
+
+    cfg = tiny_test_config()
+    cfg.model.image_encoder.tpu_optimized = True
+    cfg.data.image_size_w = 48
+    cfg.model.image_encoder.drop_connect_rate = 0.0
+    cfg.model.text_encoder.dropout_rate = 0.0
+    cfg.model.projection_head.dropout = 0.0
+    loss_fn = build_loss(cfg.loss.to_dict())
+    res = {}
+    for device in ("cuda", "cpu"):
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        model = build_model(cfg.model.to_dict(), device="cpu", generator=gen).to(device)
+        batch = {k: v.to(device) for k, v in synthetic_batch(cfg, 4, seed, "cpu").items()}
+        for k in ("images", "image_views"):
+            batch[k] = minmax_standardize(batch[k], cfg.data.mean, cfg.data.std)
+        n0 = fused_total(launches)
+        with torch.no_grad():
+            ev = model.embed_image(batch["images"], train=False).cpu()
+        state = create_train_state(model, build_optimizer(cfg.optimizer.to_dict(),
+                                                          lambda s: 1e-3,
+                                                          model.named_parameters()))
+        before = torch.cat([p.detach().flatten().cpu() for p in model.parameters()])
+        out = model(batch, train=True)
+        loss = loss_fn(out, batch, True)["total"]
+        loss.backward()
+        grads = torch.cat([p.grad.flatten().cpu() for p in model.parameters()])
+        state.apply_gradients()
+        update = torch.cat([p.detach().flatten().cpu() for p in model.parameters()]) - before
+        with torch.no_grad():
+            after = loss_fn(model(batch, train=True), batch, True)["total"].item()
+        res[device] = dict(loss=loss.item(), emb=out["image_embeddings"].detach().cpu(), ev=ev,
+                           grads=grads, update=update, after=after,
+                           fused=fused_total(launches) - n0)
+    c, h = res["cuda"], res["cpu"]
+    err = dict(loss=abs(c["loss"] - h["loss"]) / max(1.0, abs(h["loss"])),
+               emb=float((c["emb"] - h["emb"]).abs().max()),
+               ev=float((c["ev"] - h["ev"]).abs().max()),
+               grads=float((c["grads"] - h["grads"]).norm() / h["grads"].norm()),
+               loss_after_step=abs(c["after"] - h["after"]) / max(1.0, abs(h["after"])))
+    tol = dict(loss=1e-3, emb=1e-3, ev=1e-3, grads=1e-3, loss_after_step=1e-3)
+    update = float((c["update"] - h["update"]).norm() / h["update"].norm())
+    say(f"[flag] (a) tiny flagship CLIP (b0 at 64x48, fp32), card vs CPU: loss {c['loss']:.6f} "
+        f"vs {h['loss']:.6f}, "
+        + ", ".join(f"{k} {v:.2e} (tol {tol[k]:.0e})" for k, v in err.items())
+        + f" (emb/ev: max|diff| of the train/eval embeddings; grads: relative norm); the "
+          f"AdamW update's relative norm {update:.2e} (not gated: the first step moves a "
+          f"parameter by ~LR whatever its gradient's size); fused launches "
+          f"{c['fused']} / {h['fused']}")
+    if any(err[k] > tol[k] for k in tol) or c["fused"] or h["fused"]:
+        raise SmokeFailure("the tiny flagship on the card disagrees with the CPU")
+    return dict(err, update=update)
+
+
+def stacked_batches(cfg, n, k, seed):
+    """k seeded synthetic batches of n samples on the card, stacked on a leading axis."""
+    import torch
+
+    batches = [synthetic_batch(cfg, n, seed + i, "cuda") for i in range(k)]
+    return {key: torch.stack([b[key] for b in batches]) for key in batches[0]}
+
+
+def flagship_bench(seed):
+    """(b) the flagship bench step at full width, K steps a call, one warm-up call
+    and FLAG_TIMED_CALLS timed; (c) the --trimmed recipe, one call timed."""
+    import gc
+
+    import torch
+
+    from mammo_clip_tpu_torch.ops.mbconv import launches
+    from mammo_clip_tpu_torch.train.recipes import (BENCH_BATCH, bench_recipe_config,
+                                                    build_bench_train, default_steps_per_call)
+
+    k = default_steps_per_call(compat=False)
+    out = {}
+    for arm, trimmed, calls in (("flagship", False, 1 + FLAG_TIMED_CALLS),
+                                ("trimmed", True, 1)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = bench_recipe_config(compat=False, trimmed=trimmed)
+        ie = cfg.model.image_encoder
+        t0 = time.perf_counter()
+        model, _, state, _, step = build_bench_train(cfg, k_steps=k, device="cuda", seed=seed)
+        batches = stacked_batches(cfg, BENCH_BATCH, k, seed + 10)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        say(f"[flag] ({'b' if arm == 'flagship' else 'c'}) {arm}: B5 tpu_optimized at "
+            f"{cfg.data.image_size_h}x{cfg.data.image_size_w}, dense widths "
+            f"{ie.get('tpu_dense_widths', True)}, slim "
+            f"{ {s: ie.get(f'tpu_slim_stage{s}', 0) for s in (3, 4, 5, 6, 7)} }, remat "
+            f"{ie.remat}, batch {BENCH_BATCH} (x2 views), K={k} steps a call, bf16, amp "
+            f"attention scores {cfg.model.text_encoder.amp_attn_scores}: {n_params} params, "
+            f"built in {time.perf_counter() - t0:.1f} s")
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        launches.reset()
+        torch.cuda.reset_peak_memory_stats()
+        rows = []
+        try:
+            for i in range(calls):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, loss = step(state, batches, gen)
+                total = float(loss["total"])
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+                rows.append(dict(call=i, loss=total, ms=ms, ms_per_step=ms / k))
+                say(f"[flag] {arm} call {i}{' (warm-up)' if arm == 'flagship' and i == 0 else ''}"
+                    f": {k} steps in {ms:.1f} ms ({ms / k:.1f} ms a step), last loss {total:.6f}")
+                if not math.isfinite(total):
+                    raise SmokeFailure(f"{arm} call {i}: loss is not finite")
+        except torch.cuda.OutOfMemoryError as e:
+            raise SmokeFailure(f"the {arm} step at batch {BENCH_BATCH} does not fit the card "
+                               f"({torch.cuda.max_memory_allocated()} B allocated at the peak): "
+                               f"{e}") from None
+        peak = torch.cuda.max_memory_allocated()
+        fused = dict(launches.counts)
+        if state.step != k * calls or any(fused.values()):
+            raise SmokeFailure(f"{arm}: step {state.step}, fused launches {fused}")
+        timed = rows[1:] if arm == "flagship" else rows
+        step_ms = [r["ms_per_step"] for r in timed]
+        per_s = 1e3 * 2 * BENCH_BATCH * len(step_ms) / sum(step_ms)
+        out[arm] = dict(calls=rows, step_ms=step_ms, images_per_s=per_s, peak_bytes=peak,
+                        fused=fused, params=n_params)
+        say(f"[flag] {arm}: ms a step {[round(m, 1) for m in step_ms]} "
+            f"({'calls after the warm-up' if arm == 'flagship' else 'the first call'}), "
+            f"{per_s:.2f} images/s ({2 * BENCH_BATCH} views a step), peak memory {peak} B "
+            f"({peak / 2**30:.2f} GiB), fused launches {fused or 0}")
+        del model, state, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def flagship_overrides(csv_path, seed):
+    """cli/pretrain's overrides that make the default B5 config the flagship
+    recipe (``bench_recipe_config(compat=False)``) at batch BATCH, K steps a call,
+    and temper the warm-started peak LR."""
+    from mammo_clip_tpu_torch.train.recipes import default_steps_per_call
+
+    entry = json.dumps([{"csv": str(csv_path), "image_dir": "synthetic://",
+                         "data_type": "imagetext"}])
+    return ["model.image_encoder.tpu_optimized=true", "model.image_encoder.remat=false",
+            "model.text_encoder.amp_attn_scores=true",
+            f"train.steps_per_call={default_steps_per_call(compat=False)}",
+            "optimizer.warm_start_lr_scale=0.25", f"data.train={entry}", f"data.valid={entry}",
+            f"data.batch_size_per_device={BATCH}", "scheduler.warmup_epochs=0",
+            "train.log_every=1", f"seed={seed}"]
+
+
+def flagship_cli(seed, workdir, tmp):
+    """(d) cli/pretrain with the flagship overrides, warm-started from phase 7's
+    best/: 1 epoch of K steps, then --resume for a second; the seeded tensors
+    checked against ``warm_start_state_dict`` of that checkpoint."""
+    import torch
+
+    from mammo_clip_tpu_torch.cli import pretrain
+    from mammo_clip_tpu_torch.convert.flagship_init import warm_start_state_dict
+    from mammo_clip_tpu_torch.eval.loading import load_clip_for_eval
+    from mammo_clip_tpu_torch.ops.mbconv import launches
+    from mammo_clip_tpu_torch.train import trainer as trainer_mod
+    from mammo_clip_tpu_torch.train.recipes import bench_recipe_config, default_steps_per_call
+
+    k = default_steps_per_call(compat=False)
+    source = str(workdir / "best")
+    seeds, peaks = [], []
+    warm0, build0 = trainer_mod.Trainer.warm_start, trainer_mod.Trainer._build_state
+
+    def built(self, steps_per_epoch, lr_scale=1.0):
+        state = build0(self, steps_per_epoch, lr_scale=lr_scale)
+        peaks.append((lr_scale, float(self._schedule(0))))
+        return state
+
+    def recorded(self, state, src):
+        before = {n: t.detach().cpu().clone() for n, t in self.model.state_dict().items()}
+        t = time.perf_counter()
+        state, names = warm0(self, state, src)
+        seconds = time.perf_counter() - t
+        after = {n: t_.detach().cpu().clone() for n, t_ in self.model.state_dict().items()}
+        seeds.append(dict(before=before, after=after, names=names, seconds=seconds))
+        return state, names
+
+    trainer_mod.Trainer.warm_start, trainer_mod.Trainer._build_state = recorded, built
+    try:
+        csv_path = tmp / "flag.csv"
+        write_pretrain_csv(csv_path, FLAG_CLI_ROWS)
+        run = tmp / "flag"
+        flags = ["--workdir", str(run), "--device", "cuda", "--warm-start-from", source]
+        overrides = flagship_overrides(csv_path, seed)
+        launches.reset()
+        runs = []
+        for epochs in (1, 2):
+            t = time.perf_counter()
+            state = pretrain.main(flags + (["--resume"] if epochs == 2 else []) + overrides
+                                  + [f"scheduler.epochs={epochs}"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+            runs.append(dict(epochs=epochs, seconds=seconds, step=state.step))
+            say(f"[flag] (d) cli/pretrain flagship run {epochs}: {seconds:.1f} s, step "
+                f"{state.step}, warm start {seeds[-1]['seconds']:.1f} s")
+            if state.step != k * epochs:
+                raise SmokeFailure(f"flagship cli run {epochs}: step {state.step}, expected "
+                                   f"{k * epochs}")
+            if not hasattr(state.model.image_encoder, "tpu_stem_conv"):
+                raise SmokeFailure("the flagship cli did not build the flagship encoder")
+            del state
+        if fused_total(launches):
+            raise SmokeFailure(f"fused launches on the flagship path: {launches.counts}")
+
+        # the seeded tensors are warm_start_state_dict of the source checkpoint
+        first = seeds[0]
+        src, _ = load_clip_for_eval(source, device="cpu")
+        src_state = src.state_dict()
+        del src
+        want = warm_start_state_dict(src_state, first["before"])
+        bad = [n for n in want if not torch.equal(first["after"][n].float(), want[n])]
+        kept = [n for n in first["after"] if n not in first["names"]]
+        changed_kept = [n for n in kept if not torch.equal(first["after"][n],
+                                                           first["before"][n])]
+        if bad or changed_kept or "logit_scale" not in first["names"] or \
+                not torch.equal(first["after"]["logit_scale"].float(), src_state["logit_scale"]):
+            raise SmokeFailure(f"warm start: {len(bad)} tensors differ from "
+                               f"warm_start_state_dict ({bad[:3]}), {len(changed_kept)} "
+                               f"unseeded tensors changed ({changed_kept[:3]})")
+        front = sorted({n.split(".")[1] for n in kept if n.startswith("image_encoder.tpu_")})
+        say(f"[flag] (d) warm start from phase 7's best/: {len(first['names'])} of "
+            f"{len(first['after'])} tensors seeded, {len(kept)} kept fresh ({front}); each "
+            f"equal to warm_start_state_dict of the checkpoint, logit_scale "
+            f"{float(src_state['logit_scale']):.6f} carried")
+
+        cfg = json.loads((run / "config.json").read_text())
+        ref = bench_recipe_config(compat=False).to_dict()
+        ref["optimizer"]["warm_start_lr_scale"] = 0.25
+        for key in ("model", "loss", "optimizer", "augment"):
+            if cfg[key] != ref[key]:
+                raise SmokeFailure(f"flagship cli config.{key} is not the flagship recipe's")
+        rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+        train = [r for r in rows if r["prefix"] == "train"]
+        valid = [r for r in rows if r["prefix"] == "valid"]
+        if [r["step"] for r in train] != [k, 2 * k] or len(valid) != 2:
+            raise SmokeFailure(f"flagship metrics: train steps {[r['step'] for r in train]}, "
+                               f"{len(valid)} validation rows")
+        if not all(math.isfinite(r["loss/total"]) for r in train + valid):
+            raise SmokeFailure("flagship cli: a loss is not finite")
+        want_peak = 0.25 * ref["optimizer"]["lr"]
+        if [p[0] for p in peaks] != [0.25, 0.25] or \
+                any(abs(p[1] - want_peak) > 1e-6 * want_peak for p in peaks):
+            raise SmokeFailure(f"flagship cli: LR scale and peak {peaks}, expected 0.25 and "
+                               f"{want_peak}")
+        step_ms = [1e3 * BATCH / r["perf/images_per_sec"] for r in train]
+        for step_dir in (run / "checkpoints" / str(k), run / "checkpoints" / str(2 * k)):
+            if not (step_dir / "state.pt").exists():
+                raise SmokeFailure(f"flagship cli wrote no {step_dir}")
+        best = [d.name for d in (run / "best").iterdir()]
+        say(f"[flag] (d) losses {[round(r['loss/total'], 6) for r in train]} (each call's "
+            f"last), validation {[round(r['loss/total'], 6) for r in valid]}, peak LR "
+            f"{peaks[0][1]} ({ref['optimizer']['lr']} x 0.25), ms a step by call (host clock, "
+            f"data wait included) {[round(m, 1) for m in step_ms]}, best/ at step {best}, "
+            f"fused launches 0")
+        return dict(runs=runs, seeded=len(first["names"]), kept=len(kept),
+                    warm_start_s=[s["seconds"] for s in seeds], step_ms=step_ms,
+                    seconds=sum(r["seconds"] for r in runs)), run
+    finally:
+        trainer_mod.Trainer.warm_start, trainer_mod.Trainer._build_state = warm0, build0
+
+
+def flagship_serving(run, tmp):
+    """(e) cli/zeroshot and cli/detector (512x512, 1 epoch) on (d)'s best/."""
+    import contextlib
+    import io
+
+    import torch
+
+    from mammo_clip_tpu_torch.cli import detector, zeroshot
+    from mammo_clip_tpu_torch.ops.mbconv import launches
+
+    best = str(run / "best")
+    out = {}
+    launches.reset()
+    t = time.perf_counter()
+    zs = zeroshot.main(["--checkpoint", best, "--csv",
+                        str(write_zeroshot_csv(tmp / "zs.csv", FLAG_ZS_ROWS)),
+                        "--image-dir", "synthetic://", "--batch-size", str(SERVE_BATCH),
+                        "--device", "cuda"])
+    out["zeroshot"], out["zeroshot_s"] = zs, time.perf_counter() - t
+    if set(zs) != {"mass", "suspicious_calcification"} or \
+            not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in zs.values()):
+        raise SmokeFailure(f"zero-shot on the flagship best/: {zs}")
+    say(f"[flag] (e) cli/zeroshot on the flagship best/ ({FLAG_ZS_ROWS} rows at 1520x912): "
+        f"AUROC {zs}, {out['zeroshot_s']:.1f} s")
+
+    widths = []
+    build0 = detector.retinanet_from_clip_checkpoint
+
+    def build(*a, **k):
+        model = build0(*a, **k)
+        widths.append([model.fpn.p3_lateral.kernel.shape[1],
+                       model.fpn.p4_lateral.kernel.shape[1],
+                       model.fpn.p5_lateral.kernel.shape[1]])
+        return model
+
+    detector.retinanet_from_clip_checkpoint = build
+    try:
+        write_detection_csv(tmp / "det.csv")
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = detector.main(["--clip-checkpoint", best, "--csv", str(tmp / "det.csv"),
+                                 "--image-dir", "synthetic://", "--resize", str(DET_SIZE),
+                                 "--batch-size", str(DET_BATCH), "--epochs", "1",
+                                 "--device", "cuda", "--workdir", str(tmp / "det")])
+        torch.cuda.synchronize()
+        out["detector"], out["detector_s"] = res, time.perf_counter() - t
+    finally:
+        detector.retinanet_from_clip_checkpoint = build0
+    if widths != [[128, 512, 2048]]:
+        raise SmokeFailure(f"the detector's FPN over the flagship took widths {widths}, "
+                           f"expected [[128, 512, 2048]]")
+    if not (math.isfinite(res["best_mAP"]) and 0.0 <= res["best_mAP"] <= 1.0):
+        raise SmokeFailure(f"cli/detector on the flagship best/: {res}")
+    if fused_total(launches):
+        raise SmokeFailure(f"fused launches in (e): {launches.counts}")
+    say(f"[flag] (e) cli/detector on the flagship best/ ({DET_SIZE}x{DET_SIZE}, batch "
+        f"{DET_BATCH}, 1 epoch): best_mAP {res['best_mAP']:.6f}, FPN input widths "
+        f"{widths[0]} (C3, C4, C5), {out['detector_s']:.1f} s, fused launches 0")
+    return out
+
+
+def flagship_phase(seed, workdir):
+    """Phase 14 on phase 7's run (``workdir``), whose directory is kept until this
+    phase ends: (a) the tiny flagship card vs CPU, (b) the flagship bench step,
+    (c) the trimmed recipe, (d) cli/pretrain warm-started from phase 7's best/,
+    (e) cli/zeroshot and cli/detector on (d)'s best/, (f) the phase's seconds."""
+    import tempfile
+
+    card = card_line()
+    say(f"[flag] phase 14 on {card}")
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_flag_"))
+    try:
+        out = {"reference": flagship_reference_check(seed)}
+        out.update(flagship_bench(seed))
+        out["cli"], run = flagship_cli(seed, workdir, tmp)
+        out["serving"] = flagship_serving(run, tmp)
+        out["seconds"] = time.perf_counter() - t_phase
+        fl, tr = out["flagship"], out["trimmed"]
+        say(f"[flag] (f) phase 14: {out['seconds']:.1f} s on {card}; flagship "
+            f"{sum(fl['step_ms']) / len(fl['step_ms']):.1f} ms a step, "
+            f"{fl['images_per_s']:.2f} images/s, peak {fl['peak_bytes'] / 2**30:.2f} GiB; "
+            f"trimmed {sum(tr['step_ms']) / len(tr['step_ms']):.1f} ms a step (first call); "
+            f"cli/pretrain warm-started {out['cli']['seconds']:.1f} s")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
 # phase 8: flash attention
 # --------------------------------------------------------------------------
 
@@ -2882,11 +3289,13 @@ def main(argv=None) -> int:
         det = detector_phase(args.seed, cli_tmp / "run")
         # 13. offline preprocessing into training, cli/detector on the same best/
         pre = preprocess_phase(args.seed, cli_tmp / "run")
+        # 14. the flagship, warm-started from the same best/
+        flag = flagship_phase(args.seed, cli_tmp / "run")
     finally:
         shutil.rmtree(cli_tmp, ignore_errors=True)
     (OUT_DIR / "chip_smoke_steps.json").write_text(
         json.dumps(dict(slice=rows, cli=cli, serving=serving, classifier=clf, detector=det,
-                        preprocess=pre), indent=1))
+                        preprocess=pre, flagship=flag), indent=1))
 
     # 8. flash attention; 9. the probe kernels
     flash_rows = flash_phases(args.seed, earlier)

@@ -1,7 +1,8 @@
 """Pretraining CLI (port of ``mammo_clip_tpu/cli/pretrain.py``).
 
     python -m mammo_clip_tpu_torch.cli.pretrain [--config cfg.yaml] \
-        [--workdir outputs/pretrain] [--resume] [--device cuda] [key.path=value ...]
+        [--workdir outputs/pretrain] [--resume] [--warm-start-from CKPT] \
+        [--device cuda] [key.path=value ...]
 
 The flags and dotted overrides are the JAX CLI's, plus ``--device`` (default
 ``cuda``; ``cpu`` runs the plain versions of the kernels). One process trains
@@ -10,7 +11,10 @@ on one device, so the global batch is ``data.batch_size_per_device``. Without
 a YAML config needs PyYAML, the defaults and the overrides do not (an
 override's value is parsed as YAML when PyYAML is present, else as JSON, so
 JSON values read the same everywhere). The run's config is written to
-``<workdir>/config.json``.
+``<workdir>/config.json``. ``--warm-start-from`` seeds a flagship run
+(``model.image_encoder.tpu_optimized=true``) from a reference-exact
+checkpoint: a port ``best/`` or run directory, or a reference ``.tar``
+(``train/trainer.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import os
 from ..core.config import default_pretrain_config, load_config
 from ..data.datamodule import DataModule
 from ..data.pipeline import group_batches, prefetch_to_device, stack_batches
-from ..train.trainer import WARM_START_QUEUED, Trainer
+from ..train.trainer import Trainer
 
 
 def main(argv=None):
@@ -31,14 +35,15 @@ def main(argv=None):
     ap.add_argument("--workdir", default="outputs/pretrain")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--warm-start-from", default=None,
-                    help="not ported: seeds the flagship recipe (ROADMAP queue item 6)")
+                    help="a reference-exact checkpoint (a port best/ or run dir, or a "
+                    "reference .tar) to seed a tpu_optimized run from "
+                    "(convert/flagship_init; deep stages and text tower copied, "
+                    "space-to-depth front fresh)")
     ap.add_argument("--fold", type=int, default=0)
     ap.add_argument("--data-frac", type=float, default=1.0)
     ap.add_argument("--device", default="cuda", help="torch device (default cuda)")
     ap.add_argument("overrides", nargs="*", help="dotted-path config overrides (a.b=c)")
     args = ap.parse_args(argv)
-    if args.warm_start_from:
-        raise NotImplementedError(WARM_START_QUEUED)
 
     cfg = load_config(args.config) if args.config else default_pretrain_config(args.variant)
     if args.overrides:
@@ -68,7 +73,7 @@ def main(argv=None):
 
     trainer = Trainer(cfg, workdir=args.workdir, device=args.device)
     return trainer.fit(train_batches, valid_batches, steps_per_epoch=len(train_b),
-                       resume=args.resume)
+                       resume=args.resume, warm_start_from=args.warm_start_from)
 
 
 if __name__ == "__main__":

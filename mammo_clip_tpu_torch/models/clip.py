@@ -56,14 +56,17 @@ def efficientnet_variant(name: str) -> str:
 
 
 def load_image_encoder(config: Dict, dtype: torch.dtype = torch.float32) -> nn.Module:
-    """EfficientNet image encoder (``feature_taps``: the blocks whose outputs
-    it also returns, as ``out["taps"]``). ViT/Swin/ResNet and the flagship
-    layout options belong to later slices and raise here."""
+    """EfficientNet image encoder with every option of the config, the flagship
+    (``tpu_optimized`` and its ``tpu_*`` widths) included (``feature_taps``:
+    the blocks whose outputs it also returns, as ``out["taps"]``).
+    ViT/Swin/ResNet, ``s2d_exec`` and ``quant_int8_k5`` belong to later slices
+    and raise here."""
     name = str(config.get("name", "efficientnet-b5"))
-    unported = [k for k in ("tpu_optimized", "s2d_exec", "quant_int8_k5", "packed_residuals")
-                if config.get(k)]
+    unported = [k for k in ("s2d_exec", "quant_int8_k5") if config.get(k)]
     if unported:
         raise NotImplementedError(f"image encoder options not ported yet: {unported}")
+    # packed_residuals is accepted and not passed on: a lane layout of the TPU for
+    # remat's saved block inputs (a reshape, the same math); NCHW has no lane padding
     return EfficientNet(
         variant=efficientnet_variant(name),
         in_channels=config.get("in_channels", 1),
@@ -71,6 +74,15 @@ def load_image_encoder(config: Dict, dtype: torch.dtype = torch.float32) -> nn.M
         remat=config.get("remat", False),
         remat_max_reduction=config.get("remat_max_reduction", 16),
         fused_mbconv=config.get("fused_mbconv", False),
+        tpu_optimized=config.get("tpu_optimized", False),
+        tpu_front_blocks=config.get("tpu_front_blocks", 2),
+        tpu_front_expand=config.get("tpu_front_expand", 1),
+        tpu_dense_widths=config.get("tpu_dense_widths", True),
+        tpu_slim_stage3=config.get("tpu_slim_stage3", 0),
+        tpu_slim_stage4=config.get("tpu_slim_stage4", 0),
+        tpu_slim_stage5=config.get("tpu_slim_stage5", 0),
+        tpu_slim_stage6=config.get("tpu_slim_stage6", 0),
+        tpu_slim_stage7=config.get("tpu_slim_stage7", 0),
         pooling=config.get("pooling", "avg"),
         dtype=dtype,
         feature_taps=tuple(config.get("feature_taps", ())),

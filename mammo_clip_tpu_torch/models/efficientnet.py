@@ -15,8 +15,19 @@ expanded width <= 256 through ``ops/mbconv6.fused_mbconv_e6`` in train mode
 (the CUDA kernel on a card), padding H/W once per run of fused blocks.
 ``feature_taps`` (block indices) adds ``"taps"``: those blocks' outputs,
 NHWC, in block order, the detector's C3/C4 (``default_detector_taps``).
-The flagship ``tpu_*`` options, ``s2d_exec``, ``quant_int8_k5`` and
-``packed_residuals`` belong to later slices.
+
+``tpu_optimized`` builds the flagship layout of the JAX package: the stem and
+every block above 1/4 scale give way to space-to-depth(4) of the image, a 3x3
+conv to 128 channels (``tpu_stem_conv``, ``tpu_stem_bn``) and
+``tpu_front_blocks`` MBConv blocks of 128 channels at 1/4 scale
+(``tpu_front_block_{j}``, expand ratio ``tpu_front_expand``, no stochastic
+depth, never rematerialised). The deep blocks keep their names, and their
+drop rates and tap indices count from the original block 0; their widths come
+from ``tpu_optimized_block_args`` (``tpu_dense_widths``, ``tpu_slim_stage3..7``).
+The endpoints are renumbered from the first reduction after the front
+(``reduction_1`` is the 1/4 map entering the first deep block). The fused
+route is its own layout regime and is refused with it, as in JAX.
+``s2d_exec`` and ``quant_int8_k5`` belong to a later slice.
 
 Running statistics: each block computes its forward as a pure function that
 returns its batch statistics, and the block applies the momentum update after
@@ -89,10 +100,12 @@ class BlockArgs:
     in_filters: int
     out_filters: int
     se_ratio: float
+    expand_filters: int = 0  # explicit expanded width; 0 = in_filters * expand_ratio
+    #   (the tpu_optimized width remap decouples it from the block's I/O widths)
 
     @property
     def expanded(self) -> int:
-        return self.in_filters * self.expand_ratio
+        return self.expand_filters or self.in_filters * self.expand_ratio
 
 
 def scaled_block_args(variant: str) -> List[BlockArgs]:
@@ -106,6 +119,46 @@ def scaled_block_args(variant: str) -> List[BlockArgs]:
                                  in_filters=i_s if j == 0 else o_s, out_filters=o_s,
                                  se_ratio=se))
     return out
+
+
+def _nearest128(c: int) -> int:
+    lo = max(128, (c // 128) * 128)
+    return lo if (c - lo) <= (lo + 128 - c) else lo + 128
+
+
+def tpu_optimized_block_args(variant: str, dense_widths: bool = True, slim_stage3: int = 0,
+                             slim_stage5: int = 0, slim_stage6: int = 0, slim_stage4: int = 0,
+                             slim_stage7: int = 0) -> Tuple[List[BlockArgs], int]:
+    """Deep-stage BlockArgs of the ``tpu_optimized`` layout, and the number of
+    shallow blocks the space-to-depth front replaces (``skip``).
+
+    The first surviving block takes C=128 at expand ratio 2; ``dense_widths``
+    snaps every I/O width and every expanded width to the nearest multiple of
+    128 (never below 128); ``slim_stageN`` overrides the expanded width of the
+    blocks that stage's B5 width picks out (k5 at 384; k3 at 768; k5 at 1024,
+    1056 without the dense remap; k5 at 1792 / 1824; k3 at 3072)."""
+    args = scaled_block_args(variant)
+    sc, skip = 2, 0
+    for a in args:
+        if sc > 4 or (sc == 4 and a.stride > 1):
+            break
+        sc *= a.stride
+        skip += 1
+    args = [dataclasses.replace(args[skip], in_filters=128, expand_ratio=2)] + args[skip + 1:]
+    if dense_widths:
+        args = [dataclasses.replace(a, in_filters=_nearest128(a.in_filters),
+                                    out_filters=_nearest128(a.out_filters),
+                                    expand_filters=_nearest128(a.expanded)) for a in args]
+    slims = ((slim_stage3, 5, (384,)),
+             (slim_stage5, 5, (1024,) if dense_widths else (1056,)),
+             (slim_stage6, 5, (1792,) if dense_widths else (1824,)),
+             (slim_stage4, 3, (768,)),
+             (slim_stage7, 3, (3072,)))
+    for width, kernel, targets in slims:  # in JAX's order: each sees the ones before
+        if width:
+            args = [dataclasses.replace(a, expand_filters=width)
+                    if (a.kernel == kernel and a.expanded in targets) else a for a in args]
+    return args, skip
 
 
 def stem_filters(variant: str) -> int:
@@ -135,12 +188,6 @@ def default_detector_taps(variant: str) -> Tuple[int, int]:
     return (last_s5, len(args) - 1)
 
 
-def tap_channels(variant: str, taps: Sequence[int]) -> List[int]:
-    """Channels of the tapped blocks' outputs, then of the conv head."""
-    args = scaled_block_args(variant)
-    return [args[t].out_filters for t in taps] + [head_filters(variant)]
-
-
 def same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
     """TF/XLA 'SAME' padding for a k x k window at stride s (extra pixel at the end)."""
     pads = []
@@ -167,6 +214,40 @@ class Conv(nn.Module):
                         self.stride, 0, 1, self.groups)
 
 
+class _TrainBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over NCHW, computed in fp32, returning y in x's type
+    and the batch (mean, biased var). It keeps x (in its own type) and two
+    per-channel vectors for the backward, which recomputes the normalised x:
+    the composition of autograd ops keeps two fp32 copies of x instead (8 bytes
+    an element where a bf16 x takes 2), which at the flagship's widths without
+    remat does not fit a step at batch 8 on one 80 GB card."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias):
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        invstd = torch.rsqrt(var + BN_EPS)
+        c = (1, -1, 1, 1)
+        y = (xf - mean.view(c)) * (invstd * scale).view(c) + bias.view(c)
+        ctx.save_for_backward(x, scale, mean, invstd)
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, scale, mean, invstd = ctx.saved_tensors
+        c = (1, -1, 1, 1)
+        xhat = (x.float() - mean.view(c)) * invstd.view(c)
+        dyf = dy.float()
+        m = x.numel() // x.shape[1]
+        sum_dy = dyf.sum(dim=(0, 2, 3))
+        sum_dy_xhat = (dyf * xhat).sum(dim=(0, 2, 3))
+        dx = (invstd * scale).view(c) * (dyf - (sum_dy / m).view(c)
+                                         - xhat * (sum_dy_xhat / m).view(c))
+        return dx.to(x.dtype), sum_dy_xhat, sum_dy
+
+
 class BatchNorm(nn.Module):
     """Flax-semantics BatchNorm over NCHW: ``scale``/``bias`` params and
     ``mean``/``var`` running buffers. ``forward`` is pure and returns the
@@ -180,17 +261,13 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, train: bool):
-        xf = x.float()
         if train:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-            stats = (mean.detach(), var.detach())
-        else:
-            mean, var, stats = self.mean, self.var, None
+            y, mean, var = _TrainBatchNorm.apply(x, self.scale, self.bias)
+            return y, (mean, var)
         c = (1, -1, 1, 1)
-        y = (xf - mean.view(c)) * (torch.rsqrt(var + BN_EPS) * self.scale).view(c) \
-            + self.bias.view(c)
-        return y.to(x.dtype), stats
+        y = (x.float() - self.mean.view(c)) * (torch.rsqrt(self.var + BN_EPS)
+                                                * self.scale).view(c) + self.bias.view(c)
+        return y.to(x.dtype), None
 
     @torch.no_grad()
     def update(self, stats):
@@ -307,21 +384,52 @@ class EfficientNet(nn.Module):
                  drop_connect_rate: float = 0.2, remat: bool = False,
                  remat_max_reduction: int = 16, fused_mbconv: bool = False,
                  pooling: str = "avg", dtype: torch.dtype = torch.float32,
-                 feature_taps: Sequence[int] = ()):
+                 feature_taps: Sequence[int] = (),
+                 tpu_optimized: bool = False, tpu_front_blocks: int = 2,
+                 tpu_front_expand: int = 1, tpu_dense_widths: bool = True,
+                 tpu_slim_stage3: int = 0, tpu_slim_stage4: int = 0,
+                 tpu_slim_stage5: int = 0, tpu_slim_stage6: int = 0,
+                 tpu_slim_stage7: int = 0):
         super().__init__()
         self.variant, self.in_channels = variant, in_channels
         self.feature_taps = tuple(feature_taps)
         self.drop_connect_rate = drop_connect_rate
         self.remat, self.remat_max_reduction = remat, remat_max_reduction
         self.fused_mbconv, self.pooling, self.dtype = fused_mbconv, pooling, dtype
-        self.block_args = scaled_block_args(variant)
-        n = len(self.block_args)
-        self.stem_conv = Conv(in_channels, stem_filters(variant), 3, 2)
-        self.stem_bn = BatchNorm(stem_filters(variant))
-        for idx, a in enumerate(self.block_args):
+        self.tpu_optimized = tpu_optimized
+        n = len(scaled_block_args(variant))  # drop rates count the original blocks
+        if tpu_optimized:
+            if fused_mbconv:
+                raise ValueError("tpu_optimized is its own layout regime: fused_mbconv "
+                                 "cannot be combined with it")
+            self.block_args, self.skip = tpu_optimized_block_args(
+                variant, dense_widths=tpu_dense_widths, slim_stage3=tpu_slim_stage3,
+                slim_stage5=tpu_slim_stage5, slim_stage6=tpu_slim_stage6,
+                slim_stage4=tpu_slim_stage4, slim_stage7=tpu_slim_stage7)
+            if any(t < self.skip for t in self.feature_taps):
+                raise ValueError(f"tpu_optimized replaces blocks < {self.skip}; feature_taps "
+                                 f"{self.feature_taps} reach into the removed front")
+            self.tpu_stem_conv = Conv(16 * in_channels, 128, 3)
+            self.tpu_stem_bn = BatchNorm(128)
+            front = BlockArgs(kernel=3, stride=1, expand_ratio=tpu_front_expand,
+                              in_filters=128, out_filters=128, se_ratio=0.25)
+            self.front_blocks = [f"tpu_front_block_{j}" for j in range(tpu_front_blocks)]
+            for name in self.front_blocks:
+                self.add_module(name, MBConvBlock(front, 0.0))
+        else:
+            self.block_args, self.skip, self.front_blocks = scaled_block_args(variant), 0, []
+            self.stem_conv = Conv(in_channels, stem_filters(variant), 3, 2)
+            self.stem_bn = BatchNorm(stem_filters(variant))
+        for idx0, a in enumerate(self.block_args):
+            idx = idx0 + self.skip
             self.add_module(f"block_{idx}", MBConvBlock(a, drop_connect_rate * idx / n))
         self.head_conv = Conv(self.block_args[-1].out_filters, head_filters(variant), 1)
         self.head_bn = BatchNorm(head_filters(variant))
+
+    def tap_channels(self) -> List[int]:
+        """Channels of this encoder's tapped blocks' outputs, then of its head."""
+        return ([self.block_args[t - self.skip].out_filters for t in self.feature_taps]
+                + [head_filters(self.variant)])
 
     @property
     def out_dim(self) -> int:
@@ -335,11 +443,29 @@ class EfficientNet(nn.Module):
                 generator: Optional[torch.Generator] = None) -> Dict:
         if x.dim() != 4 or x.shape[-1] != self.in_channels:
             raise ValueError(f"expected NHWC with C={self.in_channels}, got {tuple(x.shape)}")
-        x = x.permute(0, 3, 1, 2).contiguous().to(self.dtype)
-        x, stats = self.stem_bn(self.stem_conv(x), train)
-        if stats is not None:
-            self.stem_bn.update(stats)
-        x = F.silu(x)
+
+        def stem(conv, bn, t):
+            t, stats = bn(conv(t), train)
+            if stats is not None:
+                bn.update(stats)
+            return F.silu(t)
+
+        if self.tpu_optimized:
+            n, h, w, c = x.shape
+            if h % 4 or w % 4:
+                raise ValueError(f"space-to-depth(4) needs /4 dims, got {tuple(x.shape)}")
+            # space-to-depth(4) with JAX's channel order (dy, dx, c)
+            x = x.reshape(n, h // 4, 4, w // 4, 4, c).permute(0, 1, 3, 2, 4, 5)
+            x = x.reshape(n, h // 4, w // 4, 16 * c).permute(0, 3, 1, 2).contiguous()
+            x = stem(self.tpu_stem_conv, self.tpu_stem_bn, x.to(self.dtype))
+            ones = drop_delta(n, 0.0, None, x.device)
+            for name in self.front_blocks:
+                x = getattr(self, name)(x, train, ones)
+            scale = 4
+        else:
+            x = x.permute(0, 3, 1, 2).contiguous().to(self.dtype)
+            x = stem(self.stem_conv, self.stem_bn, x)
+            scale = 2
 
         nhwc = lambda t: t.permute(0, 2, 3, 1)
         endpoints: Dict[str, torch.Tensor] = {}
@@ -348,9 +474,9 @@ class EfficientNet(nn.Module):
         pad_hw = None  # (hpad, wpad) while x carries the fused run's zero pads
         unpadded = lambda t: t[:, :, :cur_h, :cur_w] if pad_hw is not None else t
         prev = x
-        scale = 2
-        n_blocks = len(self.block_args)
-        for idx, a in enumerate(self.block_args):
+        n_blocks = len(self.block_args) + self.skip
+        for idx0, a in enumerate(self.block_args):
+            idx = idx0 + self.skip  # the original numbering
             block = getattr(self, f"block_{idx}")
             use_remat = self.remat and scale <= self.remat_max_reduction
             use_fused = self.fused_ok(a)

@@ -13,7 +13,10 @@ Capability parity with the reference detector
   sigmoid (in fp32) with the prior bias -log((1-0.01)/0.01)
   (detector_model.py:288-292);
 * backbone taps: b5 blocks [26,37] + head, b2 [15,21] + head
-  (detector_model.py:374-391), ``efficientnet.default_detector_taps``;
+  (detector_model.py:374-391), ``efficientnet.default_detector_taps``; the
+  FPN takes the widths of the encoder that was built, so a flagship
+  (``tpu_optimized``) checkpoint's config backs it too (b5: 128 and 512
+  channels, where the reference layout has 176 and 512);
 * the backbone always runs in eval mode: BatchNorm on its running statistics
   (the reference's frozen BN, detector_model.py:297-305), no stochastic
   depth, and so never the fused MBConv kernel. Its parameters still take
@@ -43,7 +46,7 @@ import torch.nn.functional as F
 from ..ops.boxes import build_anchors, clip_boxes, decode_boxes
 from ..ops.nms import batched_class_nms
 from .clip import efficientnet_variant, image_encoder_state, load_image_encoder
-from .efficientnet import Conv, default_detector_taps, tap_channels
+from .efficientnet import Conv, default_detector_taps
 
 PRIOR = 0.01
 
@@ -134,7 +137,7 @@ class RetinaNet(nn.Module):
         ie["feature_taps"] = default_detector_taps(variant)
         self.freeze_backbone = freeze_backbone
         self.image_encoder = load_image_encoder(ie, dtype=dtype)
-        self.fpn = FPN(tap_channels(variant, ie["feature_taps"]), feature_size)
+        self.fpn = FPN(self.image_encoder.tap_channels(), feature_size)
         self.box_subnet = BoxSubnet(feature_size=feature_size)
         self.class_subnet = ClassSubnet(num_classes, feature_size=feature_size)
 

@@ -7,6 +7,16 @@ checkpoint by ``train.loss_best`` (reference trainer.py:215-237). Resume
 restores the optimizer state, the EMA and the best validation loss so far;
 a checkpoint flushed on SIGTERM resumes inside its epoch, skipping the batches
 already trained. One process drives one device.
+
+``warm_start_from`` seeds a flagship (``tpu_optimized``) run from a
+reference-exact checkpoint, anything ``eval/loading.py`` loads (a port
+``best/`` or run directory, or a reference ``.tar``), through
+``convert/flagship_init.py``, after the state is built and before
+``resume``; ``optimizer.warm_start_lr_scale`` scales the schedule's peak. The
+seeded values are copied into the model's own tensors (the optimizer holds
+them), and an EMA of the parameters starts from the seeded values. The JAX
+trainer leaves its EMA at the fresh init (fault R9 of the reference, ROADMAP),
+so there validation and ``best/`` judge unseeded weights.
 """
 
 from __future__ import annotations
@@ -30,11 +40,6 @@ from .optim import build_optimizer
 from .schedule import schedule_horizon, warmup_cosine_sq_schedule
 from .state import create_train_state
 from .step import make_eval_step, make_train_multistep, make_train_step
-
-WARM_START_QUEUED = ("warm-starting seeds the flagship (tpu_optimized) recipe from a "
-                     "reference-exact checkpoint; the flagship is not ported yet "
-                     "(ROADMAP queue item 6)")
-
 
 def make_clip_preprocess(cfg: Config) -> Callable:
     """On-device augmentation + normalization hook for the CLIP train step;
@@ -99,22 +104,40 @@ class Trainer:
         self.logger = MetricsLogger(workdir)
         self._schedule = None
 
-    def _build_state(self, steps_per_epoch: int):
+    def _build_state(self, steps_per_epoch: int, lr_scale: float = 1.0):
         cfg = self.cfg
         total, warmup = schedule_horizon(cfg.scheduler.epochs, cfg.scheduler.warmup_epochs,
                                          steps_per_epoch, cfg.optimizer.get("grad_accum_steps", 1))
-        self._schedule = warmup_cosine_sq_schedule(cfg.optimizer.lr, total, warmup)
+        self._schedule = warmup_cosine_sq_schedule(cfg.optimizer.lr * lr_scale, total, warmup)
         opt = build_optimizer(cfg.optimizer.to_dict(), self._schedule,
                               self.model.named_parameters())
         return create_train_state(self.model, opt,
                                   ema_decay=cfg.optimizer.get("ema_decay", 0.0))
 
+    def warm_start(self, state, source: str):
+        """Seed the model from the reference-exact checkpoint at ``source`` in
+        place (``convert/flagship_init.warm_start_state_dict``), and the EMA
+        from the seeded parameters. Returns the state and the names of the
+        tensors seeded (those the source also has; the rest keep their fresh init)."""
+        from ..convert.flagship_init import warm_start_state_dict
+        from ..eval.loading import load_clip_for_eval
+
+        src, _ = load_clip_for_eval(source, device="cpu")
+        source_state = src.state_dict()
+        del src
+        current = self.model.state_dict()
+        seeded = warm_start_state_dict(source_state, current)
+        self.model.load_state_dict(seeded)  # copy_ into the tensors the optimizer holds
+        if state.ema is not None:
+            with torch.no_grad():
+                for name, p in self.model.named_parameters():
+                    state.ema[name].copy_(p)
+        return state, [k for k in current if k in source_state]
+
     def fit(self, train_batches: Callable[[int], Iterable],
             valid_batches: Optional[Callable[[int], Iterable]] = None,
             steps_per_epoch: Optional[int] = None, resume: bool = False,
             warm_start_from: Optional[str] = None):
-        if warm_start_from:
-            raise NotImplementedError(WARM_START_QUEUED)
         cfg = self.cfg
         epochs = cfg.scheduler.epochs
         # train.steps_per_call=K: K optimizer steps per call (make_train_multistep);
@@ -130,7 +153,15 @@ class Trainer:
                 f"epoch has fewer batches than train.steps_per_call={K} — the "
                 "fused call drops the final partial group, leaving zero steps; "
                 "lower steps_per_call or raise the per-epoch batch count")
-        state = self._build_state(steps_per_epoch)
+        # a seeded run takes a gentler peak LR (optimizer.warm_start_lr_scale)
+        lr_scale = (float(cfg.optimizer.get("warm_start_lr_scale", 1.0))
+                    if warm_start_from else 1.0)
+        state = self._build_state(steps_per_epoch, lr_scale=lr_scale)
+        if warm_start_from:
+            state, names = self.warm_start(state, warm_start_from)
+            n_all = len(self.model.state_dict())
+            print(f"warm-started from {warm_start_from}: {len(names)} of {n_all} tensors "
+                  f"seeded, {n_all - len(names)} kept fresh")
         gen = torch.Generator(device=self.device)
         ckpt_dir, best_dir = f"{self.workdir}/checkpoints", f"{self.workdir}/best"
         start_epoch, skip_batches, best_val = 0, 0, np.inf

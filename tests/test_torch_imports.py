@@ -1,11 +1,11 @@
 """Import hygiene of the port: it needs nothing beyond the standard library,
 torch, numpy, scipy and einops (the card machine has no JAX, Flax, optax, Orbax,
 yaml, transformers, PIL, pandas, scikit-learn or OpenCV), and no file of it
-imports JAX or the JAX package. The pretraining CLI runs (and resumes), the
-evaluation CLIs run on what it wrote, the classifier, rescore and detector
-CLIs run, and the offline preprocessing (the DICOM tool, the PNG reader
-behind DirectoryImageStore, the shard writer) runs, with all of those
-blocked, as they must on the card."""
+imports JAX or the JAX package. The pretraining CLI runs (and resumes, and
+seeds a flagship run from what it wrote), the evaluation CLIs run on what it
+wrote, the classifier, rescore and detector CLIs run, and the offline
+preprocessing (the DICOM tool, the PNG reader behind DirectoryImageStore, the
+shard writer) runs, with all of those blocked, as they must on the card."""
 
 import os
 import re
@@ -51,7 +51,7 @@ def test_port_imports_without_jax_and_host_extras():
                  "downstream.detect", "cli.detector", "data.png", "preprocess",
                  "preprocess.breast_crop", "preprocess.native_bindings",
                  "preprocess.dicom_native", "preprocess.dicom_tool", "preprocess.shard_writer",
-                 "preprocess.text", "preprocess.vindr_csv"):
+                 "preprocess.text", "preprocess.vindr_csv", "convert.flagship_init"):
         assert f"mammo_clip_tpu_torch.{name}" in mods
     assert len(mods) > 30
     code = textwrap.dedent(f"""
@@ -84,7 +84,8 @@ def test_no_source_names_jax_or_the_jax_package():
 def test_cli_trains_and_resumes_without_host_extras(tmp_path):
     """cli/pretrain on the CPU at the tiny config's sizes, its config from the
     defaults and JSON-valued overrides (no --config: that needs PyYAML), then
-    --resume, then cli/validate, cli/zeroshot and cli/retrieval on the run;
+    --resume, then cli/validate, cli/zeroshot and cli/retrieval on the run,
+    then a flagship cli/pretrain with --warm-start-from the run's best/;
     every module of BLOCKED is unimportable throughout."""
     code = textwrap.dedent(f"""
         import csv, json, os, sys, threading
@@ -128,6 +129,13 @@ def test_cli_trains_and_resumes_without_host_extras(tmp_path):
         common = ["--checkpoint", run, "--image-dir", "synthetic://", "--device", "cpu"]
         assert set(zeroshot.main(common + ["--csv", zs])) == {{"mass", "suspicious_calcification"}}
         assert "Recall@1" in retrieval.main(common + ["--csv", path])["retrieval_i2t"]
+        # a flagship run seeded from that run's best/
+        flags = ["--device", "cpu", "--workdir", os.path.join(work, "flag"), "--variant", "b2",
+                 "--warm-start-from", os.path.join(run, "best")]
+        state = pretrain.main(flags + tiny + ["scheduler.epochs=1",
+                                              "model.image_encoder.tpu_optimized=true",
+                                              "optimizer.warm_start_lr_scale=0.25"])
+        assert state.step == 3 and hasattr(state.model.image_encoder, "tpu_stem_conv")
         assert threading.active_count() == 1, threading.enumerate()
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
                         and sys.modules[m] is not None)

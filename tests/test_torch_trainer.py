@@ -311,10 +311,12 @@ def test_resume_keeps_a_better_best(tmp_path, csv16):
 
 
 def test_trainer_guards_and_profile(tmp_path, csv16):
-    """Warm start names its queue item; an epoch shorter than steps_per_call
-    raises; a misaligned preempted resume raises; profile_at_step writes a trace."""
-    with pytest.raises(NotImplementedError, match="queue item 6"):
-        pretrain.main(["--warm-start-from", "x", "--device", "cpu"])
+    """Warm start from a missing checkpoint raises; an epoch shorter than
+    steps_per_call raises; a misaligned preempted resume raises;
+    profile_at_step writes a trace."""
+    with pytest.raises(FileNotFoundError, match="no checkpoint under"):
+        _run(_config(csv16, batch=4, epochs=1), str(tmp_path / "warm"), "--warm-start-from",
+             str(tmp_path / "missing"))
     with pytest.raises(ValueError, match="fewer batches"):
         _run(_config(csv16, batch=12, epochs=1, steps_per_call=2), str(tmp_path / "short"))
     work = str(tmp_path / "prof")
