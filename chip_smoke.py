@@ -199,6 +199,39 @@ Phases, each reported on its own lines:
      batch 7, 1 epoch; its FPN built on the flagship's 128, 512 and 2048
      channels) on (d)'s ``best/``; the fused counters read 0 over (b)-(e);
      (f) the phase's seconds beside the card's name and power limit;
+ 15. the other image-encoder families and Mammo-FActOR, on phase 7's run,
+     whose directory is kept until this phase ends (the hand flash-attention
+     kernel runs every ViT layer's attention, forward and backward): (a) the
+     flash kernel at the ViT-B/16 step's shape, (2, 12, 5416, 64) (95 x 57
+     patches and the CLS token at 1520x912, 12 heads of 64), against its plain
+     version in fp32 and bf16 (out, dq, dk, dv; phase 8's tolerances; SDPA's
+     own distance printed beside the bf16 row), then its times beside the
+     plain version's, the einsum attention's and SDPA's, and its bound (4 B N
+     S^2 D products at the bf16 tensor-core peak against the bytes at the HBM
+     rate); (b) a tiny CLIP of each family (ViT, Swin with a shifted stage and
+     a merge, ResNet-50; 64x64) on the card and on the CPU from one state
+     dict, fp32: eval embeddings, the loss and the gradients' relative norm
+     (1e-3; ResNet-50's whole step 5e-2, since ReLU and max-pool decisions
+     that flip under rounding make it ill-conditioned, which the CPU's own
+     step under a 1e-6 change of the images shows, and its 53 conv +
+     train-mode BatchNorm pairs one by one on the same inputs at 1e-3), the
+     flash counters 6 + 4 on the card's ViT and 0 on the CPU; (c) ``bench_recipe_config(compat=True)``
+     with BERT-base at batch 2 and each family's encoder at full width:
+     ViT-B/16 at 1520x912, Swin-T at 1536x1024 (1520x912 does not divide by
+     patch x window x 2^3 = 256), ResNet-101 at 1520x912: one warm-up step
+     and 5 timed, ms a step, images/s, peak memory, the flash counters 24 + 24
+     a ViT step (0 for the others) and the fused MBConv counters 0; (d)
+     ``cli/pretrain`` with ``model.image_encoder.name=vit-base`` (1 epoch of 2
+     steps, then ``--resume`` to 2), ``cli/zeroshot`` and ``cli/classifier
+     --arch lp`` on its ``best/`` (flash forward only in these two); (e)
+     ``cli/factor`` on phase 7's B5 ``best/`` at 1520x912 (both attributes, 16
+     positive rows, batch 8, 2 epochs; the (8, 48, 29, 2048) features read as
+     2048 regions of 1392 positions): a finite loss, the mapper saved, its
+     seconds; (f) ViT-B/16 and Swin-T drawn on the card, their tensors written
+     under HF's ``ViTModel`` / ``SwinModel`` names (no ``transformers``), read
+     back through ``convert_hf_vit`` / ``convert_hf_swin``: every tensor equal
+     and the same bits out at full width; (g) the phase's seconds beside the
+     card's name and power limit;
   8. the hand-written flash attention (csrc/flash_attention.cu): first a look
      into the built library, each flash kernel's registers, shared and local
      memory (``cuobjdump --dump-resource-usage``), spill stores (ptxas) and its
@@ -257,7 +290,8 @@ Phases, each reported on its own lines:
      ``library_host_us``).
 The line before the last is a JSON object with one entry per kernel (e6 entries
 counted on the CLI slice, the N=8 fp32 e6 entries on the classifier's ft arm,
-e1, flash and probe entries on their own paths); the last line is
+e1, flash and probe entries on their own paths, the flash entries at the ViT
+shape on phase 15 (c)'s ViT-B/16 steps); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
 checkout of the repository, the script exits non-zero and prints no result.
 Long logs go to chiprun_out/.
@@ -2714,6 +2748,564 @@ def flagship_phase(seed, workdir):
 
 
 # --------------------------------------------------------------------------
+# phase 15: the other encoder families and Mammo-FActOR
+# --------------------------------------------------------------------------
+
+VIT_FLASH_SHAPE = (BATCH, 12, 95 * 57 + 1, 64)  # ViT-B/16's attention at 1520x912
+FAMILY_CELLS = (("vit", "vit-base", 1520, 912), ("swin", "swin-tiny", 1536, 1024),
+                ("resnet", "resnet101", 1520, 912))
+FAMILY_TIMED_STEPS = 5
+TINY_FAMILIES = {
+    "vit": {"name": "vit-tiny", "patch_size": 8, "hidden_size": 32, "num_layers": 2,
+            "num_heads": 2, "mlp_dim": 64, "base_grid": 4},
+    "swin": {"name": "swin-tiny", "patch_size": 4, "embed_dim": 16, "depths": [2, 2],
+             "num_heads": [2, 2], "window": 4},
+    "resnet": {"name": "resnet50"},
+}
+# card vs CPU, relative norm of the whole step's gradient. ResNet-50's train
+# step at random init is ill-conditioned: a rounding-level change of a ReLU's
+# or the max pool's input can flip its decision, each train-mode BatchNorm
+# spreads the flip over its channel, and 17 BatchNorm'd units amplify it
+# further, so the whole-step gradient moves by a few percent under a 1e-6
+# relative change of the images (which (b) measures on the CPU and prints),
+# whatever the input size. So that gate catches only a gross fault, and
+# ResNet-50's gradients are held at RESNET_PAIR_TOL pair by pair instead
+# (resnet_pair_check): each conv + BatchNorm pair is smooth and gets the same
+# input on both sides.
+FAMILY_GRAD_TOL = {"vit": 1e-3, "swin": 1e-3, "resnet": 5e-2}
+RESNET_PAIR_TOL = 1e-3
+RESNET_PERTURB = 1e-6
+VIT_CLI_ROWS = 6  # 4 training rows (2 steps at BATCH), 2 validation rows (fold 0)
+FACTOR_POS_ROWS = 16
+FACTOR_BATCH = 8
+
+
+def flash_counts():
+    from mammo_clip_tpu_torch.ops.flash_attention import launches
+
+    return [launches.counts["flash_attention.forward"], launches.counts["flash_attention.backward"]]
+
+
+def vit_flash_check(seed):
+    """(a) The flash kernel at the ViT-B/16 step's attention shape against its
+    plain version (fp32 and bf16, out and gradients, phase 8's tolerances), and
+    its times beside the plain version's, SDPA's and the bound."""
+    import torch
+
+    shape = VIT_FLASH_SHAPE
+    errs = {dt: check_flash(shape, dt, seed, yardstick=dt == "bfloat16")
+            for dt in ("float32", "bfloat16")}
+    times, device, bounds = flash_timing(*flash_inputs(shape, torch.bfloat16, seed))
+    for i, what in enumerate(("forward", "backward", "forward+backward")):
+        say(f"[fam] (a) flash {shape} bf16 {what}, ms (CUDA events | device time): "
+            + ", ".join(f"{name} {times[name][i]:.4f} | {device[name][i]:.4f}"
+                        for name in ("kernel", "plain", "einsum", "sdpa"))
+            + f"; bound {bounds[i][0]:.4f} ms ({bounds[i][1]}: 4 B N S^2 D products at "
+              f"{BF16_FLOPS / 1e12:.0f} TFLOP/s against the bytes at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); kernel at "
+              f"{100 * bounds[i][0] / device['kernel'][i]:.1f}% of its bound")
+    return dict(err=errs["bfloat16"], err_fp32=errs["float32"], times=times, device=device,
+                bounds=bounds)
+
+
+RESNET_PAIRS = {"stem_conv": "stem_bn", "conv1": "bn1", "conv2": "bn2", "conv3": "bn3",
+                "downsample": "downsample_bn"}
+
+
+def resnet_pair_check(state, cfg, images, seed):
+    """(b) Each of ResNet-50's 53 conv + train-mode BatchNorm pairs on the CPU's
+    own input to it (captured in one CPU train-mode forward), on both devices,
+    with one seeded cotangent: the relative norm of the output, the input's
+    gradient and the pair's parameter gradients, the worst pair of each. The
+    pair is smooth: no ReLU or max-pool decision lies inside it."""
+    import torch
+
+    from mammo_clip_tpu_torch.models import build_model
+
+    encs = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg.model.to_dict(), device="cpu")
+        model.load_state_dict(state)
+        encs[device] = model.image_encoder.to(device)
+    ref = encs["cpu"]
+    inputs, hooks = {}, []
+    for name, mod in ref.named_modules():
+        if name.rsplit(".", 1)[-1] in RESNET_PAIRS:
+            hooks.append(mod.register_forward_pre_hook(
+                lambda mod, args, name=name: inputs.setdefault(name, args[0].detach().cpu())))
+    with torch.no_grad():
+        ref(images.cpu(), train=True)
+    for h in hooks:
+        h.remove()
+    g = torch.Generator().manual_seed(seed)
+    worst = {}
+    for name, x in inputs.items():
+        parent, _, conv_name = name.rpartition(".")
+        res, cot = {}, None
+        for device, enc in encs.items():
+            owner = enc.get_submodule(parent) if parent else enc
+            conv, bn = getattr(owner, conv_name), getattr(owner, RESNET_PAIRS[conv_name])
+            xi = x.to(device, copy=True).requires_grad_()
+            z = bn(conv(xi), True)[0]
+            if cot is None:
+                cot = torch.randn(z.shape, generator=g)
+            (z * cot.to(device)).sum().backward()
+            res[device] = dict(y=z.detach().cpu(), dx=xi.grad.cpu(), dp=torch.cat(
+                [p.grad.flatten().cpu() for m in (conv, bn) for p in m.parameters()]))
+            enc.zero_grad(set_to_none=True)
+        a, b = res["cuda"], res["cpu"]
+        for k in a:
+            err = float((a[k] - b[k]).norm() / b[k].norm())
+            if err >= worst.get(k, (0.0, ""))[0]:
+                worst[k] = (err, name)
+    return worst
+
+
+def family_reference_check(seed):
+    """(b) A tiny CLIP of each family (ViT, Swin, ResNet-50; b0-sized BERT, 64x64)
+    on the card and on the CPU from one state dict, fp32 with TF32 off: eval
+    embeddings and one train-mode forward and backward (loss, gradients); for
+    ResNet-50 also the CPU step's gradient under a RESNET_PERTURB change of the
+    images, and its gradients pair by pair (resnet_pair_check)."""
+    import torch
+
+    from mammo_clip_tpu_torch.core.config import tiny_test_config
+    from mammo_clip_tpu_torch.losses import build_loss
+    from mammo_clip_tpu_torch.models import build_model
+    from mammo_clip_tpu_torch.ops.augment import minmax_standardize
+
+    out = {}
+    for fam, enc in TINY_FAMILIES.items():
+        cfg = tiny_test_config()
+        cfg.model.image_encoder = dict(enc)
+        cfg.model.text_encoder.dropout_rate = 0.0
+        loss_fn = build_loss(cfg.loss.to_dict())
+        state = build_model(cfg.model.to_dict(), device="cpu",
+                            generator=torch.Generator().manual_seed(seed)).state_dict()
+        res = {}
+        runs = [("cuda", 0.0), ("cpu", 0.0)] + ([("cpu", RESNET_PERTURB)] if fam == "resnet" else [])
+        for device, perturb in runs:
+            model = build_model(cfg.model.to_dict(), device="cpu")
+            model.load_state_dict(state)
+            model = model.to(device)
+            batch = {k: v.to(device) for k, v in synthetic_batch(cfg, 4, seed, "cpu").items()}
+            noise = torch.Generator().manual_seed(seed + 1)
+            for k in ("images", "image_views"):
+                batch[k] = minmax_standardize(batch[k], cfg.data.mean, cfg.data.std)
+                if perturb:
+                    batch[k] = batch[k] * (1 + perturb * torch.randn(batch[k].shape,
+                                                                     generator=noise))
+            n0 = flash_counts()
+            with torch.no_grad():
+                ev = model.embed_image(batch["images"], train=False).cpu()
+            loss = loss_fn(model(batch, train=True), batch, True)["total"]
+            loss.backward()
+            grads = torch.cat([p.grad.flatten().cpu() for p in model.parameters()])
+            res[device if not perturb else "perturbed"] = dict(
+                loss=loss.item(), ev=ev, grads=grads, images=batch["images"],
+                flash=[a - b for a, b in zip(flash_counts(), n0)])
+        c, h = res["cuda"], res["cpu"]
+        rel_grads = lambda r: float((r["grads"] - h["grads"]).norm() / h["grads"].norm())
+        err = dict(loss=abs(c["loss"] - h["loss"]) / max(1.0, abs(h["loss"])),
+                   ev=float((c["ev"] - h["ev"]).abs().max()), grads=rel_grads(c))
+        tol = dict(loss=1e-3, ev=1e-3, grads=FAMILY_GRAD_TOL[fam])
+        want_flash = [6, 4] if fam == "vit" else [0, 0]  # eval 1 + train 2 tower passes
+        say(f"[fam] (b) tiny {fam} CLIP (64x64, fp32), card vs CPU: loss {c['loss']:.6f} vs "
+            f"{h['loss']:.6f}, " + ", ".join(f"{k} {v:.2e} (tol {tol[k]:.0e})"
+                                             for k, v in err.items())
+            + f" (ev: max|diff| of the eval embeddings; grads: relative norm); flash "
+              f"launches fwd/bwd {c['flash']} on the card, {h['flash']} on the CPU")
+        bad = any(err[k] > tol[k] for k in tol) or c["flash"] != want_flash or any(h["flash"])
+        if fam == "resnet":
+            err["grads_cpu_perturbed"] = rel_grads(res["perturbed"])
+            pairs = resnet_pair_check(state, cfg, h["images"], seed)
+            err.update({f"pair_{k}": v[0] for k, v in pairs.items()})
+            say(f"[fam] (b) tiny resnet: the CPU step's gradient under a {RESNET_PERTURB:.0e} "
+                f"relative change of the images moves by {err['grads_cpu_perturbed']:.2e} "
+                f"(relative norm); its 53 conv + train-mode BatchNorm pairs one by one (the "
+                f"CPU's input to each on both sides), card vs CPU, worst pair: "
+                + ", ".join(f"{k} {v[0]:.2e} ({v[1]})" for k, v in pairs.items())
+                + f" (tol {RESNET_PAIR_TOL:.0e}; y: output, dx: input gradient, dp: "
+                  f"parameter gradients, relative norms)")
+            bad = bad or any(v[0] > RESNET_PAIR_TOL for v in pairs.values())
+        if bad:
+            raise SmokeFailure(f"the tiny {fam} CLIP on the card disagrees with the CPU")
+        out[fam] = err
+    return out
+
+
+def family_steps(seed):
+    """(c) ``bench_recipe_config(compat=True)`` (remat and fused_mbconv set, which
+    only EfficientNet reads) with each family's image encoder at full width,
+    BERT-base, batch BATCH: one warm-up step and FAMILY_TIMED_STEPS timed (host
+    clock, ending in a synchronise), peak memory, the counters read around the
+    run: 24 + 24 flash calls a ViT step (12 layers, two tower passes), no fused
+    MBConv call."""
+    import gc
+
+    import torch
+
+    from mammo_clip_tpu_torch.ops import flash_attention
+    from mammo_clip_tpu_torch.ops.mbconv import launches as fused
+    from mammo_clip_tpu_torch.train.recipes import bench_recipe_config, build_bench_train
+
+    out = {}
+    for fam, name, h, w in FAMILY_CELLS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = bench_recipe_config(compat=True)
+        cfg.model.image_encoder.name = name
+        cfg.data.image_size_h, cfg.data.image_size_w = h, w
+        t0 = time.perf_counter()
+        model, _, state, _, step = build_bench_train(cfg, device="cuda", seed=seed)
+        batch = synthetic_batch(cfg, BATCH, seed, "cuda")
+        torch.cuda.synchronize()
+        enc = model.image_encoder
+        n_enc = sum(p.numel() for p in enc.parameters())
+        say(f"[fam] (c) {name} ({type(enc).__name__}, out_dim {enc.out_dim}, {n_enc} params) + "
+            f"BERT-base at {h}x{w}, batch {BATCH} (x2 views), bf16: built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        flash_attention.launches.reset()
+        fused.reset()
+        rows = []
+        try:
+            for i in range(1 + FAMILY_TIMED_STEPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, loss = step(state, batch, gen)
+                total = float(loss["total"])
+                torch.cuda.synchronize()
+                rows.append(dict(loss=total, ms=(time.perf_counter() - t) * 1e3))
+                if not math.isfinite(total):
+                    raise SmokeFailure(f"{name} step {i}: loss is not finite")
+        except torch.cuda.OutOfMemoryError as e:
+            raise SmokeFailure(f"the {name} step at batch {BATCH} does not fit the card: "
+                               f"{e}") from None
+        flash = flash_counts()
+        n_fused = fused.total("mbconv6", "forward") + fused.total("mbconv6", "backward")
+        peak = torch.cuda.max_memory_allocated()
+        want = [24 * len(rows)] * 2 if fam == "vit" else [0, 0]
+        step_ms = [r["ms"] for r in rows[1:]]
+        per_s = 1e3 * 2 * BATCH * len(step_ms) / sum(step_ms)
+        say(f"[fam] (c) {name}: losses {[round(r['loss'], 6) for r in rows]}, ms a step "
+            f"{[round(m, 1) for m in step_ms]} (median {sorted(step_ms)[len(step_ms) // 2]:.1f})"
+            f" after a warm-up of {rows[0]['ms']:.1f}, "
+            f"{per_s:.2f} images/s, peak memory {peak} B ({peak / 2**30:.2f} GiB), flash "
+            f"launches fwd/bwd {flash} (expected {want}), fused MBConv launches {n_fused}")
+        if flash != want or n_fused:
+            raise SmokeFailure(f"{name}: flash launches {flash}, expected {want}; fused "
+                               f"MBConv launches {n_fused}")
+        out[fam] = dict(name=name, hw=[h, w], step_ms=step_ms, warmup_ms=rows[0]["ms"],
+                        images_per_s=per_s, peak_bytes=peak, flash=flash,
+                        encoder_params=n_enc, losses=[r["loss"] for r in rows])
+        del model, state, step, batch, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def vit_cli(seed, tmp):
+    """(d) cli/pretrain with ``model.image_encoder.name=vit-base`` (the compat
+    recipe's overrides otherwise), 1 epoch of 2 steps, then ``--resume`` to 2;
+    cli/zeroshot and cli/classifier ``--arch lp`` (1 epoch) on its best/. The
+    flash counters read around each: both directions in training, forward
+    alone in the evaluation paths."""
+    import contextlib
+    import io
+
+    import torch
+
+    from mammo_clip_tpu_torch.cli import classifier, pretrain, zeroshot
+    from mammo_clip_tpu_torch.models import ViT
+
+    csv_path = tmp / "vit_pretrain.csv"
+    write_pretrain_csv(csv_path, VIT_CLI_ROWS)
+    run = tmp / "vit"
+    flags = ["--workdir", str(run), "--device", "cuda"]
+    overrides = pretrain_overrides(csv_path, "synthetic://", seed) + [
+        "model.image_encoder.name=vit-base"]
+    out = {"runs": []}
+    for epochs in (1, 2):
+        n0 = flash_counts()
+        t = time.perf_counter()
+        state = pretrain.main(flags + (["--resume"] if epochs == 2 else []) + overrides
+                              + [f"scheduler.epochs={epochs}"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        flash = [a - b for a, b in zip(flash_counts(), n0)]
+        say(f"[fam] (d) cli/pretrain vit-base run {epochs}: {seconds:.1f} s, step {state.step}, "
+            f"flash launches fwd/bwd {flash}")
+        if state.step != 2 * epochs or not isinstance(state.model.image_encoder, ViT):
+            raise SmokeFailure(f"vit cli run {epochs}: step {state.step}, encoder "
+                               f"{type(state.model.image_encoder).__name__}")
+        if min(flash) < 24 * 2:
+            raise SmokeFailure(f"vit cli run {epochs}: flash launches {flash}")
+        out["runs"].append(dict(seconds=seconds, flash=flash))
+        del state
+    rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss/total"] for r in rows if r["prefix"] in ("train", "valid")]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise SmokeFailure(f"vit cli losses {losses}")
+    best = str(run / "best")
+
+    n0 = flash_counts()
+    t = time.perf_counter()
+    zs = zeroshot.main(["--checkpoint", best, "--csv",
+                        str(write_zeroshot_csv(tmp / "vit_zs.csv", FLAG_ZS_ROWS)),
+                        "--image-dir", "synthetic://", "--batch-size", str(SERVE_BATCH),
+                        "--device", "cuda"])
+    zs_s, zs_flash = time.perf_counter() - t, [a - b for a, b in zip(flash_counts(), n0)]
+    if set(zs) != {"mass", "suspicious_calcification"} or \
+            not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in zs.values()):
+        raise SmokeFailure(f"zero-shot on the vit best/: {zs}")
+    say(f"[fam] (d) cli/zeroshot on the vit best/ ({FLAG_ZS_ROWS} rows at 1520x912): AUROC "
+        f"{zs}, {zs_s:.1f} s, flash launches fwd/bwd {zs_flash}")
+
+    write_classifier_csv(tmp / "vit_clf.csv")
+    n0 = flash_counts()
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        clf = classifier.main(["--clip-checkpoint", best, "--csv", str(tmp / "vit_clf.csv"),
+                               "--image-dir", "synthetic://", "--arch", "lp", "--epochs", "1",
+                               "--batch-size", str(CLF_BATCH), "--device", "cuda",
+                               "--workdir", str(tmp / "vit_clf")])
+    clf_s, clf_flash = time.perf_counter() - t, [a - b for a, b in zip(flash_counts(), n0)]
+    if not (math.isfinite(clf["best_metric"]) and 0.0 <= clf["best_metric"] <= 1.0):
+        raise SmokeFailure(f"cli/classifier lp on the vit best/: {clf}")
+    say(f"[fam] (d) cli/classifier --arch lp on the vit best/ ({CLF_TRAIN_ROWS} + "
+        f"{CLF_VALID_ROWS} rows at 1520x912, batch {CLF_BATCH}, 1 epoch, fp32): best_metric "
+        f"{clf['best_metric']:.6f}, {clf_s:.1f} s, flash launches fwd/bwd {clf_flash}")
+    for what, flash in (("zeroshot", zs_flash), ("classifier lp", clf_flash)):
+        if flash[0] < 12 or flash[1]:
+            raise SmokeFailure(f"vit {what}: flash launches {flash}, expected forward only")
+    out.update(zeroshot=zs, zeroshot_s=zs_s, classifier=clf["best_metric"], classifier_s=clf_s,
+               losses=losses)
+    return out
+
+
+def write_factor_csv(path, n_pos):
+    """n_pos VinDr-style training rows positive for Mass, calcification or both
+    (fold 1), 4 negative training rows (the CLI drops them) and 2 validation
+    rows (fold 0)."""
+    import csv
+
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["patient_id", "image_id", "Mass", "Suspicious_Calcification", "fold"])
+        for i in range(n_pos):
+            w.writerow([f"f{i}", f"f{i}.png", int(i % 3 != 1), int(i % 3 != 0), 1])
+        for i in range(4):
+            w.writerow([f"n{i}", f"n{i}.png", 0, 0, 1])
+        for i in range(2):
+            w.writerow([f"v{i}", f"v{i}.png", 1, 0, 0])
+    return path
+
+
+def factor_phase(workdir, tmp):
+    """(e) cli/factor on phase 7's B5 best/ at 1520x912: both attributes,
+    FACTOR_POS_ROWS positive rows, batch FACTOR_BATCH, 2 epochs; the mapper
+    reads the (B, 48, 29, 2048) features as 2048 regions of 1392 positions."""
+    import contextlib
+    import io
+
+    import torch
+
+    from mammo_clip_tpu_torch.cli import factor
+    from mammo_clip_tpu_torch.ops.mbconv import launches as fused
+    from mammo_clip_tpu_torch.train.checkpoint import latest_step
+
+    csv_path = write_factor_csv(tmp / "factor.csv", FACTOR_POS_ROWS)
+    fused.reset()
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = factor.main(["--clip-checkpoint", str(workdir / "best"), "--csv", str(csv_path),
+                           "--image-dir", "synthetic://", "--epochs", "2", "--batch-size",
+                           str(FACTOR_BATCH), "--device", "cuda",
+                           "--workdir", str(tmp / "factor")])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    mapper = tmp / "factor" / "mapper"
+    step = latest_step(str(mapper))
+    steps = 2 * (FACTOR_POS_ROWS // FACTOR_BATCH)
+    payload = torch.load(mapper / str(step) / "state.pt", map_location="cpu", weights_only=True)
+    fc1 = tuple(payload["model"]["proj0_fc1.kernel"].shape)
+    n_fused = fused.total("mbconv6", "forward") + fused.total("mbconv6", "backward")
+    epochs = [line for line in buf.getvalue().splitlines() if line.startswith("epoch ")]
+    say(f"[fam] (e) cli/factor on phase 7's B5 best/ (1520x912, {FACTOR_POS_ROWS} positive "
+        f"rows, batch {FACTOR_BATCH}, 2 epochs): {epochs}, final_loss {res['final_loss']:.6f}, "
+        f"mapper saved at step {step} (proj0_fc1 {fc1}: 48 x 29 = 1392 positions), "
+        f"{seconds:.1f} s, fused MBConv launches {n_fused}")
+    if not math.isfinite(res["final_loss"]) or step != steps or fc1 != (1392, 1392) or n_fused:
+        raise SmokeFailure(f"cli/factor: {res}, step {step} (expected {steps}), fc1 {fc1}, "
+                           f"fused launches {n_fused}")
+    return dict(final_loss=res["final_loss"], seconds=seconds, step=step)
+
+
+def _split_patch(kernel):
+    """A 1-channel patch kernel as 3 channels [k/2, k/2, 0], which the HF
+    importers sum back to k exactly (halving is exact in binary)."""
+    import torch
+
+    return torch.cat([kernel / 2, kernel / 2, torch.zeros_like(kernel)], dim=1)
+
+
+def _hf_block(sd, src, b, d):
+    """An HF ViT/Swin layer's LayerNorm, output and MLP tensors from a port block."""
+    sd[src + "layernorm_before.weight"], sd[src + "layernorm_before.bias"] = b.ln1.scale, b.ln1.bias
+    sd[src + "layernorm_after.weight"], sd[src + "layernorm_after.bias"] = b.ln2.scale, b.ln2.bias
+    sd[src + "intermediate.dense.weight"] = b.fc1.kernel.t()
+    sd[src + "intermediate.dense.bias"] = b.fc1.bias
+    sd[src + "output.dense.weight"], sd[src + "output.dense.bias"] = b.fc2.kernel.t(), b.fc2.bias
+    proj = b.attn.out if hasattr(b, "attn") else b.proj
+    sd[src + "attention.output.dense.weight"] = proj.kernel.reshape(d, d).t()
+    sd[src + "attention.output.dense.bias"] = proj.bias
+
+
+def hf_vit_state_dict(m):
+    """A port ViT's tensors under HF ``ViTModel``'s names (the inverse of
+    ``convert_hf_vit``), on the tensors' own device."""
+    d = m.cfg.hidden_size
+    sd = {"embeddings.cls_token": m.cls_token, "embeddings.position_embeddings": m.pos_embedding,
+          "embeddings.patch_embeddings.projection.weight": _split_patch(m.patch_embed.kernel),
+          "embeddings.patch_embeddings.projection.bias": m.patch_embed.bias,
+          "layernorm.weight": m.ln_final.scale, "layernorm.bias": m.ln_final.bias}
+    for i in range(m.cfg.num_layers):
+        b, src = getattr(m, f"block_{i}"), f"encoder.layer.{i}."
+        _hf_block(sd, src, b, d)
+        for n in ("query", "key", "value"):
+            sd[src + f"attention.attention.{n}.weight"] = getattr(b.attn, n).kernel.reshape(d, d).t()
+            sd[src + f"attention.attention.{n}.bias"] = getattr(b.attn, n).bias.reshape(d)
+    return {k: v.detach() for k, v in sd.items()}
+
+
+def hf_swin_state_dict(m):
+    """A port Swin's tensors under HF ``SwinModel``'s names (the inverse of
+    ``convert_hf_swin``: HF's patch merging concatenates the 2x2 sub-grids in
+    the order [(0,0),(1,0),(0,1),(1,1)], a permutation of the port's that is
+    its own inverse)."""
+    import torch
+
+    cfg = m.cfg
+    sd = {"embeddings.patch_embeddings.projection.weight": _split_patch(m.patch_embed.kernel),
+          "embeddings.patch_embeddings.projection.bias": m.patch_embed.bias,
+          "embeddings.norm.weight": m.patch_ln.scale, "embeddings.norm.bias": m.patch_ln.bias,
+          "layernorm.weight": m.final_ln.scale, "layernorm.bias": m.final_ln.bias}
+    dim = cfg.embed_dim
+    for s, depth in enumerate(cfg.depths):
+        if s > 0:
+            red, ln = getattr(m, f"merge{s}"), getattr(m, f"merge_ln{s}")
+            perm = torch.cat([torch.arange(dim) + j * dim for j in (0, 2, 1, 3)]).to(red.kernel.device)
+            down = f"encoder.layers.{s - 1}.downsample."
+            sd[down + "reduction.weight"] = red.kernel[perm].t()
+            sd[down + "norm.weight"], sd[down + "norm.bias"] = ln.scale[perm], ln.bias[perm]
+            dim *= 2
+        for i in range(depth):
+            b, src = getattr(m, f"stage{s}_block{i}"), f"encoder.layers.{s}.blocks.{i}."
+            _hf_block(sd, src, b, dim)
+            for j, n in enumerate(("query", "key", "value")):
+                sd[src + f"attention.self.{n}.weight"] = b.qkv.kernel[:, j].reshape(dim, dim).t()
+                sd[src + f"attention.self.{n}.bias"] = b.qkv.bias[j].reshape(dim)
+            sd[src + "attention.self.relative_position_bias_table"] = b.rel_pos_table
+    return {k: v.detach() for k, v in sd.items()}
+
+
+def hf_import_check(seed):
+    """(f) ViT-B/16 and Swin-T at their published widths, drawn from the seed on the
+    card, written out under HF's names (no ``transformers``), read back through
+    ``convert_hf_vit`` / ``convert_hf_swin`` into fresh port encoders on the card:
+    every tensor equal, and the eval outputs at full width (1520x912, 1536x1024)
+    the same bits."""
+    import torch
+
+    from mammo_clip_tpu_torch.convert.from_jax import load_jax_variables
+    from mammo_clip_tpu_torch.convert.torch_import import convert_hf_swin, convert_hf_vit
+    from mammo_clip_tpu_torch.models import (SwinConfig, SwinTransformer, ViT, ViTConfig,
+                                             init_parameters)
+
+    out = {}
+    cases = (("vit", lambda: ViT(ViTConfig()), hf_vit_state_dict,
+              lambda sd: convert_hf_vit(sd, num_heads=12), (1520, 912)),
+             ("swin", lambda: SwinTransformer(SwinConfig()), hf_swin_state_dict,
+              lambda sd: convert_hf_swin(sd, num_heads=(3, 6, 12, 24)), (1536, 1024)))
+    for fam, make, to_hf, convert, hw in cases:
+        t = time.perf_counter()
+        src = make().cuda().eval()
+        init_parameters(src, torch.Generator(device="cuda").manual_seed(seed))
+        hf = to_hf(src)
+        dst = make()
+        load_jax_variables(dst, {"params": convert(hf)})
+        dst = dst.cuda().eval()
+        a, b = src.state_dict(), dst.state_dict()
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        x = torch.rand(1, *hw, 1, generator=torch.Generator(device="cuda").manual_seed(seed),
+                       device="cuda")
+        n0 = flash_counts()
+        with torch.no_grad():
+            ya, yb = src(x), dst(x)
+        torch.cuda.synchronize()
+        flash = [c - d for c, d in zip(flash_counts(), n0)]
+        same = all(torch.equal(ya[k], yb[k]) for k in ya)
+        finite = all(bool(torch.isfinite(v).all()) for v in ya.values())
+        seconds = time.perf_counter() - t
+        say(f"[fam] (f) {fam}: {len(hf)} HF-named tensors on the card -> "
+            f"convert_hf_{fam} -> the port's encoder: {len(a) - len(differ)} of {len(a)} "
+            f"tensors equal, outputs at {hw[0]}x{hw[1]} "
+            f"{ {k: tuple(v.shape) for k, v in ya.items()} } the same bits {same}, finite "
+            f"{finite}, flash launches fwd/bwd {flash}, {seconds:.1f} s")
+        if differ or not same or not finite or flash != ([24, 0] if fam == "vit" else [0, 0]):
+            raise SmokeFailure(f"HF {fam} import on the card: {len(differ)} tensors differ "
+                               f"({differ[:3]}), same outputs {same}, finite {finite}, "
+                               f"flash {flash}")
+        out[fam] = dict(tensors=len(a), seconds=seconds)
+        del src, dst, hf, ya, yb
+    return out
+
+
+def families_phase(seed, workdir):
+    """Phase 15 on phase 7's run (``workdir``, whose B5 best/ (e) reads): (a) flash
+    at the ViT shape, (b) each family card vs CPU, (c) the full-width compat step
+    of each family, (d) the ViT through the CLIs, (e) FActOR, (f) the HF
+    importers on the card, (g) the phase's seconds. Returns (numbers, the flash
+    rows of the kernels line at the ViT shape)."""
+    import tempfile
+
+    card = card_line()
+    say(f"[fam] phase 15 on {card}")
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fam_"))
+    try:
+        out = {"flash": vit_flash_check(seed)}
+        out["reference"] = family_reference_check(seed)
+        out["steps"] = family_steps(seed)
+        out["vit_cli"] = vit_cli(seed, tmp)
+        out["factor"] = factor_phase(workdir, tmp)
+        out["hf"] = hf_import_check(seed)
+        out["seconds"] = time.perf_counter() - t_phase
+        st = out["steps"]
+        say(f"[fam] (g) phase 15: {out['seconds']:.1f} s on {card}; "
+            + "; ".join(f"{r['name']} {sum(r['step_ms']) / len(r['step_ms']):.1f} ms a step, "
+                        f"{r['images_per_s']:.2f} images/s, {r['peak_bytes'] / 2**30:.2f} GiB"
+                        for r in st.values())
+            + f"; cli/factor {out['factor']['seconds']:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    fl = out["flash"]
+    rows = [{"name": f"flash_attention[vit_b16].{direction}", "route": "cuda",
+             "source": "mammo_clip_tpu_torch/csrc/flash_attention.cu",
+             "replaces": "benchmarks/probe_flash_attention.py:45",
+             "launches": out["steps"]["vit"]["flash"][i], "max_abs_err": fl["err"][i],
+             "ms": fl["device"]["kernel"][i], "plain_ms": fl["device"]["plain"][i],
+             "bound_ms": fl["bounds"][i][0], "bound_by": fl["bounds"][i][1],
+             "library_ms": fl["device"]["sdpa"][i], "event_ms": fl["times"]["kernel"][i]}
+            for i, direction in enumerate(("forward", "backward"))]
+    return out, rows
+
+
+# --------------------------------------------------------------------------
 # phase 8: flash attention
 # --------------------------------------------------------------------------
 
@@ -2860,24 +3452,68 @@ def flash_kernel_report(lib_path, ptxas_log):
                            f"with atomics {atomics}")
 
 
+def flash_timing(q, k, v, g):
+    """bf16 forward, backward and forward+backward at q's (B, N, S, D) shape, for
+    the kernel (its raw launches, uncounted), the plain version, the port's
+    ``amp_attn_scores`` einsum attention and SDPA: (CUDA-event ms, device ms,
+    bounds), each by name, then by direction."""
+    import torch
+    import torch.nn.functional as F
+
+    from mammo_clip_tpu_torch.benchmarks.layout_timing import device_ms
+    from mammo_clip_tpu_torch.models.bert import attention
+    from mammo_clip_tpu_torch.ops.flash_attention import (
+        flash_backward,
+        flash_forward,
+        plain_flash_attention,
+    )
+
+    shape = tuple(q.shape)
+    scale = shape[-1] ** -0.5
+    mask = torch.ones(shape[0], shape[2], dtype=torch.bool, device="cuda")
+    fns = {
+        "plain": lambda q, k, v: plain_flash_attention(q, k, v, scale),
+        "einsum": lambda q, k, v: attention(q * scale, k, v, mask, amp_scores=True),
+        "sdpa": lambda q, k, v: F.scaled_dot_product_attention(q, k, v, scale=scale),
+    }
+    o, lse = flash_forward(q, k, v, scale)
+    calls = {"kernel": (  # the launches alone, uncounted
+        lambda: flash_forward(q, k, v, scale),
+        lambda: flash_backward(q, k, v, o, lse, g, scale),
+        lambda: flash_backward(q, k, v, *flash_forward(q, k, v, scale), g, scale))}
+    times, device = {}, {}
+    for name, (fwd, bwd, both) in calls.items():
+        times[name] = tuple(time_ms(c) for c in (fwd, bwd, both))
+        device[name] = tuple(device_ms(c) for c in (fwd, bwd, both))
+    del calls
+    for name, fn in fns.items():  # one graph held at a time (S = 5416: GBs of scores)
+        qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+        out = fn(qr, kr, vr)
+        trio = (lambda: fn(q, k, v).detach(),
+                lambda: torch.autograd.grad(out, (qr, kr, vr), g, retain_graph=True),
+                lambda: torch.autograd.grad(fn(qr, kr, vr), (qr, kr, vr), g))
+        times[name] = tuple(time_ms(c) for c in trio)
+        device[name] = tuple(device_ms(c) for c in trio)
+        del out, trio
+    elems, s2 = q.numel(), shape[0] * shape[1] * shape[2] ** 2 * shape[3]
+    stats = 4 * shape[0] * shape[1] * shape[2]
+    mm = lambda flops: {"products": (flops, BF16_FLOPS)}
+    bounds = [bound(4 * 2 * elems + stats, mm(4 * s2)),   # q, k, v in; o, lse out
+              bound(8 * 2 * elems + stats, mm(10 * s2)),  # q, k, v, o, dO, lse in; dq, dk, dv out
+              bound(8 * 2 * elems, mm(14 * s2))]          # q, k, v, dO in; o, dq, dk, dv out
+    return times, device, bounds
+
+
 def flash_phases(seed, earlier=None):
     """Phase 8. Returns the forward and backward rows of the kernels line; with
     ``earlier`` (parent_turns'), their earlier_host_us."""
     import torch
-    import torch.nn.functional as F
 
     from mammo_clip_tpu_torch.benchmarks import layout_timing
     from mammo_clip_tpu_torch.benchmarks import probe_flash_attention as probe
-    from mammo_clip_tpu_torch.benchmarks.layout_timing import device_ms
-    from mammo_clip_tpu_torch.models.bert import attention
     from mammo_clip_tpu_torch.ops import cuda_lib
     from mammo_clip_tpu_torch.ops import flash_attention as flash_module
-    from mammo_clip_tpu_torch.ops.flash_attention import (
-        flash_backward,
-        flash_forward,
-        launches,
-        plain_flash_attention,
-    )
+    from mammo_clip_tpu_torch.ops.flash_attention import flash_backward, flash_forward, launches
 
     shape = (probe.B, probe.N, probe.S, probe.D)
     flash_kernel_report(cuda_lib.build_info.path, cuda_lib.build_info.ptxas)
@@ -2898,12 +3534,6 @@ def flash_phases(seed, earlier=None):
 
     q, k, v, g = flash_inputs(shape, torch.bfloat16, seed)
     scale = probe.D ** -0.5
-    mask = torch.ones(shape[0], shape[2], dtype=torch.bool, device="cuda")
-    fns = {
-        "plain": lambda q, k, v: plain_flash_attention(q, k, v, scale),
-        "einsum": lambda q, k, v: attention(q * scale, k, v, mask, amp_scores=True),
-        "sdpa": lambda q, k, v: F.scaled_dot_product_attention(q, k, v, scale=scale),
-    }
     o, lse = flash_forward(q, k, v, scale)
     first, second = (flash_backward(q, k, v, o, lse, g, scale) for _ in range(2))
     torch.cuda.synchronize()
@@ -2912,28 +3542,8 @@ def flash_phases(seed, earlier=None):
         f"bit-identical {same}")
     if not all(same):
         raise SmokeFailure(f"flash backward is not deterministic: {same}")
-    calls = {"kernel": (  # the launches alone, uncounted
-        lambda: flash_forward(q, k, v, scale),
-        lambda: flash_backward(q, k, v, o, lse, g, scale),
-        lambda: flash_backward(q, k, v, *flash_forward(q, k, v, scale), g, scale))}
-    for name, fn in fns.items():
-        qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
-        out = fn(qr, kr, vr)
-        calls[name] = (lambda fn=fn: fn(q, k, v).detach(),
-                       lambda out=out, qr=qr, kr=kr, vr=vr: torch.autograd.grad(
-                           out, (qr, kr, vr), g, retain_graph=True),
-                       lambda fn=fn, qr=qr, kr=kr, vr=vr: torch.autograd.grad(
-                           fn(qr, kr, vr), (qr, kr, vr), g))
-    times, device = {}, {}
-    for name, (fwd, bwd, both) in calls.items():
-        times[name] = tuple(time_ms(c) for c in (fwd, bwd, both))
-        device[name] = tuple(device_ms(c) for c in (fwd, bwd, both))
-    elems, s2 = q.numel(), shape[0] * shape[1] * shape[2] ** 2 * shape[3]
-    stats = 4 * shape[0] * shape[1] * shape[2]
-    mm = lambda flops: {"products": (flops, BF16_FLOPS)}
-    bounds = [bound(4 * 2 * elems + stats, mm(4 * s2)),   # q, k, v in; o, lse out
-              bound(8 * 2 * elems + stats, mm(10 * s2)),  # q, k, v, o, dO, lse in; dq, dk, dv out
-              bound(8 * 2 * elems, mm(14 * s2))]          # q, k, v, dO in; o, dq, dk, dv out
+    del o, lse, first, second
+    times, device, bounds = flash_timing(q, k, v, g)
     for i, what in enumerate(("forward", "backward", "forward+backward")):
         say(f"[flash time] {shape} bf16 {what}, ms (CUDA events | device time): " + ", ".join(
             f"{name} {times[name][i]:.4f} | {device[name][i]:.4f}"
@@ -3291,11 +3901,13 @@ def main(argv=None) -> int:
         pre = preprocess_phase(args.seed, cli_tmp / "run")
         # 14. the flagship, warm-started from the same best/
         flag = flagship_phase(args.seed, cli_tmp / "run")
+        # 15. the other encoder families, and Mammo-FActOR on the same best/
+        fam, fam_rows = families_phase(args.seed, cli_tmp / "run")
     finally:
         shutil.rmtree(cli_tmp, ignore_errors=True)
     (OUT_DIR / "chip_smoke_steps.json").write_text(
         json.dumps(dict(slice=rows, cli=cli, serving=serving, classifier=clf, detector=det,
-                        preprocess=pre, flagship=flag), indent=1))
+                        preprocess=pre, flagship=flag, families=fam), indent=1))
 
     # 8. flash attention; 9. the probe kernels
     flash_rows = flash_phases(args.seed, earlier)
@@ -3347,7 +3959,7 @@ def main(argv=None) -> int:
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
         })
-    lines += flash_rows + probe_rows
+    lines += flash_rows + fam_rows + probe_rows
     say(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     say(json.dumps({"kernels": lines}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

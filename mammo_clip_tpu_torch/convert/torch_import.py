@@ -19,8 +19,10 @@ conv OIHW -> HWIO, linear (O,I) -> (I,O), BERT attention (H,H) -> (H, heads,
 head_dim) kernels, BN running stats -> batch_stats. The classifier head ``_fc``
 and HF's pooler are not part of the CLIP model and are ignored.
 
-The HF ViT / Swin importers (``convert_hf_vit``, ``convert_hf_swin``) come with
-their encoders (ROADMAP queue 1 item 7).
+``convert_hf_vit`` and ``convert_hf_swin`` map a Hugging Face ``ViTModel`` /
+``SwinModel`` state dict (any mapping of HF names to torch tensors or numpy
+arrays; ``transformers`` itself is not needed) onto the ViT / Swin encoder's
+Flax-shaped subtree, loaded the same way.
 """
 
 from __future__ import annotations
@@ -165,6 +167,140 @@ def convert_state_dict(sd: Dict[str, Any], num_heads: int = 12) -> Dict[str, Dic
     if "logit_scale" in sd:
         variables["params"]["logit_scale"] = _np(sd["logit_scale"]).reshape(())
     return variables
+
+
+def convert_hf_vit(sd: Dict[str, Any], num_heads: int = 12) -> Dict:
+    """HF ``ViTModel`` state dict -> models/vit.ViT params subtree.
+
+    The reference loads pretrained HF ViTs as alternative image encoders
+    (breastclip/model/modules/image_encoder.py:17-48 with
+    ``interpolate_pos_encoding=True``). The public checkpoints feed grayscale
+    replicated to RGB, so a 3-channel patch embedding collapses EXACTLY to a
+    1-channel one by summing the kernel over the input axis (same identity as
+    the EfficientNet stem above). Note: our pos-embedding interpolation is
+    bilinear (HF uses bicubic); at the pretraining grid they agree exactly.
+    """
+    params: Dict = {}
+    emb = "embeddings."
+    _set(params, ("cls_token",), _np(sd[emb + "cls_token"]))
+    _set(params, ("pos_embedding",), _np(sd[emb + "position_embeddings"]))
+    patch = _conv(sd[emb + "patch_embeddings.projection.weight"])
+    if patch.shape[2] == 3:
+        patch = patch.sum(axis=2, keepdims=True)
+    _set(params, ("patch_embed", "kernel"), patch)
+    _set(params, ("patch_embed", "bias"), _np(sd[emb + "patch_embeddings.projection.bias"]))
+
+    n_layers = 1 + max(
+        int(m.group(1))
+        for k in sd
+        if (m := re.match(r"encoder\.layer\.(\d+)\.", k))
+    )
+    for i in range(n_layers):
+        src = f"encoder.layer.{i}."
+        dst = (f"block_{i}",)
+        hidden = _np(sd[src + "attention.attention.query.weight"]).shape[0]
+        head_dim = hidden // num_heads
+        _set(params, dst + ("ln1", "scale"), _np(sd[src + "layernorm_before.weight"]))
+        _set(params, dst + ("ln1", "bias"), _np(sd[src + "layernorm_before.bias"]))
+        for name in ("query", "key", "value"):
+            w = _linear_kernel(sd[src + f"attention.attention.{name}.weight"])
+            b = _np(sd[src + f"attention.attention.{name}.bias"])
+            _set(params, dst + ("attn", name, "kernel"), w.reshape(hidden, num_heads, head_dim))
+            _set(params, dst + ("attn", name, "bias"), b.reshape(num_heads, head_dim))
+        wo = _linear_kernel(sd[src + "attention.output.dense.weight"])
+        _set(params, dst + ("attn", "out", "kernel"), wo.reshape(num_heads, head_dim, hidden))
+        _set(params, dst + ("attn", "out", "bias"), _np(sd[src + "attention.output.dense.bias"]))
+        _set(params, dst + ("ln2", "scale"), _np(sd[src + "layernorm_after.weight"]))
+        _set(params, dst + ("ln2", "bias"), _np(sd[src + "layernorm_after.bias"]))
+        _set(params, dst + ("fc1", "kernel"), _linear_kernel(sd[src + "intermediate.dense.weight"]))
+        _set(params, dst + ("fc1", "bias"), _np(sd[src + "intermediate.dense.bias"]))
+        _set(params, dst + ("fc2", "kernel"), _linear_kernel(sd[src + "output.dense.weight"]))
+        _set(params, dst + ("fc2", "bias"), _np(sd[src + "output.dense.bias"]))
+    _set(params, ("ln_final", "scale"), _np(sd["layernorm.weight"]))
+    _set(params, ("ln_final", "bias"), _np(sd["layernorm.bias"]))
+    return params
+
+
+def convert_hf_swin(sd: Dict[str, Any], num_heads) -> Dict:
+    """HF ``SwinModel`` state dict -> models/swin.SwinTransformer params subtree.
+
+    Reference analogue: the HuggingfaceImageEncoder 'swin' option
+    (breastclip/model/modules/image_encoder.py:17-48, factory
+    modules/__init__.py:20-34). ``num_heads`` is the per-stage head tuple.
+
+    Layout notes:
+    * our qkv is ONE DenseGeneral with kernel (C, 3, heads, head_dim) — HF's
+      separate query/key/value stack on axis 1;
+    * patch merging: HF concatenates the 2x2 sub-grids in order
+      [(0,0),(1,0),(0,1),(1,1)] while our space-to-depth reshape produces
+      [(0,0),(0,1),(1,0),(1,1)] — the reduction kernel's input rows (and the
+      merge LayerNorm vectors) are permuted accordingly;
+    * the 3-channel patch embedding collapses to 1 channel by summing over the
+      input axis (exact on replicated-gray input).
+    """
+    params: Dict = {}
+    emb = "embeddings."
+    patch = _conv(sd[emb + "patch_embeddings.projection.weight"])
+    if patch.shape[2] == 3:
+        patch = patch.sum(axis=2, keepdims=True)
+    _set(params, ("patch_embed", "kernel"), patch)
+    _set(params, ("patch_embed", "bias"), _np(sd[emb + "patch_embeddings.projection.bias"]))
+    _set(params, ("patch_ln", "scale"), _np(sd[emb + "norm.weight"]))
+    _set(params, ("patch_ln", "bias"), _np(sd[emb + "norm.bias"]))
+
+    n_stages = 1 + max(
+        int(m.group(1))
+        for k in sd
+        if (m := re.match(r"encoder\.layers\.(\d+)\.", k))
+    )
+    for s in range(n_stages):
+        heads = num_heads[s]
+        n_blocks = 1 + max(
+            int(m.group(1))
+            for k in sd
+            if (m := re.match(rf"encoder\.layers\.{s}\.blocks\.(\d+)\.", k))
+        )
+        for i in range(n_blocks):
+            src = f"encoder.layers.{s}.blocks.{i}."
+            dst = (f"stage{s}_block{i}",)
+            hidden = _np(sd[src + "attention.self.query.weight"]).shape[0]
+            head_dim = hidden // heads
+            _set(params, dst + ("ln1", "scale"), _np(sd[src + "layernorm_before.weight"]))
+            _set(params, dst + ("ln1", "bias"), _np(sd[src + "layernorm_before.bias"]))
+            qkv_w = np.stack(
+                [_linear_kernel(sd[src + f"attention.self.{n}.weight"]) for n in
+                 ("query", "key", "value")], axis=1)  # (C, 3, C)
+            qkv_b = np.stack(
+                [_np(sd[src + f"attention.self.{n}.bias"]) for n in
+                 ("query", "key", "value")], axis=0)  # (3, C)
+            _set(params, dst + ("qkv", "kernel"),
+                 qkv_w.reshape(hidden, 3, heads, head_dim))
+            _set(params, dst + ("qkv", "bias"), qkv_b.reshape(3, heads, head_dim))
+            _set(params, dst + ("rel_pos_table",),
+                 _np(sd[src + "attention.self.relative_position_bias_table"]))
+            wo = _linear_kernel(sd[src + "attention.output.dense.weight"])
+            _set(params, dst + ("proj", "kernel"), wo.reshape(heads, head_dim, hidden))
+            _set(params, dst + ("proj", "bias"), _np(sd[src + "attention.output.dense.bias"]))
+            _set(params, dst + ("ln2", "scale"), _np(sd[src + "layernorm_after.weight"]))
+            _set(params, dst + ("ln2", "bias"), _np(sd[src + "layernorm_after.bias"]))
+            _set(params, dst + ("fc1", "kernel"), _linear_kernel(sd[src + "intermediate.dense.weight"]))
+            _set(params, dst + ("fc1", "bias"), _np(sd[src + "intermediate.dense.bias"]))
+            _set(params, dst + ("fc2", "kernel"), _linear_kernel(sd[src + "output.dense.weight"]))
+            _set(params, dst + ("fc2", "bias"), _np(sd[src + "output.dense.bias"]))
+        down = f"encoder.layers.{s}.downsample."
+        if down + "reduction.weight" in sd:
+            # HF downsample at the END of stage s == our merge at the START of
+            # stage s+1. Re-order the 4C input rows from HF's sub-grid order
+            # [(0,0),(1,0),(0,1),(1,1)] to our s2d order [(0,0),(0,1),(1,0),(1,1)].
+            red = _linear_kernel(sd[down + "reduction.weight"])  # (4C, 2C)
+            c = red.shape[0] // 4
+            perm = np.concatenate([np.arange(c) + j * c for j in (0, 2, 1, 3)])
+            _set(params, (f"merge{s + 1}", "kernel"), red[perm])
+            _set(params, (f"merge_ln{s + 1}", "scale"), _np(sd[down + "norm.weight"])[perm])
+            _set(params, (f"merge_ln{s + 1}", "bias"), _np(sd[down + "norm.bias"])[perm])
+    _set(params, ("final_ln", "scale"), _np(sd["layernorm.weight"]))
+    _set(params, ("final_ln", "bias"), _np(sd["layernorm.bias"]))
+    return params
 
 
 def convert_clip_checkpoint(path: str, num_heads: int = 12) -> Tuple[Dict, Optional[Dict]]:

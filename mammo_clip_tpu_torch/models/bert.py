@@ -19,6 +19,7 @@ mesh) belongs to the distribution slice (ROADMAP queue 9) and raises.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -59,20 +60,22 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
 
 
 class Dense(nn.Module):
-    """x @ kernel + bias over the trailing ``len(in_shape)`` dims; the kernel is
+    """x @ kernel (+ bias) over the trailing ``len(in_shape)`` dims; the kernel is
     (*in_shape, *out_shape) as in Flax Dense/DenseGeneral."""
 
-    def __init__(self, in_shape, out_shape):
+    def __init__(self, in_shape, out_shape, use_bias: bool = True):
         super().__init__()
         self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
         self.kernel = nn.Parameter(torch.empty(*self.in_shape, *self.out_shape))
-        self.bias = nn.Parameter(torch.zeros(*self.out_shape))
+        self.bias = nn.Parameter(torch.zeros(*self.out_shape)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
         lead = x.shape[: x.dim() - len(self.in_shape)]
-        k = self.kernel.to(dt).reshape(-1, self.bias.numel())
-        y = x.reshape(-1, k.shape[0]) @ k + self.bias.to(dt).reshape(-1)
+        k = self.kernel.to(dt).reshape(math.prod(self.in_shape), -1)
+        y = x.reshape(-1, k.shape[0]) @ k
+        if self.bias is not None:
+            y = y + self.bias.to(dt).reshape(-1)
         return y.reshape(*lead, *self.out_shape)
 
 

@@ -1,7 +1,8 @@
 """MammoCLIP dual encoder (port of ``mammo_clip_tpu/models/clip.py``).
 
-EfficientNet image encoder + BERT text encoder + projection heads + learnable
-``logit_scale`` initialised to log(1/temperature). Images are NHWC; embeddings
+Image encoder (EfficientNet, or ResNet, Swin or ViT by name) + BERT text
+encoder + projection heads + learnable ``logit_scale`` initialised to
+log(1/temperature). Images are NHWC; embeddings
 are L2-normalised in fp32. Both texts of a sample go through ONE BERT call
 (exact: nothing in the text tower crosses the batch); the two image views take
 SEPARATE tower passes, because BatchNorm batch statistics over a joint batch
@@ -19,6 +20,9 @@ import torch.nn as nn
 from .bert import BertConfig, BertEncoder, pool_text
 from .efficientnet import EfficientNet
 from .projection import make_projection_head
+from .resnet import ResNet
+from .swin import SwinConfig, SwinTransformer
+from .vit import ViT, ViTConfig
 
 
 def bert_config_from_model_config(model_config: Dict) -> BertConfig:
@@ -56,12 +60,39 @@ def efficientnet_variant(name: str) -> str:
 
 
 def load_image_encoder(config: Dict, dtype: torch.dtype = torch.float32) -> nn.Module:
-    """EfficientNet image encoder with every option of the config, the flagship
+    """Image-encoder factory, dispatching as the JAX package's does: ``resnet*``
+    to ResNet (an unknown resnet name raises ``KeyError``), ``swin*`` or
+    ``model_type: swin`` to Swin, ``vit*`` or ``model_type: vit`` to ViT, any
+    other name to EfficientNet with every option of the config, the flagship
     (``tpu_optimized`` and its ``tpu_*`` widths) included (``feature_taps``:
-    the blocks whose outputs it also returns, as ``out["taps"]``).
-    ViT/Swin/ResNet, ``s2d_exec`` and ``quant_int8_k5`` belong to later slices
-    and raise here."""
+    the blocks whose outputs it also returns, as ``out["taps"]``). Every
+    encoder returns ``pooled`` and ``features`` and has ``out_dim``; the
+    EfficientNet-only keys are ignored for the other families, as in JAX.
+    The EfficientNet options ``s2d_exec`` and ``quant_int8_k5`` belong to a
+    later slice and raise."""
     name = str(config.get("name", "efficientnet-b5"))
+    in_channels = config.get("in_channels", 1)
+    if name.startswith("resnet"):
+        return ResNet(variant=name, in_channels=in_channels, dtype=dtype)
+    if name.startswith("swin") or config.get("model_type") == "swin":
+        swin_cfg = SwinConfig(
+            patch_size=config.get("patch_size", 4),
+            embed_dim=config.get("embed_dim", 96),
+            depths=tuple(config.get("depths", (2, 2, 6, 2))),
+            num_heads=tuple(config.get("num_heads", (3, 6, 12, 24))),
+            window=config.get("window", 8),
+        )
+        return SwinTransformer(cfg=swin_cfg, in_channels=in_channels, dtype=dtype)
+    if name.startswith("vit") or config.get("model_type") == "vit":
+        vit_cfg = ViTConfig(
+            patch_size=config.get("patch_size", 16),
+            hidden_size=config.get("hidden_size", 768),
+            num_layers=config.get("num_layers", 12),
+            num_heads=config.get("num_heads", 12),
+            mlp_dim=config.get("mlp_dim", 3072),
+            base_grid=config.get("base_grid", 14),
+        )
+        return ViT(cfg=vit_cfg, in_channels=in_channels, dtype=dtype)
     unported = [k for k in ("s2d_exec", "quant_int8_k5") if config.get(k)]
     if unported:
         raise NotImplementedError(f"image encoder options not ported yet: {unported}")
@@ -69,7 +100,7 @@ def load_image_encoder(config: Dict, dtype: torch.dtype = torch.float32) -> nn.M
     # remat's saved block inputs (a reshape, the same math); NCHW has no lane padding
     return EfficientNet(
         variant=efficientnet_variant(name),
-        in_channels=config.get("in_channels", 1),
+        in_channels=in_channels,
         drop_connect_rate=config.get("drop_connect_rate", 0.2),
         remat=config.get("remat", False),
         remat_max_reduction=config.get("remat_max_reduction", 16),

@@ -188,13 +188,14 @@ def default_detector_taps(variant: str) -> Tuple[int, int]:
     return (last_s5, len(args) - 1)
 
 
-def same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
-    """TF/XLA 'SAME' padding for a k x k window at stride s (extra pixel at the end)."""
+def same_pad(x: torch.Tensor, k: int, s: int, value: float = 0.0) -> torch.Tensor:
+    """TF/XLA 'SAME' padding for a k x k window at stride s (extra pixel at the
+    end), filled with ``value``."""
     pads = []
     for size in (x.shape[3], x.shape[2]):  # F.pad order: W then H
         total = max((-(-size // s) - 1) * s + k - size, 0)
         pads += [total // 2, total - total // 2]
-    return F.pad(x, pads)
+    return F.pad(x, pads, value=value)
 
 
 class Conv(nn.Module):
@@ -223,11 +224,11 @@ class _TrainBatchNorm(torch.autograd.Function):
     remat does not fit a step at batch 8 on one 80 GB card."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias):
+    def forward(ctx, x, scale, bias, eps):
         xf = x.float()
         mean = xf.mean(dim=(0, 2, 3))
         var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-        invstd = torch.rsqrt(var + BN_EPS)
+        invstd = torch.rsqrt(var + eps)
         c = (1, -1, 1, 1)
         y = (xf - mean.view(c)) * (invstd * scale).view(c) + bias.view(c)
         ctx.save_for_backward(x, scale, mean, invstd)
@@ -245,16 +246,18 @@ class _TrainBatchNorm(torch.autograd.Function):
         sum_dy_xhat = (dyf * xhat).sum(dim=(0, 2, 3))
         dx = (invstd * scale).view(c) * (dyf - (sum_dy / m).view(c)
                                          - xhat * (sum_dy_xhat / m).view(c))
-        return dx.to(x.dtype), sum_dy_xhat, sum_dy
+        return dx.to(x.dtype), sum_dy_xhat, sum_dy, None
 
 
 class BatchNorm(nn.Module):
     """Flax-semantics BatchNorm over NCHW: ``scale``/``bias`` params and
     ``mean``/``var`` running buffers. ``forward`` is pure and returns the
-    batch (mean, var) in train mode; ``update`` applies the momentum step."""
+    batch (mean, var) in train mode; ``update`` applies the momentum step.
+    ``eps`` and ``momentum`` (Flax's convention) default to EfficientNet's."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, eps: float = BN_EPS, momentum: float = BN_MOMENTUM):
         super().__init__()
+        self.eps, self.momentum = eps, momentum
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -262,18 +265,18 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool):
         if train:
-            y, mean, var = _TrainBatchNorm.apply(x, self.scale, self.bias)
+            y, mean, var = _TrainBatchNorm.apply(x, self.scale, self.bias, self.eps)
             return y, (mean, var)
         c = (1, -1, 1, 1)
-        y = (x.float() - self.mean.view(c)) * (torch.rsqrt(self.var + BN_EPS)
+        y = (x.float() - self.mean.view(c)) * (torch.rsqrt(self.var + self.eps)
                                                 * self.scale).view(c) + self.bias.view(c)
         return y.to(x.dtype), None
 
     @torch.no_grad()
     def update(self, stats):
         mean, var = stats
-        self.mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
-        self.var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+        self.mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+        self.var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
 
 
 class SqueezeExcite(nn.Module):

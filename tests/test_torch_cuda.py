@@ -386,14 +386,15 @@ def _qkv(shape, dtype, seed=0):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(2, 3, 128, 64), (1, 2, 200, 32), (2, 2, 77, 64),
                                    (1, 1, 70, 128), (1, 2, 33, 48), (1, 2, 96, 36),
-                                   (1, 2, 257, 64)])
+                                   (1, 2, 257, 64), (2, 3, 1000, 64)])
 def test_cuda_flash_attention_matches_plain(shape, dtype):
     """Output and dq, dk, dv of the kernel against the plain version: fp32 within
     1e-4 (same math, other summation order); bf16 within 1e-2 (one bf16 rounding
     of each output, the bf16 P and dS operands of the tensor-core products, as
     the TPU kernel rounds them, and the backward's rowsum(dO * o) taken from the
     rounded o). D = 36 is not a multiple of 8, so the bf16 kernels copy their
-    tiles element by element; S = 257 puts one key past a 64-row tile."""
+    tiles element by element; S = 257 puts one key past a 64-row tile; S = 1000
+    is a long sequence (16 tiles, the last of 40 rows), as ViT's 5416 is."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     from mammo_clip_tpu_torch.ops.flash_attention import (
@@ -419,6 +420,40 @@ def test_cuda_flash_attention_matches_plain(shape, dtype):
     for name, a, b in zip(("out", "dq", "dk", "dv"), runs[0][:4], runs[1][:4]):
         assert _rel(a, b) < tol, (name, _rel(a, b))
     assert list(runs[0][4].values()) == [1, 1] and list(runs[1][4].values()) == [0, 0]
+
+
+@pytest.mark.cuda
+def test_cuda_vit_attention_runs_the_flash_kernel():
+    """A tiny ViT (2 layers, 4x6 grid + CLS: S = 25, D = 16) on the card against
+    the CPU from the same weights, fp32 with TF32 off: every layer's attention
+    launches the flash kernel forward and backward (the CPU takes its plain
+    version), outputs within 1e-4 and gradients within 1e-3 of the largest."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from mammo_clip_tpu_torch.models import ViT, ViTConfig, init_parameters
+    from mammo_clip_tpu_torch.ops.flash_attention import launches as fa_launches
+    from mammo_clip_tpu_torch.utils.device import full_fp32
+
+    cpu = ViT(ViTConfig.tiny())
+    init_parameters(cpu, torch.Generator().manual_seed(0))
+    card = ViT(ViTConfig.tiny()).cuda()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 32, 48, 1, generator=torch.Generator().manual_seed(1))
+    res = []
+    with full_fp32():
+        for model, xd in ((card, x.cuda()), (cpu, x)):
+            before = dict(fa_launches.counts)
+            out = model(xd, train=True)
+            (out["tokens"].float() ** 2).sum().backward()
+            torch.cuda.synchronize()
+            res.append((out["tokens"].detach().cpu(),
+                        {n: p.grad.cpu() for n, p in model.named_parameters()},
+                        [fa_launches.counts[k] - before[k] for k in before]))
+    assert res[0][2] == [2, 2] and res[1][2] == [0, 0]
+    assert _rel(res[0][0], res[1][0]) < 1e-4
+    scale = max(float(g.abs().max()) for g in res[1][1].values())
+    for name, g in res[1][1].items():
+        assert float((res[0][1][name] - g).abs().max()) <= 1e-3 * scale, name
 
 
 @pytest.mark.cuda

@@ -3,7 +3,7 @@ torch, numpy, scipy and einops (the card machine has no JAX, Flax, optax, Orbax,
 yaml, transformers, PIL, pandas, scikit-learn or OpenCV), and no file of it
 imports JAX or the JAX package. The pretraining CLI runs (and resumes, and
 seeds a flagship run from what it wrote), the evaluation CLIs run on what it
-wrote, the classifier, rescore and detector CLIs run, and the offline
+wrote, the classifier, rescore, detector and Mammo-FActOR CLIs run, and the offline
 preprocessing (the DICOM tool, the PNG reader behind DirectoryImageStore, the
 shard writer) runs, with all of those blocked, as they must on the card."""
 
@@ -51,7 +51,9 @@ def test_port_imports_without_jax_and_host_extras():
                  "downstream.detect", "cli.detector", "data.png", "preprocess",
                  "preprocess.breast_crop", "preprocess.native_bindings",
                  "preprocess.dicom_native", "preprocess.dicom_tool", "preprocess.shard_writer",
-                 "preprocess.text", "preprocess.vindr_csv", "convert.flagship_init"):
+                 "preprocess.text", "preprocess.vindr_csv", "convert.flagship_init",
+                 "models.vit", "models.swin", "models.resnet", "interpret",
+                 "interpret.factor", "cli.factor"):
         assert f"mammo_clip_tpu_torch.{name}" in mods
     assert len(mods) > 30
     code = textwrap.dedent(f"""
@@ -238,6 +240,54 @@ def test_detector_cli_runs_without_host_extras(tmp_path):
         assert 0.0 <= res["best_mAP"] <= 1.0, res
         arrays = load_checkpoint_arrays(os.path.join(work, "det", "best"))
         assert arrays["scores"].shape[0] == 3, arrays["scores"].shape
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
+                        and sys.modules[m] is not None)
+        assert not leaked, leaked
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env=env, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_factor_cli_runs_without_host_extras(tmp_path):
+    """cli/factor (2 epochs of 2 steps) on a tiny port CLIP checkpoint whose
+    image encoder is a Swin, with every module of BLOCKED unimportable."""
+    code = textwrap.dedent(f"""
+        import csv, json, os, sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import torch
+        torch.set_num_threads(1)
+        from mammo_clip_tpu_torch.cli import factor
+        from mammo_clip_tpu_torch.core.config import tiny_test_config
+        from mammo_clip_tpu_torch.models import build_model
+        from mammo_clip_tpu_torch.train import build_optimizer, create_train_state
+        from mammo_clip_tpu_torch.train.checkpoint import save_checkpoint
+        work = {str(tmp_path)!r}
+        cfg = tiny_test_config()
+        cfg.model.image_encoder = {{"name": "swin-tiny", "patch_size": 4, "embed_dim": 16,
+                                    "depths": [1, 1], "num_heads": [2, 2], "window": 4}}
+        model = build_model(cfg.model.to_dict(), device="cpu")
+        opt = build_optimizer(cfg.optimizer.to_dict(), lambda s: 1e-4, model.named_parameters())
+        save_checkpoint(os.path.join(work, "best"), create_train_state(model, opt),
+                        config=cfg.to_dict(), step=1)
+        path = os.path.join(work, "vindr.csv")
+        with open(path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["patient_id", "image_id", "Mass", "Suspicious_Calcification", "fold"])
+            for i in range(10):
+                w.writerow([f"p{{i}}", f"i{{i}}.png", i % 2, 1 - i % 2, int(i >= 2)])
+        res = factor.main(["--clip-checkpoint", os.path.join(work, "best"), "--csv", path,
+                           "--image-dir", "synthetic://", "--epochs", "2",
+                           "--batch-size", "4", "--device", "cpu",
+                           "--workdir", os.path.join(work, "factor")])
+        assert res["final_loss"] == res["final_loss"], res  # finite, not NaN
+        step = os.listdir(os.path.join(work, "factor", "mapper"))
+        assert step == ["4"], step
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
                         and sys.modules[m] is not None)
         assert not leaked, leaked
