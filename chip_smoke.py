@@ -232,6 +232,30 @@ Phases, each reported on its own lines:
      back through ``convert_hf_vit`` / ``convert_hf_swin``: every tensor equal
      and the same bits out at full width; (g) the phase's seconds beside the
      card's name and power limit;
+ 16. int8 k5 convs, the serving export and profiling, on phase 7's run: (a)
+     ``int8_conv1x1`` (``ops/quant.py``; its int32 product is
+     ``torch._int_mm``, no hand kernel) at B5's k5 1x1 shapes at 1520x912,
+     batch 16 (each of stages 3, 5 and 6: the entry expand, an in-stage expand
+     and project), card vs CPU (int8 operands and scale equal, the product's
+     first rows to 1 ulp, the straight-through backward at stage 6 to 1e-5),
+     its time beside ``torch._int_mm`` alone and a bf16 ``torch.matmul`` of
+     the same shape; (b) phase 7's B5 ``best/`` with ``quant_int8_k5`` in eval
+     mode, fp32: card vs CPU on 2 images, images/s and peak memory at batch 16
+     beside phase 10's fp32 figures, the cosine to the fp32 embeddings
+     (information); (c) the compat step with ``quant_int8_k5`` (21 int8
+     blocks) and the fused route, 3 steps at batch 2: finite losses, 14 + 14
+     fused calls a step, ms beside phase 5's; (d) ``cli/export`` on that
+     ``best/`` (batch 8, cuda), the artifact loaded and called in a fresh
+     process that cannot import this package, its embeddings against
+     ``EmbeddingExtractor``'s (1e-4), export and load seconds, ms a batch
+     beside the eager extractor's; (e) a ViT-B/16 CLIP exported on the card
+     at 1520x912, batch 2, fp32: 12 nodes of the flash operator and no
+     softmax or SDPA in its image program, one call of the loaded artifact
+     launching the kernel 12 times, its embeddings against the eager model's
+     (1e-4); (f) ``utils/profiling.profile_trace`` around one call of that
+     artifact in a fresh process (its ``requires`` imported): the trace holds
+     12 or more flash forward kernels and the counters 12; (g) the phase's
+     seconds;
   8. the hand-written flash attention (csrc/flash_attention.cu): first a look
      into the built library, each flash kernel's registers, shared and local
      memory (``cuobjdump --dump-resource-usage``), spill stores (ptxas) and its
@@ -306,6 +330,7 @@ import re
 import shutil
 import subprocess
 import sys
+import textwrap
 import time
 from pathlib import Path
 
@@ -3306,6 +3331,425 @@ def families_phase(seed, workdir):
 
 
 # --------------------------------------------------------------------------
+# phase 16: int8 k5 convs, the serving export and profiling
+# --------------------------------------------------------------------------
+
+# B5's k5 1x1 convs at 1520x912, batch 16, NCHW input and output channels:
+# each stage's entry expand, in-stage expand and in-stage project
+QUANT_CASES = (("s3_entry_expand", (16, 40, 380, 228), 240),
+               ("s3_expand", (16, 64, 190, 114), 384),
+               ("s3_project", (16, 384, 190, 114), 64),
+               ("s5_entry_expand", (16, 128, 95, 57), 768),
+               ("s5_expand", (16, 176, 95, 57), 1056),
+               ("s5_project", (16, 1056, 95, 57), 176),
+               ("s6_entry_expand", (16, 176, 95, 57), 1056),
+               ("s6_expand", (16, 304, 48, 29), 1824),
+               ("s6_project", (16, 1824, 48, 29), 304))
+QUANT_CHECK_ROWS = 4  # image rows of each case whose int32 product the CPU recomputes
+QUANT_BWD_CASES = ("s6_expand", "s6_project")  # the straight-through backward, card vs CPU
+# card vs CPU, unit-norm embeddings of the int8 encoder: a quantised value within
+# the two sides' fp32 convolution round-off (~1e-7) of a .5 boundary flips by an
+# int8 step; in eval mode a flip moves one conv output by one step of its scale
+INT8_EMBED_TOL = 5e-3
+EXPORT_BATCH = 8
+EXPORT_TIMED_CALLS = 3
+EXPORT_EMBED_TOL = 1e-4  # the artifact against eager, both fp32 with TF32 off
+FLASH_FWD_KERNEL = re.compile(r"\b(fwd|fwd_tc)_kernel<")
+
+
+def quant_kernel_cases(seed):
+    """(a) ``int8_conv1x1`` at B5's k5 shapes: card vs CPU (the int8 operands
+    and scales in full, the int32 product and the dequantised output on the
+    first QUANT_CHECK_ROWS image rows, exact up to 1 ulp; the straight-through
+    backward on QUANT_BWD_CASES, within 1e-5 of the largest), then its forward,
+    ``torch._int_mm`` alone and a bf16 ``torch.matmul`` of the same (M, K) x (K,
+    N) (the library time), CUDA events."""
+    import torch
+
+    from mammo_clip_tpu_torch.ops.quant import (
+        int8_conv1x1,
+        int_matmul,
+        quantize_per_column,
+        quantize_per_tensor,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for name, (n, c, h, w), cout in QUANT_CASES:
+        x = torch.randn(n, c, h, w, device="cuda", generator=g)
+        kernel = 0.05 * torch.randn(cout, c, 1, 1, device="cuda", generator=g)
+        out = int8_conv1x1(x, kernel, torch.float32)
+        qx, sx = quantize_per_tensor(x)
+        xc, kc = x.cpu(), kernel.cpu()
+        qxc, sxc = quantize_per_tensor(xc)
+        qwc, swc = quantize_per_column(kc[:, :, 0, 0].t())
+        same_q = bool(torch.equal(qx.cpu(), qxc)) and float(sx) == float(sxc)
+        r = QUANT_CHECK_ROWS
+        part = qxc[:, :, :r].permute(0, 2, 3, 1).reshape(-1, c)
+        want = (int_matmul(part, qwc).float() * (sxc * swc)).reshape(n, r, w, cout)
+        got = out[:, :, :r].permute(0, 2, 3, 1).cpu()
+        err = float((got - want).abs().max() / want.abs().max())
+        m = n * h * w
+        a = torch.randn(m, c, device="cuda", dtype=torch.bfloat16, generator=g)
+        b = torch.randn(c, cout, device="cuda", dtype=torch.bfloat16, generator=g)
+        qa = torch.randint(-127, 128, (m, c), device="cuda", dtype=torch.int8, generator=g)
+        qb = torch.randint(-127, 128, (c, cout), device="cuda", dtype=torch.int8, generator=g)
+        row = dict(case=name, m=m, k=c, n=cout, same_int8=same_q, err=err,
+                   ms=time_ms(lambda: int8_conv1x1(x, kernel, torch.float32)),
+                   int_mm_ms=time_ms(lambda: int_matmul(qa, qb)),
+                   bf16_matmul_ms=time_ms(lambda: a @ b))
+        if name in QUANT_BWD_CASES:
+            go = torch.randn(n, cout, h, w, device="cuda", generator=g)
+            grads = []
+            for xs, ks, gs in ((x, kernel, go), (xc, kc, go.cpu())):
+                xs, ks = xs.clone().requires_grad_(), ks.clone().requires_grad_()
+                int8_conv1x1(xs, ks, torch.float32).backward(gs)
+                grads.append((xs.grad.cpu(), ks.grad.cpu()))
+            row["bwd_err"] = max(float((a_ - b_).abs().max() / b_.abs().max())
+                                 for a_, b_ in zip(*grads))
+        say(f"[int8] (a) {name}: x {(n, c, h, w)} -> {cout} (M {m}, K {c}, N {cout}): int8 "
+            f"operands and scale equal on card and CPU {same_q}, int32 product rows "
+            f"0-{r - 1} rel err {err:.2e} (tol 1.2e-7)"
+            + (f", backward rel err {row['bwd_err']:.2e} (tol 1e-5)" if "bwd_err" in row else "")
+            + f"; int8_conv1x1 fwd {row['ms']:.4f} ms, torch._int_mm alone "
+              f"{row['int_mm_ms']:.4f} ms, bf16 torch.matmul {row['bf16_matmul_ms']:.4f} ms")
+        if not (same_q and err <= 1.2e-7 and row.get("bwd_err", 0.0) <= 1e-5):
+            raise SmokeFailure(f"int8_conv1x1 {name}: card vs CPU {row}")
+        rows.append(row)
+        del x, kernel, out, qx, a, b, qa, qb
+    torch.cuda.empty_cache()
+    return rows
+
+
+def quant_serving(seed, best, serving):
+    """(b) The compat B5 encoder from phase 7's best/ with ``quant_int8_k5`` in
+    eval mode, fp32: card vs CPU on 2 images, then images/s and peak memory at
+    batch SERVE_BATCH (SERVE_TIMED_BATCHES after one warm-up, host clock) beside
+    phase 10's fp32 figures, and the cosine of its embeddings to the fp32
+    model's (information, not a gate)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from mammo_clip_tpu_torch.data.images import SyntheticImageStore
+    from mammo_clip_tpu_torch.eval.embeddings import EmbeddingExtractor
+    from mammo_clip_tpu_torch.eval.loading import load_clip_for_eval
+    from mammo_clip_tpu_torch.models import build_model
+
+    fp32, cfg = load_clip_for_eval(best, device="cuda")
+    cfg.model.image_encoder.quant_int8_k5 = True
+    h, w = cfg.data.image_size_h, cfg.data.image_size_w
+    ramp = np.broadcast_to(np.linspace(0, 255, w).astype(np.uint8), (h, w))
+    two = np.stack([SyntheticImageStore((h, w)).get("q0", "a.png"), ramp])[..., None]
+    embs = {}
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg.model.to_dict(), device=device)
+        model.load_state_dict(fp32.state_dict())
+        embs[device] = EmbeddingExtractor(model, cfg.data.mean, cfg.data.std,
+                                          batch_size=2).encode_images(two)
+        if device == "cuda":
+            q8 = model
+    err = float(np.abs(embs["cuda"] - embs["cpu"]).max())
+    ex = EmbeddingExtractor(q8, cfg.data.mean, cfg.data.std, batch_size=SERVE_BATCH)
+    rng = np.random.default_rng(seed)
+    n = SERVE_BATCH * SERVE_TIMED_BATCHES
+    imgs = rng.integers(0, 256, (SERVE_BATCH + n, h, w, 1), dtype=np.uint8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    emb_q8 = ex.encode_images(imgs[:SERVE_BATCH])  # warm-up batch
+    img_s = host_timed(lambda: ex.encode_images(imgs[SERVE_BATCH:]))
+    peak = torch.cuda.max_memory_allocated()
+    emb_fp = EmbeddingExtractor(fp32, cfg.data.mean, cfg.data.std,
+                                batch_size=SERVE_BATCH).encode_images(imgs[:SERVE_BATCH])
+    cos = (emb_q8 * emb_fp).sum(axis=1)
+    fp = serving["throughput"]
+    out = dict(err=err, images_per_s=n / img_s, batch_ms=1e3 * img_s / SERVE_TIMED_BATCHES,
+               peak_bytes=peak, cosine_min=float(cos.min()), cosine_mean=float(cos.mean()))
+    say(f"[int8] (b) compat B5 with quant_int8_k5 at {h}x{w}, fp32, eval: card vs CPU on 2 "
+        f"images, unit-norm embeddings max|diff| {err:.2e} (tol {INT8_EMBED_TOL:g}); "
+        f"encode_images {out['images_per_s']:.2f} images/s ({out['batch_ms']:.1f} ms a batch "
+        f"of {SERVE_BATCH}, {SERVE_TIMED_BATCHES} batches after 1 warm-up, host clock), peak "
+        f"memory {peak} B ({peak / 2**30:.2f} GiB); phase 10's fp32: "
+        f"{fp['images_per_s']:.2f} images/s ({fp['image_batch_ms']:.1f} ms), "
+        f"{fp['peak_bytes'] / 2**30:.2f} GiB; cosine int8 vs fp32 embeddings over "
+        f"{SERVE_BATCH} images: min {out['cosine_min']:.6f}, mean {out['cosine_mean']:.6f} "
+        f"(information)")
+    if not err <= INT8_EMBED_TOL:
+        raise SmokeFailure(f"int8 serving: card vs CPU embeddings differ by {err:.2e}")
+    del fp32, q8, ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def quant_train_steps(seed, slice_rows):
+    """(c) The compat recipe with ``quant_int8_k5`` and the fused route: STEPS
+    train steps at full width, batch BATCH, 14 + 14 fused calls each, a finite
+    loss, the step times beside phase 5's."""
+    import gc
+
+    import torch
+
+    from mammo_clip_tpu_torch.ops.mbconv import launches
+    from mammo_clip_tpu_torch.train.recipes import bench_recipe_config, build_bench_train
+
+    cfg = bench_recipe_config(compat=True)
+    cfg.model.image_encoder.quant_int8_k5 = True
+    model, _, state, _, train_step = build_bench_train(cfg, device="cuda", seed=seed)
+    enc = model.image_encoder
+    n_int8 = sum(enc.quant_ok(a, 1, 1) for a in enc.block_args)
+    batch = synthetic_batch(cfg, BATCH, seed, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    launches.reset()
+    rows = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(STEPS):
+        f0, b0 = launches.total("mbconv6", "forward"), launches.total("mbconv6", "backward")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, loss = train_step(state, batch, gen)
+        total = float(loss["total"])
+        torch.cuda.synchronize()
+        rows.append(dict(loss=total, ms=(time.perf_counter() - t) * 1e3,
+                         fused=(launches.total("mbconv6", "forward") - f0,
+                                launches.total("mbconv6", "backward") - b0)))
+        if not math.isfinite(total):
+            raise SmokeFailure(f"int8 compat step {i}: loss is not finite")
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[int8] (c) compat B5 step with quant_int8_k5 ({n_int8} int8 blocks) and the fused "
+        f"route, batch {BATCH}, bf16: losses {[round(r['loss'], 6) for r in rows]}, ms a step "
+        f"{[round(r['ms'], 1) for r in rows]} (phase 5's fp path: "
+        f"{[round(r['ms'], 1) for r in slice_rows]}), fused calls per step "
+        f"{[r['fused'] for r in rows]}, peak memory {peak} B ({peak / 2**30:.2f} GiB)")
+    if any(r["fused"] != (14, 14) for r in rows) or n_int8 != 21:
+        raise SmokeFailure(f"int8 compat steps: fused calls {[r['fused'] for r in rows]}, "
+                           f"{n_int8} int8 blocks (expected 14 + 14 and 21)")
+    del model, state, train_step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(steps=rows, peak_bytes=peak, int8_blocks=n_int8)
+
+
+def serve_bare(out_dir, images_path, calls, extra=""):
+    """Load ``out_dir`` with ``ServingModule`` from utils/export.py's file in a
+    fresh process that cannot import this package, JAX or the JAX package; embed
+    the saved images ``calls`` + 1 times. Returns its JSON record: load seconds,
+    ms a call after the first (host clock, ending in a copy to the host), the
+    embeddings' path and the package modules it loaded."""
+    code = textwrap.dedent(f"""
+        import importlib.util, json, sys, time
+        for name in ("mammo_clip_tpu_torch", "mammo_clip_tpu", "jax", "jaxlib"):
+            sys.modules[name] = None
+        import numpy as np, torch
+        t = time.perf_counter()
+        spec = importlib.util.spec_from_file_location(
+            "serving_export", {str(ROOT / "mammo_clip_tpu_torch" / "utils" / "export.py")!r})
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        srv = mod.ServingModule({str(out_dir)!r}, "cuda")
+        x = torch.from_numpy(np.load({str(images_path)!r})).cuda()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        ms = []
+        for i in range({calls} + 1):
+            t = time.perf_counter()
+            emb = srv.embed_images(x).cpu().numpy()
+            ms.append(1e3 * (time.perf_counter() - t))
+        np.save({str(out_dir / "bare_embeddings.npy")!r}, emb)
+        loaded = sorted(m for m in sys.modules if m.startswith(("mammo_clip", "jax"))
+                        and sys.modules[m] is not None)
+        print(json.dumps(dict(load_s=load_s, first_ms=ms[0], ms=ms[1:], loaded=loaded,
+                              tf32_default=torch.backends.cudnn.allow_tf32)))
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=600, cwd=str(out_dir))
+    if res.returncode != 0:
+        raise SmokeFailure(f"loading the artifact{extra} in a bare process failed:\n"
+                           f"{res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def export_cli_phase(seed, best, tmp):
+    """(d) cli/export on phase 7's best/ at 1520x912, batch EXPORT_BATCH, on the
+    card; the artifact loaded and called in a bare process; its embeddings
+    against EmbeddingExtractor's on the same batch (eager, fp32, TF32 off)."""
+    import numpy as np
+    import torch
+
+    from mammo_clip_tpu_torch.cli import export
+    from mammo_clip_tpu_torch.eval.embeddings import EmbeddingExtractor
+    from mammo_clip_tpu_torch.eval.loading import load_clip_for_eval
+    from mammo_clip_tpu_torch.ops.augment import minmax_standardize
+
+    out = tmp / "b5_served"
+    t = time.perf_counter()
+    res = export.main(["--checkpoint", best, "--out", str(out), "--batch", str(EXPORT_BATCH),
+                       "--device", "cuda"])
+    export_s = time.perf_counter() - t
+    manifest = json.loads((out / "serving.json").read_text())
+    sizes = {k: Path(v).stat().st_size for k, v in res["exported"].items()}
+    model, cfg = load_clip_for_eval(best, device="cuda")
+    h, w = cfg.data.image_size_h, cfg.data.image_size_w
+    raw = np.random.default_rng(seed).integers(0, 256, (EXPORT_BATCH, h, w, 1), dtype=np.uint8)
+    x = minmax_standardize(torch.from_numpy(raw).cuda(), cfg.data.mean, cfg.data.std)
+    np.save(tmp / "b5_images.npy", x.cpu().numpy())
+    ex = EmbeddingExtractor(model, cfg.data.mean, cfg.data.std, batch_size=EXPORT_BATCH)
+    want = ex.encode_images(raw)
+    eager_ms = [1e3 * host_timed(lambda: ex.encode_images(raw))
+                for _ in range(EXPORT_TIMED_CALLS)]
+    del model, ex, x
+    torch.cuda.empty_cache()
+    bare = serve_bare(out, tmp / "b5_images.npy", EXPORT_TIMED_CALLS)
+    err = float(np.abs(np.load(out / "bare_embeddings.npy") - want).max())
+    say(f"[export] (d) cli/export on phase 7's best/ ({h}x{w}, batch {EXPORT_BATCH}, cuda): "
+        f"{export_s:.1f} s, files {sizes} B, requires {manifest['requires']}; a bare process "
+        f"(this package, JAX and the JAX package unimportable; cuDNN TF32 at start "
+        f"{bare['tf32_default']}) loaded it in {bare['load_s']:.1f} s, loaded package modules "
+        f"{bare['loaded']}; artifact ms a batch {[round(m, 1) for m in bare['ms']]} after a "
+        f"first of {bare['first_ms']:.1f}, eager extractor {[round(m, 1) for m in eager_ms]}; "
+        f"embeddings max|diff| vs the extractor {err:.2e} (tol {EXPORT_EMBED_TOL:g})")
+    if manifest["requires"] != {"cuda": []} or bare["loaded"] or manifest["image_input"] != [
+            EXPORT_BATCH, h, w, 1] or not err <= EXPORT_EMBED_TOL:
+        raise SmokeFailure(f"cli/export artifact: manifest {manifest}, bare process {bare}, "
+                           f"embeddings differ by {err:.2e}")
+    shutil.rmtree(out, ignore_errors=True)
+    return dict(export_s=export_s, load_s=bare["load_s"], artifact_ms=bare["ms"],
+                first_ms=bare["first_ms"], eager_ms=eager_ms, err=err, bytes=sizes)
+
+
+def profile_fresh(out_dir, images_path, trace_dir):
+    """Load the artifact at ``out_dir`` with ``ServingModule`` in a fresh process
+    (its ``requires`` imported), call it once to warm up, then once inside
+    ``utils/profiling.profile_trace(trace_dir)``. Returns that process's JSON
+    record: the flash forward launches its counters saw in the profiled call,
+    and the trace's kernels. A process of its own: minutes into the smoke an
+    in-process trace keeps only part of a call's kernels on the H100."""
+    code = textwrap.dedent(f"""
+        import json, sys
+        sys.path.insert(0, {str(ROOT)!r})
+        import numpy as np, torch
+        from mammo_clip_tpu_torch.utils import profile_trace
+        from mammo_clip_tpu_torch.utils.export import ServingModule
+        srv = ServingModule({str(out_dir)!r}, "cuda")
+        from mammo_clip_tpu_torch.ops.flash_attention import launches
+        x = torch.from_numpy(np.load({str(images_path)!r})).cuda()
+        srv.embed_images(x)
+        torch.cuda.synchronize()
+        before = launches.counts["flash_attention.forward"]
+        with profile_trace({str(trace_dir)!r}):
+            srv.embed_images(x)
+            torch.cuda.synchronize()
+        print(json.dumps(dict(launched=launches.counts["flash_attention.forward"] - before)))
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=600, cwd=str(ROOT))
+    if res.returncode != 0:
+        raise SmokeFailure(f"profiling the artifact in a fresh process failed:\n"
+                           f"{res.stderr[-3000:]}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    events = json.loads((Path(trace_dir) / "trace.json").read_text())["traceEvents"]
+    out["kernels"] = [e for e in events if e.get("cat") == "kernel"]
+    return out
+
+
+def vit_export_phase(seed, tmp):
+    """(e) A ViT-B/16 CLIP (random weights from the seed, BERT-base) exported on the
+    card at 1520x912, batch BATCH, fp32: the image program's flash-operator nodes
+    (12, one a layer) and no softmax or SDPA, the loaded artifact's embeddings
+    against the eager model's, its flash launches (counters, 12 a call); (f) in
+    a fresh process, ``profile_trace`` around one eval batch of the loaded
+    artifact: the trace's flash forward kernels (12 or more) and the
+    counters' launches."""
+    import numpy as np
+    import torch
+
+    from mammo_clip_tpu_torch.models import build_model
+    from mammo_clip_tpu_torch.ops.flash_attention import launches as fa_launches
+    from mammo_clip_tpu_torch.train.recipes import bench_recipe_config
+    from mammo_clip_tpu_torch.utils.device import full_fp32
+    from mammo_clip_tpu_torch.utils.export import ServingModule, export_clip_serving
+
+    cfg = bench_recipe_config(compat=True)
+    cfg.model.image_encoder.name = "vit-base"
+    h, w, s = cfg.data.image_size_h, cfg.data.image_size_w, cfg.data.text_max_length
+    model = build_model(cfg.model.to_dict(), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(seed)).eval()
+    out = tmp / "vit_served"
+    t = time.perf_counter()
+    files = export_clip_serving(model, (h, w), s, batch=BATCH, out_dir=str(out))
+    export_s = time.perf_counter() - t
+    program = torch.export.load(files["image_fn.cuda"])
+    nodes = sum("mammo_clip_tpu_torch.flash_forward" in str(n.target)
+                for n in program.graph.nodes)
+    plain = sum("scaled_dot_product" in str(n.target) or "softmax" in str(n.target)
+                for n in program.graph.nodes)
+    del program
+    manifest = json.loads((out / "serving.json").read_text())
+    srv = ServingModule(str(out))
+    x = torch.randn(BATCH, h, w, 1, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(seed))
+    before = fa_launches.counts["flash_attention.forward"]
+    got = srv.embed_images(x)
+    torch.cuda.synchronize()
+    launched = fa_launches.counts["flash_attention.forward"] - before
+    with torch.no_grad(), full_fp32():
+        want = model.embed_image(x)
+    err = float((got - want).abs().max())
+    say(f"[export] (e) ViT-B/16 CLIP exported on cuda at {h}x{w}, batch {BATCH}, fp32: "
+        f"{export_s:.1f} s; image program nodes of the flash operator {nodes} (expected 12), "
+        f"of SDPA or softmax {plain}; requires {manifest['requires']}; one loaded-artifact "
+        f"call launched the flash forward {launched} times (counters); embeddings max|diff| vs "
+        f"eager {err:.2e} (tol {EXPORT_EMBED_TOL:g})")
+    np.save(tmp / "vit_images.npy", x.cpu().numpy())
+    del model, srv, got, want, x
+    torch.cuda.empty_cache()
+    trace_dir = tmp / "trace16"
+    fresh = profile_fresh(out, tmp / "vit_images.npy", trace_dir)
+    flash = [e for e in fresh["kernels"] if FLASH_FWD_KERNEL.search(e["name"])]
+    say(f"[export] (f) profile_trace around one eval batch of the loaded artifact, in a fresh "
+        f"process: {trace_dir.name}/trace.json, {len(fresh['kernels'])} kernels, {len(flash)} "
+        f"of them the flash forward ({sorted({short_name(e['name']) for e in flash})}, "
+        f"{sum(e['dur'] for e in flash) / 1e3:.2f} ms of device time); its counters "
+        f"{fresh['launched']} launches")
+    if nodes != 12 or plain or launched != 12 or fresh["launched"] != 12 or len(flash) < 12 \
+            or not err <= EXPORT_EMBED_TOL \
+            or manifest["requires"] != {"cuda": ["mammo_clip_tpu_torch.ops.flash_attention"]}:
+        raise SmokeFailure(f"ViT export: {nodes} flash nodes, {plain} plain attention nodes, "
+                           f"{launched} / {fresh['launched']} launches, {len(flash)} traced "
+                           f"flash kernels, embeddings differ by {err:.2e}, requires "
+                           f"{manifest['requires']}")
+    return dict(export_s=export_s, nodes=nodes, launched=launched, traced=len(flash),
+                err=err, flash_device_ms=sum(e["dur"] for e in flash) / 1e3)
+
+
+def int8_export_phase(seed, workdir, serving, slice_rows):
+    """Phase 16 on phase 7's run (``workdir``): (a) int8_conv1x1 at B5's k5
+    shapes, (b) int8 serving, (c) int8 compat steps, (d) cli/export and a bare
+    process, (e) a ViT exported on the card, (f) profile_trace, then the
+    phase's seconds."""
+    import tempfile
+
+    card = card_line()
+    say(f"[int8] phase 16 on {card}")
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_p16_"))
+    best = str(workdir / "best")
+    try:
+        out = {"kernels": quant_kernel_cases(seed)}
+        out["serving"] = quant_serving(seed, best, serving)
+        out["train"] = quant_train_steps(seed, slice_rows)
+        out["export"] = export_cli_phase(seed, best, tmp)
+        out["vit"] = vit_export_phase(seed, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"[export] (g) phase 16: {out['seconds']:.1f} s on {card}")
+    return out
+
+
+# --------------------------------------------------------------------------
 # phase 8: flash attention
 # --------------------------------------------------------------------------
 
@@ -3454,7 +3898,7 @@ def flash_kernel_report(lib_path, ptxas_log):
 
 def flash_timing(q, k, v, g):
     """bf16 forward, backward and forward+backward at q's (B, N, S, D) shape, for
-    the kernel (its raw launches, uncounted), the plain version, the port's
+    the kernel (its launches alone), the plain version, the port's
     ``amp_attn_scores`` einsum attention and SDPA: (CUDA-event ms, device ms,
     bounds), each by name, then by direction."""
     import torch
@@ -3477,7 +3921,7 @@ def flash_timing(q, k, v, g):
         "sdpa": lambda q, k, v: F.scaled_dot_product_attention(q, k, v, scale=scale),
     }
     o, lse = flash_forward(q, k, v, scale)
-    calls = {"kernel": (  # the launches alone, uncounted
+    calls = {"kernel": (  # the launches alone (flash_forward's are counted, never read here)
         lambda: flash_forward(q, k, v, scale),
         lambda: flash_backward(q, k, v, o, lse, g, scale),
         lambda: flash_backward(q, k, v, *flash_forward(q, k, v, scale), g, scale))}
@@ -3903,11 +4347,14 @@ def main(argv=None) -> int:
         flag = flagship_phase(args.seed, cli_tmp / "run")
         # 15. the other encoder families, and Mammo-FActOR on the same best/
         fam, fam_rows = families_phase(args.seed, cli_tmp / "run")
+        # 16. int8 k5 convs, the serving export of the same best/, profiling
+        int8 = int8_export_phase(args.seed, cli_tmp / "run", serving, rows)
     finally:
         shutil.rmtree(cli_tmp, ignore_errors=True)
     (OUT_DIR / "chip_smoke_steps.json").write_text(
         json.dumps(dict(slice=rows, cli=cli, serving=serving, classifier=clf, detector=det,
-                        preprocess=pre, flagship=flag, families=fam), indent=1))
+                        preprocess=pre, flagship=flag, families=fam, int8_export=int8),
+                   indent=1))
 
     # 8. flash attention; 9. the probe kernels
     flash_rows = flash_phases(args.seed, earlier)

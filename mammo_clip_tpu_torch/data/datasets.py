@@ -8,10 +8,10 @@ zoo (reference: breastclip/data/datasets/__init__.py:9-24 dispatch):
   imagetext_retrieval     -> ImageTextRetrievalDataset (retrieval eval)
   image_classification    -> ImageClassificationDataset (downstream classifiers)
   image_classification_zs -> ImageClassificationZSDataset
+  image_aligner           -> ImageAlignerDataset        (error-slice analysis)
 
-The aligner kind belongs to the interpretation slice. A dataset
-takes the ``Table`` of ``data/metadata.py`` (row dicts) where the JAX one takes
-a DataFrame; sampling is the same: one
+A dataset takes the ``Table`` of ``data/metadata.py`` (row dicts) where the JAX
+one takes a DataFrame; sampling is the same: one
 ``random.Random`` per (epoch seed, index), so an item is a pure function of
 (seed, epoch, index).
 
@@ -244,6 +244,31 @@ class ImageClassificationZSDataset(ImageClassificationDataset):
     with the reference factory (datasets/__init__.py:9-24)."""
 
 
+class ImageAlignerDataset:
+    """Paired image + rich concept/threshold metadata for LADDER-style error-slice
+    analysis (reference: breastclip/data/datasets/image_aligner.py:15-153). Every
+    column beyond the image reference is surfaced verbatim in 'meta'; the study
+    is ``patient_id``, else ``study_id``; a list-valued image cell gives its
+    first element."""
+
+    def __init__(self, df: Table, image_store, image_col: str = "image_id"):
+        self.df = df
+        self.store = image_store
+        self.image_col = image_col
+
+    def __len__(self) -> int:
+        return len(self.df)
+
+    def __getitem__(self, index: int) -> Dict:
+        row = self.df[index]
+        image_id = row[self.image_col]
+        if isinstance(image_id, list):
+            image_id = image_id[0]
+        sid = str(row["patient_id"]) if "patient_id" in row else str(row.get("study_id", ""))
+        meta = {k: row[k] for k in self.df.columns if k != self.image_col}
+        return {"image": self.store.get(sid, str(image_id)), "meta": meta}
+
+
 def load_dataset(data_type: str, **kwargs):
     """Factory mirroring reference breastclip/data/datasets/__init__.py:9-24."""
     table = {
@@ -252,8 +277,8 @@ def load_dataset(data_type: str, **kwargs):
         "imagetext_retrieval": ImageTextRetrievalDataset,
         "image_classification": ImageClassificationDataset,
         "image_classification_zs": ImageClassificationZSDataset,
+        "image_aligner": ImageAlignerDataset,
     }
     if data_type not in table:
-        raise KeyError(f"data_type not ported (image_aligner waits for the "
-                       f"interpretation slice): {data_type}")
+        raise KeyError(f"unknown data_type: {data_type}")
     return table[data_type](**kwargs)

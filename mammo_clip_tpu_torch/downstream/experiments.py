@@ -132,7 +132,7 @@ def train_classifier(
     state = create_train_state(model, tx)
     preprocess = _make_preprocess(aug or AugmentConfig(), mean, std)
     train_step, eval_step = make_classifier_steps(model, loss_kind, preprocess, pos_weight)
-    logger = MetricsLogger(workdir) if workdir else None
+    logger = MetricsLogger(workdir, enabled=workdir is not None)
     device = next(model.parameters()).device
     generator = torch.Generator(device=device)
 
@@ -168,9 +168,8 @@ def train_classifier(
         else:
             metric = accuracy(labels, np.argmax(preds, axis=-1))
         history.append(metric)
-        if logger is not None:
-            logger.log(state.step, {"metric": metric, "epoch_time": time.time() - t0},
-                       prefix="valid")
+        logger.log(state.step, {"metric": metric, "epoch_time": time.time() - t0},
+                   prefix="valid")
         if metric > best:
             best = metric
             if workdir:
@@ -184,8 +183,7 @@ def train_classifier(
                                         "best_metric": None if not np.isfinite(best) else float(best),
                                         "history": [float(h) for h in history]},
                             max_to_keep=1)
-    if logger is not None:
-        logger.close()
+    logger.close()
     return {"best_metric": float(best), "history": history}
 
 

@@ -67,9 +67,9 @@ def load_image_encoder(config: Dict, dtype: torch.dtype = torch.float32) -> nn.M
     (``tpu_optimized`` and its ``tpu_*`` widths) included (``feature_taps``:
     the blocks whose outputs it also returns, as ``out["taps"]``). Every
     encoder returns ``pooled`` and ``features`` and has ``out_dim``; the
-    EfficientNet-only keys are ignored for the other families, as in JAX.
-    The EfficientNet options ``s2d_exec`` and ``quant_int8_k5`` belong to a
-    later slice and raise."""
+    EfficientNet-only keys are ignored for the other families, as in JAX
+    (``quant_int8_k5`` and ``s2d_exec`` among them). ``s2d_exec`` with
+    ``packed_residuals`` raises ``ValueError``, as JAX's encoder refuses it."""
     name = str(config.get("name", "efficientnet-b5"))
     in_channels = config.get("in_channels", 1)
     if name.startswith("resnet"):
@@ -93,11 +93,11 @@ def load_image_encoder(config: Dict, dtype: torch.dtype = torch.float32) -> nn.M
             base_grid=config.get("base_grid", 14),
         )
         return ViT(cfg=vit_cfg, in_channels=in_channels, dtype=dtype)
-    unported = [k for k in ("s2d_exec", "quant_int8_k5") if config.get(k)]
-    if unported:
-        raise NotImplementedError(f"image encoder options not ported yet: {unported}")
     # packed_residuals is accepted and not passed on: a lane layout of the TPU for
     # remat's saved block inputs (a reshape, the same math); NCHW has no lane padding
+    if config.get("s2d_exec") and config.get("packed_residuals"):
+        raise ValueError("s2d_exec is its own layout regime: packed_residuals cannot be "
+                         "combined with it")
     return EfficientNet(
         variant=efficientnet_variant(name),
         in_channels=in_channels,
@@ -114,6 +114,8 @@ def load_image_encoder(config: Dict, dtype: torch.dtype = torch.float32) -> nn.M
         tpu_slim_stage5=config.get("tpu_slim_stage5", 0),
         tpu_slim_stage6=config.get("tpu_slim_stage6", 0),
         tpu_slim_stage7=config.get("tpu_slim_stage7", 0),
+        quant_int8_k5=config.get("quant_int8_k5", False),
+        s2d_exec=config.get("s2d_exec", False),
         pooling=config.get("pooling", "avg"),
         dtype=dtype,
         feature_taps=tuple(config.get("feature_taps", ())),

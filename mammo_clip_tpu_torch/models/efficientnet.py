@@ -27,7 +27,16 @@ from ``tpu_optimized_block_args`` (``tpu_dense_widths``, ``tpu_slim_stage3..7``)
 The endpoints are renumbered from the first reduction after the front
 (``reduction_1`` is the 1/4 map entering the first deep block). The fused
 route is its own layout regime and is refused with it, as in JAX.
-``s2d_exec`` and ``quant_int8_k5`` belong to a later slice.
+
+``quant_int8_k5`` runs the 1x1 expand (where the block has one) and project
+convs of every k=5 block as int8 matmuls with straight-through gradients
+(``ops/quant.py``), with the same parameters; it composes with
+``tpu_optimized``, as in JAX. ``s2d_exec`` is a lane layout of the TPU
+(``mammo_clip_tpu/ops/s2d_exec.py``: the same network function with the same
+parameters, over space-to-depth(2) tensors); NCHW has no lanes to fill, so the
+option runs the standard path. What it changes in JAX beyond the layout is
+kept: the blocks it takes (``s2d_taken``) are not quantised, and it is refused
+with ``fused_mbconv`` and with ``tpu_optimized``.
 
 Running statistics: each block computes its forward as a pure function that
 returns its batch statistics, and the block applies the momentum update after
@@ -50,6 +59,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.mbconv import BN_EPS, MBConvParams
 from ..ops.mbconv6 import MBConv6Params, fused_mbconv_e6, pick_h_pad, pick_w_pad
 from ..ops.pooling import gem_pool, global_avg_pool
+from ..ops.quant import int8_conv1x1
 from ..ops.stochastic import drop_delta
 
 # (num_repeat, kernel, stride, expand_ratio, in_filters, out_filters, se_ratio)
@@ -334,9 +344,10 @@ class MBConvBlock(nn.Module):
         return MBConvParams(**common)
 
     def pure_forward(self, x, train: bool, delta, valid_hw: Optional[Tuple[int, int]],
-                     fused: bool):
-        """x NCHW (zero-padded beyond ``valid_hw`` on the fused route).
-        Returns (out, [batch stats per BN] or None)."""
+                     fused: bool, quant: bool = False):
+        """x NCHW (zero-padded beyond ``valid_hw`` on the fused route); ``quant``
+        runs the 1x1 convs in int8 (unfused route). Returns (out, [batch stats
+        per BN] or None)."""
         if fused and train:
             vh, vw = valid_hw or x.shape[2:]
             out, stats = fused_mbconv_e6(x, self.fused_params(), delta, vh, vw, BN_EPS)
@@ -345,10 +356,13 @@ class MBConvBlock(nn.Module):
             hp, wp = x.shape[2:]
             out, stats = self._unfused(x[:, :, :valid_hw[0], :valid_hw[1]], train, delta)
             return F.pad(out, (0, wp - valid_hw[1], 0, hp - valid_hw[0])), stats
-        return self._unfused(x, train, delta)
+        return self._unfused(x, train, delta, quant)
 
-    def _unfused(self, x, train: bool, delta):
+    def _unfused(self, x, train: bool, delta, quant: bool = False):
         stats = []
+
+        def conv1x1(conv, t):
+            return int8_conv1x1(t, conv.kernel, t.dtype) if quant else conv(t)
 
         def bn(mod, t):
             y, s = mod(t, train)
@@ -357,10 +371,10 @@ class MBConvBlock(nn.Module):
 
         inputs = x
         if hasattr(self, "bn0"):
-            x = F.silu(bn(self.bn0, self.expand_conv(x)))
+            x = F.silu(bn(self.bn0, conv1x1(self.expand_conv, x)))
         x = F.silu(bn(self.bn1, self.depthwise_conv(x)))
         x = self.se(x)
-        x = bn(self.bn2, self.project_conv(x))
+        x = bn(self.bn2, conv1x1(self.project_conv, x))
         if self.residual:
             if train and self.drop_rate > 0.0:
                 x = x * delta.view(-1, 1, 1, 1).to(x.dtype)
@@ -368,12 +382,12 @@ class MBConvBlock(nn.Module):
         return x, (stats if train else None)
 
     def forward(self, x, train: bool, delta, valid_hw=None, fused: bool = False,
-                remat: bool = False):
+                remat: bool = False, quant: bool = False):
         if remat and train:
-            out, stats = checkpoint(self.pure_forward, x, train, delta, valid_hw, fused,
+            out, stats = checkpoint(self.pure_forward, x, train, delta, valid_hw, fused, quant,
                                     use_reentrant=False)
         else:
-            out, stats = self.pure_forward(x, train, delta, valid_hw, fused)
+            out, stats = self.pure_forward(x, train, delta, valid_hw, fused, quant)
         if stats is not None:
             for mod, s in zip(self._bns(), stats):
                 mod.update(s)
@@ -392,7 +406,8 @@ class EfficientNet(nn.Module):
                  tpu_front_expand: int = 1, tpu_dense_widths: bool = True,
                  tpu_slim_stage3: int = 0, tpu_slim_stage4: int = 0,
                  tpu_slim_stage5: int = 0, tpu_slim_stage6: int = 0,
-                 tpu_slim_stage7: int = 0):
+                 tpu_slim_stage7: int = 0, quant_int8_k5: bool = False,
+                 s2d_exec: bool = False):
         super().__init__()
         self.variant, self.in_channels = variant, in_channels
         self.feature_taps = tuple(feature_taps)
@@ -400,11 +415,15 @@ class EfficientNet(nn.Module):
         self.remat, self.remat_max_reduction = remat, remat_max_reduction
         self.fused_mbconv, self.pooling, self.dtype = fused_mbconv, pooling, dtype
         self.tpu_optimized = tpu_optimized
+        self.quant_int8_k5, self.s2d_exec = quant_int8_k5, s2d_exec
         n = len(scaled_block_args(variant))  # drop rates count the original blocks
+        if tpu_optimized and (fused_mbconv or s2d_exec):
+            raise ValueError("tpu_optimized is its own layout regime: fused_mbconv and "
+                             "s2d_exec cannot be combined with it")
+        if s2d_exec and fused_mbconv:
+            raise ValueError("s2d_exec is its own layout regime: fused_mbconv cannot be "
+                             "combined with it")
         if tpu_optimized:
-            if fused_mbconv:
-                raise ValueError("tpu_optimized is its own layout regime: fused_mbconv "
-                                 "cannot be combined with it")
             self.block_args, self.skip = tpu_optimized_block_args(
                 variant, dense_widths=tpu_dense_widths, slim_stage3=tpu_slim_stage3,
                 slim_stage5=tpu_slim_stage5, slim_stage6=tpu_slim_stage6,
@@ -441,6 +460,18 @@ class EfficientNet(nn.Module):
     def fused_ok(self, a: BlockArgs) -> bool:
         return (self.fused_mbconv and a.kernel == 3 and a.stride == 1
                 and a.in_filters * a.expand_ratio <= FUSED_MAX_EXPANDED)
+
+    def s2d_taken(self, a: BlockArgs, h: int, w: int) -> bool:
+        """Whether JAX's ``s2d_exec`` runs this block over space-to-depth(2)
+        tensors (``s2d_ok`` of its ``EfficientNet.__call__``) at an (h, w) input:
+        even maps, and a stride-2 block or a narrow one (4 * E <= 128)."""
+        return (self.s2d_exec and a.kernel in (3, 5) and h % 2 == 0 and w % 2 == 0
+                and (a.stride == 2 or 4 * a.in_filters * a.expand_ratio <= 128))
+
+    def quant_ok(self, a: BlockArgs, h: int, w: int) -> bool:
+        """JAX's ``quant_int8`` of a block: k=5, on neither the fused nor the
+        space-to-depth layout (the fused route takes only k=3 blocks here)."""
+        return self.quant_int8_k5 and a.kernel == 5 and not self.s2d_taken(a, h, w)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> Dict:
@@ -500,7 +531,8 @@ class EfficientNet(nn.Module):
             delta = drop_delta(x.shape[0], rate, generator, x.device)
             x = block(x, train, delta,
                       valid_hw=(cur_h, cur_w) if pad_hw is not None else None,
-                      fused=use_fused, remat=use_remat and not use_fused)
+                      fused=use_fused, remat=use_remat and not use_fused,
+                      quant=self.quant_ok(a, cur_h, cur_w))
             scale *= a.stride
             cur_h, cur_w = -(-cur_h // a.stride), -(-cur_w // a.stride)
             if a.stride > 1:

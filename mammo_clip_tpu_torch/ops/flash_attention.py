@@ -16,9 +16,19 @@ scores in fp32 and rounds once at the output. ``launches`` counts the kernel
 path's calls. The kernels launch through ``cuda_lib.launcher`` (the device index
 and PyTorch's current raw stream passed to the C launcher, no device context
 and no ``Stream`` object per call).
+
+The forward launch is the operator ``torch.ops.mammo_clip_tpu_torch.flash_forward``
+(``torch.library.custom_op``, CUDA only), with a fake implementation that gives
+``o`` and ``lse`` their shapes and types: ``torch.export`` traces the model
+with tensors that have no data, and keeps the operator as a node of the graph,
+so an artifact exported on a card launches the kernel when it runs. A serving
+process imports this module before it loads such an artifact, which registers
+the operator (``utils/export.py``'s ``requires``).
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -36,7 +46,10 @@ def plain_flash_attention(q, k, v, sm_scale: float):
     return (torch.softmax(s, dim=-1) @ v.float()).to(q.dtype)
 
 
-def flash_forward(q, k, v, sm_scale: float):
+@torch.library.custom_op("mammo_clip_tpu_torch::flash_forward", mutates_args=(),
+                         device_types="cuda")
+def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the forward kernel: (o, lse) with lse (B, N, S) fp32."""
     B, N, S, D = q.shape
     o = torch.empty_like(q)
@@ -44,7 +57,14 @@ def flash_forward(q, k, v, sm_scale: float):
     _fa_forward(q.get_device(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 int(q.dtype == torch.bfloat16), o.data_ptr(), lse.data_ptr(), B * N, S, D,
                 float(sm_scale))
+    launches.add("flash_attention.forward")
     return o, lse
+
+
+@flash_forward.register_fake
+def _flash_forward_fake(q, k, v, sm_scale):
+    B, N, S, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, N, S), dtype=torch.float32)
 
 
 def flash_backward(q, k, v, o, lse, g, sm_scale: float):
@@ -62,7 +82,6 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, sm_scale):
         o, lse = flash_forward(q, k, v, sm_scale)
-        launches.add("flash_attention.forward")
         ctx.sm_scale = sm_scale
         ctx.save_for_backward(q, k, v, o, lse)
         return o

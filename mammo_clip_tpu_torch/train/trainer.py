@@ -101,7 +101,7 @@ class Trainer:
                                  generator=gen)
         self.loss_fn = build_loss(cfg.loss.to_dict())
         self.preprocess = make_clip_preprocess(cfg)
-        self.logger = MetricsLogger(workdir)
+        self.logger = MetricsLogger(workdir, enabled=True)
         self._schedule = None
 
     def _build_state(self, steps_per_epoch: int, lr_scale: float = 1.0):

@@ -1090,3 +1090,113 @@ def test_cuda_detector_step_matches_the_cpu():
     assert lc["regression"] > 0
     assert _rel(gk, gc) < 1e-3
     assert nk == nc == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_operator_matches_plain(dtype):
+    """The forward launch as the operator ``torch.ops.mammo_clip_tpu_torch.
+    flash_forward``: its o against the plain version (fp32 1e-4, bf16 1e-2, the
+    flash tolerances above), one counted launch a call, and its fake
+    implementation's shapes and types equal to the real call's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from mammo_clip_tpu_torch.ops.flash_attention import launches as fa_launches
+    from mammo_clip_tpu_torch.ops.flash_attention import plain_flash_attention
+
+    dt = getattr(torch, dtype)
+    q, k, v, _ = _qkv((2, 3, 77, 64), dt)
+    before = fa_launches.counts["flash_attention.forward"]
+    o, lse = torch.ops.mammo_clip_tpu_torch.flash_forward(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert fa_launches.counts["flash_attention.forward"] == before + 1
+    assert _rel(o.float(), plain_flash_attention(q, k, v, 0.125).float()) < (
+        1e-2 if dtype == "bfloat16" else 1e-4)
+    with FakeTensorMode() as mode:
+        fq, fk, fv = (mode.from_tensor(t) for t in (q, k, v))
+        fo, flse = torch.ops.mammo_clip_tpu_torch.flash_forward(fq, fk, fv, 0.125)
+    assert (fo.shape, fo.dtype, fo.device) == (o.shape, o.dtype, o.device)
+    assert (flse.shape, flse.dtype, flse.device) == (lse.shape, lse.dtype, lse.device)
+    assert fa_launches.counts["flash_attention.forward"] == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_vit_export_holds_the_flash_operator(tmp_path):
+    """A tiny ViT CLIP exported on the card: both layers' attention are nodes of
+    the flash operator in the image program (none in the text program), the
+    manifest requires the module that registers it, and the loaded artifact
+    launches the kernel (2 counted launches a call) and embeds as the eager
+    model does (fp32, TF32 off: within 1e-5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    import json
+
+    from mammo_clip_tpu_torch.core.config import tiny_test_config
+    from mammo_clip_tpu_torch.models import build_model
+    from mammo_clip_tpu_torch.ops.flash_attention import launches as fa_launches
+    from mammo_clip_tpu_torch.utils.device import full_fp32
+    from mammo_clip_tpu_torch.utils.export import (
+        ServingModule,
+        export_clip_serving,
+        package_operators,
+    )
+
+    cfg = tiny_test_config()
+    cfg.model.image_encoder = {"name": "vit-tiny", "patch_size": 8, "hidden_size": 32,
+                               "num_layers": 2, "num_heads": 2, "mlp_dim": 64, "base_grid": 4}
+    model = build_model(cfg.model.to_dict(), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0)).eval()
+    out = tmp_path / "serving"
+    files = export_clip_serving(model, (64, 48), 16, batch=2, out_dir=str(out))
+    program = torch.export.load(files["image_fn.cuda"])
+    flash = [n for n in program.graph.nodes
+             if "mammo_clip_tpu_torch.flash_forward" in str(n.target)]
+    assert len(flash) == 2
+    assert package_operators(program) == {"mammo_clip_tpu_torch::flash_forward"}
+    assert package_operators(torch.export.load(files["text_fn.cuda"])) == set()
+    manifest = json.loads((out / "serving.json").read_text())
+    assert manifest["requires"] == {"cuda": ["mammo_clip_tpu_torch.ops.flash_attention"]}
+    srv = ServingModule(str(out))
+    x = torch.randn(2, 64, 48, 1, generator=torch.Generator().manual_seed(1)).cuda()
+    before = fa_launches.counts["flash_attention.forward"]
+    got = srv.embed_images(x)
+    torch.cuda.synchronize()
+    assert fa_launches.counts["flash_attention.forward"] == before + 2
+    with torch.no_grad(), full_fp32():
+        want = model.embed_image(x)
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 5, 8, 64, 40), (4, 12, 7, 24, 36), (1, 2, 3, 1824, 8)])
+def test_cuda_int8_dot_matches_the_cpu(shape):
+    """``int8_dot`` and ``int8_conv1x1`` on the card against the CPU: the int8
+    operands and the int32 product are exact on both (``torch._int_mm``, padded
+    to its CUDA shape rules where M < 17 or K, N are not multiples of 8), so the
+    fp32 output is equal up to 1 ulp; the straight-through gradients (bf16
+    operands, fp32 sums) within 1e-5 of the largest (summation order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from mammo_clip_tpu_torch.ops.quant import int8_conv1x1, int8_dot
+
+    n, h, w, k, c = shape
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(n, h, w, k, generator=g)
+    wt = 0.05 * torch.randn(k, c, generator=g)
+    go = torch.randn(n, h, w, c, generator=g)
+    res = []
+    for device in ("cuda", "cpu"):
+        leaf = lambda t: t.to(device, copy=True).requires_grad_()
+        xs, ws = leaf(x), leaf(wt)
+        out = int8_dot(xs, ws, torch.float32)
+        out.backward(go.to(device))
+        xc = leaf(x.permute(0, 3, 1, 2).contiguous())
+        kc = leaf(wt.t()[:, :, None, None].contiguous())
+        outc = int8_conv1x1(xc, kc, torch.float32)
+        outc.backward(go.permute(0, 3, 1, 2).to(device))
+        res.append([t.detach().cpu() for t in (out, xs.grad, ws.grad, outc, xc.grad, kc.grad)])
+    for name, a, b in zip(("out", "dx", "dw", "conv", "conv dx", "conv dk"), *res):
+        tol = 1.2e-7 if name in ("out", "conv") else 1e-5
+        assert _rel(a, b) <= tol, (name, _rel(a, b))

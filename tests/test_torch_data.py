@@ -229,8 +229,38 @@ def test_contrastive_items_match_jax(csv_path):
                               image_store=store, seed=1)
     for i in range(len(ref)):
         _items_equal(ours[i], ref[i])
+
+
+def _meta_value(v):
+    """A JAX meta cell as the port's row holds it: pandas' NaN is None."""
+    return None if isinstance(v, float) and np.isnan(v) else v
+
+
+@pytest.mark.parametrize("table", ["pretrain", "study"])
+def test_image_aligner_items_match_jax(csv_path, tmp_path, table):
+    """``load_dataset("image_aligner")`` item by item against JAX's: the image
+    (a list cell gives its first element; the study is ``patient_id``, else
+    ``study_id``) and every other column verbatim in ``meta``."""
+    if table == "pretrain":
+        path, image_col = csv_path, "image"
+    else:
+        path, image_col = str(tmp_path / "study.csv"), "image_id"
+        pd.DataFrame([{"study_id": f"s{i}", "image_id": f"img{i}.png", "Mass": i % 2,
+                       "density": "ABCD"[i % 4], "threshold": 0.25 * i} for i in range(6)]
+                     ).to_csv(path, index=False)
+    store = images.SyntheticImageStore((8, 8))
+    ours = datasets.load_dataset("image_aligner", df=metadata.load_metadata(path),
+                                 image_store=store, image_col=image_col)
+    ref = jax_ds.load_dataset("image_aligner", df=jax_meta.load_metadata(path),
+                              image_store=store, image_col=image_col)
+    assert isinstance(ours, datasets.ImageAlignerDataset) and len(ours) == len(ref)
+    for i in range(len(ref)):
+        a, b = ours[i], ref[i]
+        np.testing.assert_array_equal(a["image"], b["image"])
+        assert a["meta"] == {k: _meta_value(v) for k, v in b["meta"].items()}
+        assert image_col not in a["meta"]
     with pytest.raises(KeyError):
-        datasets.load_dataset("image_aligner", df=None, image_store=store)
+        datasets.load_dataset("image_grounding", df=None, image_store=store)
 
 
 def _batches_equal(a, b):

@@ -1,8 +1,9 @@
 """Import hygiene of the port: it needs nothing beyond the standard library,
 torch, numpy, scipy and einops (the card machine has no JAX, Flax, optax, Orbax,
-yaml, transformers, PIL, pandas, scikit-learn or OpenCV), and no file of it
-imports JAX or the JAX package. The pretraining CLI runs (and resumes, and
-seeds a flagship run from what it wrote), the evaluation CLIs run on what it
+yaml, transformers, PIL, pandas, scikit-learn, OpenCV or TensorBoard), and no
+file of it imports JAX or the JAX package. The pretraining CLI runs (and
+resumes, and seeds a flagship run from what it wrote; its metrics logger
+writes the JSONL mirror alone), the evaluation and export CLIs run on what it
 wrote, the classifier, rescore, detector and Mammo-FActOR CLIs run, and the offline
 preprocessing (the DICOM tool, the PNG reader behind DirectoryImageStore, the
 shard writer) runs, with all of those blocked, as they must on the card."""
@@ -16,7 +17,7 @@ import textwrap
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "mammo_clip_tpu_torch")
 BLOCKED = ["jax", "jaxlib", "flax", "optax", "orbax", "yaml", "transformers", "PIL", "pandas",
-           "sklearn", "cv2", "mammo_clip_tpu"]
+           "sklearn", "cv2", "tensorboard", "mammo_clip_tpu"]
 
 
 def _port_modules():
@@ -53,7 +54,9 @@ def test_port_imports_without_jax_and_host_extras():
                  "preprocess.dicom_native", "preprocess.dicom_tool", "preprocess.shard_writer",
                  "preprocess.text", "preprocess.vindr_csv", "convert.flagship_init",
                  "models.vit", "models.swin", "models.resnet", "interpret",
-                 "interpret.factor", "cli.factor"):
+                 "interpret.factor", "cli.factor", "ops.quant", "utils.export",
+                 "utils.profiling", "cli.export", "examples", "examples.get_embeddings",
+                 "examples.downstream_classifier"):
         assert f"mammo_clip_tpu_torch.{name}" in mods
     assert len(mods) > 30
     code = textwrap.dedent(f"""
@@ -86,9 +89,11 @@ def test_no_source_names_jax_or_the_jax_package():
 def test_cli_trains_and_resumes_without_host_extras(tmp_path):
     """cli/pretrain on the CPU at the tiny config's sizes, its config from the
     defaults and JSON-valued overrides (no --config: that needs PyYAML), then
-    --resume, then cli/validate, cli/zeroshot and cli/retrieval on the run,
-    then a flagship cli/pretrain with --warm-start-from the run's best/;
-    every module of BLOCKED is unimportable throughout."""
+    --resume, then cli/validate, cli/zeroshot, cli/retrieval and cli/export
+    (its artifact loaded and called) on the run, then a flagship cli/pretrain
+    with --warm-start-from the run's best/; every module of BLOCKED is
+    unimportable throughout, TensorBoard too: the logger writes its JSONL
+    mirror and no events."""
     code = textwrap.dedent(f"""
         import csv, json, os, sys, threading
         for name in {BLOCKED!r}:
@@ -131,6 +136,14 @@ def test_cli_trains_and_resumes_without_host_extras(tmp_path):
         common = ["--checkpoint", run, "--image-dir", "synthetic://", "--device", "cpu"]
         assert set(zeroshot.main(common + ["--csv", zs])) == {{"mass", "suspicious_calcification"}}
         assert "Recall@1" in retrieval.main(common + ["--csv", path])["retrieval_i2t"]
+        assert os.path.exists(os.path.join(run, "metrics.jsonl"))
+        assert not os.path.exists(os.path.join(run, "tensorboard"))
+        from mammo_clip_tpu_torch.cli import export
+        from mammo_clip_tpu_torch.utils.export import ServingModule
+        served = os.path.join(work, "served")
+        export.main(["--checkpoint", run, "--out", served, "--batch", "2", "--device", "cpu"])
+        emb = ServingModule(served).embed_images(torch.zeros(2, 32, 32, 1))
+        assert emb.shape == (2, 8) and bool(torch.isfinite(emb).all())
         # a flagship run seeded from that run's best/
         flags = ["--device", "cpu", "--workdir", os.path.join(work, "flag"), "--variant", "b2",
                  "--warm-start-from", os.path.join(run, "best")]
