@@ -256,6 +256,35 @@ Phases, each reported on its own lines:
      artifact in a fresh process (its ``requires`` imported): the trace holds
      12 or more flash forward kernels and the counters 12; (g) the phase's
      seconds;
+ 17. data parallelism (``[dp]`` lines, each summary with the card's name and
+     power limit): (a) the fused kernel's cross-rank sums at B5's shapes
+     (block 4 e6, blocks 0 and 1-2 e=1), fp32 and bf16, forward and backward:
+     two ranks of 2 images on the one card, as two threads that drive the
+     form's passes with a barrier-sum hook (``ThreadSum``; NCCL takes one rank a
+     device), held to the passes over the whole batch of 4 with no hook (out
+     and dx row by row, the statistics, the same bits on both ranks, the
+     ranks' parameter gradients summed; phase 3's tolerances), and the call
+     with no hook twice, the same bits; (b) on every visible card, one
+     process a card under ``python -m torch.distributed.run --standalone``
+     (NCCL; ``parallel/dryrun.py::run_ranks``): first the dry run
+     (``dryrun.dryrun``): the data-parallel compat step at full width (B5 at
+     1520x912, BERT-base, 256 tokens, 2 rows a card, fused route and remat;
+     stochastic parts off) for one step and one K=2 call, held to the
+     one-process step on the same global batch, run in this process on card
+     0 while the ranks run (``dryrun.compare``, a fixed sample of each tensor;
+     the same bits on every rank; 14 + 14 fused calls): in fp32 activations
+     with TF32 off, gradients included, and in the recipe's bf16, loss,
+     parameters, statistics and EMA (``dryrun.TOLERANCES``), each beside one
+     process's own noise (``dryrun.self_noise``: the step with its rows
+     reversed and on the unfused blocks); then ``cli/pretrain``
+     (``dp_cli_rank``) for 1 epoch of 3 steps (rank 0 profiles step 1) and
+     ``--resume`` for a second, with the fused counters gated at 14 + 14 a
+     rank a step, finite losses, rank 0's checkpoints and the same
+     parameters on every rank at the end; per-step ms, images/s a card, peak
+     memory and the collectives' (NCCL kernels') share of rank 0's profiled
+     step; the phase's seconds. With one card no process group is made and
+     no collective runs in (b), and the lines say so: there (a) alone
+     exercises the cross-rank sums;
   8. the hand-written flash attention (csrc/flash_attention.cu): first a look
      into the built library, each flash kernel's registers, shared and local
      memory (``cuobjdump --dump-resource-usage``), spill stores (ptxas) and its
@@ -738,6 +767,12 @@ def parent_turns(parent):
                 f"{side(s)[0]['hand_fwd']} of the library / {side(s)[0]['all_fwd']} in all, per "
                 f"backward {side(s)[0]['hand_bwd']} / {side(s)[0]['all_bwd']}"
                 + (f", slice peaks B {peaks}" if peaks else ""))
+        digests = {ln["side"]: ln.get("digest") for ln in lines}
+        say(f"[turns] {case}: the same bits as the parent's package (out, stats, dx, every "
+            f"gradient; no cross-rank hook): {digests['old'] == digests['new']}")
+        if digests["old"] != digests["new"]:
+            raise SmokeFailure(f"{case}: the fused block without a hook no longer gives the "
+                               "parent's bits")
         earlier[case] = dict(forward=mid("old", "fwd_ms"), backward=mid("old", "bwd_ms"),
                              forward_device=mid("old", "fwd_device_ms"),
                              backward_device=mid("old", "bwd_device_ms"))
@@ -3750,6 +3785,311 @@ def int8_export_phase(seed, workdir, serving, slice_rows):
 
 
 # --------------------------------------------------------------------------
+# phase 17: data parallelism
+# --------------------------------------------------------------------------
+
+
+class ThreadSum:
+    """The cross-rank sum of ``ranks`` threads that drive the fused passes on
+    one card: NCCL takes one rank a device, so two ranks on one card are two
+    threads here, each enqueueing on the card's default stream. A call
+    deposits this thread's tensor, waits for the others, enqueues the sum of
+    all in rank order (the same bits for every thread), waits again (so no
+    thread overwrites its tensor before every sum is enqueued) and copies the
+    sum in: stream order makes each sum read the passes' results."""
+
+    def __init__(self, ranks):
+        import threading
+
+        self.ranks = ranks
+        self._barrier = threading.Barrier(ranks, timeout=120)
+        self._slots = [None] * ranks
+
+    def rank(self, r):
+        shared = self
+
+        class Hook:
+            ranks = shared.ranks
+
+            def __call__(self, t):
+                shared._slots[r] = t
+                shared._barrier.wait()
+                total = shared._slots[0].clone()
+                for other in shared._slots[1:]:
+                    total += other
+                shared._barrier.wait()
+                return t.copy_(total)
+
+        return Hook()
+
+
+def dp_kernel_case(case, dtype_name, ranks=2):
+    """Phase 17 (a) for one case and dtype: ``ranks`` threads each run the
+    form's forward and backward passes (``_e6_forward`` / ``_e6_backward`` or
+    the e=1 ones; autograd would run every backward on the device's one engine
+    thread, where the barrier would wait forever) on their slice of the case's
+    batch with a ``ThreadSum`` hook, against the same passes over the whole
+    batch with no hook: out and dx row by row, every thread's statistics, the
+    threads' parameter gradients summed. Returns the rows (name, max rel,
+    tol) and the max abs errors of out and dx."""
+    import threading
+
+    import torch
+
+    from mammo_clip_tpu_torch.ops import mbconv6
+
+    fwd, bwd = ((mbconv6._e6_forward, mbconv6._e6_backward) if case.form == "e6"
+                else (mbconv6._e1_forward, mbconv6._e1_backward))
+    dtype = getattr(torch, dtype_name)
+    x, g = case.x.to(dtype), case.gout.to(dtype)
+    eps, n = 1e-3, case.N // ranks
+
+    def run(sl, hook):
+        out, stats, kept = fwd(x[sl], case.params, case.delta[sl], case.vh, case.vw, eps, hook)
+        dx, grads = bwd(x[sl], case.params, case.delta[sl], case.vh, case.vw, eps, g[sl], stats,
+                        kept, hook)
+        return out, stats, dx, grads
+
+    whole = run(slice(None), None)
+    shared, results, errors = ThreadSum(ranks), [None] * ranks, []
+
+    def worker(r):
+        try:
+            results[r] = run(slice(r * n, (r + 1) * n), shared.rank(r))
+        except BaseException as e:  # re-raised below
+            errors.append(e)
+            shared._barrier.abort()
+
+    threads = [threading.Thread(target=worker, args=(r,)) for r in range(ranks)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    torch.cuda.synchronize()
+    if any(t.is_alive() for t in threads):
+        raise SmokeFailure(f"[dp] {case.name} {dtype_name}: a rank did not finish")
+    if errors:
+        raise SmokeFailure(f"[dp] {case.name} {dtype_name}: a rank failed: {errors[0]!r}")
+    bf16 = dtype_name == "bfloat16"
+    f = lambda t: t.float()
+    rows = [("out", max_rel(f(torch.cat([r[0] for r in results])), f(whole[0])),
+             1e-2 if bf16 else 1e-4),
+            ("dx", max_rel(f(torch.cat([r[2] for r in results])), f(whole[2])),
+             1e-2 if bf16 else 1e-3)]
+    rows += [(f"stat{i}", max(max_rel(r[1][i], w) for r in results), 1e-4)
+             for i, w in enumerate(whole[1])]
+    rows += [(f"d{name}", max_rel(sum(r[3][i] for r in results), w), 2e-3)
+             for i, (name, w) in enumerate(zip(type(case.params)._fields, whole[3]))]
+    same = all(torch.equal(a, b) for r in results[1:] for a, b in zip(r[1], results[0][1]))
+    err_out = float((torch.cat([r[0] for r in results]).float() - whole[0].float()).abs().max())
+    err_dx = float((torch.cat([r[2] for r in results]).float() - whole[2].float()).abs().max())
+    return rows, same, err_out, err_dx
+
+
+def dp_kernel_phase(seed, ranks=2):
+    """Phase 17 (a): the fused kernel's cross-rank sums on the card at B5's
+    shapes (block 4 e6, blocks 0 and 1-2 e=1; ``ranks`` ranks of 2 images,
+    the main path's per-card batch), fp32 and bf16, forward and backward,
+    held to the whole-batch call; and the call with no hook twice on the same
+    inputs, the same bits (it launches the one-process kernels unchanged)."""
+    import torch
+
+    cases = [Case("block4_e6", "e6", ranks * BATCH, 40, 40, 380, 228, seed),
+             Case("block0_e1", "e1", ranks * BATCH, 48, 24, 760, 456, seed + 1),
+             Case("block1_e1", "e1", ranks * BATCH, 24, 24, 760, 456, seed + 2)]
+    out = {}
+    for case in cases:
+        for dt in ("float32", "bfloat16"):
+            rows, same, err_out, err_dx = dp_kernel_case(case, dt, ranks)
+            worst = max(rows, key=lambda r: r[1] / r[2])
+            say(f"[dp] (a) {case.name} {dt}, {ranks} ranks of {BATCH} on one card: " + ", ".join(
+                f"{n} {e:.2e}/{t:.0e}" for n, e, t in rows) + f"; statistics the same bits on "
+                f"every rank: {same}; worst {worst[0]} {worst[1]:.2e} (tol {worst[2]:.0e})")
+            bad = [r for r in rows if not (r[1] <= r[2])]
+            if bad or not same:
+                raise SmokeFailure(f"[dp] {case.name} {dt}: cross-rank sums disagree with the "
+                                   f"whole-batch call: {bad}, same statistics {same}")
+            out[f"{case.name}.{dt}"] = dict(err_out=err_out, err_dx=err_dx,
+                                            worst=worst[1], worst_tol=worst[2])
+        fwd_fn, bwd_fn = case_fns(case)
+        a = [fwd_fn()[0], bwd_fn()[0]]
+        b = [fwd_fn()[0], bwd_fn()[0]]
+        if not all(torch.equal(p, q) for p, q in zip(a, b)):
+            raise SmokeFailure(f"[dp] {case.name}: two calls with no hook differ")
+    say(f"[dp] (a) no hook: two calls per shape give the same bits (out, dx), bf16; "
+        f"{card_line()}")
+    return out
+
+
+def write_dp_csv(path, ranks):
+    """8 rows a rank: 6 train rows (3 steps of 2) and 2 validation rows each."""
+    write_pretrain_csv(path, 8 * ranks)
+
+
+def dp_cli_rank(ctx, payload):
+    """Phase 17 (b)'s ``cli/pretrain`` on one rank (``parallel/dryrun.py::run_ranks``
+    runs it on every card): 1 epoch of 3 steps (profiled at step 1 on rank 0)
+    and ``--resume`` for a second, with the fused counters read around each."""
+    import torch
+
+    from mammo_clip_tpu_torch.cli import pretrain
+    from mammo_clip_tpu_torch.ops.mbconv import launches
+    from mammo_clip_tpu_torch.parallel.dryrun import _digest
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flags = ["--workdir", payload["workdir"], "--device", "cuda"]
+    profile = ["train.profile_at_step=1", "train.profile_num_steps=1"]
+    runs = []
+    for epochs in (1, 2):
+        launches.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        state = pretrain.main(flags + (["--resume"] if epochs == 2 else profile)
+                              + payload["overrides"] + [f"scheduler.epochs={epochs}"])
+        torch.cuda.synchronize()
+        runs.append(dict(seconds=time.perf_counter() - t, step=state.step,
+                         counts=dict(launches.counts),
+                         peak_bytes=torch.cuda.max_memory_allocated(),
+                         digest=_digest({**dict(state.model.named_parameters()),
+                                         **{f"b.{k}": v for k, v in state.model.named_buffers()},
+                                         **{f"e.{k}": v for k, v in (state.ema or {}).items()}})))
+        del state
+        torch.cuda.empty_cache()
+    return {"rank": ctx.rank, "runs": runs}
+
+
+def _fused_pair(counts):
+    return (counts["mbconv6.e6.forward"] + counts["mbconv6.e1.forward"],
+            counts["mbconv6.e6.backward"] + counts["mbconv6.e1.backward"])
+
+
+def dp_cli_phase(seed):
+    """Phase 17 (b): on every visible card, one process a card under ``python -m
+    torch.distributed.run`` with NCCL (``parallel/dryrun.py::run_ranks``): the
+    dry run (``dryrun.dryrun``: the compat step at full width held to the
+    one-process step on the same global batch, in fp32 with the gradients and
+    in bf16 without, beside one process's own noise), then ``cli/pretrain``
+    for 3 steps and ``--resume`` (``dp_cli_rank``): 14 + 14 fused calls a
+    rank a step, finite losses, the same parameters on every rank, per-step
+    ms, images/s a card, peak memory and the collectives' share of rank 0's
+    profiled step."""
+    import tempfile
+
+    import torch
+
+    from mammo_clip_tpu_torch.parallel import dryrun
+
+    ranks = torch.cuda.device_count()
+    card = card_line()
+    group = ("NCCL" if ranks > 1 else
+             "one rank: no process group was made and no collective ran, so only (a) "
+             "exercised the cross-rank sums")
+    t = time.perf_counter()
+    res = dryrun.dryrun(ranks, "cuda", seed, timeout_s=600.0)
+    dry_s = time.perf_counter() - t
+    (OUT_DIR / "dp_dryrun.json").write_text(json.dumps(res))
+    for name, what in (("full_width", "fp32 activations, TF32 off"),
+                       ("full_width_bf16", "the recipe's bf16; gradients not held")):
+        cmp = res[name]
+        say(f"[dp] (b) dry run, {ranks}-rank compat step (B5 1520x912, BERT-base, {BATCH} a "
+            f"card, fused, remat; {what}) vs one process on the global batch of "
+            f"{ranks * BATCH} ({group}): loss {cmp['loss']:.6f} vs {cmp['loss_one_process']:.6f}"
+            f"; step {cmp['step']}, K=2 call {cmp['k2']}, the one process's K=2 call vs two "
+            f"steps {cmp['k2_vs_two_steps'] or 'in fp32 only'}; gradients rel {cmp['grad_rel']:.2e} scale "
+            f"{cmp['grad_scale']:.6f}; same bits on every rank {cmp['same_bits_across_ranks']};"
+            f" tolerances {cmp['tolerance']} (sampled: {dryrun.SAMPLE} elements a tensor); "
+            f"ok {cmp['ok']}; {card}")
+        for run, d in cmp["self_noise"].items():
+            say(f"[dp] (b) {name} self-noise, one process's step vs itself {run}: loss "
+                f"{d['loss']:.2e}, parameters {d['params']:.2e}, statistics {d['buffers']:.2e}, "
+                f"EMA {d['ema']:.2e}, gradients rel {d['grad_rel']:.2e} scale "
+                f"{d['grad_scale']:.6f}; the most moved: "
+                + ", ".join(f"{k} {v:.2e}" for k, v in d["worst"]))
+    say(f"[dp] (b) the dry run {dry_s:.1f} s: the DP step in each rank "
+        f"{[round(s_, 1) for s_ in res['full_width']['rank_step_s']]} s (fp32), "
+        f"{[round(s_, 1) for s_ in res['full_width_bf16']['rank_step_s']]} s (bf16), one "
+        f"process {res['full_width']['one_process_step_s']:.1f} / "
+        f"{res['full_width_bf16']['one_process_step_s']:.1f} s (a step, its build excluded, beside "
+        f"the ranks on card 0)")
+    if not res["ok"]:
+        raise SmokeFailure(f"[dp] the {ranks}-rank step disagrees with one process: {res}")
+    for name in ("full_width", "full_width_bf16"):
+        if _fused_pair(res[name]["fused_per_rank"]) != (14, 14):
+            raise SmokeFailure(f"[dp] the {name} DP step launched "
+                               f"{res[name]['fused_per_rank']}, expected 14 + 14")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+    try:
+        csv_path = tmp / "pretrain.csv"
+        write_dp_csv(csv_path, ranks)
+        workdir = tmp / "run"
+        t = time.perf_counter()
+        per_rank = dryrun.run_ranks(
+            ranks, f"{Path(__file__).resolve()}:dp_cli_rank",
+            {"workdir": str(workdir), "overrides": pretrain_overrides(csv_path, "synthetic://", seed),
+             "timeout_s": 600.0}, "cuda", 900.0)
+        launched_s = time.perf_counter() - t
+        for r in per_rank:
+            for i, run in enumerate(r["runs"]):
+                nf, nb = _fused_pair(run["counts"])
+                if run["step"] != STEPS * (i + 1) or (nf, nb) != (14 * STEPS, 14 * STEPS):
+                    raise SmokeFailure(f"[dp] rank {r['rank']} run {i + 1}: step {run['step']}, "
+                                       f"fused calls {nf} + {nb}, expected {STEPS * (i + 1)} "
+                                       f"steps and {14 * STEPS} + {14 * STEPS}")
+        digests = {r["runs"][-1]["digest"] for r in per_rank}
+        if len(digests) != 1:
+            raise SmokeFailure("[dp] the ranks ended with different parameters")
+        ckpts = sorted(int(p.name) for p in (workdir / "checkpoints").iterdir() if p.name.isdigit())
+        stray = [p.name for p in (workdir / "checkpoints").iterdir() if ".tmp" in p.name]
+        if ckpts != [STEPS, 2 * STEPS] or stray:
+            raise SmokeFailure(f"[dp] checkpoints {ckpts}, stray {stray}")
+        rows = [json.loads(line) for line in (workdir / "metrics.jsonl").read_text().splitlines()]
+        train = [r for r in rows if r["prefix"] == "train"]
+        valid = [r for r in rows if r["prefix"] == "valid"]
+        if [r["step"] for r in train] != list(range(1, 2 * STEPS + 1)) or len(valid) != 2 or \
+                not all(math.isfinite(r["loss/total"]) for r in train + valid):
+            raise SmokeFailure(f"[dp] metrics: train steps {[r['step'] for r in train]}, "
+                               f"{len(valid)} validation rows, or a loss not finite")
+        # the trainer counts every rank's rows in images/s: step s = B W / (rows/s)
+        step_ms = [1e3 * BATCH * ranks / r["perf/images_per_sec"] for r in train]
+        warm = sorted(step_ms[1:STEPS] + step_ms[STEPS + 1:])
+        per_card = 2 * BATCH / (warm[len(warm) // 2] / 1e3)  # two views a row
+        span, busy, top = step_trace_summary(workdir / "profile" / "trace_step1.json")
+        coll = sum(t for k, (n, t) in top if "nccl" in k.lower())
+        peak = max(run["peak_bytes"] for r in per_rank for run in r["runs"])
+        say(f"[dp] (b) cli/pretrain on {ranks} card(s) (torch.distributed.run; {group}): "
+            f"losses {[round(r['loss/total'], 6) for r in train]}, validation "
+            f"{[round(r['loss/total'], 6) for r in valid]}; 14 + 14 fused calls a rank a step; "
+            f"the same parameters on every rank after --resume; checkpoints {ckpts} by rank 0")
+        say(f"[dp] (b) per-step ms (host clock, data wait included; each run's step 0 and the "
+            f"profiled step 1 included) {[round(m, 1) for m in step_ms]}; median of the others "
+            f"{warm[len(warm) // 2]:.1f} ms, {per_card:.2f} images/s a card; peak memory "
+            f"{peak} B ({peak / 2**30:.2f} GiB) a card; rank 0's profiled step: kernels "
+            f"{busy / 1e3:.1f} ms in {span / 1e3:.1f} ms, collectives {coll / 1e3:.2f} ms "
+            f"({coll / max(busy, 1e-9):.4f} of kernel time); {card}")
+        say(f"[dp] (b) cli/pretrain's ranks {launched_s:.1f} s in all, the launch included")
+        return dict(ranks=ranks, dryrun=res, step_ms=step_ms, images_per_s_card=per_card,
+                    peak_bytes=peak, collectives_ms=coll / 1e3, kernel_ms=busy / 1e3,
+                    span_ms=span / 1e3, run_s=launched_s, dryrun_s=dry_s)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def dp_phase(seed):
+    """Phase 17: (a) the kernel's cross-rank sums, (b) the DP compat step and CLI."""
+    import torch
+
+    torch.cuda.empty_cache()  # rank 0 shares card 0 with this process's cache
+    t = time.perf_counter()
+    say(f"[dp] phase 17 on {card_line()}")
+    kernel = dp_kernel_phase(seed)
+    cli = dp_cli_phase(seed)
+    seconds = time.perf_counter() - t
+    say(f"[dp] phase 17: {seconds:.1f} s on {card_line()}")
+    return dict(kernel=kernel, cli=cli, seconds=seconds)
+
+
+# --------------------------------------------------------------------------
 # phase 8: flash attention
 # --------------------------------------------------------------------------
 
@@ -4351,9 +4691,11 @@ def main(argv=None) -> int:
         int8 = int8_export_phase(args.seed, cli_tmp / "run", serving, rows)
     finally:
         shutil.rmtree(cli_tmp, ignore_errors=True)
+    # 17. data parallelism: the kernel's cross-rank sums, the DP step and CLI on every card
+    dp = dp_phase(args.seed)
     (OUT_DIR / "chip_smoke_steps.json").write_text(
         json.dumps(dict(slice=rows, cli=cli, serving=serving, classifier=clf, detector=det,
-                        preprocess=pre, flagship=flag, families=fam, int8_export=int8),
+                        preprocess=pre, flagship=flag, families=fam, int8_export=int8, dp=dp),
                    indent=1))
 
     # 8. flash attention; 9. the probe kernels

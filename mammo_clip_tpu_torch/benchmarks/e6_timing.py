@@ -23,7 +23,9 @@ which rounds a large block such as out's up to whole 2 MiB;
 ``held_requested_bytes``, the same in the bytes the tensors asked for;
 ``saved_bytes``, the part in the tensors its autograd node saves), and the kernels one forward and one
 backward launch by torch.profiler: ``hand_*`` those of the package's own CUDA
-library, ``all_*`` every kernel (the torch ops between them too). With
+library, ``all_*`` every kernel (the torch ops between them too); ``digest``,
+a SHA-1 of the bits of one forward's out and stats and its backward's dx and
+parameter gradients, so that two packages' results compare bit for bit. With
 ``--slice`` it also runs 3 steps of the full-width compat B5 CLIP at batch 2
 and prints each step's peak device memory. ``--turns OLD_ROOT`` runs old, new,
 new, old, one process each (``--slice`` in the first two), and prints their
@@ -127,6 +129,18 @@ def launch_counts(kernels):
             sum(n for n, _ in kernels.values()))
 
 
+def bits_digest(tensors) -> str:
+    """SHA-1 of the tensors' bytes, in order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def measure(case):
     import torch
 
@@ -157,6 +171,8 @@ def measure(case):
     outputs = sum(t.numel() * t.element_size() for t in (out, *stats))
     held = torch.cuda.memory_allocated() - base - outputs
     held_requested = requested() - base_req - outputs
+    digest = bits_digest([out, *stats, *torch.autograd.grad(out, [xr, *pr], gout,
+                                                            retain_graph=True)])
     before = {t.untyped_storage().data_ptr() for t in (xr, delta, *pr, out, *stats)}
     saved = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
              for t in out.grad_fn.saved_tensors}
@@ -167,7 +183,7 @@ def measure(case):
     (hand_f, all_f), (hand_b, all_b) = launch_counts(kernels_f), launch_counts(kernels_b)
     return dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_device_ms=fwd_device_ms,
                 bwd_device_ms=bwd_device_ms, held_bytes=held, held_requested_bytes=held_requested,
-                saved_bytes=saved_bytes,
+                saved_bytes=saved_bytes, digest=digest,
                 hand_fwd=hand_f, all_fwd=all_f,
                 hand_bwd=hand_b, all_bwd=all_b, kernels_fwd=kernels_f, kernels_bwd=kernels_b)
 

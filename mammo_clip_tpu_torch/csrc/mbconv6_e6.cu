@@ -22,8 +22,9 @@
 // written once by the pass that recomputes it from x and read back by the
 // passes after it, instead of recomputing z -> w -> d from x in each of them:
 // measured faster on the card (PERF.md), and freed before the call returns.
-//   moments   x's sums and Gram sum x x^T; bn0_kernel: bn0's statistics from
-//             them in fp64 (z = x We is linear in x)                      [P1]
+//   moments   x's sums and Gram sum x x^T                                  [P1]
+//   bn0       bn0_kernel: bn0's statistics from them in fp64 (z = x We is
+//             linear in x)                                                 [P1]
 //   sweep F2  x -> z -> w -> d, written; per tile [sum d, sum d^2]         [P2]
 //   sweep F3  d -> v; per tile sum v (the SE squeeze)                      [P3]
 //   sweep F4  d -> v, u = v gate, y = u Wp; writes y (C2 channels, fp32)
@@ -40,12 +41,22 @@
 //             read back, du, then the exact dd; on the tile: the stencil's
 //             transpose -> dL/dw -> dz0hat; per tile bn0's backward sums, T3
 //             = sum x (x) g0 inv0 dz0hat and the 9 dK tap sums; writes dxa =
-//             (g0 inv0 dz0hat) We^T (C channels); bn0_bwd_kernel: dWe from T3
-//             and x's moments, and dx's terms affine in x (M, k), in fp64  [B2, B3]
+//             (g0 inv0 dz0hat) We^T (C channels)                          [B2, B3]
+//   bn0_bwd   bn0_bwd_kernel: dWe from T3 and x's moments, and dx's terms
+//             affine in x (M, k), in fp64                                  [B3]
 //   dx        dx = [G +] dxa - x M + k on the valid image, 0 elsewhere     [B4]
 // Where the TPU kernel recomputed the whole chain for out (P5) and dx (B4),
 // this port keeps y (C2 channels) and dxa (C channels) in fp32 between two
 // passes of the same call.
+//
+// Data parallelism. Where a batch spans `ranks` processes (N images each),
+// every sum over the batch that a later pass consumes is summed across the
+// ranks between the passes by the caller (ops/mbconv6.py): x's moments before
+// bn0, [sum d | sum d^2] after F2, [sum y | sum y^2] after F4, bn2's backward
+// sums after B1, bn1's backward sums before bwd_x (p.sb1; bwd_x still writes
+// this rank's, the gamma1 / beta1 gradients) and bn0's backward sums before
+// bn0_bwd; the statistics then divide by ranks * N * vh * vw. Per-image sums
+// (the SE squeeze, q) and the parameter gradients stay this rank's.
 //
 // The e=1 form (the TPU kernel's expand=False branch: no We, no bn0, d is the
 // depthwise of x itself, E = C) runs the same sweeps with a compile-time
@@ -118,7 +129,7 @@ constexpr size_t kMaxSmem = 232448;
 constexpr int kMaxC1 = 64;           // the e=1 form: C (= E) and C2 at most: 4 k16 steps, 8 n8 tiles
 constexpr int kXs1 = kMaxC1 + 8;     // row stride (bf16) of its position-major dy tiles: 144 B
 
-enum Pass { kMoments = 0, kF2, kF3, kF4, kB1, kOut, kBwdV, kBwdX, kDx, kPasses };
+enum Pass { kMoments = 0, kF2, kF3, kF4, kB1, kOut, kBwdV, kBwdX, kDx, kBn0, kBn0Bwd, kPasses };
 constexpr int kFrags = 24;   // B fragments of the weights per chunk, see prep_kernel
 constexpr int kFrags1 = 16;  // the same for the e=1 form (Wp's only)
 
@@ -147,15 +158,25 @@ struct P6 {
   const float *s2, *g2, *b2;        // bn2: [sum y | sum y^2] (2 x C2p), gamma, beta
   const float* s3;                  // [sum dyh | sum dyh ybar] (2 x C2p)
   const float *gate, *ds, *q;       // (N, E), (N, E) dL/ds_mean / (vh vw), (N, 5, Ep)
+  const float* sb1;                 // bn1's backward sums over every rank (2 x E), or null
   const float *delta, *mom;         // (N,), x's moments [sum x | sum x x^T] (Cp + Cp^2)
   float *xm, *kv;                   // (C, C), (C,): dx's terms affine in x (bn0_bwd_kernel)
   const void* wf;                   // the weights' split B fragments (prep_kernel)
   float *y, *d, *dxa, *dwe, *part, *red, *red_n, *stats;  // d: (N, Ep, H, W) fp32
   float eps;
   int io_bf16, N, C, E, C2, H, W, vh, vw;
+  int ranks;  // data-parallel ranks whose sums the batch statistics hold (N images each)
 };
 
 __host__ __device__ constexpr int up(int a, int m) { return (a + m - 1) / m * m; }
+
+// The positions a batch statistic counts: the valid image of N images on each rank.
+__device__ __forceinline__ float count(const P6& p) {
+  return (float)(p.N * p.ranks) * p.vh * p.vw;
+}
+__device__ __forceinline__ double count64(const P6& p) {
+  return (double)(p.N * p.ranks) * p.vh * p.vw;
+}
 
 template <int TR, int HALO>
 struct Geo {                                 // a tile with its halo, positions row-major
@@ -305,7 +326,7 @@ __device__ __forceinline__ float2 moments(const float* s, int half, int c, float
 template <typename CF>
 __device__ void fill_coef(CF& cf, const P6& p, int n) {
   const int E = p.E, Ep = up(E, 16), C2p = up(p.C2, 8);
-  const float cnt = (float)p.N * p.vh * p.vw;
+  const float cnt = count(p);
   for (int e = threadIdx.x; e < CF::kE; e += blockDim.x) {
     const bool in = e < E;
     float m0 = 0.f, i0 = 0.f, g0 = 0.f, b0 = 0.f;
@@ -333,7 +354,10 @@ __device__ void fill_coef(CF& cf, const P6& p, int n) {
         sdb += gm * qm[Ep + e] + dm * qm[2 * Ep + e];
         sdbd += gm * qm[3 * Ep + e] + dm * qm[4 * Ep + e];
       }
-      r1a = g1 * i1 * sdb / cnt, r1b = g1 * i1 * sdbd / cnt;
+      // this rank's sums are its gamma1 / beta1 gradients; the coefficients take
+      // every rank's (p.sb1) where the batch spans ranks
+      const float ga = p.sb1 ? p.sb1[e] : sdb, gb = p.sb1 ? p.sb1[E + e] : sdbd;
+      r1a = g1 * i1 * ga / cnt, r1b = g1 * i1 * gb / cnt;
       if (blockIdx.x == 0 && blockIdx.y == 0) p.stats[e] = sdb, p.stats[E + e] = sdbd;
     }
     cf.r1a[e] = r1a, cf.r1b[e] = r1b;
@@ -1595,7 +1619,7 @@ __global__ void __launch_bounds__(64) bn0_kernel(P6 p) {
     __syncthreads();
   }
   if (c == 0) {
-    const double cnt = (double)p.N * p.vh * p.vw, mean = red[0][0] / cnt;
+    const double cnt = count64(p), mean = red[0][0] / cnt;
     p.stats[e] = (float)mean;
     p.stats[p.E + e] = (float)fmax(red[1][0] / cnt - mean * mean, 0.0);
   }
@@ -1613,7 +1637,7 @@ __global__ void __launch_bounds__(kMaxE) bn0_bwd_kernel(P6 p) {
   const int c = blockIdx.x, e = threadIdx.x, C = p.C, E = p.E;
   const int Cp = up(C, 16), Ep = up(E, 16);
   if (e < E) {
-    const double cnt = (double)p.N * p.vh * p.vw, m0 = p.m0[e];
+    const double cnt = count64(p), m0 = p.m0[e];
     const double inv0 = 1.0 / sqrt((double)p.v0[e] + p.eps), k0 = p.g0[e] * inv0 / cnt;
     const double alpha0 = k0 * p.red[e], ib = inv0 * k0 * p.red[Ep + e];
     ib_s[e] = ib, k_s[e] = m0 * ib - alpha0;
@@ -1645,7 +1669,7 @@ __global__ void __launch_bounds__(kMaxE) bn0_bwd_kernel(P6 p) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads) out_kernel(P6 p) {
   __shared__ float cm[kMaxC1], ca[kMaxC1], cb[kMaxC1];  // C2 of either form
-  const float cnt = (float)p.N * p.vh * p.vw;
+  const float cnt = count(p);
   const int Ep = up(p.E, 16), C2p = up(p.C2, 8);
   for (int c = threadIdx.x; c < p.C2; c += kThreads) {
     const float2 mi = moments(p.s2, C2p, c, cnt, p.eps);
@@ -1888,10 +1912,12 @@ int run_pass(int pass, const P6& p, cudaStream_t s) {
       prep_kernel<<<Ep / kEC, kFrags * 32, 0, s>>>(p, (uint4*)p.wf);
       const int blocks = moments_blocks(p);
       moments_kernel<T><<<blocks, kThreads, 0, s>>>(p);
-      if ((rc = (int)cudaGetLastError()) || (rc = reduce(p, 1, blocks, K, 0, s))) return rc;
+      if ((rc = (int)cudaGetLastError())) return rc;
+      return reduce(p, 1, blocks, K, 0, s);
+    }
+    case kBn0:  // bn0's statistics from the moments in p.red (every rank's, where summed)
       bn0_kernel<<<p.E, 64, 0, s>>>(p);
       return (int)cudaGetLastError();
-    }
     case kF2:
       rc = launch_big(sweep_kernel<T, TR, kF2, true>, grid, kThreads, sweep_smem<T, TR, kF2, true>(p.C), s, p);
       return rc ? rc : reduce(p, p.N, tiles, K, 0, s);
@@ -1910,9 +1936,10 @@ int run_pass(int pass, const P6& p, cudaStream_t s) {
     case kBwdV:
       rc = launch_big(bwd_v_kernel<T, TR, true>, grid, kBig, BwdVSmem<F32, TR>::total, s, p);
       return rc ? rc : reduce(p, p.N, tiles, K, 5 * Ep, s);
-    case kBwdX:  // then bn0's backward: dWe, M and k
+    case kBwdX:
       rc = launch_big(bwd_x_kernel<T, TR, true>, grid, kBig, BwdXSmem<F32, TR>::total, s, p);
-      if (rc || (rc = reduce(p, p.N, tiles, K, 0, s))) return rc;
+      return rc ? rc : reduce(p, p.N, tiles, K, 0, s);
+    case kBn0Bwd:  // bn0's backward from bwd_x's sums in p.red: dWe, M and k
       bn0_bwd_kernel<<<p.C, kMaxE, 0, s>>>(p);
       return (int)cudaGetLastError();
     case kDx: {
@@ -2007,6 +2034,8 @@ int kernel_info(int pass, int C, int* smem, int* blocks) {
 // error code (0 on success). Which pointers a pass reads and writes is listed
 // in ops/mbconv6.py; unused ones are null. Shapes: the e6 form C, C2 <= 48,
 // E <= 256; the e=1 form C, C2 <= 64; x and dout bf16 (bf16 = 1) or fp32.
+// `ranks` (>= 1) is the number of data-parallel ranks whose sums the batch
+// statistics' inputs hold.
 // ---------------------------------------------------------------------------
 
 extern "C" {
@@ -2046,20 +2075,21 @@ int m6_pass(int pass, const void* x, const void* g, void* out, const float* we,
             const float* g0, const float* b0, const float* s1, const float* g1,
             const float* b1, const float* s2, const float* g2, const float* b2,
             const float* s3, const float* gate, const float* ds, const float* q,
-            const float* delta, const float* mom, float* xm, float* kv, const void* wf, float* y,
+            const float* sb1, const float* delta, const float* mom, float* xm, float* kv, const void* wf, float* y,
             float* d, float* dxa, float* dwe, float* part, float* red, float* red_n, float* stats,
             float eps, int expand, int io_bf16, int N,
-            int C, int E, int C2, int H, int W, int vh, int vw, int device, void* stream) {
+            int C, int E, int C2, int H, int W, int vh, int vw, int ranks, int device,
+            void* stream) {
   const bool shapes = expand ? C <= kMaxC && C2 <= kMaxC && E <= kMaxE
                              : E == C && C <= kMaxC1 && C2 <= kMaxC1;
   if (pass < 0 || pass >= kPasses || !shapes || C < 1 || C2 < 1 || E < 1 || vh < 1 || vh > H ||
-      vw < 1 || vw > W)
+      vw < 1 || vw > W || ranks < 1)
     return (int)cudaErrorInvalidValue;
   DeviceGuard guard(device);
   if (guard.err) return guard.err;
   const P6 p{x, g, out, we, wp, k9, m0, v0, g0, b0, s1, g1, b1, s2, g2, b2, s3, gate, ds, q,
-             delta, mom, xm, kv, wf, y, d, dxa, dwe, part, red, red_n, stats, eps, io_bf16, N, C, E,
-             C2, H, W, vh, vw};
+             sb1, delta, mom, xm, kv, wf, y, d, dxa, dwe, part, red, red_n, stats, eps, io_bf16,
+             N, C, E, C2, H, W, vh, vw, ranks};
   cudaStream_t s = (cudaStream_t)stream;
   if (expand) return io_bf16 ? run_pass<bf16, 8>(pass, p, s) : run_pass<float, 4>(pass, p, s);
   return io_bf16 ? run_pass1<bf16, 8>(pass, p, s) : run_pass1<float, 4>(pass, p, s);

@@ -14,7 +14,9 @@ Builds datasets + batchers from a config of the shape::
 Differences from the reference on purpose: train entries are concatenated by
 index offsets (ConcatDataset below) rather than torch ConcatDataset + DistributedSampler
 (per-process index sharding lives in data.pipeline.Batcher), and tokenization happens
-in the batcher at fixed length.
+in the batcher at fixed length. ``process_index`` / ``process_count`` (the
+mesh's rank and ranks, ``core/mesh.py``, by default) pick each rank's strided
+slice of every epoch.
 """
 
 from __future__ import annotations
@@ -58,10 +60,12 @@ class ConcatDataset:
 
 
 class DataModule:
-    def __init__(self, cfg: Config, cur_fold: int = 0, data_frac: float = 1.0):
+    def __init__(self, cfg: Config, cur_fold: int = 0, data_frac: float = 1.0,
+                 process_index: Optional[int] = None, process_count: Optional[int] = None):
         self.cfg = Config(cfg)
         self.cur_fold = cur_fold
         self.data_frac = data_frac
+        self.process_index, self.process_count = process_index, process_count
         tok_cfg = dict(self.cfg.get("tokenizer", {}))
         tok_cfg.setdefault("vocab_size", self.cfg.get_path("model.text_encoder.vocab_size", 28996))
         self.tokenizer = load_tokenizer(tok_cfg)
@@ -96,4 +100,6 @@ class DataModule:
             batch_size=batch_size or self.cfg.data.batch_size_per_device,
             max_length=self.cfg.data.text_max_length,
             shuffle=(split == "train") if shuffle is None else shuffle,
+            process_index=self.process_index,
+            process_count=self.process_count,
         )

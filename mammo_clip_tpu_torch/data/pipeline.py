@@ -10,18 +10,24 @@
 * ``sample_weights`` draws an epoch's indices with replacement, weighted, as
   the JAX Batcher does (the reference's WeightedRandomSampler option for the
   classifiers, Datasets/dataset_utils.py:147-165);
-* one process drives one device: the JAX Batcher's per-process index
-  sharding belongs to the distribution slice.
+* one process drives one device; under data parallelism (``core/mesh.py``)
+  each rank's Batcher enumerates its strided slice of the epoch's order
+  (``process_index::process_count``), the JAX Batcher's per-process sharding:
+  the ranks' batches are disjoint, together they cover the epoch, and every
+  rank yields ``len(batcher)`` batches of its own ``batch_size`` rows, so a
+  step's global batch is ``process_count * batch_size``.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
+
+from ..core import mesh
 
 
 class Batcher:
@@ -33,7 +39,8 @@ class Batcher:
     """
 
     def __init__(self, dataset, tokenizer, batch_size: int, max_length: int = 256,
-                 shuffle: bool = True, seed: int = 0, sample_weights=None):
+                 shuffle: bool = True, seed: int = 0, sample_weights=None,
+                 process_index: Optional[int] = None, process_count: Optional[int] = None):
         self.dataset = dataset
         self.tokenizer = tokenizer
         self.batch_size = batch_size
@@ -42,6 +49,9 @@ class Batcher:
         self.seed = seed
         self.sample_weights = (None if sample_weights is None
                                else np.asarray(sample_weights, np.float64))
+        # this process's rank and the ranks' number (the process group's by default)
+        self.process_index = mesh.rank() if process_index is None else int(process_index)
+        self.process_count = mesh.world_size() if process_count is None else int(process_count)
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -50,18 +60,20 @@ class Batcher:
             self.dataset.reseed(epoch)
 
     def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size  # the last partial batch is dropped
+        # the last partial batch is dropped; every rank yields this many
+        return len(self.dataset) // self.process_count // self.batch_size
 
     def _indices(self) -> np.ndarray:
         n = len(self.dataset)
         rng = np.random.default_rng(self.seed * 100_003 + self.epoch)
         if self.sample_weights is not None:
-            return rng.choice(n, size=n, replace=True,
-                              p=self.sample_weights / self.sample_weights.sum())
+            order = rng.choice(n, size=n, replace=True,
+                               p=self.sample_weights / self.sample_weights.sum())
+            return order[self.process_index::self.process_count]
         order = np.arange(n)
         if self.shuffle:
             rng.shuffle(order)
-        return order
+        return order[self.process_index::self.process_count]
 
     def _collate(self, items) -> Dict[str, np.ndarray]:
         batch: Dict[str, np.ndarray] = {}
@@ -83,7 +95,7 @@ class Batcher:
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         idx = self._indices()
         bs = self.batch_size
-        for b in range(len(idx) // bs):
+        for b in range(len(self)):
             yield self._collate([self.dataset[int(i)] for i in idx[b * bs : (b + 1) * bs]])
 
 

@@ -27,6 +27,7 @@ from typing import Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from ..core.mesh import is_master
 from ..eval.metrics import accuracy, auroc
 from ..losses.classification import bce_with_logits_loss, softmax_ce_loss
 from ..losses.focal import focal_loss
@@ -132,7 +133,7 @@ def train_classifier(
     state = create_train_state(model, tx)
     preprocess = _make_preprocess(aug or AugmentConfig(), mean, std)
     train_step, eval_step = make_classifier_steps(model, loss_kind, preprocess, pos_weight)
-    logger = MetricsLogger(workdir, enabled=workdir is not None)
+    logger = MetricsLogger(workdir, enabled=workdir is not None and is_master())
     device = next(model.parameters()).device
     generator = torch.Generator(device=device)
 

@@ -1,8 +1,10 @@
 """Contrastive losses (port of ``mammo_clip_tpu/losses/clip_loss.py``).
 
-Multi-positive symmetric InfoNCE and the single-pair ConVIRT variant. On one
-card the global batch is the local batch: labels are ``arange(batch)`` and no
-collective runs. Logits are computed in fp32 (TF32 is left to the caller's
+Multi-positive symmetric InfoNCE and the single-pair ConVIRT variant. In one
+process the global batch is the local batch: labels are ``arange(batch)`` and
+no collective runs. Under a data-parallel process group (``core/mesh.py``)
+both losses run over the global batch through ``parallel/shard_loss.py``
+(gathered negatives, rank-offset labels, the ranks' mean). Logits are computed in fp32 (TF32 is left to the caller's
 switches, which the port keeps off). Sub-terms are returned, never logged here.
 
 total = (i2t + t2i)/2 + i2i_weight * i2i + t2t_weight * t2t, with the 4
@@ -14,6 +16,8 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+
+from ..core.mesh import world_size
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -38,6 +42,13 @@ def multi_positive_clip_loss(image_embeddings, text_embeddings, logit_scale,
                              **_: object) -> Dict[str, torch.Tensor]:
     """Multi-positive symmetric InfoNCE; degrades to the symmetric 2-term CLIP
     loss when the second view or text is absent."""
+    if world_size() > 1:
+        from ..parallel.shard_loss import gathered_clip_loss
+
+        return gathered_clip_loss(
+            image_embeddings, text_embeddings, logit_scale, text_embeddings2=text_embeddings2,
+            image_view_embeddings=image_view_embeddings, label_smoothing=label_smoothing,
+            i2i_weight=i2i_weight, t2t_weight=t2t_weight, is_train=is_train)
     n = image_embeddings.shape[0]
     labels = torch.arange(n, device=image_embeddings.device)
     s = label_smoothing if is_train else 0.0
@@ -64,6 +75,12 @@ def contrastive_clip_loss(image_embeddings, text_embeddings, logit_scale,
                           t2i_weight: float = 0.25, is_train: bool = True,
                           **_: object) -> Dict[str, torch.Tensor]:
     """ConVIRT-style asymmetric single-pair loss: 0.75*i2t + 0.25*t2i."""
+    if world_size() > 1:
+        from ..parallel.shard_loss import gathered_contrastive_clip_loss
+
+        return gathered_contrastive_clip_loss(
+            image_embeddings, text_embeddings, logit_scale, label_smoothing=label_smoothing,
+            i2t_weight=i2t_weight, t2i_weight=t2i_weight, is_train=is_train)
     n = image_embeddings.shape[0]
     labels = torch.arange(n, device=image_embeddings.device)
     s = label_smoothing if is_train else 0.0

@@ -38,6 +38,10 @@ option runs the standard path. What it changes in JAX beyond the layout is
 kept: the blocks it takes (``s2d_taken``) are not quantised, and it is refused
 with ``fused_mbconv`` and with ``tpu_optimized``.
 
+Under a data-parallel process group (``core/mesh.py``) every train-mode
+BatchNorm, the fused blocks' included, takes its statistics over the global
+batch: the running statistics then end the same on every rank.
+
 Running statistics: each block computes its forward as a pure function that
 returns its batch statistics, and the block applies the momentum update after
 it. Under ``torch.utils.checkpoint`` the recomputation reruns only the pure
@@ -56,6 +60,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..core.mesh import data_sum
+from ..ops.batchnorm import TrainBatchNorm as _TrainBatchNorm
 from ..ops.mbconv import BN_EPS, MBConvParams
 from ..ops.mbconv6 import MBConv6Params, fused_mbconv_e6, pick_h_pad, pick_w_pad
 from ..ops.pooling import gem_pool, global_avg_pool
@@ -225,45 +231,13 @@ class Conv(nn.Module):
                         self.stride, 0, 1, self.groups)
 
 
-class _TrainBatchNorm(torch.autograd.Function):
-    """Train-mode BatchNorm over NCHW, computed in fp32, returning y in x's type
-    and the batch (mean, biased var). It keeps x (in its own type) and two
-    per-channel vectors for the backward, which recomputes the normalised x:
-    the composition of autograd ops keeps two fp32 copies of x instead (8 bytes
-    an element where a bf16 x takes 2), which at the flagship's widths without
-    remat does not fit a step at batch 8 on one 80 GB card."""
-
-    @staticmethod
-    def forward(ctx, x, scale, bias, eps):
-        xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-        invstd = torch.rsqrt(var + eps)
-        c = (1, -1, 1, 1)
-        y = (xf - mean.view(c)) * (invstd * scale).view(c) + bias.view(c)
-        ctx.save_for_backward(x, scale, mean, invstd)
-        ctx.mark_non_differentiable(mean, var)
-        return y.to(x.dtype), mean, var
-
-    @staticmethod
-    def backward(ctx, dy, _dmean, _dvar):
-        x, scale, mean, invstd = ctx.saved_tensors
-        c = (1, -1, 1, 1)
-        xhat = (x.float() - mean.view(c)) * invstd.view(c)
-        dyf = dy.float()
-        m = x.numel() // x.shape[1]
-        sum_dy = dyf.sum(dim=(0, 2, 3))
-        sum_dy_xhat = (dyf * xhat).sum(dim=(0, 2, 3))
-        dx = (invstd * scale).view(c) * (dyf - (sum_dy / m).view(c)
-                                         - xhat * (sum_dy_xhat / m).view(c))
-        return dx.to(x.dtype), sum_dy_xhat, sum_dy, None
-
-
 class BatchNorm(nn.Module):
     """Flax-semantics BatchNorm over NCHW: ``scale``/``bias`` params and
     ``mean``/``var`` running buffers. ``forward`` is pure and returns the
-    batch (mean, var) in train mode; ``update`` applies the momentum step.
-    ``eps`` and ``momentum`` (Flax's convention) default to EfficientNet's."""
+    batch (mean, var) in train mode (``ops/batchnorm.py``: over every
+    data-parallel rank's batch under a process group, ``core/mesh.py``);
+    ``update`` applies the momentum step. ``eps`` and ``momentum`` (Flax's
+    convention) default to EfficientNet's."""
 
     def __init__(self, features: int, eps: float = BN_EPS, momentum: float = BN_MOMENTUM):
         super().__init__()
@@ -275,7 +249,7 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool):
         if train:
-            y, mean, var = _TrainBatchNorm.apply(x, self.scale, self.bias, self.eps)
+            y, mean, var = _TrainBatchNorm.apply(x, self.scale, self.bias, self.eps, data_sum())
             return y, (mean, var)
         c = (1, -1, 1, 1)
         y = (x.float() - self.mean.view(c)) * (torch.rsqrt(self.var + self.eps)
@@ -350,7 +324,8 @@ class MBConvBlock(nn.Module):
         per BN] or None)."""
         if fused and train:
             vh, vw = valid_hw or x.shape[2:]
-            out, stats = fused_mbconv_e6(x, self.fused_params(), delta, vh, vw, BN_EPS)
+            out, stats = fused_mbconv_e6(x, self.fused_params(), delta, vh, vw, BN_EPS,
+                                         rank_sum=data_sum())
             return out, [stats[i:i + 2] for i in range(0, len(stats), 2)]
         if fused and valid_hw is not None:  # eval on the fused route: keep the zero pads
             hp, wp = x.shape[2:]

@@ -40,9 +40,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # launcher name -> argument types (pointers and the stream as c_void_p)
 SIGNATURES: Dict[str, List] = {
-    # csrc/mbconv6_e6.cu: pass, 33 pointers, eps, the form and 9 shape ints, the
-    # device index, the stream
-    "m6_pass": [_I, *[_P] * 33, _F, *[_I] * 10, _I, _P],
+    # csrc/mbconv6_e6.cu: pass, 34 pointers, eps, the form, 9 shape ints and the
+    # ranks, the device index, the stream
+    "m6_pass": [_I, *[_P] * 34, _F, *[_I] * 11, _I, _P],
     "m6_scratch": [_I] * 10,
     "m6_kernel_info": [_I, _I, _I, _I, _P, _P],
     # csrc/flash_attention.cu: ..., the device index, the stream

@@ -79,15 +79,28 @@ def _bn(t, mean, var, gamma, beta, eps):
     return (t - mean.view(c)) * torch.rsqrt(var + eps).view(c) * gamma.view(c) + beta.view(c)
 
 
-def _tail(x, xf, d, p, delta, eps):
+def bn_train(t, gamma, beta, eps, rank_sum=None):
+    """Train-mode BatchNorm of NCHW fp32 ``t``: (bn(t), mean, var) with t's batch
+    statistics, or with those of every data-parallel rank's batch when
+    ``rank_sum`` (``core/mesh.py::RankSum``) is given (``ops/batchnorm.py``,
+    whose backward sums over the ranks too)."""
+    if rank_sum is None:
+        mean, var = batch_stats(t)
+        return _bn(t, mean, var, gamma, beta, eps), mean, var
+    from .batchnorm import TrainBatchNorm
+
+    return TrainBatchNorm.apply(t, gamma, beta, eps, rank_sum)
+
+
+def _tail(x, xf, d, p, delta, eps, rank_sum=None):
     """bn1 -> silu -> SE -> project -> bn2 -> x delta [-> + x], shared by both forms."""
-    mean1, var1 = batch_stats(d)
-    v = F.silu(_bn(d, mean1, var1, p.gamma1, p.beta1, eps))
+    b1, mean1, var1 = bn_train(d, p.gamma1, p.beta1, eps, rank_sum)
+    v = F.silu(b1)
     gate, _ = _se_gate(v.mean(dim=(2, 3)), p)
     u = v * gate[:, :, None, None]
     y = torch.einsum("nehw,ec->nchw", u, p.wp)
-    mean2, var2 = batch_stats(y)
-    out = delta[:, None, None, None] * _bn(y, mean2, var2, p.gamma2, p.beta2, eps)
+    b2, mean2, var2 = bn_train(y, p.gamma2, p.beta2, eps, rank_sum)
+    out = delta[:, None, None, None] * b2
     if p.wp.shape[1] == x.shape[1]:  # residual iff C_in == C_out (stride is 1)
         out = out + xf
     return out.to(x.dtype), (mean1, var1, mean2, var2)
@@ -98,10 +111,11 @@ def depthwise3x3(t: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return F.conv2d(t, k[:, None], padding=1, groups=t.shape[1])
 
 
-def mbconv_e1_reference(x, p: MBConvParams, delta, eps: float = BN_EPS):
-    """Unfused NCHW reference of the e=1 block math (train-mode BN)."""
+def mbconv_e1_reference(x, p: MBConvParams, delta, eps: float = BN_EPS, rank_sum=None):
+    """Unfused NCHW reference of the e=1 block math (train-mode BN, over every
+    rank's batch with ``rank_sum``)."""
     xf = x.float()
-    return _tail(x, xf, depthwise3x3(xf, p.dw_kernel), p, delta, eps)
+    return _tail(x, xf, depthwise3x3(xf, p.dw_kernel), p, delta, eps, rank_sum)
 
 
 class LaunchCounter:
@@ -136,12 +150,12 @@ launches = LaunchCounter()
 # ----------------------------------------------------------------------------
 
 
-def plain_fused_mbconv_e1(x, params: MBConvParams, delta, eps: float = BN_EPS):
+def plain_fused_mbconv_e1(x, params: MBConvParams, delta, eps: float = BN_EPS, rank_sum=None):
     """The e1 kernel's function in plain PyTorch (fp32 inside): the reference
     with the kernel's gradient contract. The stats are detached (their
     cotangents are ignored) and delta gets no gradient (the JAX VJP returns
     zeros for it: it is a random draw, not a parameter)."""
-    out, stats = mbconv_e1_reference(x, params, delta.detach(), eps)
+    out, stats = mbconv_e1_reference(x, params, delta.detach(), eps, rank_sum)
     return out, tuple(s.detach() for s in stats)
 
 
@@ -156,13 +170,13 @@ class _FusedMBConvE1(torch.autograd.Function):
     mbconv6 imports this module)."""
 
     @staticmethod
-    def forward(ctx, x, delta, eps, *flat):
+    def forward(ctx, x, delta, eps, rank_sum, *flat):
         from .mbconv6 import _e1_forward
 
         p = MBConvParams(*flat)
-        out, stats, kept = _e1_forward(x, p, delta, x.shape[2], x.shape[3], eps)
+        out, stats, kept = _e1_forward(x, p, delta, x.shape[2], x.shape[3], eps, rank_sum)
         launches.add("mbconv1.forward")
-        ctx.eps = eps
+        ctx.eps, ctx.rank_sum = eps, rank_sum
         ctx.save_for_backward(x, delta, *flat, *stats, *kept)
         ctx.mark_non_differentiable(*stats)
         return (out, *stats)
@@ -175,9 +189,9 @@ class _FusedMBConvE1(torch.autograd.Function):
         p = MBConvParams(*rest[:10])
         stats, kept = rest[10:14], rest[14:]
         dx, dp = _e1_backward(x, p, delta, x.shape[2], x.shape[3], ctx.eps,
-                              g.to(x.dtype).contiguous(), stats, kept)
+                              g.to(x.dtype).contiguous(), stats, kept, ctx.rank_sum)
         launches.add("mbconv1.backward")
-        return (dx, torch.zeros_like(delta), None, *dp)
+        return (dx, torch.zeros_like(delta), None, None, *dp)
 
 
 def _validate_e1(x, p: MBConvParams, delta):
@@ -210,14 +224,16 @@ def _validate_e1(x, p: MBConvParams, delta):
         raise ValueError("delta must be a contiguous float32 (N,) tensor on x's device")
 
 
-def fused_mbconv_e1(x, params: MBConvParams, delta, eps: float = BN_EPS):
+def fused_mbconv_e1(x, params: MBConvParams, delta, eps: float = BN_EPS, rank_sum=None):
     """x: (N, C, H, W) float32 or bfloat16 with H % 8 == 0; params: MBConvParams
     (fp32; C_in -> C2 <= 64 channels on the card); delta: (N,) per-image
     drop-connect scale. Returns (out (N, C2, H, W) in x's dtype, (mean1, var1,
     mean2, var2)); the residual is added iff C2 == C. The stats carry no
-    gradient and delta's gradient is zero."""
+    gradient and delta's gradient is zero. ``rank_sum`` (None: this batch
+    alone) sums the batch sums over data-parallel ranks, as in
+    ``ops/mbconv6.py::fused_mbconv_e6``."""
     _validate_e1(x, params, delta)
     if x.device.type == "cpu":
-        return plain_fused_mbconv_e1(x, params, delta, eps)
-    out, *stats = _FusedMBConvE1.apply(x, delta, eps, *params)
+        return plain_fused_mbconv_e1(x, params, delta, eps, rank_sum)
+    out, *stats = _FusedMBConvE1.apply(x, delta, eps, rank_sum, *params)
     return out, tuple(stats)

@@ -28,6 +28,14 @@ and its backward are torch ops on (N, E) vectors. A CPU tensor takes the plain
 PyTorch version of the same function (``plain_fused_mbconv_e6``), and any other
 device raises. ``launches`` (ops/mbconv.py) counts the kernel path's forward
 and backward calls under ``mbconv6.<form>.<direction>``.
+
+Data parallelism: given a ``rank_sum`` hook (``core/mesh.py::RankSum``), the
+batch sums that a later pass consumes are summed over the ranks between the
+passes (x's moments before bn0, bn1's and bn2's sums after F2 and F4, bn2's
+backward sums after B1, bn1's before bwd_x, bn0's before bn0_bwd) and the
+kernels divide by every rank's count; the per-image sums and the parameter
+gradients stay the rank's own. The plain version takes the same hook. Without
+one, the passes are the one-process function, bit for bit.
 """
 
 from __future__ import annotations
@@ -43,10 +51,9 @@ from .mbconv import (
     BN_EPS,
     E1_MAX_C,
     MBConvParams,
-    _bn,
     _se_gate,
     _tail,
-    batch_stats,
+    bn_train,
     depthwise3x3,
     launches,
     mbconv_e1_reference,
@@ -98,25 +105,27 @@ def pick_h_pad(h: int) -> int:
 # ----------------------------------------------------------------------------
 
 
-def mbconv_e6_reference(x, p: MBConv6Params, delta, eps: float = BN_EPS):
-    """Unfused NCHW reference of the expanding block (train-mode BN) on the
-    exact, unpadded image."""
+def mbconv_e6_reference(x, p: MBConv6Params, delta, eps: float = BN_EPS, rank_sum=None):
+    """Unfused NCHW reference of the expanding block (train-mode BN, over every
+    rank's batch with ``rank_sum``) on the exact, unpadded image."""
     xf = x.float()
     z = torch.einsum("nchw,ce->nehw", xf, p.we)
-    mean0, var0 = batch_stats(z)
-    w = F.silu(_bn(z, mean0, var0, p.gamma0, p.beta0, eps))
-    out, stats = _tail(x, xf, depthwise3x3(w, p.dw_kernel), p, delta, eps)
+    b0, mean0, var0 = bn_train(z, p.gamma0, p.beta0, eps, rank_sum)
+    w = F.silu(b0)
+    out, stats = _tail(x, xf, depthwise3x3(w, p.dw_kernel), p, delta, eps, rank_sum)
     return out, (mean0, var0) + stats
 
 
 def plain_fused_mbconv_e6(x, params, delta, valid_h: int, valid_w: int,
-                          eps: float = BN_EPS):
+                          eps: float = BN_EPS, rank_sum=None):
     """The kernel's function in plain PyTorch: the reference on the valid
     region, zero-padded back to x's shape. Stats are returned detached (they
-    only feed running averages; the kernel's backward ignores them too)."""
+    only feed running averages; the kernel's backward ignores them too).
+    ``rank_sum`` sums the batch sums over data-parallel ranks (forward and
+    backward), as the kernel path does."""
     H, W = x.shape[2:]
     ref = mbconv_e6_reference if isinstance(params, MBConv6Params) else mbconv_e1_reference
-    out, stats = ref(x[:, :, :valid_h, :valid_w], params, delta, eps)
+    out, stats = ref(x[:, :, :valid_h, :valid_w], params, delta, eps, rank_sum)
     out = F.pad(out, (0, W - valid_w, 0, H - valid_h))
     return out, tuple(s.detach() for s in stats)
 
@@ -135,8 +144,8 @@ def bn0_stats(sx, sxx, we, cnt):
     so E[z] = sx We / cnt and E[z^2] = diag(We^T sxx We) / cnt, with sx the sum
     of x over the valid positions (C,) and sxx the sum of x x^T (C, C). Computed
     in float64 (var = max(E[z^2] - E[z]^2, 0), the plain version's formula).
-    The plain version of csrc/mbconv6_e6.cu's bn0_kernel, which the moments pass
-    runs on the card."""
+    The plain version of csrc/mbconv6_e6.cu's bn0_kernel, which the bn0 pass
+    runs on the card after the moments pass."""
     we64 = we.double()
     mean = sx.double() @ we64 / cnt
     ez2 = ((sxx.double() @ we64) * we64).sum(0) / cnt
@@ -205,10 +214,10 @@ def dk_taps(dd, x):
 
 
 # pass ids of m6_pass (csrc/mbconv6_e6.cu), and the pointers it takes in order
-MOMENTS, F2, F3, F4, B1, OUT, BWD_V, BWD_X, DX = range(9)
+MOMENTS, F2, F3, F4, B1, OUT, BWD_V, BWD_X, DX, BN0, BN0_BWD = range(11)
 _PTRS = ("x", "g", "out", "we", "wp", "k9", "m0", "v0", "g0", "b0", "s1", "g1", "b1",
-         "s2", "g2", "b2", "s3", "gate", "ds", "q", "delta", "mom", "xm", "kv", "wf", "y", "d",
-         "dxa", "dwe", "part", "red", "red_n", "stats")
+         "s2", "g2", "b2", "s3", "gate", "ds", "q", "sb1", "delta", "mom", "xm", "kv", "wf", "y",
+         "d", "dxa", "dwe", "part", "red", "red_n", "stats")
 _INDEX = {k: i for i, k in enumerate(_PTRS)}
 E6_MAX_C, E6_MAX_E = 48, 256  # the expanding form's limits on C and C2, and on E
 _FRAG_FLOATS = 24 * 32 * 4  # the weights' B fragments per chunk of 16 channels (prep_kernel)
@@ -227,8 +236,10 @@ class _E6:
     alive here) and their pointers in ``_PTRS`` order, and ``run(pass,
     **tensors)``, which sets tensors and launches one pass."""
 
-    def __init__(self, x, p, delta, valid_h, valid_w, eps):
+    def __init__(self, x, p, delta, valid_h, valid_w, eps, rank_sum=None):
         expand = isinstance(p, MBConv6Params)
+        self.rank_sum = rank_sum
+        self.ranks = 1 if rank_sum is None else int(rank_sum.ranks)
         self.N, self.C, self.H, self.W = x.shape
         self.E, self.C2 = p.wp.shape
         self.Cp, self.Ep, self.C2p = _up(self.C, 16), _up(self.E, 16), _up(self.C2, 8)
@@ -255,25 +266,38 @@ class _E6:
 
     def run(self, pass_id, **tensors):
         self.set(**tensors)
-        _m6_pass(self.dev, pass_id, *self.args, self.eps, *self.ints)
+        _m6_pass(self.dev, pass_id, *self.args, self.eps, *self.ints, self.ranks)
+
+    def summed(self, t, copy: bool = False):
+        """``t`` summed over the data-parallel ranks (in place, or into a copy
+        where this rank's sums are kept too); ``t`` itself without them."""
+        if self.rank_sum is None:
+            return t
+        return self.rank_sum(t.clone() if copy else t)
 
 
-def _e6_forward(x, p, delta, valid_h, valid_w, eps):
+def _e6_forward(x, p, delta, valid_h, valid_w, eps, rank_sum=None):
     """Forward of the expanding form: (out, the 6 stats, what the backward keeps:
-    bn1's and bn2's sums, s_mean, gate and x's moments [sum x | sum x x^T])."""
-    k = _E6(x, p, delta, valid_h, valid_w, eps)
+    bn1's and bn2's sums, s_mean, gate and this rank's moments of x [sum x |
+    sum x x^T]). With ``rank_sum`` the batch sums are summed over the ranks
+    between the passes: the moments (into a copy) before bn0, bn1's after F2,
+    bn2's after F4."""
+    k = _E6(x, p, delta, valid_h, valid_w, eps, rank_sum)
     C, E, C2, Cp = k.C, k.E, k.C2, k.Cp
     mom, stats0 = k.new(Cp + Cp * Cp), k.new(2 * E)
-    k.run(MOMENTS, red=mom, stats=stats0)  # and bn0's statistics (bn0_kernel)
+    k.run(MOMENTS, red=mom)
+    k.run(BN0, red=k.summed(mom, copy=True), stats=stats0)  # bn0's statistics (bn0_kernel)
     mean0, var0 = stats0[:E], stats0[E:]
     s1 = k.new(2 * k.Ep)
     k.run(F2, m0=mean0, v0=var0, red=s1, d=k.new(k.N, k.Ep, k.H, k.W))
+    k.summed(s1)
     s_mean = k.new(k.N, k.Ep)
     k.run(F3, s1=s1, red=None, red_n=s_mean)  # the per-image sums of v over vh * vw
     s_mean = s_mean[:, :E]
     gate = _se_gate(s_mean, p)[0].contiguous()
     y, s2 = k.new(k.N, C2, k.H, k.W), k.new(2 * k.C2p)
     k.run(F4, gate=gate, y=y, red=s2, red_n=None)
+    k.summed(s2)
     out = torch.empty((k.N, C2, k.H, k.W), device=x.device, dtype=x.dtype)
     stats = k.new(2 * E + 2 * C2)
     k.run(OUT, s2=s2, out=out, stats=stats)
@@ -290,24 +314,41 @@ def _se_backward(s_mean, p, dgate):
         return torch.autograd.grad(gate_re, se_in, dgate)
 
 
-def _e6_backward(x, p, delta, valid_h, valid_w, eps, g, stats, kept):
+def _bn1_sums(k, q, gate, ds_hw):
+    """bn1's backward sums over every rank (``bn1_backward_sums``, 2 x E) for
+    bwd_x's coefficients, or None (bwd_x forms this rank's from q)."""
+    if k.rank_sum is None:
+        return None
+    qe = q.view(k.N, 5, k.Ep)[:, :, :k.E]
+    return k.summed(torch.cat(bn1_backward_sums(qe, gate, ds_hw)).contiguous())
+
+
+def _e6_backward(x, p, delta, valid_h, valid_w, eps, g, stats, kept, rank_sum=None):
     """Backward of the expanding form: (dx, parameter gradients as MBConv6Params).
     bn1's backward sums (``bn1_backward_sums``) are formed in bwd_x's prologue
-    and bn0's backward (``dwe_from_moments``, ``dx_terms``) by its last kernel."""
+    and bn0's backward (``dwe_from_moments``, ``dx_terms``) by bn0_bwd_kernel.
+    With ``rank_sum`` the batch sums the later passes read are summed over the
+    ranks (bn2's after B1, bn1's before bwd_x, bn0's before bn0_bwd); the
+    parameter gradients stay this rank's."""
     s1, s2, s_mean, gate, mom = kept
     mean0, var0 = stats[:2]
-    k = _E6(x, p, delta, valid_h, valid_w, eps)
+    k = _E6(x, p, delta, valid_h, valid_w, eps, rank_sum)
     C, E, C2, Cp, Ep, C2p, N = k.C, k.E, k.C2, k.Cp, k.Ep, k.C2p, k.N
     k.set(g=g, m0=mean0, v0=var0, s1=s1, s2=s2, gate=gate, mom=mom, d=k.new(N, Ep, k.H, k.W))
     y, s3 = k.new(N, C2, k.H, k.W), k.new(2 * C2p)
     k.run(B1, y=y, red=s3)
     q, dwp = k.new(N, 5 * Ep), k.new(Ep * C2p)
-    k.run(BWD_V, s3=s3, red_n=q, red=dwp)
+    k.run(BWD_V, s3=k.summed(s3, copy=True), red_n=q, red=dwp)
     ds, dse_w1, dse_b1, dse_w2, dse_b2 = _se_backward(s_mean, p, q.view(N, 5, Ep)[:, 0, :E])
+    ds_hw = (ds / k.hw).contiguous()
     red, sdb = k.new(11 * Ep + Cp * Ep), k.new(2 * E)
     dwe, xm, kv = k.new(C, E), k.new(C, C), k.new(C)
-    k.run(BWD_X, ds=(ds / k.hw).contiguous(), q=q, dxa=k.new(N, C, k.H, k.W), red=red,
-          red_n=None, stats=sdb, dwe=dwe, xm=xm, kv=kv)
+    k.run(BWD_X, ds=ds_hw, q=q, sb1=_bn1_sums(k, q, gate, ds_hw), dxa=k.new(N, C, k.H, k.W),
+          red=red, red_n=None, stats=sdb, dwe=dwe, xm=xm, kv=kv)
+    if rank_sum is not None:  # every rank's [sum dz0hat | sum dz0hat zbar0], this one's T3
+        k.run(BN0_BWD, red=torch.cat([k.summed(red[:2 * Ep].clone()), red[2 * Ep:]]))
+    else:
+        k.run(BN0_BWD)
     dx = torch.empty_like(x)
     k.run(DX, g=g if C2 == C else None, out=dx)
     grads = MBConv6Params(
@@ -323,41 +364,48 @@ def _e6_backward(x, p, delta, valid_h, valid_w, eps, g, stats, kept):
 # ----------------------------------------------------------------------------
 
 
-def _e1_forward(x, p, delta, valid_h, valid_w, eps):
+def _e1_forward(x, p, delta, valid_h, valid_w, eps, rank_sum=None):
     """Forward of the e=1 form: (out, the 4 stats, what the backward keeps:
-    bn1's and bn2's sums, s_mean and gate)."""
-    k = _E6(x, p, delta, valid_h, valid_w, eps)
+    bn1's and bn2's sums, s_mean and gate); with ``rank_sum`` bn1's and bn2's
+    sums are summed over the ranks after F2 and F4."""
+    k = _E6(x, p, delta, valid_h, valid_w, eps, rank_sum)
     E, C2 = k.E, k.C2
     s1 = k.new(2 * k.Ep)
     k.run(F2, red=s1)  # and Wp's fragments for F4
+    k.summed(s1)
     s_mean = k.new(k.N, k.Ep)
     k.run(F3, s1=s1, red=None, red_n=s_mean)  # the per-image sums of v over vh * vw
     s_mean = s_mean[:, :E]
     gate = _se_gate(s_mean, p)[0].contiguous()
     y, s2 = k.new(k.N, C2, k.H, k.W), k.new(2 * k.C2p)
     k.run(F4, gate=gate, y=y, red=s2, red_n=None)
+    k.summed(s2)
     out = torch.empty((k.N, C2, k.H, k.W), device=x.device, dtype=x.dtype)
     stats = k.new(2 * E + 2 * C2)
     k.run(OUT, s2=s2, out=out, stats=stats)
     return out, tuple(stats.split([E, E, C2, C2])), (s1, s2, s_mean, gate)
 
 
-def _e1_backward(x, p, delta, valid_h, valid_w, eps, g, stats, kept):
+def _e1_backward(x, p, delta, valid_h, valid_w, eps, g, stats, kept, rank_sum=None):
     """Backward of the e=1 form: (dx, parameter gradients as MBConvParams). bn1's
     backward sums (``bn1_backward_sums``) are formed in bwd_x's prologue, which
-    then writes dx = [g +] ``dx_from_dd`` and the taps (``dk_taps``)."""
+    then writes dx = [g +] ``dx_from_dd`` and the taps (``dk_taps``). With
+    ``rank_sum`` bn2's backward sums (after B1) and bn1's (before bwd_x) are
+    summed over the ranks; the parameter gradients stay this rank's."""
     s1, s2, s_mean, gate = kept
-    k = _E6(x, p, delta, valid_h, valid_w, eps)
+    k = _E6(x, p, delta, valid_h, valid_w, eps, rank_sum)
     E, C2, Ep, C2p, N = k.E, k.C2, k.Ep, k.C2p, k.N
     k.set(g=g, s1=s1, s2=s2, gate=gate)
     y, s3 = k.new(N, C2, k.H, k.W), k.new(2 * C2p)
     k.run(B1, y=y, red=s3)
     q, dwp = k.new(N, 5 * Ep), k.new(Ep * C2p)
-    k.run(BWD_V, s3=s3, red_n=q, red=dwp)
+    k.run(BWD_V, s3=k.summed(s3, copy=True), red_n=q, red=dwp)
     ds, dse_w1, dse_b1, dse_w2, dse_b2 = _se_backward(s_mean, p, q.view(N, 5, Ep)[:, 0, :E])
+    ds_hw = (ds / k.hw).contiguous()
     taps, sdb = k.new(9 * Ep), k.new(2 * E)
     dx = torch.empty_like(x)
-    k.run(BWD_X, ds=(ds / k.hw).contiguous(), q=q, red=taps, red_n=None, stats=sdb, out=dx)
+    k.run(BWD_X, ds=ds_hw, q=q, sb1=_bn1_sums(k, q, gate, ds_hw), red=taps, red_n=None,
+          stats=sdb, out=dx)
     grads = MBConvParams(
         dw_kernel=taps.view(9, Ep)[:, :E].t().reshape(E, 3, 3), gamma1=sdb[E:], beta1=sdb[:E],
         se_w1=dse_w1, se_b1=dse_b1, se_w2=dse_w2, se_b2=dse_b2,
@@ -367,12 +415,12 @@ def _e1_backward(x, p, delta, valid_h, valid_w, eps, g, stats, kept):
 
 class _FusedMBConv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, delta, valid_h, valid_w, eps, form, *flat):
+    def forward(ctx, x, delta, valid_h, valid_w, eps, form, rank_sum, *flat):
         p = form(*flat)
         expand = form is MBConv6Params
         out, stats, kept = (_e6_forward if expand else _e1_forward)(
-            x, p, delta, valid_h, valid_w, eps)
-        ctx.meta = (valid_h, valid_w, eps, form, len(flat), len(stats))
+            x, p, delta, valid_h, valid_w, eps, rank_sum)
+        ctx.meta = (valid_h, valid_w, eps, form, len(flat), len(stats), rank_sum)
         ctx.save_for_backward(x, delta, *flat, *stats, *kept)
         launches.add(f"mbconv6.{_form_name(form)}.forward")
         ctx.mark_non_differentiable(*stats)
@@ -380,14 +428,14 @@ class _FusedMBConv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, *_stat_grads):
-        valid_h, valid_w, eps, form, nflat, nstats = ctx.meta
+        valid_h, valid_w, eps, form, nflat, nstats, rank_sum = ctx.meta
         x, delta, *rest = ctx.saved_tensors
         p = form(*rest[:nflat])
         stats, kept = rest[nflat:nflat + nstats], rest[nflat + nstats:]
         bwd = _e6_backward if form is MBConv6Params else _e1_backward
-        dx, dp = bwd(x, p, delta, valid_h, valid_w, eps, g.contiguous(), stats, kept)
+        dx, dp = bwd(x, p, delta, valid_h, valid_w, eps, g.contiguous(), stats, kept, rank_sum)
         launches.add(f"mbconv6.{_form_name(form)}.backward")
-        return (dx, None, None, None, None, None, *dp)
+        return (dx, None, None, None, None, None, None, *dp)
 
 
 def _form_name(form) -> str:
@@ -428,20 +476,26 @@ def _validate(x, p, delta, valid_h, valid_w):
 
 
 def fused_mbconv_e6(x, params, delta, valid_h: int, valid_w: int,
-                    eps: float = BN_EPS) -> Tuple[torch.Tensor, tuple]:
+                    eps: float = BN_EPS, rank_sum=None) -> Tuple[torch.Tensor, tuple]:
     """x: (N, C, H, W) float32 or bfloat16, zero outside the valid region.
 
     params: MBConv6Params (expanding form) or MBConvParams (e=1 form), fp32.
     delta: (N,) per-image drop-connect scale (0 drops the residual branch).
 
+    rank_sum: None (the batch is x's), or the sum over data-parallel ranks
+    (``core/mesh.py::RankSum``: ``rank_sum(t)`` sums t in place over its
+    ``ranks`` ranks, each holding N images of the same shape); the statistics
+    are then those of every rank's batch, forward and backward, and the
+    parameter gradients stay this rank's.
+
     Returns (out (N, C2, H, W) in x's dtype with a zero pad region, stats): stats
     is (mean0, var0, mean1, var1, mean2, var2) for the expanding form and
     (mean1, var1, mean2, var2) for e=1; they carry no gradient."""
     if x.device.type == "cpu":
-        return plain_fused_mbconv_e6(x, params, delta, valid_h, valid_w, eps)
+        return plain_fused_mbconv_e6(x, params, delta, valid_h, valid_w, eps, rank_sum)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mbconv_e6 runs on CUDA or CPU tensors, got {x.device}")
     _validate(x, params, delta, valid_h, valid_w)
-    out, *stats = _FusedMBConv.apply(x, delta, valid_h, valid_w, eps, type(params),
+    out, *stats = _FusedMBConv.apply(x, delta, valid_h, valid_w, eps, type(params), rank_sum,
                                      *params)
     return out, tuple(stats)

@@ -1,0 +1,507 @@
+"""N data-parallel ranks equal one process (port of the data-parallel part of
+``__graft_entry__.py::dryrun_multichip``, :82-207).
+
+    python -m mammo_clip_tpu_torch.parallel.dryrun [--ranks N] [--device cuda|cpu]
+        [--timeout 600]
+
+runs ``steps_case`` on N ranks, each a process of its own under ``python -m
+torch.distributed.run --standalone`` (``run_ranks``: NCCL with one card a
+rank, every visible card by default; gloo with ``--device cpu``, 4 ranks by
+default), and again in this process on the global batch of N x B rows, then
+compares (``compare``): the losses, the step's gradients after the ranks'
+average, and after one step and after one K=2 call (``make_train_multistep``,
+which the one process also checks against two single steps) every parameter,
+the BatchNorm running statistics and the EMA; and that every rank ends with
+the same bits. It prints one JSON line of the largest differences and exits 1
+when one is over its tolerance. Any N >= 1 runs (the JAX dry run reshapes its
+devices to (2, 4) and crashes below 8: fault R1 of the reference, not
+inherited); with one rank no process group is made and no collective runs.
+Tensor, FSDP, sequence and pipeline parallelism are the next slice of the
+port.
+
+The stochastic parts are off on both sides (augmentation, drop-connect,
+dropout), since rank r folds r into its step seed (``train/step.py``), and
+every fp32 product runs in full fp32 (``utils/device.py::full_fp32``: cuDNN
+takes TF32 by default, and a rank process would not inherit a caller's
+switch). On the CPU the model is the tiny CLIP (b0 at 64x64, 2-layer BERT) in
+fp32 at 2 rows a rank. On the card it is the compat recipe (B5 at 1520x912,
+BERT-base, 256 tokens, the fused route and remat) at 2 rows a card, run twice:
+in fp32 activations, where the gradients are held too, and in the recipe's
+bf16, where they are not (``TOLERANCES``); tensors are compared on a fixed
+sample of up to 1024 elements each, and ``self_noise`` reports beside each
+what one process differs from itself by.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import hashlib
+import importlib
+import importlib.util
+import json
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+import zlib
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..core import mesh
+from ..core.config import Config
+from ..utils.device import full_fp32
+
+ROOT = Path(__file__).resolve().parent.parent.parent
+SAMPLE = 1024  # elements a tensor keeps in a sampled snapshot
+
+
+# ----------------------------------------------------------------------------
+# ranks as processes
+# ----------------------------------------------------------------------------
+
+
+def run_ranks(n: int, target: str, payload, device: str = "cuda",
+              timeout_s: float = 600.0) -> List:
+    """Run ``fn(ctx, payload)`` on ``n`` ranks, one process each, and return the
+    ranks' results in rank order. ``target`` is ``"package.module:fn"`` or
+    ``"path/to/file.py:fn"``; ``ctx`` is the rank's ``MeshContext`` on
+    ``device`` (NCCL on ``cuda:LOCAL_RANK``, gloo on the CPU). The ranks are
+    started by ``python -m torch.distributed.run --standalone``, whose
+    rendezvous binds its own free port; when one fails the launcher stops the
+    others, and when ``timeout_s`` passes it is sent SIGTERM, which it passes
+    on to the ranks. The error carries the tail of the ranks' output."""
+    tmp = Path(tempfile.mkdtemp(prefix="dryrun_ranks_"))
+    try:
+        torch.save(payload, tmp / "payload.pt")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc-per-node={n}", "-m", "mammo_clip_tpu_torch.parallel.dryrun",
+               "--rank-worker", target, str(tmp), device]
+        proc = subprocess.Popen(cmd, cwd=str(ROOT), stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        try:
+            log = proc.communicate(timeout=timeout_s)[0]
+        except subprocess.TimeoutExpired:
+            proc.terminate()
+            try:
+                proc.communicate(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+            raise RuntimeError(f"{n} ranks of {target} did not finish in {timeout_s:.0f} s")
+        if proc.returncode != 0:
+            raise RuntimeError(f"{n} ranks of {target} failed ({proc.returncode}):\n"
+                               f"{log[-6000:]}")
+        return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(n)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _resolve(target: str):
+    where, name = target.rsplit(":", 1)
+    if where.endswith(".py"):
+        spec = importlib.util.spec_from_file_location(Path(where).stem, where)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+    else:
+        module = importlib.import_module(where)
+    return getattr(module, name)
+
+
+def _rank_worker(target: str, tmp: str, device: str) -> None:
+    payload = torch.load(Path(tmp) / "payload.pt", weights_only=False)
+    ctx = mesh.MeshContext.create(device=device, timeout_s=payload.get("timeout_s", 300.0))
+    if ctx.device.type == "cpu":
+        torch.set_num_threads(1)
+    try:
+        out = _resolve(target)(ctx, payload)
+        torch.save(out, Path(tmp) / f"rank{ctx.rank}.pt")
+    finally:
+        ctx.close()
+
+
+# ----------------------------------------------------------------------------
+# the steps, on a rank or in one process
+# ----------------------------------------------------------------------------
+
+
+def _digest(tensors: Dict[str, torch.Tensor]) -> str:
+    h = hashlib.sha1()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _snap(tensors: Dict[str, torch.Tensor], sample: bool) -> Dict[str, np.ndarray]:
+    """fp32 numpy copies, or a fixed sample of up to ``SAMPLE`` elements each."""
+    out = {}
+    for k, t in tensors.items():
+        flat = t.detach().float().reshape(-1)
+        if sample and flat.numel() > SAMPLE:
+            idx = np.random.default_rng(zlib.crc32(k.encode())).choice(
+                flat.numel(), SAMPLE, replace=False)
+            flat = flat[torch.as_tensor(np.sort(idx), device=flat.device)]
+        out[k] = flat.cpu().numpy()
+    return out
+
+
+def _state_snap(state, sample: bool) -> dict:
+    params = dict(state.model.named_parameters())
+    buffers = dict(state.model.named_buffers())
+    ema = state.ema or {}
+    return {"step": state.step, "params": _snap(params, sample),
+            "buffers": _snap(buffers, sample), "ema": _snap(ema, sample),
+            "digest": _digest({**params, **{f"buffer.{k}": v for k, v in buffers.items()},
+                               **{f"ema.{k}": v for k, v in ema.items()}})}
+
+
+def _build(cfg: Config, device, init: Optional[dict]):
+    """The model, its train state and the preprocess (normalisation only). The
+    last build's state is freed first: the gradient recorder of ``_one_step``
+    makes a reference cycle, which only the collector breaks."""
+    from ..losses import build_loss
+    from ..models import build_model
+    from ..train.optim import build_optimizer
+    from ..train.schedule import warmup_cosine_sq_schedule
+    from ..train.state import create_train_state
+    from ..train.trainer import make_clip_preprocess
+
+    gc.collect()
+    dtype = torch.bfloat16 if cfg.train.get("dtype") == "bfloat16" else torch.float32
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    model = build_model(cfg.model.to_dict(), dtype=dtype, device=device, generator=gen)
+    if init is not None:
+        model.load_state_dict(init)
+    if mesh.world_size() > 1:  # as the trainer does: every rank starts from rank 0's
+        with torch.no_grad():
+            for t in [*model.parameters(), *model.buffers()]:
+                torch.distributed.broadcast(t.data, 0)
+    schedule = warmup_cosine_sq_schedule(cfg.optimizer.lr, 100, 0)
+    opt = build_optimizer(cfg.optimizer.to_dict(), schedule, model.named_parameters())
+    state = create_train_state(model, opt, ema_decay=cfg.optimizer.get("ema_decay", 0.0))
+    norm = make_clip_preprocess(cfg)
+    return model, state, build_loss(cfg.loss.to_dict()), (lambda b, g: norm(b, None))
+
+
+def _rows(ctx, batch, device, stacked=False):
+    """This rank's rows of a global host batch on ``device`` (all rows in one process)."""
+    if ctx is not None and ctx.process_count > 1:
+        return ctx.shard_host_batch(batch, stacked=stacked)
+    return {k: (torch.from_numpy(np.ascontiguousarray(v)).long() if v.dtype == np.int32
+                else torch.from_numpy(np.ascontiguousarray(v))).to(device)
+            for k, v in batch.items()}
+
+
+def steps_case(ctx, payload) -> dict:
+    """One train step, then one K=2 call from the same initial state, on this
+    rank's rows of ``payload["batches"]`` (two global host batches), or on all
+    of them with ``ctx`` None or one rank (the one process, which also takes
+    the two batches as two single steps unless ``payload["two_steps"]`` is
+    false). Returns the losses, the step's
+    averaged gradients (and the fused kernel's launches in it) and snapshots
+    of the state after each."""
+    from ..train.step import make_train_multistep, make_train_step
+
+    cfg = Config(payload["cfg"])
+    device = ctx.device if ctx is not None else torch.device(payload.get("device", "cpu"))
+    sample = bool(payload.get("sample", False))
+    init = payload.get("init")
+    batches = payload["batches"]
+    out = {"rank": mesh.rank(), "ranks": mesh.world_size()}
+    with full_fp32():
+        out["one"] = _one_step(cfg, device, init, _rows(ctx, batches[0], device), sample)
+        model, state, loss_fn, pre = _build(cfg, device, init)
+        stacked = {k: np.stack([batches[0][k], batches[1][k]]) for k in batches[0]}
+        multi = make_train_multistep(model, loss_fn, pre)
+        state, losses = multi(state, _rows(ctx, stacked, device, stacked=True),
+                              torch.Generator(device=device), cfg.seed)
+        out["k2"] = {"losses": {k: float(v) for k, v in losses.items()},
+                     **_state_snap(state, sample)}
+        del model, state, multi
+        if mesh.world_size() == 1 and payload.get("two_steps", True):
+            model, state, loss_fn, pre = _build(cfg, device, init)
+            step = make_train_step(model, loss_fn, pre)
+            for b in batches:
+                state, losses = step(state, _rows(None, b, device),
+                                     torch.Generator(device=device), cfg.seed)
+            out["two"] = {"losses": {k: float(v) for k, v in losses.items()},
+                          **_state_snap(state, sample)}
+    return out
+
+
+def _one_step(cfg: Config, device, init, rows, sample: bool) -> dict:
+    """One train step on ``rows`` (this rank's, on the device): the losses, the
+    gradients the optimizer takes (after the ranks' average), the fused
+    kernel's launches, the state after it and the step's seconds."""
+    from ..ops.mbconv import launches
+    from ..train.step import make_train_step
+
+    model, state, loss_fn, pre = _build(cfg, device, init)
+    grads = {}
+    apply = state.apply_gradients
+
+    def recording():  # the gradients the optimizer is about to take, after the average
+        if not grads:
+            grads.update(_snap({n: p.grad for n, p in model.named_parameters()
+                                if p.grad is not None}, sample))
+        return apply()
+
+    state.apply_gradients = recording
+    step = make_train_step(model, loss_fn, pre)
+    launches.reset()
+    t = time.perf_counter()
+    state, losses = step(state, rows, torch.Generator(device=device), cfg.seed)
+    out = {"losses": {k: float(v) for k, v in losses.items()}, "grads": grads,
+           "fused": dict(launches.counts), **_state_snap(state, sample)}
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
+def self_noise(payload, one: dict) -> dict:
+    """One process against itself: its first step (``one``, from ``steps_case``)
+    taken again with the global batch's rows reversed, and again on the
+    unfused blocks (cuDNN's convolutions and autograd's BatchNorm). Either is
+    as right as the first, so what they differ by is the floor below which no
+    check of the ranks can go: per run, ``compare``'s terms and the five
+    tensors whose gradients moved most (relative, as ``grad_diffs``)."""
+    device = torch.device(payload.get("device", "cpu"))
+    sample = bool(payload.get("sample", False))
+    batch = payload["batches"][0]
+    reversed_rows = {k: np.ascontiguousarray(v[::-1]) for k, v in batch.items()}
+    unfused = Config(payload["cfg"])
+    unfused.model.image_encoder.fused_mbconv = False
+    runs = {}
+    with full_fp32():
+        runs["reversed"] = _one_step(Config(payload["cfg"]), device, payload.get("init"),
+                                     _rows(None, reversed_rows, device), sample)
+        runs["unfused"] = _one_step(unfused, device, payload.get("init"),
+                                    _rows(None, batch, device), sample)
+    out = {}
+    for name, run in runs.items():
+        rel = grad_rel(run["grads"], one["grads"])
+        _, scale = grad_diffs(run["grads"], one["grads"])
+        out[name] = {**_state_diffs(run, one), "grad_rel": max(rel.values()),
+                     "grad_scale": scale,
+                     "worst": sorted(rel.items(), key=lambda kv: -kv[1])[:5]}
+    return out
+
+
+# ----------------------------------------------------------------------------
+# the comparison
+# ----------------------------------------------------------------------------
+
+# loss: relative; state: absolute on parameters and EMA; buffers: absolute on
+# the BatchNorm running statistics; grad: per tensor, relative to its norm plus
+# a floor (``grad_diffs``); scale: the gradients' least-squares scale off 1;
+# None: not checked. The full-width limits stand beside one process's own
+# noise (``self_noise``) on an H100 at one card's batch of 2. fp32, TF32 off
+# (rows reversed / unfused): loss 2.0e-6 / 5.0e-6, parameters 8.1e-7 / 1.2e-6,
+# statistics 1.2e-6 / 2.3e-6, gradients 5.8e-4 / 6.7e-4 per tensor, scale
+# 0.999991 / 0.999977. bf16: loss 1.2e-3 / 7.1e-3, parameters 9.6e-5 / 9.8e-5,
+# statistics 1.8e-3 / 4.4e-3, gradients 0.26 / 1.45 per tensor (the bn2
+# biases, whose true gradient is ~0, and the SE biases), scale 1.011 / 0.938:
+# there the gradients are not held (the fp32 run holds them); loss and
+# statistics are held at 10x the reversed rows' noise, parameters and EMA at
+# 2x theirs, which is also about the 2 lr by which one AdamW step (eps 1e-3)
+# can move an element at most, so in bf16 the parameters only bound the update.
+TOLERANCES = {"tiny": {"loss": 1e-5, "state": 1e-6, "buffers": 1e-4, "grad": 1e-4,
+                       "scale": 1e-4},
+              "full_width": {"loss": 1e-5, "state": 1e-5, "buffers": 2e-5, "grad": 1e-2,
+                             "scale": 1e-3},
+              "full_width_bf16": {"loss": 1e-2, "state": 2e-4, "buffers": 2e-2, "grad": None,
+                                  "scale": None}}
+
+
+def _max_diff(a: Dict[str, np.ndarray], b: Dict[str, np.ndarray]) -> float:
+    if set(a) != set(b):
+        raise ValueError(f"different tensors: {sorted(set(a) ^ set(b))[:5]}")
+    return max((float(np.max(np.abs(a[k] - b[k]))) for k in a if a[k].size), default=0.0)
+
+
+def grad_rel(a: Dict[str, np.ndarray], b: Dict[str, np.ndarray]) -> Dict[str, float]:
+    """Per tensor, ||a - b|| / (||b|| + floor). The floor, 1e-2 of the
+    gradients' root-mean-square tensor norm, keeps tensors whose true gradient
+    is 0 (a bias feeding a BatchNorm) from dividing rounding noise by rounding
+    noise."""
+    if set(a) != set(b):
+        raise ValueError(f"different gradients: {sorted(set(a) ^ set(b))[:5]}")
+    norms = {k: float(np.linalg.norm(b[k])) for k in b}
+    floor = 1e-2 * float(np.sqrt(np.mean([n * n for n in norms.values()])))
+    return {k: float(np.linalg.norm(a[k] - b[k])) / (norms[k] + floor) for k in b}
+
+
+def grad_diffs(a: Dict[str, np.ndarray], b: Dict[str, np.ndarray]) -> tuple:
+    """(the largest ``grad_rel``, the least-squares scale of a on b over every
+    tensor). The scale is 1 when the ranks' gradients are neither W times too
+    large nor too small."""
+    rel = grad_rel(a, b)
+    dot = sum(float(np.dot(a[k].astype(np.float64), b[k])) for k in b)
+    return max(rel.values()), dot / sum(float(np.dot(b[k], b[k])) for k in b)
+
+
+def _state_diffs(x: dict, y: dict) -> dict:
+    return {"loss": max(abs(x["losses"][k] - y["losses"][k]) / max(1.0, abs(y["losses"][k]))
+                        for k in y["losses"]),
+            "params": _max_diff(x["params"], y["params"]),
+            "buffers": _max_diff(x["buffers"], y["buffers"]),
+            "ema": _max_diff(x["ema"], y["ema"])}
+
+
+def compare(ranks: List[dict], one: dict, size: str = "tiny") -> dict:
+    """The largest differences between the ranks' runs and the one process's,
+    each beside its tolerance (``TOLERANCES[size]``), and ``ok``."""
+    tol = TOLERANCES[size]
+    r0 = ranks[0]
+    same = all(r[k]["digest"] == r0[k]["digest"] for r in ranks for k in ("one", "k2"))
+    d1 = _state_diffs(r0["one"], one["one"])
+    dk = _state_diffs(r0["k2"], one["k2"])
+    dseq = _state_diffs(one["k2"], one["two"]) if "two" in one else None
+    grad, scale = grad_diffs(r0["one"]["grads"], one["one"]["grads"])
+    out = {"ranks": len(ranks), "same_bits_across_ranks": same, "step": d1, "k2": dk,
+           "k2_vs_two_steps": dseq, "grad_rel": grad, "grad_scale": scale, "tolerance": tol,
+           "loss": r0["one"]["losses"]["total"], "loss_one_process": one["one"]["losses"]["total"]}
+    checks = []
+    if tol["grad"] is not None:
+        checks += [grad <= tol["grad"], abs(scale - 1.0) <= tol["scale"]]
+    for d in filter(None, (d1, dk, dseq)):
+        checks += [d["loss"] <= tol["loss"], d["params"] <= tol["state"],
+                   d["ema"] <= tol["state"], d["buffers"] <= tol["buffers"]]
+    out["ok"] = bool(same and all(checks))
+    return out
+
+
+def tiny_dp_config(seed: int = 0) -> Config:
+    """The tiny CLIP for the CPU dry run: fused route on, stochastic parts off,
+    fp32, an EMA, the global-norm clip and AdamW's eps at 1e-3 (as the JAX step
+    parity test sets it: with 1e-8 the elements whose gradient sits at the
+    rounding floor take coin-flip steps of +-lr)."""
+    from ..core.config import tiny_test_config
+
+    cfg = tiny_test_config()
+    cfg.seed = seed
+    cfg.model.image_encoder.fused_mbconv = True
+    cfg.model.image_encoder.drop_connect_rate = 0.0
+    cfg.model.text_encoder.dropout_rate = 0.0
+    cfg.train.dtype = "float32"
+    cfg.optimizer.update(lr=1e-3, eps=1e-3, grad_clip_norm=1.0, ema_decay=0.9)
+    return cfg
+
+
+def full_width_config(seed: int = 0, dtype: str = "float32") -> Config:
+    """The compat recipe (B5 at 1520x912, BERT-base, fused route, remat) with the
+    stochastic parts off and 2 rows a card, in fp32 activations or the
+    recipe's bf16."""
+    from ..train.recipes import bench_recipe_config
+
+    cfg = bench_recipe_config(compat=True)
+    cfg.seed = seed
+    cfg.model.image_encoder.drop_connect_rate = 0.0
+    cfg.model.text_encoder.dropout_rate = 0.0
+    cfg.optimizer.update(eps=1e-3, ema_decay=0.9)
+    cfg.data.batch_size_per_device = 2
+    cfg.train.dtype = dtype
+    return cfg
+
+
+def dp_configs(device: str, seed: int = 0) -> Dict[str, Config]:
+    """What ``dryrun`` runs, by the name of its tolerances: on the CPU the tiny
+    CLIP; on the card the compat recipe at full width in fp32 (the gradients
+    held) and in bf16."""
+    if device == "cpu":
+        return {"tiny": tiny_dp_config(seed)}
+    return {"full_width": full_width_config(seed, "float32"),
+            "full_width_bf16": full_width_config(seed, "bfloat16")}
+
+
+def host_batches(cfg: Config, rows: int, seed: int = 0) -> List[Dict[str, np.ndarray]]:
+    """Two global host batches of ``rows`` rows: uint8-valued images (two views)
+    and two token sequences with ragged masks."""
+    rng = np.random.default_rng(seed)
+    h, w, s = cfg.data.image_size_h, cfg.data.image_size_w, cfg.data.text_max_length
+    vocab = cfg.model.text_encoder.vocab_size
+    out = []
+    for _ in range(2):
+        lengths = rng.integers(2, s + 1, size=rows)
+        mask = (np.arange(s)[None, :] < lengths[:, None]).astype(np.int32)
+        ids = rng.integers(1, vocab, size=(rows, s)).astype(np.int32) * mask
+        out.append({"images": rng.integers(0, 256, size=(rows, h, w, 1)).astype(np.float32),
+                    "image_views": rng.integers(0, 256, size=(rows, h, w, 1)).astype(np.float32),
+                    "input_ids": ids, "attention_mask": mask,
+                    "input_ids2": rng.integers(1, vocab, size=(rows, s)).astype(np.int32) * mask,
+                    "attention_mask2": mask})
+    return out
+
+
+def _rank_cases(ctx, payload) -> dict:
+    return {name: steps_case(ctx, p) for name, p in payload["cases"].items()}
+
+
+def dryrun(n_ranks: int, device: str = "cuda", seed: int = 0,
+           timeout_s: float = 600.0) -> dict:
+    """``steps_case`` for each of ``dp_configs(device)`` on ``n_ranks`` ranks and
+    in this process (while the ranks run), each held to its tolerances by
+    ``compare``, with ``self_noise`` beside it. Returns ``{name: compare's dict
+    with the ranks' and the one process's seconds a step, the fused launches
+    a rank and the self-noise}`` and ``ok``. With one rank no process group is made and no collective runs:
+    the ranks' sums are then exercised only by the tests' gloo ranks and
+    ``chip_smoke.py``'s phase 17 (a)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    if device == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("dryrun --device cuda: no CUDA device (--device cpu runs "
+                               "gloo ranks on the CPU)")
+        from ..ops import cuda_lib
+
+        cuda_lib.build()  # once, before the ranks would each build it
+    cases = {}
+    for name, cfg in dp_configs(device, seed).items():
+        b = cfg.data.batch_size_per_device
+        # the K=2 call against two steps once: the dtype does not change the loop
+        cases[name] = {"cfg": cfg.to_dict(), "batches": host_batches(cfg, n_ranks * b, seed),
+                       "sample": device == "cuda", "device": device,
+                       "two_steps": cfg.train.dtype == "float32"}
+    with ThreadPoolExecutor(1) as pool:
+        spawned = pool.submit(run_ranks, n_ranks, f"{__name__}:_rank_cases",
+                              {"cases": cases, "timeout_s": timeout_s}, device, timeout_s)
+        ones = {name: steps_case(None, p) for name, p in cases.items()}
+        noise = {name: self_noise(p, ones[name]["one"]) for name, p in cases.items()}
+        ranks = spawned.result()
+    out = {"ranks": n_ranks, "device": device}
+    for name, one in ones.items():
+        cmp = compare([r[name] for r in ranks], one, name)
+        cmp.update(rank_step_s=[r[name]["one"]["seconds"] for r in ranks],
+                   one_process_step_s=one["one"]["seconds"],
+                   fused_per_rank=ranks[0][name]["one"]["fused"], self_noise=noise[name])
+        out[name] = cmp
+    out["ok"] = all(out[name]["ok"] for name in ones)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="N data-parallel ranks equal one process")
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="ranks (default: every visible card, or 4 with --device cpu)")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--timeout", type=float, default=600.0)
+    ap.add_argument("--rank-worker", nargs=3, default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.rank_worker:
+        _rank_worker(*args.rank_worker)
+        return 0
+    ranks = args.ranks or (4 if args.device == "cpu" else torch.cuda.device_count())
+    out = dryrun(ranks, args.device, args.seed, args.timeout)
+    print(json.dumps(out))
+    return 0 if out["ok"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

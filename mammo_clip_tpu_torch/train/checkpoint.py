@@ -18,6 +18,11 @@ back.
 A step directory, sidecar included, is written under a temporary name and
 renamed into place, so a run stopped while writing leaves no partial step
 behind.
+
+Under data parallelism (``core/mesh.py``) every rank calls
+``save_checkpoint`` with the same state; rank 0 writes (the JAX package's
+``checkpoint.py:64`` gate) and a barrier follows, so that no rank reads or
+removes a step before it is whole. Every rank restores from the same files.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import Any, Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
+from ..core import mesh
 from ..core.config import Config
 
 PAYLOAD = "state.pt"
@@ -64,7 +70,15 @@ def save_checkpoint(
 ) -> None:
     """Write ``state`` at ``directory/<step>``, with ``extra_arrays`` (name ->
     array) in its ``arrays.npz``; keep the newest ``max_to_keep`` steps (all
-    when None)."""
+    when None). Under a process group rank 0 writes and every rank waits."""
+    if mesh.is_master():
+        _write(directory, state, config, step, extra_meta, max_to_keep, generators,
+               extra_arrays)
+    mesh.barrier()
+
+
+def _write(directory, state, config, step, extra_meta, max_to_keep, generators,
+           extra_arrays) -> None:
     directory = os.path.abspath(directory)
     step = int(state.step) if step is None else int(step)
     final = os.path.join(directory, str(step))

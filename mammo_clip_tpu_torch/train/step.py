@@ -8,6 +8,14 @@ step first reseeds that generator from (seed, state.step), as the JAX step
 folds the step count into its key: a step's draws then depend only on the seed
 and the step, which makes K fused steps equal to K single ones and a resumed
 run equal to an uninterrupted one.
+
+Under data parallelism (``core/mesh.py``) each rank runs this step on its own
+rows: the BatchNorm statistics and the loss span the global batch, and after
+the backward the ranks' gradients are averaged (``average_gradients``, one
+all-reduce per bucket) before the optimizer clips and applies them, so every
+rank takes the same update. Rank r folds r into its step seed, so that no two
+ranks draw the same augmentation, drop-connect or dropout; rank 0 draws what
+one process draws.
 """
 
 from __future__ import annotations
@@ -15,28 +23,64 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
+from ..core import mesh
 from .state import TrainState
 
+BUCKET_ELEMENTS = 1 << 24  # gradients flattened into buckets of at most this many
 
-def step_seed(seed: int, step: int) -> int:
-    """The generator seed of step ``step`` of a run seeded ``seed``."""
-    return (seed * 1_000_003 + step) % (2**63)
+
+def step_seed(seed: int, step: int, rank: int = 0) -> int:
+    """The generator seed of step ``step`` of a run seeded ``seed``, on rank ``rank``
+    (the rank moves the seed's low 32 bits, all that the CPU generator reads)."""
+    return (seed * 1_000_003 + step + rank * 1_000_000_007) % (2**63)
+
+
+@torch.no_grad()
+def average_gradients(params) -> None:
+    """Replace each gradient with its mean over the data-parallel ranks (nothing
+    with one rank): gradients of one dtype flattened into buckets of at most
+    ``BUCKET_ELEMENTS``, one all-reduce each. Every rank holds gradients for the
+    same parameters (the same graph runs on each)."""
+    ranks = mesh.world_size()
+    if ranks <= 1:
+        return
+    grads = [p.grad for p in params if p.grad is not None]
+    buckets, cur, n = [], [], 0
+    for g in grads:
+        if cur and (n + g.numel() > BUCKET_ELEMENTS or g.dtype != cur[0].dtype):
+            buckets.append(cur)
+            cur, n = [], 0
+        cur.append(g)
+        n += g.numel()
+    if cur:
+        buckets.append(cur)
+    for bucket in buckets:
+        flat = torch.cat([g.reshape(-1) for g in bucket])
+        dist.all_reduce(flat)
+        flat /= ranks
+        offset = 0
+        for g in bucket:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
 
 
 def make_train_step(model, loss_fn: Callable, preprocess: Optional[Callable] = None):
     """Returns ``step(state, batch, generator, seed=None) -> (state, loss_dict)``;
-    the loss dict holds detached scalars."""
+    the loss dict holds detached scalars (the ranks' mean under data
+    parallelism)."""
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator,
              seed: Optional[int] = None):
         if seed is not None:
-            generator.manual_seed(step_seed(seed, state.step))
+            generator.manual_seed(step_seed(seed, state.step, mesh.rank()))
         if preprocess is not None:
             batch = preprocess(batch, generator)
         outputs = model(batch, train=True, generator=generator)
         loss_dict = loss_fn(outputs, batch, True)
         loss_dict["total"].backward()
+        average_gradients(state.optimizer.params)
         state.apply_gradients()
         return state, {k: v.detach() for k, v in loss_dict.items()}
 

@@ -8,6 +8,15 @@ restores the optimizer state, the EMA and the best validation loss so far;
 a checkpoint flushed on SIGTERM resumes inside its epoch, skipping the batches
 already trained. One process drives one device.
 
+Under data parallelism (``core/mesh.py``: one process per card, each with its
+rank's batches) the ranks start from rank 0's parameters and buffers, take the
+same updates (``train/step.py``), validate on their own strided shards with
+the losses averaged over the ranks, and agree after every step whether any of
+them was sent SIGTERM, so that all flush the same checkpoint and return
+together (a rank that stopped alone would leave the others waiting in a
+collective). Rank 0 writes the checkpoints, ``best/``, the metrics and the
+profiler trace (the JAX trainer's ``is_master()`` gates); every rank restores.
+
 ``warm_start_from`` seeds a flagship (``tpu_optimized``) run from a
 reference-exact checkpoint, anything ``eval/loading.py`` loads (a port
 ``best/`` or run directory, or a reference ``.tar``), through
@@ -30,6 +39,7 @@ from typing import Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from ..core import mesh
 from ..core.config import Config
 from ..losses import build_loss
 from ..models import build_model
@@ -69,6 +79,12 @@ def make_clip_preprocess(cfg: Config) -> Callable:
     return preprocess
 
 
+def _say(text: str) -> None:
+    """Print on rank 0 only (the one process without a process group)."""
+    if mesh.is_master():
+        print(text)
+
+
 def _finite_or_none(x):
     """JSON-safe best-val: meta.json must stay standard JSON (no Infinity)."""
     x = float(x)
@@ -99,9 +115,13 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.model = build_model(cfg.model.to_dict(), dtype=dtype, device=self.device,
                                  generator=gen)
+        if mesh.world_size() > 1:  # every rank starts from rank 0's tensors
+            with torch.no_grad():
+                for t in [*self.model.parameters(), *self.model.buffers()]:
+                    torch.distributed.broadcast(t.data, 0)
         self.loss_fn = build_loss(cfg.loss.to_dict())
         self.preprocess = make_clip_preprocess(cfg)
-        self.logger = MetricsLogger(workdir, enabled=True)
+        self.logger = MetricsLogger(workdir, enabled=mesh.is_master())
         self._schedule = None
 
     def _build_state(self, steps_per_epoch: int, lr_scale: float = 1.0):
@@ -160,8 +180,8 @@ class Trainer:
         if warm_start_from:
             state, names = self.warm_start(state, warm_start_from)
             n_all = len(self.model.state_dict())
-            print(f"warm-started from {warm_start_from}: {len(names)} of {n_all} tensors "
-                  f"seeded, {n_all - len(names)} kept fresh")
+            _say(f"warm-started from {warm_start_from}: {len(names)} of {n_all} tensors "
+                 f"seeded, {n_all - len(names)} kept fresh")
         gen = torch.Generator(device=self.device)
         ckpt_dir, best_dir = f"{self.workdir}/checkpoints", f"{self.workdir}/best"
         start_epoch, skip_batches, best_val = 0, 0, np.inf
@@ -188,8 +208,8 @@ class Trainer:
                 # cannot overwrite best/ with a worse checkpoint
                 if meta.get("best_val") is not None:
                     best_val = float(meta["best_val"])
-                print(f"resumed from epoch {start_epoch} (step {state.step})"
-                      + (f", skipping {skip_batches} trained batches" if skip_batches else ""))
+                _say(f"resumed from epoch {start_epoch} (step {state.step})"
+                     + (f", skipping {skip_batches} trained batches" if skip_batches else ""))
 
         make = make_train_multistep if K > 1 else make_train_step
         train_step = make(self.model, self.loss_fn, preprocess=self.preprocess)
@@ -235,7 +255,8 @@ class Trainer:
                         if epoch == start_epoch and i * K < skip_batches:
                             continue  # trained before the preemption
                         step_now = state.step
-                        if prof is None and prof_at >= 0 and step_now <= prof_at < step_now + K:
+                        if (prof is None and prof_at >= 0 and step_now <= prof_at < step_now + K
+                                and mesh.is_master()):
                             os.makedirs(f"{self.workdir}/profile", exist_ok=True)
                             acts = [torch.profiler.ProfilerActivity.CPU]
                             if self.device.type == "cuda":
@@ -248,16 +269,16 @@ class Trainer:
                             prof_left -= 1
                             if prof_left == 0:
                                 stop_profile()
-                        shape = batch["images"].shape
-                        n_imgs += shape[0] * shape[1] if K > 1 else shape[0]
-                        if preempted["flag"]:
+                        shape = batch["images"].shape  # this rank's; every rank's alike
+                        n_imgs += (shape[0] * shape[1] if K > 1 else shape[0]) * mesh.world_size()
+                        if mesh.any_rank(preempted["flag"], self.device):
                             if prof is not None:
                                 stop_profile()
                             save_checkpoint(ckpt_dir, state, config=cfg.to_dict(),
                                             extra_meta={"epoch": epoch, "preempted": True,
                                                         "best_val": _finite_or_none(best_val)},
                                             generators={"step": gen})
-                            print(f"SIGTERM: checkpoint flushed at step {state.step}")
+                            _say(f"SIGTERM: checkpoint flushed at step {state.step}")
                             return state
                         if ((i + 1) * K) // log_every > (i * K) // log_every:
                             now = time.time()
@@ -280,7 +301,8 @@ class Trainer:
                                     sums.setdefault(k, []).append(float(v))
                     finally:
                         _close(vb)
-                    val_metrics = {k: float(np.mean(v)) for k, v in sums.items()}
+                    val_metrics = mesh.mean_over_ranks(
+                        {k: float(np.mean(v)) for k, v in sums.items()}, self.device)
                     self.logger.log(state.step, {f"loss/{k}": v for k, v in val_metrics.items()},
                                     prefix="valid")
 
@@ -297,8 +319,8 @@ class Trainer:
                                 extra_meta={"epoch": epoch + 1, "val": val_metrics,
                                             "best_val": _finite_or_none(best_val)},
                                 generators={"step": gen})
-                print(f"epoch {epoch + 1}/{epochs} done in {time.time() - t_epoch:.1f}s "
-                      f"val={val_metrics.get(key, float('nan')):.4f} best={best_val:.4f}")
+                _say(f"epoch {epoch + 1}/{epochs} done in {time.time() - t_epoch:.1f}s "
+                     f"val={val_metrics.get(key, float('nan')):.4f} best={best_val:.4f}")
             if prof is not None:  # the window crossed the end of training
                 stop_profile()
         finally:

@@ -1,9 +1,9 @@
 """Metrics logging (port of ``mammo_clip_tpu/utils/logging.py``).
 
 Losses return their sub-terms and the trainer logs them here. The logger is
-plain and constructed with ``enabled`` (the JAX callers pass ``is_master()``;
-the port runs one process: the trainer passes ``True``, the classifier loop
-whether it has a workdir); a disabled logger writes nothing.
+plain and constructed with ``enabled``: the callers pass ``is_master()``
+(``core/mesh.py``: rank 0 under data parallelism, else the one process), the
+classifier loop also whether it has a workdir; a disabled logger writes nothing.
 
 Backends, as in JAX: TensorBoard events under ``<workdir>/tensorboard/<prefix>``
 when ``torch.utils.tensorboard`` imports (a lazy import in ``__init__``: the

@@ -56,7 +56,8 @@ def test_port_imports_without_jax_and_host_extras():
                  "models.vit", "models.swin", "models.resnet", "interpret",
                  "interpret.factor", "cli.factor", "ops.quant", "utils.export",
                  "utils.profiling", "cli.export", "examples", "examples.get_embeddings",
-                 "examples.downstream_classifier"):
+                 "examples.downstream_classifier", "core.mesh", "ops.batchnorm",
+                 "parallel", "parallel.shard_loss", "parallel.dryrun"):
         assert f"mammo_clip_tpu_torch.{name}" in mods
     assert len(mods) > 30
     code = textwrap.dedent(f"""

@@ -185,7 +185,7 @@ def test_card_path_launches_only_the_e1_forms_passes(monkeypatch, name):
     before = dict(launches.counts)
     xr = x.detach().requires_grad_(True)
     dr = delta.clone().requires_grad_(True)
-    out, *stats = _FusedMBConvE1.apply(xr, dr, EPS, *p)
+    out, *stats = _FusedMBConvE1.apply(xr, dr, EPS, None, *p)
     assert out.shape == (N, c2, H, W) and len(stats) == 4
     n_fwd = len(passes)
     out.backward(w_out)
@@ -194,10 +194,11 @@ def test_card_path_launches_only_the_e1_forms_passes(monkeypatch, name):
     assert ids[:n_fwd] == [mbconv6.F2, mbconv6.F3, mbconv6.F4, mbconv6.OUT]
     assert ids[n_fwd:] == [mbconv6.B1, mbconv6.BWD_V, mbconv6.BWD_X]
     for args in passes:
-        # pass, 33 pointers, eps, the form and its 9 shape ints, the device, the stream
-        expand, bf16, n, c, e, cc2, h, w, vh, vw = args[35:45]
-        assert (expand, bf16, n, c, e, cc2, h, w, vh, vw) == (0, 0, N, x.shape[1], x.shape[1],
-                                                              c2, H, W, H, W)
+        # pass, 34 pointers, eps, the form and its 9 shape ints, the ranks, the device,
+        # the stream
+        expand, bf16, n, c, e, cc2, h, w, vh, vw, ranks = args[36:47]
+        assert (expand, bf16, n, c, e, cc2, h, w, vh, vw, ranks) == (
+            0, 0, N, x.shape[1], x.shape[1], c2, H, W, H, W, 1)
     counts = {k: v - before[k] for k, v in launches.counts.items()}
     assert counts == {**dict.fromkeys(counts, 0), "mbconv1.forward": 1, "mbconv1.backward": 1}
     assert not dr.grad.any()

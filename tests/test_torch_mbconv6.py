@@ -304,7 +304,7 @@ def test_mbconv6_launcher_signatures_match_the_c_interface(src, prefix):
     if prefix == "m6_":
         last = [" ".join(q.split()) for q in protos["m6_pass"].split(",")][-2:]
         assert last == ["int device", "void* stream"]
-        assert len(mbconv6._PTRS) == 33 == cuda_lib.SIGNATURES["m6_pass"].count(
+        assert len(mbconv6._PTRS) == 34 == cuda_lib.SIGNATURES["m6_pass"].count(
             cuda_lib.ctypes.c_void_p) - 1
 
 

@@ -1,0 +1,527 @@
+"""Data parallelism of the port (``core/mesh.py``, ``parallel/``) against one
+process and against the JAX package's data mesh.
+
+Four gloo CPU ranks are spawned once for the file
+(``parallel/dryrun.py::run_ranks``, with a timeout on the spawn and on
+``init_process_group``); each runs ``tests/torch_parallel_ranks.py::parity``
+and returns its numbers here, while this process computes the JAX side on the
+conftest's virtual CPU devices. What the ranks run:
+
+* the tiny CLIP (b0 at 64x64, 2-layer BERT, fp32, fused route on: its plain
+  version with the cross-rank hook) at 2 rows a rank, from the JAX package's
+  initial variables (``convert/from_jax.py``), augmentation, dropout and
+  drop-connect off: one step, and one K=2 call from the same state. Held to
+  the port's one-process step on the global batch of 8 (loss 1e-5 relative,
+  parameters and EMA 1e-6 absolute, BatchNorm running statistics 1e-4, the
+  averaged gradients 1e-4 per tensor with a least-squares scale of 1 to 1e-4:
+  ``dryrun.compare``), and the step to the JAX step on a 4-device data mesh
+  (``MeshContext.create(data=4)`` with ``shard_train_state``; JAX on its Flax
+  route) at ``tests/test_torch_train.py``'s tolerances (losses 1e-4 relative
+  and 1e-5 absolute, parameters 1e-5, BatchNorm statistics 1e-4), AdamW's eps
+  at 1e-3 as there;
+* ``gathered_clip_loss`` on its rows of 8 embeddings, against
+  ``shard_map_clip_loss`` on a 4-device JAX mesh (and the single-pair loss
+  against JAX's over the global batch): the loss terms (1e-6) and
+  the gradients with respect to each rank's rows (1e-6 after the division by
+  the 4 ranks: each rank differentiates its own term, whose gathered
+  cotangents sum over the ranks, and the ranks' parameter gradients are
+  averaged after the backward);
+* the fused block's plain version in both forms on a 2-rank group, against
+  the whole-batch call (out, stats, dx and the ranks' summed parameter
+  gradients, 1e-5);
+* the augmentation and drop-connect draws of each rank's step 0.
+"""
+
+import dataclasses
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+import mammo_clip_tpu.models.clip as jax_clip
+from mammo_clip_tpu.core.config import tiny_test_config as jax_tiny_config
+from mammo_clip_tpu.core.mesh import MeshContext as JaxMeshContext
+from mammo_clip_tpu.data.pipeline import Batcher as JaxBatcher
+from mammo_clip_tpu.data.tokenizer import HashTokenizer as JaxHashTokenizer
+from mammo_clip_tpu.losses import build_loss as jax_build_loss
+from mammo_clip_tpu.losses import contrastive_clip_loss as jax_contrastive_clip_loss
+from mammo_clip_tpu.models import build_model as jax_build_model
+from mammo_clip_tpu.ops import augment as jax_aug
+from mammo_clip_tpu.parallel import shard_train_state
+from mammo_clip_tpu.parallel.shard_loss import shard_map_clip_loss
+from mammo_clip_tpu.train import build_optimizer as jax_build_optimizer
+from mammo_clip_tpu.train import create_train_state as jax_create_train_state
+from mammo_clip_tpu.train import make_train_step as jax_make_train_step
+from mammo_clip_tpu.train import warmup_cosine_sq_schedule as jax_schedule
+from mammo_clip_tpu_torch.convert.from_jax import state_dict_from_jax
+from mammo_clip_tpu_torch.core import mesh
+from mammo_clip_tpu_torch.data.pipeline import Batcher
+from mammo_clip_tpu_torch.data.tokenizer import HashTokenizer
+from mammo_clip_tpu_torch.ops.mbconv import MBConvParams, _bn, batch_stats
+from mammo_clip_tpu_torch.ops.mbconv6 import MBConv6Params, plain_fused_mbconv_e6
+from mammo_clip_tpu_torch.parallel import dryrun
+from mammo_clip_tpu_torch.train.step import step_seed
+
+RANKS, B, SEED = 4, 2, 0
+WORKERS = str(Path(__file__).with_name("torch_parallel_ranks.py"))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """1 intra-op thread: the suite runs its files in parallel processes, and
+    torch's default of one thread per core in each oversubscribes the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _norm(x):
+    return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+def _fused_cases():
+    """A small e6 case (with a pad region) and an e=1 case with its residual,
+    4 images each: the inputs, parameters and output weights as numpy."""
+    rng = np.random.default_rng(5)
+    f = lambda *s: (0.5 * rng.standard_normal(s)).astype(np.float32)
+    cases = {}
+    for form, (c, e, c2, h, w, vh, vw) in {"e6": (8, 48, 8, 16, 16, 13, 11),
+                                            "e1": (8, 8, 8, 16, 16, 16, 16)}.items():
+        x = np.zeros((4, c, h, w), np.float32)
+        x[:, :, :vh, :vw] = f(4, c, vh, vw)
+        common = dict(dw_kernel=f(e, 3, 3), gamma1=1 + 0.1 * f(e), beta1=0.1 * f(e),
+                      se_w1=f(e, 2), se_b1=0.1 * f(2), se_w2=f(2, e), se_b2=0.1 * f(e),
+                      wp=f(e, c2) / np.sqrt(e), gamma2=1 + 0.1 * f(c2), beta2=0.1 * f(c2))
+        if form == "e6":
+            common.update(we=f(c, e) / np.sqrt(c), gamma0=1 + 0.1 * f(e), beta0=0.1 * f(e))
+        common = {k: v.astype(np.float32) for k, v in common.items()}
+        cases[form] = {"x": x, "params": common, "delta": np.array([1.25, 0, 1.25, 1], np.float32),
+                       "w": f(4, c2, h, w), "vh": vh, "vw": vw}
+    return cases
+
+
+def _jax_cfg():
+    cfg = jax_tiny_config()
+    cfg.model.image_encoder.drop_connect_rate = 0.0
+    cfg.optimizer.update(lr=1e-3, eps=1e-3, grad_clip_norm=1.0)
+    return cfg
+
+
+def _embeddings():
+    rng = np.random.default_rng(11)
+    return {k: _norm(rng.standard_normal((RANKS * B, 16))).astype(np.float32)
+            for k in ("i1", "t1", "i2", "t2")}
+
+
+class _NoDropout:
+    """The JAX BERT without dropout (its config ignores the port's knob)."""
+
+    def __enter__(self):
+        self.orig = orig = jax_clip.bert_config_from_model_config
+        jax_clip.bert_config_from_model_config = lambda mc: dataclasses.replace(
+            orig(mc), dropout_rate=0.0)
+
+    def __exit__(self, *exc):
+        jax_clip.bert_config_from_model_config = self.orig
+
+
+def _jax_state(host):
+    """The JAX package's tiny CLIP, its train state on a 4-device data mesh and
+    the step's pieces."""
+    cfg = _jax_cfg()
+    with _NoDropout():
+        model = jax_build_model(cfg.model.to_dict())
+    tx = jax_build_optimizer(cfg.optimizer.to_dict(), jax_schedule(1e-3, 100, 0))
+    ctx = JaxMeshContext.create(data=RANKS, devices=jax.devices()[:RANKS])
+    batch = ctx.shard_host_batch(host[0])
+    state = jax_create_train_state(model, batch, tx, jax.random.PRNGKey(0), ema_decay=0.9)
+    return cfg, model, ctx, batch, state
+
+
+def _jax_step(cfg, model, ctx, batch, state):
+    """One JAX step (Flax route) on the data mesh: its losses and the state after it."""
+    mean, std = cfg.data.mean, cfg.data.std
+
+    def normalize(b, rng):
+        b = dict(b)
+        for k in ("images", "image_views"):
+            b[k] = jax_aug.minmax_standardize(b[k], mean, std)
+        return b
+
+    with _NoDropout():
+        step = jax_make_train_step(model, jax_build_loss(cfg.loss.to_dict()),
+                                   preprocess=normalize, donate=False)
+        new, losses = step(shard_train_state(state, ctx.mesh), batch, jax.random.PRNGKey(1))
+    after = jax.tree_util.tree_map(np.asarray, {
+        "params": new.params, "batch_stats": new.batch_stats, "ema": new.ema_params})
+    return after, {k: float(v) for k, v in losses.items()}
+
+
+@pytest.fixture(scope="module")
+def ranks():
+    """The ranks' results, the one-process steps, the payload and the JAX step;
+    the JAX step and the one process run here while the ranks run."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    host = dryrun.host_batches(dryrun.tiny_dp_config(SEED), RANKS * B, SEED)
+    jax_parts = _jax_state(host)
+    state = jax_parts[-1]
+    init = jax.tree_util.tree_map(np.asarray, {"params": state.params,
+                                               "batch_stats": state.batch_stats})
+    cfg = dryrun.tiny_dp_config(SEED)
+    steps = {"cfg": cfg.to_dict(), "batches": host, "sample": False,
+             "init": {k: v.clone() for k, v in state_dict_from_jax(init).items()}}
+    draw_cfg = dryrun.tiny_dp_config(SEED)
+    draw_cfg.augment.update(affine_p=1.0, elastic_p=1.0)
+    emb = _embeddings()
+    payload = {"steps": steps,
+               "loss": {**emb, "scale": np.float32(14.2857), "smoothing": 0.1},
+               "fused": {"ranks": 2, "cases": _fused_cases()},
+               "draws": {"cfg": draw_cfg.to_dict(), "seed": SEED,
+                         "batch": {k: v[:2] for k, v in host[0].items()
+                                   if k in ("images", "image_views")}},
+               "timeout_s": 120.0}
+    with ThreadPoolExecutor(1) as pool:
+        spawned = pool.submit(dryrun.run_ranks, RANKS, f"{WORKERS}:parity", payload,
+                              device="cpu", timeout_s=400.0)
+        jax_after = _jax_step(*jax_parts)
+        one = dryrun.steps_case(None, steps)
+        out = spawned.result()
+    return out, one, payload, jax_after
+
+
+def test_four_ranks_equal_one_process(ranks):
+    """One step and one K=2 call on 4 ranks of 2 rows equal the one-process
+    step and K=2 call on the global batch of 8 (the one process's K=2 call
+    equal to its two single steps), the same bits on every rank."""
+    out, one, _, _ = ranks
+    cmp = dryrun.compare([r["steps"] for r in out], one)
+    assert cmp["same_bits_across_ranks"], cmp
+    assert cmp["ok"], cmp
+    assert abs(cmp["grad_scale"] - 1.0) <= 1e-4, cmp  # neither 4x too large nor too small
+    assert out[0]["steps"]["one"]["step"] == 1 and out[0]["steps"]["k2"]["step"] == 2
+
+
+def test_dp_step_matches_the_jax_data_mesh_step(ranks):
+    """Rank 0 after one DP step (fused route, plain version with the hook)
+    against the JAX step on a 4-device data mesh (Flax route)."""
+    out, _, _, (after, losses) = ranks
+    got = out[0]["steps"]["one"]
+    for k, v in losses.items():
+        np.testing.assert_allclose(got["losses"][k], v, rtol=1e-4, atol=1e-5, err_msg=k)
+    want = {k: v.numpy().reshape(-1) for k, v in state_dict_from_jax(
+        {"params": after["params"], "batch_stats": after["batch_stats"]}).items()}
+    ema = {k: v.numpy().reshape(-1) for k, v in state_dict_from_jax(
+        {"params": after["ema"], "batch_stats": after["batch_stats"]}).items()}
+    assert set(got["params"]) | set(got["buffers"]) == set(want)
+    for k, g in got["params"].items():
+        np.testing.assert_allclose(g, want[k], rtol=0, atol=1e-5, err_msg=k)
+        np.testing.assert_allclose(got["ema"][k], ema[k], rtol=0, atol=1e-5, err_msg=k)
+    for k, g in got["buffers"].items():
+        np.testing.assert_allclose(g, want[k], rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+def test_gathered_loss_matches_shard_map_clip_loss(ranks):
+    """Each rank's loss terms equal ``shard_map_clip_loss``'s on a 4-device
+    mesh, and its gradients over 4 (see the module docstring) equal JAX's with
+    respect to the rank's rows; the single-pair (ConVIRT) loss likewise against
+    JAX's ``contrastive_clip_loss`` over the global batch."""
+    out, _, payload, _ = ranks
+    p = payload["loss"]
+    jmesh = JaxMeshContext.create(data=RANKS, devices=jax.devices()[:RANKS]).mesh
+    keys = ("contrastive", "i2t", "t2i", "i2i", "t2t")
+    fn = jax.shard_map(
+        lambda a, b, c, d: shard_map_clip_loss(
+            a, b, jnp.float32(p["scale"]), text_embeddings2=d, image_view_embeddings=c,
+            label_smoothing=p["smoothing"]),
+        mesh=jmesh, in_specs=(P("data"),) * 4, out_specs={k: P() for k in keys})
+    args = [jnp.asarray(p[k]) for k in ("i1", "t1", "i2", "t2")]
+    want = jax.jit(fn)(*args)
+    grads = jax.jit(jax.grad(lambda *a: fn(*a)["contrastive"], argnums=(0, 1, 2, 3)))(*args)
+    single = lambda a, b: jax_contrastive_clip_loss(a, b, jnp.float32(p["scale"]),
+                                                    label_smoothing=p["smoothing"])
+    want1 = jax.jit(single)(*args[:2])
+    grads1 = jax.jit(jax.grad(lambda *a: single(*a)["contrastive"], argnums=(0, 1)))(*args[:2])
+    for r, res in enumerate(out):
+        rows = slice(r * B, (r + 1) * B)
+        for name, w, g, ks in (("multi", want, grads, keys),
+                               ("single", want1, grads1, ("contrastive", "i2t", "t2i"))):
+            got = res["loss"][name]
+            for k in ks:
+                np.testing.assert_allclose(got["losses"][k], float(w[k]), rtol=1e-6, err_msg=k)
+            for e, ge in zip(("i1", "t1", "i2", "t2"), g):
+                np.testing.assert_allclose(got["grads"][e] / RANKS, np.asarray(ge)[rows],
+                                           rtol=1e-5, atol=1e-6, err_msg=f"{name} {e}")
+
+
+@pytest.mark.parametrize("form", ["e6", "e1"])
+def test_fused_plain_version_on_two_ranks_equals_the_whole_batch(ranks, form):
+    """The fused block's plain version on 2 ranks of 2 images with the
+    cross-rank hook equals the call on all 4: out and dx row by row, the
+    statistics on each rank, the ranks' parameter gradients summed."""
+    out, _, payload, _ = ranks
+    case = payload["fused"]["cases"][form]
+    cls = MBConv6Params if form == "e6" else MBConvParams
+    x = torch.tensor(case["x"], requires_grad=True)
+    p = cls(*[torch.tensor(case["params"][f], requires_grad=True) for f in cls._fields])
+    y, stats = plain_fused_mbconv_e6(x, p, torch.tensor(case["delta"]), case["vh"], case["vw"])
+    (y * torch.tensor(case["w"])).sum().backward()
+    got = [out[r]["fused"][form] for r in range(2)]
+    assert out[2]["fused"] == {} and out[3]["fused"] == {}
+    close = lambda a, b, name: np.testing.assert_allclose(a, b.detach().numpy(), rtol=1e-5,
+                                                          atol=1e-5, err_msg=name)
+    close(np.concatenate([g["out"] for g in got]), y, "out")
+    close(np.concatenate([g["dx"] for g in got]), x.grad, "dx")
+    for g in got:
+        for i, s in enumerate(stats):
+            close(g["stats"][i], s, f"stat{i}")
+    for f, t in zip(cls._fields, p):
+        close(got[0]["grads"][f] + got[1]["grads"][f], t.grad, f)
+
+
+@pytest.mark.parametrize("form", ["e6", "e1"])
+def test_fused_plain_version_without_a_hook_keeps_its_bits(form):
+    """With no process group the plain version is the one-process function, bit
+    for bit: the batch statistics and BatchNorm as they were written before the
+    hook existed (``batch_stats``, ``_bn``)."""
+    import torch.nn.functional as F
+
+    from mammo_clip_tpu_torch.ops.mbconv import _se_gate, depthwise3x3
+
+    case = _fused_cases()[form]
+    cls = MBConv6Params if form == "e6" else MBConvParams
+    p = cls(*[torch.tensor(case["params"][f]) for f in cls._fields])
+    x, delta = torch.tensor(case["x"]), torch.tensor(case["delta"])
+    vh, vw, eps = case["vh"], case["vw"], 1e-3
+    xf = x[:, :, :vh, :vw].float()
+    stats = []
+    if form == "e6":
+        z = torch.einsum("nchw,ce->nehw", xf, p.we)
+        m0, v0 = batch_stats(z)
+        stats += [m0, v0]
+        d = depthwise3x3(F.silu(_bn(z, m0, v0, p.gamma0, p.beta0, eps)), p.dw_kernel)
+    else:
+        d = depthwise3x3(xf, p.dw_kernel)
+    m1, v1 = batch_stats(d)
+    v = F.silu(_bn(d, m1, v1, p.gamma1, p.beta1, eps))
+    u = v * _se_gate(v.mean(dim=(2, 3)), p)[0][:, :, None, None]
+    yy = torch.einsum("nehw,ec->nchw", u, p.wp)
+    m2, v2 = batch_stats(yy)
+    want = delta[:, None, None, None] * _bn(yy, m2, v2, p.gamma2, p.beta2, eps) + xf
+    want = F.pad(want, (0, x.shape[3] - vw, 0, x.shape[2] - vh))
+    out, got_stats = plain_fused_mbconv_e6(x, p, delta, vh, vw, eps)
+    assert torch.equal(out, want)
+    for a, b in zip(got_stats, stats + [m1, v1, m2, v2]):
+        assert torch.equal(a, b)
+
+
+def test_ranks_draw_differently_and_rank_zero_as_one_process(ranks):
+    """Rank r folds r into its step seed: no two ranks draw the same affine and
+    elastic augmentation or drop-connect, and rank 0 draws what one process
+    draws."""
+    from mammo_clip_tpu_torch.core.config import Config
+    from mammo_clip_tpu_torch.ops.stochastic import drop_delta
+    from mammo_clip_tpu_torch.train.trainer import make_clip_preprocess
+
+    out, _, payload, _ = ranks
+    d = [r["draws"] for r in out]
+    for a in range(RANKS):
+        for b in range(a + 1, RANKS):
+            for k in ("images", "views", "delta"):
+                assert not np.array_equal(d[a][k], d[b][k]), (a, b, k)
+    p = payload["draws"]
+    gen = torch.Generator().manual_seed(step_seed(p["seed"], 0))
+    batch = make_clip_preprocess(Config(p["cfg"]))(
+        {k: torch.tensor(v) for k, v in p["batch"].items()}, gen)
+    assert np.array_equal(d[0]["images"], batch["images"].numpy())
+    assert np.array_equal(d[0]["delta"], drop_delta(16, 0.5, gen, "cpu").numpy())
+    assert step_seed(7, 3) == step_seed(7, 3, 0) == (7 * 1_000_003 + 3)
+
+
+class _Rows:
+    def __len__(self):
+        return 70
+
+    def __getitem__(self, i):
+        return {"image": np.full((4, 3), i % 256, np.uint8), "text": f"row {i}", "label": i}
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_batcher_shards_are_disjoint_complete_and_jax_s(weighted):
+    """Rank r's Batcher walks ``order[r::P]`` of the epoch's order, as JAX's
+    ``Batcher(process_index=r, process_count=P)``; without weights the ranks'
+    slices are disjoint and cover the epoch, every rank yields ``len()``
+    batches of its own batch size, and each batch equals JAX's."""
+    weights = np.linspace(1.0, 2.0, 70) if weighted else None
+    ours = [Batcher(_Rows(), HashTokenizer(vocab_size=128), batch_size=3, max_length=8, seed=4,
+                    sample_weights=weights, process_index=r, process_count=RANKS)
+            for r in range(RANKS)]
+    theirs = [JaxBatcher(_Rows(), JaxHashTokenizer(vocab_size=128), batch_size=3, max_length=8,
+                         seed=4, sample_weights=weights, process_index=r, process_count=RANKS)
+              for r in range(RANKS)]
+    for b in ours + theirs:
+        b.set_epoch(2)
+    idx = [b._indices() for b in ours]
+    for a, t in zip(idx, [b._indices() for b in theirs]):
+        np.testing.assert_array_equal(a, t)
+    if not weighted:
+        assert sorted(np.concatenate(idx).tolist()) == list(range(70))
+    assert all(len(b) == 70 // RANKS // 3 == 5 for b in ours)
+    for o, t in zip(ours, theirs):
+        got, want = list(o), list(t)[:len(o)]  # JAX may yield one more (R12, below)
+        assert len(got) == len(o) == len(want)
+        for g, w in zip(got, want):
+            assert g.keys() == w.keys()
+            for k in g:
+                np.testing.assert_array_equal(g[k], w[k])
+
+
+def test_r12_jax_ranks_yield_unequal_batch_counts_the_port_s_do_not():
+    """Fault R12 of the reference: ``mammo_clip_tpu/data/pipeline.py::Batcher``
+    yields ``len(order[p::P]) // batch_size`` batches (``__iter__``), which
+    differs between processes when P does not divide the epoch: 70 rows, 4
+    processes, batch 3 give 6, 6, 5 and 5, while ``__len__`` says 5, so processes
+    0-1 would enter a sixth step whose collectives the others never join. Every
+    rank of the port yields ``len()`` batches."""
+    tok = HashTokenizer(vocab_size=128)
+    jax_counts = [len(list(JaxBatcher(_Rows(), JaxHashTokenizer(vocab_size=128), batch_size=3,
+                                      max_length=8, process_index=r, process_count=RANKS)))
+                  for r in range(RANKS)]
+    port_counts = [len(list(Batcher(_Rows(), tok, batch_size=3, max_length=8, process_index=r,
+                                    process_count=RANKS))) for r in range(RANKS)]
+    assert jax_counts == [6, 6, 5, 5]
+    assert port_counts == [5, 5, 5, 5]
+
+
+def test_r11_the_jax_cli_batch_is_p_times_global_the_port_s_is_not():
+    """Fault R11 of the reference: ``mammo_clip_tpu/cli/pretrain.py:44-46`` gives
+    each process's Batcher ``ctx.global_batch_size(b)`` rows, which counts every
+    process's devices (``core/mesh.py:134-140``), while its own multi-process
+    test treats ``Batcher.batch_size`` as per process: with 2 processes one step
+    draws 2x the global batch. The port's CLI gives each rank ``b`` rows: P x b."""
+    b = 2
+    ctx = JaxMeshContext.create()  # the 8 conftest devices: global batch 8b
+    rows = [next(iter(JaxBatcher(_Rows(), JaxHashTokenizer(vocab_size=128),
+                                 batch_size=ctx.global_batch_size(b), max_length=8,
+                                 process_index=p, process_count=2)))["images"].shape[0]
+            for p in range(2)]
+    assert sum(rows) == 2 * ctx.global_batch_size(b) == 32
+    port = [next(iter(Batcher(_Rows(), HashTokenizer(vocab_size=128), batch_size=b,
+                              max_length=8, process_index=p, process_count=2)))["images"].shape[0]
+            for p in range(2)]
+    pctx = mesh.MeshContext(shape=mesh.make_mesh(ranks=2), rank=0,
+                            device=torch.device("cpu"))
+    assert sum(port) == pctx.global_batch_size(b) == 2 * b
+
+
+def test_mesh_axes_and_refusals():
+    """``make_mesh`` absorbs the ranks into ``data`` (``replica`` another batch
+    axis), refuses a mesh that does not cover them and ``model > 1`` (the next
+    slice); with no process group the context is one rank, no collective."""
+    assert mesh.make_mesh(ranks=4) == {"replica": 1, "data": 4, "model": 1}
+    assert mesh.make_mesh(replica=2, ranks=4) == {"replica": 2, "data": 2, "model": 1}
+    with pytest.raises(ValueError):
+        mesh.make_mesh(data=3, ranks=4)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        mesh.make_mesh(model=2, ranks=4)
+    ctx = mesh.MeshContext.create(device="cpu", env={})
+    assert (ctx.rank, ctx.process_count, ctx.global_batch_size(3)) == (0, 1, 3)
+    assert mesh.data_sum() is None and mesh.is_master() and mesh.world_size() == 1
+    batch = ctx.shard_host_batch({"ids": np.arange(6, dtype=np.int32).reshape(3, 2)})
+    assert batch["ids"].dtype == torch.int64 and batch["ids"].shape == (3, 2)
+
+
+@pytest.mark.parametrize("hooked", [True, False])
+@pytest.mark.parametrize("form", ["e6", "e1"])
+def test_kernel_path_sums_the_batch_sums_between_passes(monkeypatch, form, hooked):
+    """The fused wrapper's kernel path, driven here on CPU tensors against a fake
+    library (as ``tests/test_torch_mbconv1.py`` does): the passes run in their
+    split order (moments, then bn0; bwd_x, then bn0_bwd), and with a cross-rank
+    hook the hook sums exactly the batch sums a later pass reads (x's moments,
+    bn1's and bn2's sums; bn2's backward sums, bn1's, bn0's) while every pass
+    gets the hook's ranks and bwd_x bn1's summed sums (``sb1``). Without one,
+    nothing is summed, the ranks are 1 and ``sb1`` is null: the one-process
+    passes on the one-process inputs.""" 
+    from mammo_clip_tpu_torch.ops import cuda_lib, mbconv6
+
+    passes = []
+
+    class Lib:
+        def __getattr__(self, fn):
+            return lambda *args: (passes.append(args), 0)[1]
+
+    monkeypatch.setattr(cuda_lib, "load", Lib)
+    monkeypatch.setattr(cuda_lib, "_raw_stream", None)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda d: 0, raising=False)
+    monkeypatch.setattr(mbconv6, "_m6_pass", cuda_lib.launcher("m6_pass"))
+    monkeypatch.setattr(mbconv6, "_scratch_floats", lambda ints: 4096)
+    case = _fused_cases()[form]
+    cls = MBConv6Params if form == "e6" else MBConvParams
+    p = [torch.tensor(case["params"][f], requires_grad=True) for f in cls._fields]
+    x = torch.tensor(case["x"], requires_grad=True)
+    summed = []
+
+    class Hook:
+        ranks = 3
+
+        def __call__(self, t):
+            summed.append(t.numel())
+            return t
+
+    out, *_ = mbconv6._FusedMBConv.apply(x, torch.tensor(case["delta"]), case["vh"], case["vw"],
+                                          1e-3, cls, Hook() if hooked else None, *p)
+    n_fwd = len(passes)
+    out.backward(torch.ones_like(out))
+    ids = [a[0] for a in passes]
+    ep, c2p, cp, e = 48 if form == "e6" else 16, 8, 16, 48 if form == "e6" else 8
+    if form == "e6":
+        assert ids == [mbconv6.MOMENTS, mbconv6.BN0, mbconv6.F2, mbconv6.F3, mbconv6.F4,
+                       mbconv6.OUT, mbconv6.B1, mbconv6.BWD_V, mbconv6.BWD_X, mbconv6.BN0_BWD,
+                       mbconv6.DX]
+        want = [cp + cp * cp, 2 * ep, 2 * c2p, 2 * c2p, 2 * e, 2 * ep]
+    else:
+        assert ids == [mbconv6.F2, mbconv6.F3, mbconv6.F4, mbconv6.OUT, mbconv6.B1,
+                       mbconv6.BWD_V, mbconv6.BWD_X]
+        want = [2 * ep, 2 * c2p, 2 * c2p, 2 * e]
+    assert summed == (want if hooked else [])
+    sb1 = 1 + mbconv6._PTRS.index("sb1")
+    for args in passes:
+        assert args[46] == (3 if hooked else 1)  # pass, 34 pointers, eps, 10 ints, ranks
+        if args[0] == mbconv6.BWD_X:  # the passes after it keep the pointer and never read it
+            assert (args[sb1] is not None) == hooked
+        elif args[0] not in (mbconv6.BN0_BWD, mbconv6.DX):
+            assert args[sb1] is None
+    assert n_fwd == (6 if form == "e6" else 4)
+
+
+def test_dryrun_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """The dry run's entry point defaults to the card: with none it raises before
+    it starts a rank. The device picks what it runs: the tiny CLIP on the CPU,
+    the compat recipe at full width in fp32 and in its bf16 on the card (the
+    bf16 gradients not held, ``TOLERANCES``); ``compare`` skips a check whose
+    tolerance is None."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def no_ranks(*a, **k):
+        raise AssertionError("ranks started without a card")
+
+    monkeypatch.setattr(dryrun, "run_ranks", no_ranks)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main([])
+    assert list(dryrun.dp_configs("cpu")) == ["tiny"]
+    card = dryrun.dp_configs("cuda")
+    assert {k: (c.train.dtype, c.data.image_size_h, c.data.batch_size_per_device)
+            for k, c in card.items()} == {"full_width": ("float32", 1520, 2),
+                                          "full_width_bf16": ("bfloat16", 1520, 2)}
+    assert all(dryrun.TOLERANCES[k]["grad"] is None for k in ["full_width_bf16"])
+    run = {"losses": {"total": 1.0}, "grads": {"w": np.ones(3, np.float32)},
+           "params": {"w": np.zeros(3, np.float32)}, "buffers": {}, "ema": {}, "digest": "d"}
+    bad_grads = {**run, "grads": {"w": np.full(3, 2.0, np.float32)}}
+    ranks = [{"one": bad_grads, "k2": run}]
+    assert not dryrun.compare(ranks, {"one": run, "k2": run}, "full_width")["ok"]
+    assert dryrun.compare(ranks, {"one": run, "k2": run}, "full_width_bf16")["ok"]

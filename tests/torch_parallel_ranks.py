@@ -1,0 +1,136 @@
+"""What each gloo rank of the data-parallel tests runs (``tests/test_torch_parallel*.py``).
+
+Every function takes ``(ctx, payload)``, where ``ctx`` is the rank's
+``MeshContext``, and is run on N ranks by
+``mammo_clip_tpu_torch.parallel.dryrun.run_ranks``; it returns numpy data that
+the test, in the parent process, holds to the one-process and JAX results.
+This module imports no JAX (a rank process has no JAX configured).
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.distributed as dist
+
+from mammo_clip_tpu_torch.core import mesh
+
+
+def _np(t):
+    return t.detach().float().cpu().numpy()
+
+
+def gathered_loss(ctx, payload) -> dict:
+    """``gathered_clip_loss`` and ``gathered_contrastive_clip_loss`` on this
+    rank's rows of the global embeddings: the loss terms and the gradients of
+    the total with respect to the rank's own rows."""
+    from mammo_clip_tpu_torch.parallel.shard_loss import (gathered_clip_loss,
+                                                          gathered_contrastive_clip_loss)
+
+    b = payload["i1"].shape[0] // ctx.process_count
+    rows = slice(ctx.rank * b, (ctx.rank + 1) * b)
+    scale, smoothing = torch.tensor(payload["scale"]), payload["smoothing"]
+    out = {}
+    for name, keys in (("multi", ("i1", "t1", "i2", "t2")), ("single", ("i1", "t1"))):
+        emb = {k: torch.tensor(payload[k][rows], requires_grad=True) for k in keys}
+        if name == "multi":
+            loss = gathered_clip_loss(emb["i1"], emb["t1"], scale, text_embeddings2=emb["t2"],
+                                      image_view_embeddings=emb["i2"], label_smoothing=smoothing)
+        else:
+            loss = gathered_contrastive_clip_loss(emb["i1"], emb["t1"], scale,
+                                                  label_smoothing=smoothing)
+        loss["contrastive"].backward()
+        out[name] = {"losses": {k: float(v) for k, v in loss.items()},
+                     "grads": {k: _np(v.grad) for k, v in emb.items()}}
+    return out
+
+
+def fused_hook(ctx, payload) -> dict:
+    """``plain_fused_mbconv_e6`` in both forms on this rank's rows with the
+    cross-rank sum over a group of ``payload["ranks"]`` ranks (ranks past it
+    return nothing): out, stats, dx and every parameter gradient of
+    sum(out * w) over the rank's rows."""
+    from mammo_clip_tpu_torch.core.mesh import RankSum
+    from mammo_clip_tpu_torch.ops.mbconv import MBConvParams
+    from mammo_clip_tpu_torch.ops.mbconv6 import MBConv6Params, plain_fused_mbconv_e6
+
+    n = payload["ranks"]
+    group = dist.new_group(list(range(n)))  # every rank joins the call
+    if ctx.rank >= n:
+        return {}
+    out = {}
+    for form, case in payload["cases"].items():
+        cls = MBConv6Params if form == "e6" else MBConvParams
+        b = case["x"].shape[0] // n
+        rows = slice(ctx.rank * b, (ctx.rank + 1) * b)
+        x = torch.tensor(case["x"][rows], requires_grad=True)
+        p = cls(*[torch.tensor(case["params"][f], requires_grad=True) for f in cls._fields])
+        y, stats = plain_fused_mbconv_e6(x, p, torch.tensor(case["delta"][rows]), case["vh"],
+                                         case["vw"], rank_sum=RankSum(group))
+        (y * torch.tensor(case["w"][rows])).sum().backward()
+        out[form] = {"out": _np(y), "stats": [_np(s) for s in stats], "dx": _np(x.grad),
+                     "grads": {f: _np(t.grad) for f, t in zip(cls._fields, p)}}
+    return out
+
+
+def draws(ctx, payload) -> dict:
+    """What this rank's step draws from its generator at step 0: the
+    augmentation of a fixed batch and a drop-connect scale, after the train
+    step's reseed from (seed, step, rank)."""
+    from mammo_clip_tpu_torch.core.config import Config
+    from mammo_clip_tpu_torch.ops.stochastic import drop_delta
+    from mammo_clip_tpu_torch.train.step import step_seed
+    from mammo_clip_tpu_torch.train.trainer import make_clip_preprocess
+
+    cfg = Config(payload["cfg"])
+    gen = torch.Generator().manual_seed(step_seed(payload["seed"], 0, mesh.rank()))
+    batch = make_clip_preprocess(cfg)({k: torch.tensor(v) for k, v in payload["batch"].items()},
+                                      gen)
+    return {"images": _np(batch["images"]), "views": _np(batch["image_views"]),
+            "delta": _np(drop_delta(16, 0.5, gen, "cpu"))}
+
+
+def parity(ctx, payload) -> dict:
+    """The DP parity file's ranks, spawned once: the train steps
+    (``dryrun.steps_case``), the gathered loss, the fused block's hook on a
+    2-rank group and the ranks' draws."""
+    from mammo_clip_tpu_torch.parallel.dryrun import steps_case
+
+    return {"steps": steps_case(ctx, payload["steps"]),
+            "loss": gathered_loss(ctx, payload["loss"]),
+            "fused": fused_hook(ctx, payload["fused"]),
+            "draws": draws(ctx, payload["draws"])}
+
+
+def cli(ctx, payload) -> dict:
+    """``cli/pretrain`` on every rank: run A is sent SIGTERM on rank 1 alone
+    during its first step, then resumed with ``--resume``; run B runs straight
+    through. The steps each call ended at, the state digests and the EMA's."""
+    import signal
+
+    from mammo_clip_tpu_torch.cli import pretrain
+    from mammo_clip_tpu_torch.parallel.dryrun import _digest
+
+    real = pretrain.prefetch_to_device
+
+    def term_on_rank_1(batches, *a, **k):
+        for i, b in enumerate(real(batches, *a, **k)):
+            if i == 0 and k.get("stacked") is not None and ctx.rank == 1:
+                signal.raise_signal(signal.SIGTERM)
+            yield b
+
+    out = {"rank": ctx.rank}
+    for name, calls in (("a", (term_on_rank_1, real)), ("b", (real,))):
+        flags = ["--workdir", os.path.join(payload["tmp"], name), "--device", "cpu"]
+        steps = []
+        for i, prefetch in enumerate(calls):
+            pretrain.prefetch_to_device = prefetch
+            try:
+                state = pretrain.main(flags + (["--resume"] if i else []) + payload["overrides"])
+            finally:
+                pretrain.prefetch_to_device = real
+            steps.append(state.step)
+        out[name] = {"steps": steps, "digest": _digest(state.model.state_dict()),
+                     "ema": _digest(state.ema), "opt_count": state.optimizer.count}
+    return out
