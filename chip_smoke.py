@@ -260,7 +260,7 @@ Phases, each reported on its own lines:
      power limit): (a) the fused kernel's cross-rank sums at B5's shapes
      (block 4 e6, blocks 0 and 1-2 e=1), fp32 and bf16, forward and backward:
      two ranks of 2 images on the one card, as two threads that drive the
-     form's passes with a barrier-sum hook (``ThreadSum``; NCCL takes one rank a
+     form's passes with a barrier-sum hook (``ThreadGroup``; NCCL takes one rank a
      device), held to the passes over the whole batch of 4 with no hook (out
      and dx row by row, the statistics, the same bits on both ranks, the
      ranks' parameter gradients summed; phase 3's tolerances), and the call
@@ -285,6 +285,29 @@ Phases, each reported on its own lines:
      step; the phase's seconds. With one card no process group is made and
      no collective runs in (b), and the lines say so: there (a) alone
      exercises the cross-rank sums;
+ 18. tensor parallelism over ``model`` and ZeRO-3 over ``data`` (``[tp]``
+     lines, each summary with the card's name and power limit): (a) on one
+     card, two model ranks as two threads whose collectives a
+     ``parallel/tensor.py::ThreadGroup`` sums, autograd running in each
+     thread: B5 block 4 (E = 240, 120 channels a rank) at 2 x 40 x 380 x
+     228, split as ``parallel/partitioning.py::place`` splits it, on the
+     fused route (the kernel, on the shards gathered over ``model``) and on
+     the unfused column->row route, each held to the whole block in the
+     same dtype on the same inputs (out and dx on each rank, the parameter
+     gradients and running statistics put back together; phase 3's
+     tolerances, a row split in bf16 at ``TP_ROW_SPLIT_BF16``), fp32 and bf16, with the fused kernel's launches counted
+     from 0 over the fused runs (3 forward and 3 backward a dtype: the whole
+     block's and one a rank); and a BERT-base layer (12 heads, 6 a rank; FFN
+     3072, 1536 a rank) at 2 x 256 tokens, held to the whole layer; (b) on four visible cards, the dry run's TP + FSDP
+     layout (``dryrun.dryrun(4, layouts=("tp",))``: data 2 x model 2, the
+     state placed by ``shard_train_state(fsdp=True)``, the compat step at
+     full width, 2 rows a data rank, fused route and remat, fp32 with TF32
+     off and bf16) held to one process on the same 4-row global batch at
+     phase 17's tolerances beside its own noise, 14 + 14 fused calls a rank,
+     with each rank's peak memory and step seconds; with fewer cards (b)
+     says so on its own line and (a) alone runs (``python -m
+     mammo_clip_tpu_torch.parallel.dryrun --ranks 4 --layout tp`` runs (b)
+     alone);
   8. the hand-written flash attention (csrc/flash_attention.cu): first a look
      into the built library, each flash kernel's registers, shared and local
      memory (``cuobjdump --dump-resource-usage``), spill stores (ptxas) and its
@@ -3789,54 +3812,20 @@ def int8_export_phase(seed, workdir, serving, slice_rows):
 # --------------------------------------------------------------------------
 
 
-class ThreadSum:
-    """The cross-rank sum of ``ranks`` threads that drive the fused passes on
-    one card: NCCL takes one rank a device, so two ranks on one card are two
-    threads here, each enqueueing on the card's default stream. A call
-    deposits this thread's tensor, waits for the others, enqueues the sum of
-    all in rank order (the same bits for every thread), waits again (so no
-    thread overwrites its tensor before every sum is enqueued) and copies the
-    sum in: stream order makes each sum read the passes' results."""
-
-    def __init__(self, ranks):
-        import threading
-
-        self.ranks = ranks
-        self._barrier = threading.Barrier(ranks, timeout=120)
-        self._slots = [None] * ranks
-
-    def rank(self, r):
-        shared = self
-
-        class Hook:
-            ranks = shared.ranks
-
-            def __call__(self, t):
-                shared._slots[r] = t
-                shared._barrier.wait()
-                total = shared._slots[0].clone()
-                for other in shared._slots[1:]:
-                    total += other
-                shared._barrier.wait()
-                return t.copy_(total)
-
-        return Hook()
-
-
 def dp_kernel_case(case, dtype_name, ranks=2):
     """Phase 17 (a) for one case and dtype: ``ranks`` threads each run the
     form's forward and backward passes (``_e6_forward`` / ``_e6_backward`` or
-    the e=1 ones; autograd would run every backward on the device's one engine
-    thread, where the barrier would wait forever) on their slice of the case's
-    batch with a ``ThreadSum`` hook, against the same passes over the whole
-    batch with no hook: out and dx row by row, every thread's statistics, the
-    threads' parameter gradients summed. Returns the rows (name, max rel,
-    tol) and the max abs errors of out and dx."""
-    import threading
-
+    the e=1 ones) on their slice of the case's batch with a
+    ``parallel/tensor.py::ThreadGroup`` rank as the hook (a sum deposits each
+    thread's tensor, waits for the others, enqueues the sum in rank order on
+    the card's one stream, waits again and copies it in), against the same
+    passes over the whole batch with no hook: out and dx row by row, every
+    thread's statistics, the threads' parameter gradients summed. Returns the
+    rows (name, max rel, tol) and the max abs errors of out and dx."""
     import torch
 
     from mammo_clip_tpu_torch.ops import mbconv6
+    from mammo_clip_tpu_torch.parallel.tensor import ThreadGroup
 
     fwd, bwd = ((mbconv6._e6_forward, mbconv6._e6_backward) if case.form == "e6"
                 else (mbconv6._e1_forward, mbconv6._e1_backward))
@@ -3851,25 +3840,9 @@ def dp_kernel_case(case, dtype_name, ranks=2):
         return out, stats, dx, grads
 
     whole = run(slice(None), None)
-    shared, results, errors = ThreadSum(ranks), [None] * ranks, []
-
-    def worker(r):
-        try:
-            results[r] = run(slice(r * n, (r + 1) * n), shared.rank(r))
-        except BaseException as e:  # re-raised below
-            errors.append(e)
-            shared._barrier.abort()
-
-    threads = [threading.Thread(target=worker, args=(r,)) for r in range(ranks)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=600)
+    shared = ThreadGroup(ranks)
+    results = shared.run(lambda r: run(slice(r * n, (r + 1) * n), shared.rank(r)))
     torch.cuda.synchronize()
-    if any(t.is_alive() for t in threads):
-        raise SmokeFailure(f"[dp] {case.name} {dtype_name}: a rank did not finish")
-    if errors:
-        raise SmokeFailure(f"[dp] {case.name} {dtype_name}: a rank failed: {errors[0]!r}")
     bf16 = dtype_name == "bfloat16"
     f = lambda t: t.float()
     rows = [("out", max_rel(f(torch.cat([r[0] for r in results])), f(whole[0])),
@@ -3986,7 +3959,7 @@ def dp_cli_phase(seed):
              "one rank: no process group was made and no collective ran, so only (a) "
              "exercised the cross-rank sums")
     t = time.perf_counter()
-    res = dryrun.dryrun(ranks, "cuda", seed, timeout_s=600.0)
+    res = dryrun.dryrun(ranks, "cuda", seed, timeout_s=600.0, layouts=("dp",))
     dry_s = time.perf_counter() - t
     (OUT_DIR / "dp_dryrun.json").write_text(json.dumps(res))
     for name, what in (("full_width", "fp32 activations, TF32 off"),
@@ -3998,7 +3971,7 @@ def dp_cli_phase(seed):
             f"; step {cmp['step']}, K=2 call {cmp['k2']}, the one process's K=2 call vs two "
             f"steps {cmp['k2_vs_two_steps'] or 'in fp32 only'}; gradients rel {cmp['grad_rel']:.2e} scale "
             f"{cmp['grad_scale']:.6f}; same bits on every rank {cmp['same_bits_across_ranks']};"
-            f" tolerances {cmp['tolerance']} (sampled: {dryrun.SAMPLE} elements a tensor); "
+            f" tolerances {cmp['tolerance']}, limits {cmp['limits']} (sampled: {dryrun.SAMPLE} elements a tensor); "
             f"ok {cmp['ok']}; {card}")
         for run, d in cmp["self_noise"].items():
             say(f"[dp] (b) {name} self-noise, one process's step vs itself {run}: loss "
@@ -4087,6 +4060,255 @@ def dp_phase(seed):
     seconds = time.perf_counter() - t
     say(f"[dp] phase 17: {seconds:.1f} s on {card_line()}")
     return dict(kernel=kernel, cli=cli, seconds=seconds)
+
+
+# --------------------------------------------------------------------------
+# phase 18: tensor parallelism and ZeRO-3
+# --------------------------------------------------------------------------
+
+TP_RANKS = 2
+DP_PEAK_GIB = 6.95  # phase 17 (b): cli/pretrain's peak a card, four H100s, full width, bf16
+
+
+def tp_put_back(whole, parts):
+    """The ranks' tensors put back together on the dim where they are split
+    (the first rank's where they are whole)."""
+    import torch
+
+    if parts[0].shape == whole.shape:
+        return parts[0]
+    dim = next(d for d in range(whole.dim()) if parts[0].shape[d] != whole.shape[d])
+    return torch.cat(parts, dim)
+
+
+# Phase 18 (a)'s limits (max relative error) on a split against the whole layer
+# in the same dtype: out, dx, parameter gradients, running statistics. fp32,
+# and the fused block in bf16 (every model rank runs the whole block's kernel
+# on the gathered shards): phase 3's. A row split in bf16 (the unfused block,
+# the BERT layer) rounds each rank's partial product and then their sum, as
+# GSPMD's partitioned dot does in JAX, where the whole layer rounds its
+# product once; a gradient or a statistic then sums that rounding over the
+# pixels or tokens. Those are held at TP_ROW_SPLIT_BF16, set from the readings
+# on an H100 (PERF.md §6: out 1.03e-2, dx 7.6e-3, gradients 6.4e-2, statistics
+# 1.8e-3 at most); a split that drops or doubles a rank's part is off by 0.5
+# or more, and the fp32 runs hold the same splits at phase 3's limits.
+PHASE3_TOLS = {"float32": (1e-4, 1e-3, 2e-3, 1e-4), "bfloat16": (1e-2, 1e-2, 2e-3, 1e-4)}
+TP_ROW_SPLIT_BF16 = (2e-2, 2e-2, 1e-1, 1e-2)
+
+
+def tp_hold(name, layer, prefix, run, dtype_name, tols):
+    """``run(module, dtype) -> (out, dx)`` on the whole ``layer`` and on
+    ``TP_RANKS`` model ranks (threads, ``place``d on a ``ThreadGroup`` rank
+    each), both in ``dtype_name``: out and dx on every rank, the parameter
+    gradients and buffers put back together, each held to the whole layer's
+    (max relative error; limits ``tols``: out, dx, parameter gradients,
+    buffers). A parameter gradient's error is relative to its largest element
+    or 1e-2 of the layer's largest, whichever is more. Returns the rows and
+    the max abs errors of out and dx against the whole layer."""
+    import copy
+
+    import torch
+
+    from mammo_clip_tpu_torch.parallel.partitioning import place
+    from mammo_clip_tpu_torch.parallel.tensor import ThreadGroup
+
+    dtype = getattr(torch, dtype_name)
+
+    def tensors(m, y, dx):
+        return ([y, dx], {k: p.grad for k, p in m.named_parameters()},
+                dict(m.named_buffers()))
+
+    whole = copy.deepcopy(layer)
+    w = tensors(whole, *run(whole, dtype))
+    group = ThreadGroup(TP_RANKS)
+
+    def rank(r):
+        m = copy.deepcopy(layer)
+        split = place(m, {"model": group.rank(r), "data": None}, prefix=prefix)
+        return tensors(m, *run(m, dtype)), split
+
+    res = group.run(rank)
+    torch.cuda.synchronize()
+    f = lambda t: t.detach().float()
+    rows = []
+    for i, what in enumerate(("out", "dx")):
+        for r in range(TP_RANKS):
+            rows.append((f"{what}{r}", max_rel(f(res[r][0][0][i]), f(w[0][i])), tols[i]))
+    # a gradient is relative to the largest of the layer's, 1e-2 of it at least: the key
+    # bias' true gradient is 0 (the softmax ignores a shift of every key), its values noise
+    gmax = max(float(f(g).abs().max()) for g in w[1].values())
+    rel = lambda a, b, j: float((f(a) - f(b)).abs().max()) / max(
+        float(f(b).abs().max()), 1e-2 * gmax if j == 0 else 1e-12)
+    for j, (what, tol) in enumerate((("d.", tols[2]), ("", tols[3]))):
+        for k, t in w[j + 1].items():
+            got = tp_put_back(t, [x[0][j + 1][k] for x in res])
+            rows.append((what + k, rel(got, t, j), tol))
+    worst = max(rows, key=lambda r: r[1] / r[2])
+    n_split = len(res[0][1])
+    kind = lambda r: ("out" if r[0].startswith("out") else "dx" if r[0].startswith("dx")
+                      else "grad" if r[0].startswith("d.") else "stats")
+    top = {k: max((r for r in rows if kind(r) == k), key=lambda r: r[1])
+           for k in ("out", "dx", "grad", "stats") if any(kind(r) == k for r in rows)}
+    say(f"[tp] (a) {name} {dtype_name}, {TP_RANKS} model ranks on one card ({n_split} tensors "
+        f"split; held to the whole layer in {dtype_name}): worst {worst[0]} {worst[1]:.2e} "
+        f"(limit {worst[2]:.1e}); largest by kind: " + ", ".join(
+            f"{k} {r[0]} {r[1]:.2e}/{r[2]:.0e}" for k, r in top.items()))
+    bad = [r for r in rows if not (r[1] <= r[2])]
+    if bad or not n_split:
+        raise SmokeFailure(f"[tp] {name} {dtype_name}: the split disagrees with the whole: "
+                           f"{sorted(bad, key=lambda r: -r[1] / r[2])[:8]}, {n_split} tensors "
+                           f"split")
+    err = lambda i: max(float((f(x[0][0][i]) - f(w[0][i])).abs().max()) for x in res)
+    return rows, err(0), err(1)
+
+
+def tp_block_phase(seed):
+    """Phase 18 (a), the image tower: B5 block 4 split over its expanded dim,
+    fused (the kernel on gathered shards) and unfused, fp32 and bf16."""
+    import torch
+
+    from mammo_clip_tpu_torch.models.efficientnet import MBConvBlock, scaled_block_args
+    from mammo_clip_tpu_torch.ops.mbconv import launches
+    from mammo_clip_tpu_torch.ops.mbconv6 import pick_h_pad, pick_w_pad
+
+    args = scaled_block_args("b5")[4]
+    if (args.expanded, args.kernel, args.stride) != (240, 3, 1):
+        raise SmokeFailure(f"[tp] B5 block 4 is {args}")
+    g = torch.Generator(device="cuda").manual_seed(seed + 18)
+    block = MBConvBlock(args, 0.2).cuda()
+    for p in block.parameters():
+        p.data = 0.3 * torch.randn(p.shape, generator=g, device="cuda")
+    n, vh, vw = BATCH, 380, 228
+    hp, wp = pick_h_pad(vh), pick_w_pad(vw)
+    x = torch.zeros(n, 40, hp, wp, device="cuda")
+    x[:, :, :vh, :vw] = torch.randn(n, 40, vh, vw, generator=g, device="cuda")
+    gout = torch.zeros_like(x)
+    gout[:, :, :vh, :vw] = torch.randn(n, 40, vh, vw, generator=g, device="cuda")
+    delta = torch.tensor([1.25, 1.0], device="cuda")
+    out = {}
+    for fused in (True, False):
+        for dt in ("float32", "bfloat16"):
+            def run(m, dtype):
+                xr = (x if fused else x[:, :, :vh, :vw]).to(dtype).clone().requires_grad_()
+                y = m(xr, True, delta, valid_hw=(vh, vw) if fused else None, fused=fused)
+                y.backward((gout if fused else gout[:, :, :vh, :vw]).to(dtype))
+                return y, xr.grad
+
+            tols = TP_ROW_SPLIT_BF16 if dt == "bfloat16" and not fused else PHASE3_TOLS[dt]
+            launches.reset()
+            rows, e_out, e_dx = tp_hold(f"B5 block 4 {'fused' if fused else 'unfused'}", block,
+                                        "image_encoder.block_4", run, dt, tols)
+            counts = dict(launches.counts)
+            want = (1 + TP_RANKS,) * 2
+            if fused and (counts["mbconv6.e6.forward"], counts["mbconv6.e6.backward"]) != want:
+                raise SmokeFailure(f"[tp] the fused block launched {counts}: expected {want}, "
+                                   f"the whole block's and one a rank")
+            if not fused and any(counts.values()):
+                raise SmokeFailure(f"[tp] the unfused block launched the fused kernel: {counts}")
+            out[f"block4.{'fused' if fused else 'unfused'}.{dt}"] = dict(
+                err_out=e_out, err_dx=e_dx, worst=max(r[1] / r[2] for r in rows),
+                launches=counts if fused else None)
+    say(f"[tp] (a) the fused kernel under TP: one forward and one backward launch a model rank "
+        f"on the gathered shards, beside the whole block's; {card_line()}")
+    return out
+
+
+def tp_bert_phase(seed):
+    """Phase 18 (a), the text tower: a BERT-base layer split by heads and FFN
+    columns, fp32 and bf16."""
+    import dataclasses
+
+    import torch
+
+    from mammo_clip_tpu_torch.models.bert import BertConfig, BertLayer
+
+    cfg = dataclasses.replace(BertConfig(), dropout_rate=0.0)
+    g = torch.Generator(device="cuda").manual_seed(seed + 19)
+    layer = BertLayer(cfg).cuda()
+    for p in layer.parameters():
+        p.data = 0.05 * torch.randn(p.shape, generator=g, device="cuda")
+    x = torch.randn(BATCH, 256, cfg.hidden_size, generator=g, device="cuda")
+    mask = torch.arange(256, device="cuda")[None] < torch.tensor([[256], [97]], device="cuda")
+    gy = torch.randn(BATCH, 256, cfg.hidden_size, generator=g, device="cuda")
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        def run(m, dtype):
+            xr = x.to(dtype).clone().requires_grad_()
+            y = m(xr, mask, True)
+            y.backward(gy.to(dtype))
+            return y, xr.grad
+
+        tols = TP_ROW_SPLIT_BF16 if dt == "bfloat16" else (1e-4, 1e-4, 1e-3, 1e-4)
+        rows, e_out, e_dx = tp_hold("BERT-base layer", layer, "text_encoder.layer_0", run, dt,
+                                    tols)
+        out[f"bert_layer.{dt}"] = dict(err_out=e_out, err_dx=e_dx,
+                                       worst=max(r[1] / r[2] for r in rows))
+    return out
+
+
+def tp_ranks_phase(seed):
+    """Phase 18 (b): the dry run's TP + FSDP layout on four cards, or a line
+    saying why it did not run."""
+    import torch
+
+    from mammo_clip_tpu_torch.parallel import dryrun
+
+    cards, card = torch.cuda.device_count(), card_line()
+    if cards < 4:
+        say(f"[tp] (b) the TP + FSDP dry run needs 4 cards (data 2 x model 2); {cards} visible: "
+            f"not run, (a) alone ran; {card}")
+        return None
+    t = time.perf_counter()
+    res = dryrun.dryrun(4, "cuda", seed, timeout_s=900.0, layouts=("tp",))
+    dry_s = time.perf_counter() - t
+    (OUT_DIR / "tp_dryrun.json").write_text(json.dumps(res))
+    for name, what in (("full_width_tp", "fp32 activations, TF32 off"),
+                       ("full_width_bf16_tp", "the recipe's bf16; gradients not held")):
+        cmp = res[name]
+        peaks = [b / 2**30 for b in cmp["rank_peak_bytes"]]
+        say(f"[tp] (b) dry run, 4 ranks as data 2 x model 2 with FSDP (compat step: B5 1520x912, "
+            f"BERT-base, {BATCH} rows a data rank, fused, remat; {what}) vs one process on the "
+            f"global batch of {2 * BATCH}: loss {cmp['loss']:.6f} vs "
+            f"{cmp['loss_one_process']:.6f}; step {cmp['step']}, K=2 call {cmp['k2']}, the one "
+            f"process's K=2 call vs two steps {cmp['k2_vs_two_steps'] or 'in fp32 only'}; "
+            f"gradients rel {cmp['grad_rel']:.2e} scale {cmp['grad_scale']:.6f} (worst "
+            f"{cmp['grad_worst'][:2]}); same bits on every rank {cmp['same_bits_across_ranks']};"
+            f" tolerances {cmp['tolerance']}, limits {cmp['limits']}; ok {cmp['ok']}; {card}")
+        for run, d in cmp["self_noise"].items():
+            say(f"[tp] (b) {name} self-noise, one process vs itself {run}: loss {d['loss']:.2e}, "
+                f"parameters {d['params']:.2e}, statistics {d['buffers']:.2e}, gradients rel "
+                f"{d['grad_rel']:.2e}" + (f", K=2 loss {d['k2']['loss']:.2e}" if "k2" in d else ""))
+        say(f"[tp] (b) {name}: step seconds a rank {[round(x, 3) for x in cmp['rank_step_s']]}, "
+            f"one process {cmp['one_process_step_s']:.3f} s (4 rows); peak memory a rank "
+            f"{[round(x, 2) for x in peaks]} GiB (the step's, state included) beside the "
+            f"data-parallel step's {DP_PEAK_GIB} GiB a card (phase 17, 2 rows a card); one "
+            f"process {cmp['one_process_peak_bytes'] / 2**30:.2f} GiB; fused calls a rank "
+            f"{_fused_pair(cmp['fused_per_rank'])}; {card}")
+    say(f"[tp] (b) the TP + FSDP dry run {dry_s:.1f} s")
+    if not res["ok"]:
+        raise SmokeFailure(f"[tp] the TP + FSDP step disagrees with one process: {res}")
+    for name in ("full_width_tp", "full_width_bf16_tp"):
+        if _fused_pair(res[name]["fused_per_rank"]) != (14, 14):
+            raise SmokeFailure(f"[tp] the {name} step launched {res[name]['fused_per_rank']}, "
+                               f"expected 14 + 14")
+    return dict(dryrun=res, seconds=dry_s)
+
+
+def tp_phase(seed):
+    """Phase 18: (a) the splits against the whole on one card, (b) the TP +
+    FSDP dry run on four cards."""
+    import torch
+
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    say(f"[tp] phase 18 on {card_line()}")
+    blocks = tp_block_phase(seed)
+    bert = tp_bert_phase(seed)
+    say(f"[tp] (a) {time.perf_counter() - t:.1f} s")
+    ranks = tp_ranks_phase(seed)
+    seconds = time.perf_counter() - t
+    say(f"[tp] phase 18: {seconds:.1f} s on {card_line()}")
+    return dict(blocks=blocks, bert=bert, ranks=ranks, seconds=seconds)
 
 
 # --------------------------------------------------------------------------
@@ -4658,7 +4880,6 @@ def main(argv=None) -> int:
             f", spill stores max {max(map(int, spills), default=0)} B "
             f"(full log chiprun_out/ptxas.log)")
     cuda_lib.load()
-
     # 3-4. kernel against plain version at the main path's shapes, then times
     kernels, e6_e1_form = kernel_phases(args.seed)
     earlier = parent_turns(args.parent) if args.parent else None
@@ -4693,10 +4914,12 @@ def main(argv=None) -> int:
         shutil.rmtree(cli_tmp, ignore_errors=True)
     # 17. data parallelism: the kernel's cross-rank sums, the DP step and CLI on every card
     dp = dp_phase(args.seed)
+    # 18. tensor parallelism and ZeRO-3: the splits on one card, the TP + FSDP step on four
+    tp = tp_phase(args.seed)
     (OUT_DIR / "chip_smoke_steps.json").write_text(
         json.dumps(dict(slice=rows, cli=cli, serving=serving, classifier=clf, detector=det,
-                        preprocess=pre, flagship=flag, families=fam, int8_export=int8, dp=dp),
-                   indent=1))
+                        preprocess=pre, flagship=flag, families=fam, int8_export=int8, dp=dp,
+                        tp=tp), indent=1))
 
     # 8. flash attention; 9. the probe kernels
     flash_rows = flash_phases(args.seed, earlier)

@@ -14,11 +14,15 @@ on one device. On N cards, one process per card:
 Each process reads ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``
 and ``MASTER_PORT`` (``core/mesh.py``), joins the process group (NCCL on
 ``cuda:LOCAL_RANK``; gloo with ``--device cpu``) and trains its strided
-shard: the global batch is ``data.batch_size_per_device`` times the ranks
-(the JAX CLI passes ``global_batch_size`` as each process's Batcher size, so
-with P processes its global batch would be P times that: fault R11 of the
-reference, not inherited). The config's ``mesh`` key is read as in JAX
-(``mesh.data=-1`` takes every rank; ``mesh.model`` > 1 raises). Without
+shard: the global batch is ``data.batch_size_per_device`` times the data
+ranks (the JAX CLI passes ``global_batch_size`` as each process's Batcher
+size, so with P processes its global batch would be P times that: fault R11
+of the reference, not inherited). The config's ``mesh`` key is read as in JAX
+(``mesh.data=-1`` takes what ``mesh.model`` and ``mesh.replica`` leave). As
+JAX's trainer never calls ``shard_train_state``, ``mesh.model`` > 1 keeps the
+parameters whole here too: the ranks of a model group take the same rows and
+the same steps; tensor parallelism and ZeRO-3 are reached through
+``parallel/partitioning.py::shard_train_state``. Without
 ``--config`` the run starts from the default config of ``--variant``; reading
 a YAML config needs PyYAML, the defaults and the overrides do not (an
 override's value is parsed as YAML when PyYAML is present, else as JSON, so
@@ -75,7 +79,7 @@ def main(argv=None):
 
 def _train(cfg, args, ctx: MeshContext):
     dm = DataModule(cfg, cur_fold=args.fold, data_frac=args.data_frac,
-                    process_index=ctx.rank, process_count=ctx.process_count)
+                    process_index=ctx.data_index, process_count=ctx.process_count)
     batch_size = cfg.data.batch_size_per_device  # this rank's rows a step
     train_b = dm.batcher("train", batch_size=batch_size)
     valid_b = dm.batcher("valid", batch_size=batch_size) if cfg.data.get("valid") else None

@@ -1,31 +1,46 @@
 """Device mesh / distributed context (port of ``mammo_clip_tpu/core/mesh.py``).
 
 The JAX package builds a named mesh and lets GSPMD place the collectives. Here
-the data-parallel axes are ranks of ``torch.distributed``: one process per
-card, each holding its own rows of the global batch, as the reference's DDP
-ran (``trainer_ddp.py:134``, a 4-GPU node).
+the axes are ranks of ``torch.distributed``: one process per card, laid out
+as JAX's ``np.asarray(devices).reshape(replica, data, model)``, ``model``
+varying fastest: rank ``r`` has model index ``r % model`` and data index
+``r // model`` (over ``replica * data``), as the reference's DDP ran one
+process a card (``trainer_ddp.py:134``, a 4-GPU node).
 
 Axes
 ----
-``data``    batch-parallel: rank r holds rows ``r * B .. (r + 1) * B - 1`` of
-            the global batch (``B = data.batch_size_per_device``). The train-mode
-            BatchNorm statistics, the fused MBConv kernel's batch sums
-            (``ops/mbconv6.py``) and the contrastive negatives
-            (``parallel/shard_loss.py``) span every rank, as they span the
-            global batch under GSPMD; the gradients are averaged across ranks.
+``data``    batch-parallel: data index q holds rows ``q * B .. (q + 1) * B - 1``
+            of the global batch (``B = data.batch_size_per_device``). The
+            train-mode BatchNorm statistics, the fused MBConv kernel's batch
+            sums (``ops/mbconv6.py``) and the contrastive negatives
+            (``parallel/shard_loss.py``) span every data rank's rows, as
+            they span the global batch under GSPMD, and the gradients are
+            averaged over them. The data group is the ranks with this rank's
+            model index; ZeRO-3 shards (``parallel/partitioning.py``) are
+            split over it.
 ``replica`` cross-slice data parallelism in JAX: here another batch axis over
-            the same ranks (``replica * data`` ranks in all, data fastest).
-``model``   tensor parallelism: only 1 here (the next slice of the port).
+            the same ranks (``replica * data`` batch-carrying ranks, data
+            fastest after model).
+``model``   tensor parallelism: the ranks of a model group hold the same rows
+            and split the Megatron layers (``parallel/tensor.py``) between
+            them; with ``model = 1`` every rank is its own model group and
+            nothing is split.
 
 ``MeshContext.create`` reads ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR`` and ``MASTER_PORT`` as ``python -m torch.distributed.run``
 sets them, and with more than one rank calls ``init_process_group`` with the
 address, the world size and the rank given explicitly and a finite timeout
 (a collective that hangs fails): NCCL on ``cuda:LOCAL_RANK``, gloo when the
-caller asks for the CPU. Without those variables it is one process, no group.
-``data_sum()`` is the hook that sums a tensor over the ranks in place, or None
-with no group (or one rank); train-mode BatchNorm, the fused kernel and the
-loss take it, so that without a group every path is the one-process path.
+caller asks for the CPU; then, with ``model > 1``, it makes the model groups
+and the data groups (every rank joins every ``new_group`` call, in one
+order). Without those variables it is one process, no group. ``data_sum()``
+is the hook that sums a tensor over the data group in place, or None with
+one data rank; ``world_sum()`` sums over every rank and ``model_sum()`` over
+the model group. Train-mode BatchNorm and the fused kernel take the world's
+(a channel shard's BatchNorm the data group's), the loss the data group's,
+so that without a group every path is the one-process path. With ``model =
+1`` the data group is the world, so the data-parallel paths run the
+collectives they ran before the model axis existed.
 """
 
 from __future__ import annotations
@@ -66,22 +81,115 @@ def barrier() -> None:
 
 
 class RankSum:
-    """The cross-rank sum: ``hook(t)`` sums the contiguous tensor ``t`` over the
-    ranks in place and returns it; ``ranks`` is their number."""
+    """The sum over a group of ranks: ``hook(t)`` sums the contiguous tensor
+    ``t`` over them in place and returns it; ``ranks`` is their number and
+    ``index`` this rank's place among them (``None``: the world).
+    ``gather(t, dim)`` concatenates every rank's ``t`` along ``dim`` in that
+    order, and ``scatter_sum(t, dim)`` returns this rank's slice along ``dim``
+    of the ranks' sum of ``t`` (a reduce-scatter)."""
 
     def __init__(self, group=None):
         self.group = group
         self.ranks = dist.get_world_size(group)
+        self.index = dist.get_rank(group)
 
     def __call__(self, t: torch.Tensor) -> torch.Tensor:
         dist.all_reduce(t, group=self.group)
         return t
 
+    def gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        t = t.contiguous()  # the collective writes dense buffers: no strides kept
+        parts = [torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for _ in range(self.ranks)]
+        dist.all_gather(parts, t, group=self.group)
+        return torch.cat(parts, dim)
+
+    def scatter_sum(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        parts = [c.contiguous() for c in t.chunk(self.ranks, dim)]
+        out = torch.empty_like(parts[self.index])
+        dist.reduce_scatter(out, parts, group=self.group)
+        return out
+
+
+# this process's groups: {"shape": mesh shape, "data": group or None (the
+# world), "model": group or None (no model axis)}, set by MeshContext.create
+_AXES: dict = {}
+
+
+def _shape() -> dict:
+    return _AXES.get("shape") or {"replica": 1, "data": world_size(), "model": 1}
+
+
+def model_size() -> int:
+    """The ranks of this rank's model group (1 without a model axis)."""
+    return _shape()["model"] if _grouped() else 1
+
+
+def model_index() -> int:
+    """This rank's place in its model group: ``rank % model``."""
+    return rank() % model_size()
+
+
+def data_size() -> int:
+    """The batch-carrying ranks: ``replica * data`` (the world with ``model = 1``)."""
+    return world_size() // model_size()
+
+
+def data_index() -> int:
+    """This rank's place in its data group: ``rank // model``; its rows of the
+    global batch and its Batcher's stride start there."""
+    return rank() // model_size()
+
 
 def data_sum() -> Optional[RankSum]:
-    """The sum over the data-parallel ranks, or None with no process group or
-    one rank (every batch statistic is then this process's own)."""
+    """The sum over the data group (the ranks with this rank's model index),
+    or None with one data rank (every batch statistic is then this process's
+    own). With ``model = 1`` the group is the world."""
+    if data_size() <= 1:
+        return None
+    return RankSum(_AXES.get("data"))
+
+
+def world_sum() -> Optional[RankSum]:
+    """The sum over every rank, or None with one rank. The batch statistics of
+    a tensor that a model group's ranks all hold (replicated over ``model``)
+    sum here: every data rank's rows then count ``model`` times in the sums
+    and in the count alike, and the result is the same bits on every rank,
+    where sums over each data group could differ in their last bits between
+    the model ranks (a kernel's atomic sums). With ``model = 1`` it is
+    ``data_sum()``."""
     return RankSum() if world_size() > 1 else None
+
+
+def model_sum() -> Optional[RankSum]:
+    """The sum over the model group (the ranks that hold this rank's rows), or
+    None without a model axis."""
+    if model_size() <= 1:
+        return None
+    return RankSum(_AXES["model"])
+
+
+def _make_groups(shape: dict) -> None:
+    """The model and data groups of ``shape`` over the world (model fastest).
+    Every rank makes every group, in one order, as ``new_group`` requires; a
+    second call with the same shape keeps the groups it made."""
+    if _AXES.get("shape") == shape:
+        return
+    m, n = shape["model"], world_size()
+    _AXES.clear()
+    _AXES["shape"] = dict(shape)
+    if m == 1:
+        _AXES["data"] = None  # the world: the data-parallel paths' own collectives
+        return
+    r = rank()
+    for q in range(n // m):
+        g = dist.new_group(list(range(q * m, (q + 1) * m)))
+        if r // m == q:
+            _AXES["model"] = g
+    for j in range(m):
+        g = dist.new_group(list(range(j, n, m)))
+        if r % m == j:
+            _AXES["data"] = g
 
 
 def any_rank(flag: bool, device) -> bool:
@@ -107,17 +215,13 @@ def make_mesh(data: int = -1, model: int = 1, replica: int = 1,
               ranks: Optional[int] = None) -> dict:
     """The mesh's axis sizes ``{"replica", "data", "model"}`` over ``ranks``
     processes (the world size by default); ``data=-1`` absorbs what the others
-    leave. ``model > 1`` raises: tensor parallelism is the next slice."""
-    if model != 1:
-        raise NotImplementedError(
-            "mesh.model > 1 (tensor parallelism over 'model') is not ported yet: it is "
-            "the next slice of the port (ROADMAP queue 1 item 9b); use model=1")
+    leave, as JAX's ``make_mesh`` does."""
     n = world_size() if ranks is None else int(ranks)
     if data == -1:
-        if n % replica:
-            raise ValueError(f"{n} ranks not divisible by replica={replica}")
-        data = n // replica
-    if replica * data != n:
+        if n % (model * replica):
+            raise ValueError(f"{n} ranks not divisible by model*replica={model * replica}")
+        data = n // (model * replica)
+    if replica * data * model != n:
         raise ValueError(f"mesh {replica}x{data}x{model} != {n} ranks")
     return {"replica": replica, "data": data, "model": model}
 
@@ -156,28 +260,43 @@ class MeshContext:
         if world_size() != world:
             raise RuntimeError(f"WORLD_SIZE={world} but the process group has "
                                f"{world_size()} ranks")
-        return cls(shape=make_mesh(data, model, replica, world), rank=rank(), device=device)
+        shape = make_mesh(data, model, replica, world)
+        if world > 1:
+            _make_groups(shape)
+        return cls(shape=shape, rank=rank(), device=device)
 
     @property
     def process_count(self) -> int:
         """The batch-carrying ranks: ``replica * data``."""
         return self.shape["replica"] * self.shape["data"]
 
+    @property
+    def data_index(self) -> int:
+        """This rank's place among the batch-carrying ranks: ``rank // model``."""
+        return self.rank // self.shape["model"]
+
+    @property
+    def model_index(self) -> int:
+        """This rank's place in its model group: ``rank % model``."""
+        return self.rank % self.shape["model"]
+
     def global_batch_size(self, per_device: int) -> int:
-        """Distinct examples a step: the per-device batch on every batch-carrying rank."""
+        """Distinct examples a step: the per-device batch on every batch-carrying
+        rank (the ranks of a model group hold the same rows, JAX :131-140)."""
         return per_device * self.process_count
 
     def shard_host_batch(self, batch, stacked: bool = False):
         """This rank's rows of a global host batch (numpy arrays or tensors), on
-        this rank's device: rows ``rank * B .. (rank + 1) * B - 1`` of axis 0, or
-        of axis 1 for a (K, B, ...) super-batch (``stacked``). A Batcher built
-        with this rank's ``process_index`` yields its rows already."""
+        this rank's device: rows ``q * B .. (q + 1) * B - 1`` of axis 0 (q the
+        data index: a model group's ranks take the same rows), or of axis 1
+        for a (K, B, ...) super-batch (``stacked``). A Batcher built with this
+        rank's data index as ``process_index`` yields its rows already."""
         out = {}
         for k, v in batch.items():
             t = torch.as_tensor(np.ascontiguousarray(v) if isinstance(v, np.ndarray) else v)
             axis = 1 if stacked else 0
             b = t.shape[axis] // self.process_count
-            t = t.narrow(axis, self.rank * b, b)
+            t = t.narrow(axis, self.data_index * b, b)
             if t.dtype == torch.int32:
                 t = t.long()
             out[k] = t.to(self.device).contiguous()
@@ -185,5 +304,6 @@ class MeshContext:
 
     def close(self) -> None:
         """Leave the process group (nothing without one)."""
+        _AXES.clear()
         if _grouped():
             dist.destroy_process_group()

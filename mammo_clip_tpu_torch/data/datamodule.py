@@ -15,7 +15,7 @@ Differences from the reference on purpose: train entries are concatenated by
 index offsets (ConcatDataset below) rather than torch ConcatDataset + DistributedSampler
 (per-process index sharding lives in data.pipeline.Batcher), and tokenization happens
 in the batcher at fixed length. ``process_index`` / ``process_count`` (the
-mesh's rank and ranks, ``core/mesh.py``, by default) pick each rank's strided
+mesh's data index and data ranks, ``core/mesh.py``, by default) pick each rank's strided
 slice of every epoch.
 """
 

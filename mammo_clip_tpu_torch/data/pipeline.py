@@ -11,8 +11,10 @@
   the JAX Batcher does (the reference's WeightedRandomSampler option for the
   classifiers, Datasets/dataset_utils.py:147-165);
 * one process drives one device; under data parallelism (``core/mesh.py``)
-  each rank's Batcher enumerates its strided slice of the epoch's order
-  (``process_index::process_count``), the JAX Batcher's per-process sharding:
+  each data rank's Batcher enumerates its strided slice of the epoch's order
+  (``process_index::process_count``: the data index and the data ranks by
+  default, so the ranks of a model group get the same rows), the JAX
+  Batcher's per-process sharding:
   the ranks' batches are disjoint, together they cover the epoch, and every
   rank yields ``len(batcher)`` batches of its own ``batch_size`` rows, so a
   step's global batch is ``process_count * batch_size``.
@@ -49,9 +51,9 @@ class Batcher:
         self.seed = seed
         self.sample_weights = (None if sample_weights is None
                                else np.asarray(sample_weights, np.float64))
-        # this process's rank and the ranks' number (the process group's by default)
-        self.process_index = mesh.rank() if process_index is None else int(process_index)
-        self.process_count = mesh.world_size() if process_count is None else int(process_count)
+        # this process's data index and the data ranks (the mesh's by default)
+        self.process_index = mesh.data_index() if process_index is None else int(process_index)
+        self.process_count = mesh.data_size() if process_count is None else int(process_count)
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:

@@ -17,7 +17,7 @@ from typing import Dict, Optional
 
 import torch
 
-from ..core.mesh import world_size
+from ..core.mesh import data_size, data_sum
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -42,13 +42,14 @@ def multi_positive_clip_loss(image_embeddings, text_embeddings, logit_scale,
                              **_: object) -> Dict[str, torch.Tensor]:
     """Multi-positive symmetric InfoNCE; degrades to the symmetric 2-term CLIP
     loss when the second view or text is absent."""
-    if world_size() > 1:
+    if data_size() > 1:
         from ..parallel.shard_loss import gathered_clip_loss
 
         return gathered_clip_loss(
             image_embeddings, text_embeddings, logit_scale, text_embeddings2=text_embeddings2,
             image_view_embeddings=image_view_embeddings, label_smoothing=label_smoothing,
-            i2i_weight=i2i_weight, t2t_weight=t2t_weight, is_train=is_train)
+            i2i_weight=i2i_weight, t2t_weight=t2t_weight, is_train=is_train,
+            group=data_sum().group)
     n = image_embeddings.shape[0]
     labels = torch.arange(n, device=image_embeddings.device)
     s = label_smoothing if is_train else 0.0
@@ -75,12 +76,13 @@ def contrastive_clip_loss(image_embeddings, text_embeddings, logit_scale,
                           t2i_weight: float = 0.25, is_train: bool = True,
                           **_: object) -> Dict[str, torch.Tensor]:
     """ConVIRT-style asymmetric single-pair loss: 0.75*i2t + 0.25*t2i."""
-    if world_size() > 1:
+    if data_size() > 1:
         from ..parallel.shard_loss import gathered_contrastive_clip_loss
 
         return gathered_contrastive_clip_loss(
             image_embeddings, text_embeddings, logit_scale, label_smoothing=label_smoothing,
-            i2t_weight=i2t_weight, t2i_weight=t2i_weight, is_train=is_train)
+            i2t_weight=i2t_weight, t2i_weight=t2i_weight, is_train=is_train,
+            group=data_sum().group)
     n = image_embeddings.shape[0]
     labels = torch.arange(n, device=image_embeddings.device)
     s = label_smoothing if is_train else 0.0

@@ -14,6 +14,20 @@ of the three kernels concatenated at run time (same parameter tree);
 ``amp_attn_scores`` stores the scores in the activation dtype with the softmax
 in fp32. ``seq_parallel`` (sequence-sharded activations over a tensor-parallel
 mesh) belongs to the distribution slice (ROADMAP queue 9) and raises.
+
+Tensor parallelism (``parallel/partitioning.py``, Megatron-style over the
+mesh's ``model`` axis): a layer whose ``tp`` is set holds N / model heads of
+query, key and value (column-split, by heads) and the matching rows of the
+attention output, and I / model columns of ``intermediate`` with the matching
+rows of ``ffn_output``. Its replicated input enters through
+``copy_to_model``, the row-split products are summed by
+``reduce_from_model``, and a row-split layer's bias is added once, after the
+sum; a layer that is not split runs the same code, whose collectives are then
+the identity (Dense adds its bias after the product either way). Embeddings
+and LayerNorms stay replicated. The ranks of a model group
+draw the same dropout (their step seeds are the data index's): the
+attention's mask is drawn for every head and each rank keeps its heads', so
+a split layer drops what the whole layer drops.
 """
 
 from __future__ import annotations
@@ -25,6 +39,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel.tensor import copy_to_model, reduce_from_model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,18 +66,26 @@ class BertConfig:
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout with a mask drawn from ``generator``."""
+            generator: Optional[torch.Generator], heads=None) -> torch.Tensor:
+    """Inverted dropout with a mask drawn from ``generator``. ``heads`` =
+    (index, ranks): x holds one model rank's heads (dim 1) of ``ranks``; the
+    mask of every head is drawn and this rank's slice kept, so the ranks
+    draw what one process draws."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = x.shape if heads is None else (x.shape[0], x.shape[1] * heads[1], *x.shape[2:])
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if heads is not None:
+        mask = mask.narrow(1, heads[0] * x.shape[1], x.shape[1])
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class Dense(nn.Module):
     """x @ kernel (+ bias) over the trailing ``len(in_shape)`` dims; the kernel is
-    (*in_shape, *out_shape) as in Flax Dense/DenseGeneral."""
+    (*in_shape, *out_shape) as in Flax Dense/DenseGeneral. The shapes are read
+    from the kernel at each call, so a tensor-parallel shard runs as it is;
+    ``bias=False`` leaves the bias to the caller (added after a row split's sum)."""
 
     def __init__(self, in_shape, out_shape, use_bias: bool = True):
         super().__init__()
@@ -69,14 +93,15 @@ class Dense(nn.Module):
         self.kernel = nn.Parameter(torch.empty(*self.in_shape, *self.out_shape))
         self.bias = nn.Parameter(torch.zeros(*self.out_shape)) if use_bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = x.dtype
-        lead = x.shape[: x.dim() - len(self.in_shape)]
-        k = self.kernel.to(dt).reshape(math.prod(self.in_shape), -1)
+    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        dt, n_in = x.dtype, len(self.in_shape)
+        kernel = self.kernel
+        lead = x.shape[: x.dim() - n_in]
+        k = kernel.to(dt).reshape(math.prod(kernel.shape[:n_in]), -1)
         y = x.reshape(-1, k.shape[0]) @ k
-        if self.bias is not None:
+        if bias and self.bias is not None:
             y = y + self.bias.to(dt).reshape(-1)
-        return y.reshape(*lead, *self.out_shape)
+        return y.reshape(*lead, *kernel.shape[n_in:])
 
 
 class LayerNorm(nn.Module):
@@ -101,7 +126,7 @@ class Embed(nn.Module):
 
 
 def attention(q, k, v, mask, amp_scores: bool, dropout_rate: float = 0.0, train: bool = False,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              generator: Optional[torch.Generator] = None, heads=None) -> torch.Tensor:
     """Softmax attention of (B, N, S, D) ``q`` (already scaled), ``k``, ``v`` over
     the keys where the (B, S) bool ``mask`` holds; returns (B, N, S, D) in v's
     dtype. The scores are fp32, or with ``amp_scores`` and a non-fp32 dtype kept
@@ -115,11 +140,13 @@ def attention(q, k, v, mask, amp_scores: bool, dropout_rate: float = 0.0, train:
     else:
         logits = logits.float().masked_fill(~keep, torch.finfo(torch.float32).min)
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    probs = dropout(probs, dropout_rate, train, generator)
+    probs = dropout(probs, dropout_rate, train, generator, heads)
     return probs @ v
 
 
 class BertSelfAttention(nn.Module):
+    tp = None  # the model axis of a head split (parallel/partitioning.py)
+
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.cfg = cfg
@@ -136,22 +163,27 @@ class BertSelfAttention(nn.Module):
         time (JAX ``models/bert.py:118-131``)."""
         if not self.cfg.fused_qkv:
             return self.query(x), self.key(x), self.value(x)
-        dense = (self.query, self.key, self.value)
-        w = torch.cat([m.kernel.reshape(x.shape[-1], -1) for m in dense], dim=1).to(x.dtype)
-        b = torch.cat([m.bias.reshape(-1) for m in dense]).to(x.dtype)
-        qkv = x @ w + b
-        return [t.reshape(*x.shape[:-1], *self.query.out_shape) for t in qkv.chunk(3, dim=-1)]
+        kernels = [m.kernel for m in (self.query, self.key, self.value)]
+        w = torch.cat([k.reshape(x.shape[-1], -1) for k in kernels], dim=1).to(x.dtype)
+        b = torch.cat([m.bias.reshape(-1) for m in (self.query, self.key, self.value)])
+        qkv = x @ w + b.to(x.dtype)
+        return [t.reshape(*x.shape[:-1], *kernels[0].shape[1:]) for t in qkv.chunk(3, dim=-1)]
 
     def forward(self, x, mask, train: bool, generator=None):
-        cfg = self.cfg
+        cfg, tp = self.cfg, self.tp
         d = cfg.hidden_size // cfg.num_heads
-        q, k, v = self._qkv(x)
+        q, k, v = self._qkv(copy_to_model(x, tp))
         ctx = attention((q * d ** -0.5).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                        mask, cfg.amp_attn_scores, cfg.dropout_rate, train, generator)
-        return self.output(ctx.transpose(1, 2))  # ctx (B, S, N, D)
+                        mask, cfg.amp_attn_scores, cfg.dropout_rate, train, generator,
+                        None if tp is None else (tp.index, tp.ranks))
+        # ctx (B, N, S, D)
+        y = reduce_from_model(self.output(ctx.transpose(1, 2), bias=False), tp)
+        return y + self.output.bias.to(y.dtype)
 
 
 class BertLayer(nn.Module):
+    tp = None  # the model axis of the FFN's split (parallel/partitioning.py)
+
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.cfg = cfg
@@ -165,8 +197,9 @@ class BertLayer(nn.Module):
         rate = self.cfg.dropout_rate
         attn = dropout(self.attention(x, mask, train, generator), rate, train, generator)
         x = self.attention_ln(x + attn)
-        h = F.gelu(self.intermediate(x), approximate="none")
-        h = dropout(self.ffn_output(h), rate, train, generator)
+        h = F.gelu(self.intermediate(copy_to_model(x, self.tp)), approximate="none")
+        h = reduce_from_model(self.ffn_output(h, bias=False), self.tp)
+        h = dropout(h + self.ffn_output.bias.to(h.dtype), rate, train, generator)
         return self.ffn_ln(x + h)
 
 

@@ -42,6 +42,19 @@ Under a data-parallel process group (``core/mesh.py``) every train-mode
 BatchNorm, the fused blocks' included, takes its statistics over the global
 batch: the running statistics then end the same on every rank.
 
+Tensor parallelism (``parallel/partitioning.py``): a block whose ``tp`` is set
+holds E / model channels of its expanded dim: the columns of ``expand_conv``,
+those channels of ``bn0``, ``depthwise_conv``, ``bn1`` and ``se.expand``, and
+the rows of ``se.reduce`` and ``project_conv``. Its replicated input enters
+through ``copy_to_model``; the SE squeeze's partial products are summed over
+``model`` before the reduce's bias and its activation, and the projection's
+before the replicated ``bn2``. A channel shard's BatchNorm statistics sum over
+``data`` alone; a replicated tensor's over every rank (``core/mesh.py::
+world_sum``: the same statistics, the same bits on every model rank). On the
+fused route the block gathers its shards over ``model``
+(``gather_from_model``) and every model rank runs the whole block on them, as
+GSPMD hands JAX's opaque Pallas call replicated operands.
+
 Running statistics: each block computes its forward as a pure function that
 returns its batch statistics, and the block applies the momentum update after
 it. Under ``torch.utils.checkpoint`` the recomputation reruns only the pure
@@ -60,13 +73,14 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..core.mesh import data_sum
+from ..core.mesh import data_sum, world_sum
 from ..ops.batchnorm import TrainBatchNorm as _TrainBatchNorm
 from ..ops.mbconv import BN_EPS, MBConvParams
 from ..ops.mbconv6 import MBConv6Params, fused_mbconv_e6, pick_h_pad, pick_w_pad
 from ..ops.pooling import gem_pool, global_avg_pool
 from ..ops.quant import int8_conv1x1
 from ..ops.stochastic import drop_delta
+from ..parallel.tensor import copy_to_model, gather_from_model, reduce_from_model
 
 # (num_repeat, kernel, stride, expand_ratio, in_filters, out_filters, se_ratio)
 _BASE_BLOCKS: Tuple[Tuple[int, int, int, int, int, int, float], ...] = (
@@ -224,11 +238,15 @@ class Conv(nn.Module):
         self.kernel = nn.Parameter(torch.empty(cout, cin // groups, k, k))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = x.dtype
-        bias = self.bias.to(dt) if self.bias is not None else None
-        return F.conv2d(same_pad(x, self.k, self.stride), self.kernel.to(dt), bias,
-                        self.stride, 0, 1, self.groups)
+    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        """``bias=False`` leaves the bias to the caller (a row split's, after
+        its sum); a depthwise conv takes its groups from the kernel, so a
+        channel shard runs as it is."""
+        dt, kernel = x.dtype, self.kernel
+        b = self.bias.to(dt) if bias and self.bias is not None else None
+        groups = 1 if self.groups == 1 else kernel.shape[0]
+        return F.conv2d(same_pad(x, self.k, self.stride), kernel.to(dt), b,
+                        self.stride, 0, 1, groups)
 
 
 class BatchNorm(nn.Module):
@@ -248,8 +266,9 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, train: bool):
-        if train:
-            y, mean, var = _TrainBatchNorm.apply(x, self.scale, self.bias, self.eps, data_sum())
+        if train:  # a channel shard's statistics over its data group, else every rank's
+            rank_sum = data_sum() if getattr(self.scale, "_mc_shard", None) else world_sum()
+            y, mean, var = _TrainBatchNorm.apply(x, self.scale, self.bias, self.eps, rank_sum)
             return y, (mean, var)
         c = (1, -1, 1, 1)
         y = (x.float() - self.mean.view(c)) * (torch.rsqrt(self.var + self.eps)
@@ -271,15 +290,26 @@ class SqueezeExcite(nn.Module):
         self.reduce = Conv(channels, squeezed, 1, bias=True)
         self.expand = Conv(squeezed, channels, 1, bias=True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tp=None) -> torch.Tensor:
+        """``tp``: x is a channel shard; the reduce's partial products are
+        summed over ``model`` before its bias. With no ``tp`` the bias stays
+        in the conv: on the CPU oneDNN adds it inside the conv, with bits of
+        its own (cuDNN's bits equal the conv and add's)."""
         s = x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
-        s = self.expand(F.silu(self.reduce(s)))
+        if tp is None:
+            s = self.expand(F.silu(self.reduce(s)))
+        else:
+            r = reduce_from_model(self.reduce(s, bias=False), tp)
+            r = r + self.reduce.bias.to(r.dtype).view(1, -1, 1, 1)
+            s = self.expand(copy_to_model(F.silu(r), tp))
         return x * torch.sigmoid(s)
 
 
 class MBConvBlock(nn.Module):
     """One MBConv block. ``forward`` returns the output and applies this call's
     running-statistics update; ``pure_forward`` is the side-effect-free part."""
+
+    tp = None  # the model axis of the expanded dim's split (parallel/partitioning.py)
 
     def __init__(self, args: BlockArgs, drop_rate: float):
         super().__init__()
@@ -304,17 +334,22 @@ class MBConvBlock(nn.Module):
         return ([self.bn0] if hasattr(self, "bn0") else []) + [self.bn1, self.bn2]
 
     def fused_params(self):
-        """The raw kernel parameters (views of this block's tensors)."""
-        mat = lambda conv: conv.kernel[:, :, 0, 0].t()  # (Cout, Cin, 1, 1) -> (Cin, Cout)
+        """The raw kernel parameters (views of this block's tensors; a model
+        split's shards gathered whole along their own split dim)."""
+        def whole(t):
+            s = getattr(t, "_mc_shard", None)
+            return gather_from_model(t, s.dim, s.group) if s and s.axis == "model" else t
+
+        mat = lambda conv: whole(conv.kernel)[:, :, 0, 0].t()  # (Cout, Cin, 1, 1) -> (Cin, Cout)
         common = dict(
-            dw_kernel=self.depthwise_conv.kernel[:, 0],
-            gamma1=self.bn1.scale, beta1=self.bn1.bias,
+            dw_kernel=whole(self.depthwise_conv.kernel)[:, 0],
+            gamma1=whole(self.bn1.scale), beta1=whole(self.bn1.bias),
             se_w1=mat(self.se.reduce), se_b1=self.se.reduce.bias,
-            se_w2=mat(self.se.expand), se_b2=self.se.expand.bias,
+            se_w2=mat(self.se.expand), se_b2=whole(self.se.expand.bias),
             wp=mat(self.project_conv), gamma2=self.bn2.scale, beta2=self.bn2.bias)
         if hasattr(self, "bn0"):
-            return MBConv6Params(we=mat(self.expand_conv), gamma0=self.bn0.scale,
-                                 beta0=self.bn0.bias, **common)
+            return MBConv6Params(we=mat(self.expand_conv), gamma0=whole(self.bn0.scale),
+                                 beta0=whole(self.bn0.bias), **common)
         return MBConvParams(**common)
 
     def pure_forward(self, x, train: bool, delta, valid_hw: Optional[Tuple[int, int]],
@@ -325,8 +360,13 @@ class MBConvBlock(nn.Module):
         if fused and train:
             vh, vw = valid_hw or x.shape[2:]
             out, stats = fused_mbconv_e6(x, self.fused_params(), delta, vh, vw, BN_EPS,
-                                         rank_sum=data_sum())
-            return out, [stats[i:i + 2] for i in range(0, len(stats), 2)]
+                                         rank_sum=world_sum())
+            stats = [stats[i:i + 2] for i in range(0, len(stats), 2)]
+            if self.tp is not None:  # bn0's and bn1's running statistics are shards
+                e = stats[0][0].shape[0] // self.tp.ranks
+                stats[:2] = [[t.narrow(0, self.tp.index * e, e) for t in st]
+                             for st in stats[:2]]
+            return out, stats
         if fused and valid_hw is not None:  # eval on the fused route: keep the zero pads
             hp, wp = x.shape[2:]
             out, stats = self._unfused(x[:, :, :valid_hw[0], :valid_hw[1]], train, delta)
@@ -344,12 +384,12 @@ class MBConvBlock(nn.Module):
             stats.append(s)
             return y
 
-        inputs = x
+        inputs, tp = x, self.tp
         if hasattr(self, "bn0"):
-            x = F.silu(bn(self.bn0, conv1x1(self.expand_conv, x)))
+            x = F.silu(bn(self.bn0, conv1x1(self.expand_conv, copy_to_model(x, tp))))
         x = F.silu(bn(self.bn1, self.depthwise_conv(x)))
-        x = self.se(x)
-        x = bn(self.bn2, conv1x1(self.project_conv, x))
+        x = self.se(x, tp)
+        x = bn(self.bn2, reduce_from_model(conv1x1(self.project_conv, x), tp))
         if self.residual:
             if train and self.drop_rate > 0.0:
                 x = x * delta.view(-1, 1, 1, 1).to(x.dtype)

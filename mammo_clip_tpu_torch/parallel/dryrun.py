@@ -1,23 +1,28 @@
-"""N data-parallel ranks equal one process (port of the data-parallel part of
-``__graft_entry__.py::dryrun_multichip``, :82-207).
+"""N ranks equal one process (port of ``__graft_entry__.py::dryrun_multichip``,
+:82-207, its data-parallel and its TP + FSDP parts).
 
     python -m mammo_clip_tpu_torch.parallel.dryrun [--ranks N] [--device cuda|cpu]
-        [--timeout 600]
+        [--timeout 600] [--layout dp tp]
 
 runs ``steps_case`` on N ranks, each a process of its own under ``python -m
 torch.distributed.run --standalone`` (``run_ranks``: NCCL with one card a
 rank, every visible card by default; gloo with ``--device cpu``, 4 ranks by
-default), and again in this process on the global batch of N x B rows, then
-compares (``compare``): the losses, the step's gradients after the ranks'
-average, and after one step and after one K=2 call (``make_train_multistep``,
-which the one process also checks against two single steps) every parameter,
-the BatchNorm running statistics and the EMA; and that every rank ends with
-the same bits. It prints one JSON line of the largest differences and exits 1
-when one is over its tolerance. Any N >= 1 runs (the JAX dry run reshapes its
+default), and again in this process on the same global batch, then compares
+(``compare``): the losses, the step's gradients after the ranks' average,
+and after one step and after one K=2 call (``make_train_multistep``, which
+the one process also checks against two single steps) every parameter, the
+BatchNorm running statistics and the EMA, every shard gathered whole; and
+that every rank ends with the same bits. Two layouts (``layout_cases``):
+``dp``, N data ranks on N x B rows; ``tp``, the JAX dry run's data N/2 x
+model 2 with the state placed by ``parallel/partitioning.py::
+shard_train_state(fsdp=True)`` (Megatron splits of BERT and the eligible
+MBConv blocks over ``model``, ZeRO-3 over ``data``) on N/2 x B rows, for an
+even N. It prints one JSON line of the largest differences and exits 1 when
+one is over its tolerance. Any N >= 1 runs (the JAX dry run reshapes its
 devices to (2, 4) and crashes below 8: fault R1 of the reference, not
-inherited); with one rank no process group is made and no collective runs.
-Tensor, FSDP, sequence and pipeline parallelism are the next slice of the
-port.
+inherited); with one rank no process group is made, no collective runs and
+no ``tp`` case is made. Sequence and pipeline parallelism are the next slice
+of the port.
 
 The stochastic parts are off on both sides (augmentation, drop-connect,
 dropout), since rank r folds r into its step seed (``train/step.py``), and
@@ -114,7 +119,8 @@ def _resolve(target: str):
 
 def _rank_worker(target: str, tmp: str, device: str) -> None:
     payload = torch.load(Path(tmp) / "payload.pt", weights_only=False)
-    ctx = mesh.MeshContext.create(device=device, timeout_s=payload.get("timeout_s", 300.0))
+    ctx = mesh.MeshContext.create(**payload.get("mesh", {}), device=device,
+                                  timeout_s=payload.get("timeout_s", 300.0))
     if ctx.device.type == "cpu":
         torch.set_num_threads(1)
     try:
@@ -146,24 +152,33 @@ def _snap(tensors: Dict[str, torch.Tensor], sample: bool) -> Dict[str, np.ndarra
             idx = np.random.default_rng(zlib.crc32(k.encode())).choice(
                 flat.numel(), SAMPLE, replace=False)
             flat = flat[torch.as_tensor(np.sort(idx), device=flat.device)]
-        out[k] = flat.cpu().numpy()
+        out[k] = flat.cpu().numpy().copy()  # never a view of a tensor updated later
     return out
 
 
 def _state_snap(state, sample: bool) -> dict:
-    params = dict(state.model.named_parameters())
-    buffers = dict(state.model.named_buffers())
-    ema = state.ema or {}
+    """The parameters, buffers and EMA, each shard gathered whole
+    (``parallel/partitioning.py``; every rank takes part), as snapshots and
+    one digest."""
+    from .partitioning import full_tensors
+
+    params = full_tensors(dict(state.model.named_parameters()))
+    buffers = full_tensors(dict(state.model.named_buffers()))
+    ema = full_tensors(state.ema or {})
     return {"step": state.step, "params": _snap(params, sample),
             "buffers": _snap(buffers, sample), "ema": _snap(ema, sample),
             "digest": _digest({**params, **{f"buffer.{k}": v for k, v in buffers.items()},
-                               **{f"ema.{k}": v for k, v in ema.items()}})}
+                               **{f"ema.{k}": v for k, v in ema.items()}}),
+            "digests": {"params": _digest(params), "buffers": _digest(buffers),
+                        "ema": _digest(ema)}}
 
 
-def _build(cfg: Config, device, init: Optional[dict]):
-    """The model, its train state and the preprocess (normalisation only). The
-    last build's state is freed first: the gradient recorder of ``_one_step``
-    makes a reference cycle, which only the collector breaks."""
+def _build(cfg: Config, device, init: Optional[dict], shard: Optional[dict] = None):
+    """The model, its train state and the preprocess (normalisation only), the
+    state placed on the mesh by ``shard_train_state(state, **shard)`` when
+    ``shard`` is given. The last build's state is freed first: the gradient
+    recorder of ``_one_step`` makes a reference cycle, which only the
+    collector breaks."""
     from ..losses import build_loss
     from ..models import build_model
     from ..train.optim import build_optimizer
@@ -184,6 +199,10 @@ def _build(cfg: Config, device, init: Optional[dict]):
     schedule = warmup_cosine_sq_schedule(cfg.optimizer.lr, 100, 0)
     opt = build_optimizer(cfg.optimizer.to_dict(), schedule, model.named_parameters())
     state = create_train_state(model, opt, ema_decay=cfg.optimizer.get("ema_decay", 0.0))
+    if shard is not None:
+        from .partitioning import shard_train_state
+
+        shard_train_state(state, **shard)
     norm = make_clip_preprocess(cfg)
     return model, state, build_loss(cfg.loss.to_dict()), (lambda b, g: norm(b, None))
 
@@ -202,20 +221,26 @@ def steps_case(ctx, payload) -> dict:
     rank's rows of ``payload["batches"]`` (two global host batches), or on all
     of them with ``ctx`` None or one rank (the one process, which also takes
     the two batches as two single steps unless ``payload["two_steps"]`` is
-    false). Returns the losses, the step's
-    averaged gradients (and the fused kernel's launches in it) and snapshots
-    of the state after each."""
+    false). On ranks, ``payload["mesh"]`` lays them out (``MeshContext``:
+    the data-parallel world by default) and ``payload["shard"]`` places the
+    state with ``shard_train_state`` (tensor parallelism over ``model``,
+    ``fsdp``). Returns the losses, the step's averaged gradients (and the
+    fused kernel's launches in it) and snapshots of the state after each,
+    every shard gathered whole."""
     from ..train.step import make_train_multistep, make_train_step
 
     cfg = Config(payload["cfg"])
+    if ctx is not None:  # this case's layout of the ranks (the DP world by default)
+        ctx = mesh.MeshContext.create(**payload.get("mesh", {}), device=ctx.device)
     device = ctx.device if ctx is not None else torch.device(payload.get("device", "cpu"))
     sample = bool(payload.get("sample", False))
     init = payload.get("init")
+    shard = payload.get("shard") if ctx is not None else None
     batches = payload["batches"]
     out = {"rank": mesh.rank(), "ranks": mesh.world_size()}
     with full_fp32():
-        out["one"] = _one_step(cfg, device, init, _rows(ctx, batches[0], device), sample)
-        model, state, loss_fn, pre = _build(cfg, device, init)
+        out["one"] = _one_step(cfg, device, init, _rows(ctx, batches[0], device), sample, shard)
+        model, state, loss_fn, pre = _build(cfg, device, init, shard)
         stacked = {k: np.stack([batches[0][k], batches[1][k]]) for k in batches[0]}
         multi = make_train_multistep(model, loss_fn, pre)
         state, losses = multi(state, _rows(ctx, stacked, device, stacked=True),
@@ -234,62 +259,72 @@ def steps_case(ctx, payload) -> dict:
     return out
 
 
-def _one_step(cfg: Config, device, init, rows, sample: bool) -> dict:
+def _one_step(cfg: Config, device, init, rows, sample: bool, shard=None) -> dict:
     """One train step on ``rows`` (this rank's, on the device): the losses, the
-    gradients the optimizer takes (after the ranks' average), the fused
-    kernel's launches, the state after it and the step's seconds."""
+    gradients the optimizer takes (after the ranks' average, each shard
+    gathered whole), the fused kernel's launches, the state after it, the
+    step's seconds and its peak device memory (bytes; None on the CPU)."""
     from ..ops.mbconv import launches
     from ..train.step import make_train_step
+    from .partitioning import full_tensors
 
-    model, state, loss_fn, pre = _build(cfg, device, init)
+    model, state, loss_fn, pre = _build(cfg, device, init, shard)
     grads = {}
     apply = state.apply_gradients
 
     def recording():  # the gradients the optimizer is about to take, after the average
         if not grads:
-            grads.update(_snap({n: p.grad for n, p in model.named_parameters()
-                                if p.grad is not None}, sample))
+            params = dict(model.named_parameters())
+            grads.update(_snap(full_tensors({n: p.grad for n, p in params.items()
+                                             if p.grad is not None}, like=params), sample))
         return apply()
 
     state.apply_gradients = recording
     step = make_train_step(model, loss_fn, pre)
     launches.reset()
-    t = time.perf_counter()
-    state, losses = step(state, rows, torch.Generator(device=device), cfg.seed)
-    out = {"losses": {k: float(v) for k, v in losses.items()}, "grads": grads,
-           "fused": dict(launches.counts), **_state_snap(state, sample)}
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    out["seconds"] = time.perf_counter() - t
+        torch.cuda.reset_peak_memory_stats(device)
+    t = time.perf_counter()
+    state, losses = step(state, rows, torch.Generator(device=device), cfg.seed)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    out = {"losses": {k: float(v) for k, v in losses.items()}, "grads": grads,
+           "fused": dict(launches.counts), "seconds": seconds, "peak_bytes": peak,
+           **_state_snap(state, sample)}
     return out
 
 
 def self_noise(payload, one: dict) -> dict:
-    """One process against itself: its first step (``one``, from ``steps_case``)
-    taken again with the global batch's rows reversed, and again on the
-    unfused blocks (cuDNN's convolutions and autograd's BatchNorm). Either is
-    as right as the first, so what they differ by is the floor below which no
-    check of the ranks can go: per run, ``compare``'s terms and the five
+    """One process against itself: its first step and its K=2 call (``one``,
+    from ``steps_case``) taken again with the global batches' rows reversed,
+    and its first step again on the unfused blocks (cuDNN's convolutions and
+    autograd's BatchNorm). Either is as right as the first, so what they
+    differ by is the floor below which no check of the ranks can go: per run,
+    ``compare``'s terms (``k2`` too for the reversed rows) and the five
     tensors whose gradients moved most (relative, as ``grad_diffs``)."""
     device = torch.device(payload.get("device", "cpu"))
     sample = bool(payload.get("sample", False))
     batch = payload["batches"][0]
-    reversed_rows = {k: np.ascontiguousarray(v[::-1]) for k, v in batch.items()}
     unfused = Config(payload["cfg"])
     unfused.model.image_encoder.fused_mbconv = False
-    runs = {}
+    reversed_rows = [{k: np.ascontiguousarray(v[::-1]) for k, v in b.items()}
+                     for b in payload["batches"]]
+    rev = steps_case(None, {**payload, "batches": reversed_rows, "two_steps": False})
+    runs = {"reversed": rev["one"]}
     with full_fp32():
-        runs["reversed"] = _one_step(Config(payload["cfg"]), device, payload.get("init"),
-                                     _rows(None, reversed_rows, device), sample)
         runs["unfused"] = _one_step(unfused, device, payload.get("init"),
                                     _rows(None, batch, device), sample)
     out = {}
     for name, run in runs.items():
-        rel = grad_rel(run["grads"], one["grads"])
-        _, scale = grad_diffs(run["grads"], one["grads"])
-        out[name] = {**_state_diffs(run, one), "grad_rel": max(rel.values()),
+        rel = grad_rel(run["grads"], one["one"]["grads"])
+        _, scale = grad_diffs(run["grads"], one["one"]["grads"])
+        out[name] = {**_state_diffs(run, one["one"]), "grad_rel": max(rel.values()),
                      "grad_scale": scale,
                      "worst": sorted(rel.items(), key=lambda kv: -kv[1])[:5]}
+    out["reversed"]["k2"] = _state_diffs(rev["k2"], one["k2"])
     return out
 
 
@@ -311,12 +346,28 @@ def self_noise(payload, one: dict) -> dict:
 # statistics are held at 10x the reversed rows' noise, parameters and EMA at
 # 2x theirs, which is also about the 2 lr by which one AdamW step (eps 1e-3)
 # can move an element at most, so in bf16 the parameters only bound the update.
+#
+# noise: the ranks' step and K=2 call are held, term by term (loss,
+# parameters, EMA, statistics), at the larger of these tolerances and this
+# many times one process's own noise in that term on the same rows
+# (``self_noise``'s reversed rows), when ``compare`` is given that reading
+# (None: at the tolerances). No check of the ranks can go below what one
+# process differs from itself by; on few rows (BatchNorm over them, one AdamW
+# step with eps 1e-3 after it) that can exceed the tolerances. On the CPU,
+# tiny CLIP: at two data ranks (4 rows of the dry run's own batches) one
+# process's K=2 loss moves 7.4e-6 with its rows reversed, and the ranks read
+# 1.19e-5 (data 2) and 1.23e-5 (data 2 x model 2), their first step's state
+# and gradients inside that process's own noise: the K=2 loss's limit there
+# is 1.48e-5. On 2 rows (data 1 x model 2) one process's own step loss moves
+# 3.6e-5 and its K=2 parameters 1.1e-6; the ranks read 2.6e-5 and 1.0e-6. At
+# four data ranks (8 rows) every limit stays at its tolerance. bf16's are
+# already set from its noise.
 TOLERANCES = {"tiny": {"loss": 1e-5, "state": 1e-6, "buffers": 1e-4, "grad": 1e-4,
-                       "scale": 1e-4},
+                       "scale": 1e-4, "noise": 2.0},
               "full_width": {"loss": 1e-5, "state": 1e-5, "buffers": 2e-5, "grad": 1e-2,
-                             "scale": 1e-3},
+                             "scale": 1e-3, "noise": 2.0},
               "full_width_bf16": {"loss": 1e-2, "state": 2e-4, "buffers": 2e-2, "grad": None,
-                                  "scale": None}}
+                                  "scale": None, "noise": None}}
 
 
 def _max_diff(a: Dict[str, np.ndarray], b: Dict[str, np.ndarray]) -> float:
@@ -354,25 +405,47 @@ def _state_diffs(x: dict, y: dict) -> dict:
             "ema": _max_diff(x["ema"], y["ema"])}
 
 
-def compare(ranks: List[dict], one: dict, size: str = "tiny") -> dict:
+def compare(ranks: List[dict], one: dict, size: str = "tiny",
+            noise: Optional[dict] = None) -> dict:
     """The largest differences between the ranks' runs and the one process's,
-    each beside its tolerance (``TOLERANCES[size]``), and ``ok``."""
+    each beside its limit (``limits``), and ``ok``. The limits are
+    ``TOLERANCES[size]``, each term of the step and of the K=2 call raised to
+    ``TOLERANCES[size]["noise"]`` times one process's own noise in it where
+    ``noise`` (``self_noise``'s reading on the same payload) is given."""
     tol = TOLERANCES[size]
     r0 = ranks[0]
     same = all(r[k]["digest"] == r0[k]["digest"] for r in ranks for k in ("one", "k2"))
+    # which parts differ from rank 0's, by rank, when a digest does
+    differ = {r["rank"]: [f"{k}.{part}" for k in ("one", "k2") for part, d in
+                          r[k].get("digests", {}).items() if d != r0[k]["digests"][part]]
+              for r in ranks[1:]} if not same else {}
     d1 = _state_diffs(r0["one"], one["one"])
     dk = _state_diffs(r0["k2"], one["k2"])
     dseq = _state_diffs(one["k2"], one["two"]) if "two" in one else None
     grad, scale = grad_diffs(r0["one"]["grads"], one["one"]["grads"])
-    out = {"ranks": len(ranks), "same_bits_across_ranks": same, "step": d1, "k2": dk,
-           "k2_vs_two_steps": dseq, "grad_rel": grad, "grad_scale": scale, "tolerance": tol,
+    rel = grad_rel(r0["one"]["grads"], one["one"]["grads"])
+
+    def limits(own):  # each term's limit, beside one process's own noise ``own``
+        base = {"loss": tol["loss"], "params": tol["state"], "ema": tol["state"],
+                "buffers": tol["buffers"]}
+        if own is None or tol["noise"] is None:
+            return base
+        return {k: max(v, tol["noise"] * own[k]) for k, v in base.items()}
+
+    rev = noise["reversed"] if noise is not None else None
+    lims = {"step": limits(rev), "k2": limits(rev and rev["k2"]), "k2_vs_two_steps": limits(None)}
+    out = {"ranks": len(ranks), "same_bits_across_ranks": same, "differ": differ,
+           "step": d1, "k2": dk,
+           "k2_vs_two_steps": dseq, "grad_rel": grad, "grad_scale": scale,
+           "grad_worst": sorted(rel.items(), key=lambda kv: -kv[1])[:5], "tolerance": tol,
+           "limits": lims,
            "loss": r0["one"]["losses"]["total"], "loss_one_process": one["one"]["losses"]["total"]}
     checks = []
     if tol["grad"] is not None:
         checks += [grad <= tol["grad"], abs(scale - 1.0) <= tol["scale"]]
-    for d in filter(None, (d1, dk, dseq)):
-        checks += [d["loss"] <= tol["loss"], d["params"] <= tol["state"],
-                   d["ema"] <= tol["state"], d["buffers"] <= tol["buffers"]]
+    for name, d in (("step", d1), ("k2", dk), ("k2_vs_two_steps", dseq)):
+        if d is not None:
+            checks += [d[k] <= lim for k, lim in lims[name].items()]
     out["ok"] = bool(same and all(checks))
     return out
 
@@ -443,15 +516,42 @@ def _rank_cases(ctx, payload) -> dict:
     return {name: steps_case(ctx, p) for name, p in payload["cases"].items()}
 
 
+LAYOUTS = ("dp", "tp")
+
+
+def layout_cases(n_ranks: int, device: str, seed: int = 0,
+                 layouts=LAYOUTS) -> Dict[str, dict]:
+    """The payloads of ``steps_case``, by case name, for each of
+    ``dp_configs(device)``: ``dp``, the data-parallel step on every rank
+    (``n_ranks`` x B rows); ``tp`` (``<name>_tp``, with an even ``n_ranks``),
+    the JAX dry run's layout, ``data = n_ranks / 2`` and ``model = 2`` with
+    the state placed by ``shard_train_state(fsdp=True)`` (Megatron splits and
+    ZeRO-3), on (n_ranks / 2) x B rows. A case's tolerances are its config's."""
+    cases = {}
+    for name, cfg in dp_configs(device, seed).items():
+        b = cfg.data.batch_size_per_device
+        # the K=2 call against two steps once: the dtype does not change the loop
+        common = {"cfg": cfg.to_dict(), "sample": device == "cuda", "device": device,
+                  "two_steps": cfg.train.dtype == "float32"}
+        if "dp" in layouts:
+            cases[name] = {**common, "batches": host_batches(cfg, n_ranks * b, seed)}
+        if "tp" in layouts and n_ranks % 2 == 0:
+            cases[f"{name}_tp"] = {**common, "batches": host_batches(cfg, n_ranks // 2 * b, seed),
+                                   "mesh": {"data": n_ranks // 2, "model": 2},
+                                   "shard": {"fsdp": True}}
+    return cases
+
+
 def dryrun(n_ranks: int, device: str = "cuda", seed: int = 0,
-           timeout_s: float = 600.0) -> dict:
-    """``steps_case`` for each of ``dp_configs(device)`` on ``n_ranks`` ranks and
-    in this process (while the ranks run), each held to its tolerances by
-    ``compare``, with ``self_noise`` beside it. Returns ``{name: compare's dict
-    with the ranks' and the one process's seconds a step, the fused launches
-    a rank and the self-noise}`` and ``ok``. With one rank no process group is made and no collective runs:
-    the ranks' sums are then exercised only by the tests' gloo ranks and
-    ``chip_smoke.py``'s phase 17 (a)."""
+           timeout_s: float = 600.0, layouts=LAYOUTS) -> dict:
+    """``steps_case`` for each of ``layout_cases`` on ``n_ranks`` ranks and in
+    this process (while the ranks run), each held to its config's tolerances
+    by ``compare``, with ``self_noise`` beside it. Returns ``{name: compare's
+    dict with the ranks' and the one process's seconds a step and peak device
+    memory, the fused launches a rank and the self-noise}`` and ``ok``. With
+    one rank no process group is made and no collective runs (and no ``tp``
+    case): the ranks' sums are then exercised only by the tests' gloo ranks
+    and ``chip_smoke.py``'s phases 17 (a) and 18 (a)."""
     from concurrent.futures import ThreadPoolExecutor
 
     if device == "cuda":
@@ -461,24 +561,21 @@ def dryrun(n_ranks: int, device: str = "cuda", seed: int = 0,
         from ..ops import cuda_lib
 
         cuda_lib.build()  # once, before the ranks would each build it
-    cases = {}
-    for name, cfg in dp_configs(device, seed).items():
-        b = cfg.data.batch_size_per_device
-        # the K=2 call against two steps once: the dtype does not change the loop
-        cases[name] = {"cfg": cfg.to_dict(), "batches": host_batches(cfg, n_ranks * b, seed),
-                       "sample": device == "cuda", "device": device,
-                       "two_steps": cfg.train.dtype == "float32"}
+    cases = layout_cases(n_ranks, device, seed, layouts)
     with ThreadPoolExecutor(1) as pool:
         spawned = pool.submit(run_ranks, n_ranks, f"{__name__}:_rank_cases",
                               {"cases": cases, "timeout_s": timeout_s}, device, timeout_s)
         ones = {name: steps_case(None, p) for name, p in cases.items()}
-        noise = {name: self_noise(p, ones[name]["one"]) for name, p in cases.items()}
+        noise = {name: self_noise(p, ones[name]) for name, p in cases.items()}
         ranks = spawned.result()
     out = {"ranks": n_ranks, "device": device}
     for name, one in ones.items():
-        cmp = compare([r[name] for r in ranks], one, name)
-        cmp.update(rank_step_s=[r[name]["one"]["seconds"] for r in ranks],
+        cmp = compare([r[name] for r in ranks], one, name.removesuffix("_tp"), noise[name])
+        cmp.update(mesh=cases[name].get("mesh", {"data": n_ranks, "model": 1}),
+                   rank_step_s=[r[name]["one"]["seconds"] for r in ranks],
                    one_process_step_s=one["one"]["seconds"],
+                   rank_peak_bytes=[r[name]["one"]["peak_bytes"] for r in ranks],
+                   one_process_peak_bytes=one["one"]["peak_bytes"],
                    fused_per_rank=ranks[0][name]["one"]["fused"], self_noise=noise[name])
         out[name] = cmp
     out["ok"] = all(out[name]["ok"] for name in ones)
@@ -486,19 +583,22 @@ def dryrun(n_ranks: int, device: str = "cuda", seed: int = 0,
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="N data-parallel ranks equal one process")
+    ap = argparse.ArgumentParser(description="N ranks equal one process")
     ap.add_argument("--ranks", type=int, default=None,
                     help="ranks (default: every visible card, or 4 with --device cpu)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--timeout", type=float, default=600.0)
+    ap.add_argument("--layout", nargs="+", default=list(LAYOUTS), choices=LAYOUTS,
+                    help="dp: data parallelism on every rank; tp: data N/2 x model 2, "
+                    "Megatron splits and ZeRO-3 (an even N)")
     ap.add_argument("--rank-worker", nargs=3, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.rank_worker:
         _rank_worker(*args.rank_worker)
         return 0
     ranks = args.ranks or (4 if args.device == "cpu" else torch.cuda.device_count())
-    out = dryrun(ranks, args.device, args.seed, args.timeout)
+    out = dryrun(ranks, args.device, args.seed, args.timeout, tuple(args.layout))
     print(json.dumps(out))
     return 0 if out["ok"] else 1
 

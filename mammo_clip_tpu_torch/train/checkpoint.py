@@ -23,6 +23,11 @@ Under data parallelism (``core/mesh.py``) every rank calls
 ``save_checkpoint`` with the same state; rank 0 writes (the JAX package's
 ``checkpoint.py:64`` gate) and a barrier follows, so that no rank reads or
 removes a step before it is whole. Every rank restores from the same files.
+A state placed by ``parallel/partitioning.py::shard_train_state`` (Megatron
+shards over ``model``, ZeRO-3 shards over ``data``) is gathered whole on
+every rank first, so rank 0 writes the files one process writes, with its
+names and shapes (``eval/loading.py`` and the CLIs read them unchanged);
+restoring loads them whole and keeps each rank's slice of every shard.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import torch
 
 from ..core import mesh
 from ..core.config import Config
+from ..parallel.partitioning import full_like, full_state_dict, full_tensor, load_full, local_slice
 
 PAYLOAD = "state.pt"
 
@@ -71,23 +77,41 @@ def save_checkpoint(
     """Write ``state`` at ``directory/<step>``, with ``extra_arrays`` (name ->
     array) in its ``arrays.npz``; keep the newest ``max_to_keep`` steps (all
     when None). Under a process group rank 0 writes and every rank waits."""
+    payload = _payload(state)  # every rank: the shards' gathers are collectives
     if mesh.is_master():
-        _write(directory, state, config, step, extra_meta, max_to_keep, generators,
+        _write(directory, state, payload, config, step, extra_meta, max_to_keep, generators,
                extra_arrays)
     mesh.barrier()
 
 
-def _write(directory, state, config, step, extra_meta, max_to_keep, generators,
+def _optimizer_tensors(sd: dict, params, convert) -> dict:
+    """The optimizer's state dict with each tensor the shape of its parameter
+    (the moments, the accumulator) passed through ``convert(param, tensor)``."""
+    inner = dict(sd["inner"])
+    inner["state"] = {i: {k: convert(params[i], v) if torch.is_tensor(v) and v.dim() else v
+                          for k, v in st.items()} for i, st in sorted(sd["inner"]["state"].items())}
+    acc = None if sd["acc"] is None else [convert(p, a) for p, a in zip(params, sd["acc"])]
+    return {**sd, "inner": inner, "acc": acc}
+
+
+def _payload(state) -> dict:
+    """The model, the optimizer, the step and the EMA, each tensor whole."""
+    params = state.optimizer.params
+    payload = {"model": full_state_dict(state.model),
+               "optimizer": _optimizer_tensors(state.optimizer.state_dict(), params, full_like),
+               "step": int(state.step)}
+    if state.ema is not None:
+        payload["ema"] = {k: full_tensor(v) for k, v in state.ema.items()}
+    return payload
+
+
+def _write(directory, state, payload, config, step, extra_meta, max_to_keep, generators,
            extra_arrays) -> None:
     directory = os.path.abspath(directory)
     step = int(state.step) if step is None else int(step)
     final = os.path.join(directory, str(step))
     tmp = f"{final}.tmp-{os.getpid()}"
     os.makedirs(tmp, exist_ok=True)
-    payload = {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-               "step": int(state.step)}
-    if state.ema is not None:
-        payload["ema"] = state.ema
     if generators:
         payload["generators"] = {k: g.get_state() for k, g in generators.items()}
     torch.save(payload, os.path.join(tmp, PAYLOAD))
@@ -135,14 +159,15 @@ def restore_checkpoint(directory: str, state, step: Optional[int] = None,
         raise FileNotFoundError(f"no checkpoint found under {directory}")
     path = os.path.join(directory, str(step))
     payload = torch.load(os.path.join(path, PAYLOAD), map_location="cpu", weights_only=True)
-    state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    load_full(state.model, payload["model"])
+    state.optimizer.load_state_dict(_optimizer_tensors(payload["optimizer"],
+                                                       state.optimizer.params, local_slice))
     state.step = int(payload["step"])
     if state.ema is not None:
         stored = payload.get("ema")
         with torch.no_grad():
             for name, p in state.model.named_parameters():
-                state.ema[name].copy_(stored[name] if stored is not None else p)
+                state.ema[name].copy_(local_slice(p, stored[name]) if stored is not None else p)
     for name, g in (generators or {}).items():
         if name in payload.get("generators", {}):
             g.set_state(payload["generators"][name])

@@ -24,6 +24,11 @@ the k-th applies the inner update (clip, schedule, AdamW) to that mean and
 resets it, the others leave the parameters as they are. The update count, and
 so the schedule, advances once per k micro-steps.
 
+Under tensor parallelism or ZeRO-3 (``parallel/partitioning.py``) a parameter
+may be a shard: its moments are shards too, and the clip's global norm sums
+each sharded leaf's squares over the ranks of its axis and counts each
+replicated leaf once, so every rank clips by the whole model's norm.
+
 ``flatten`` and ``flatten_small_bytes`` regroup the optimizer's leaves into
 flat vectors to cut per-leaf launch overhead on a TPU; they do not change the
 update's values, so the port accepts them and ignores them.
@@ -35,6 +40,8 @@ import re
 from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import torch
+
+from ..parallel.partitioning import shard_of
 
 
 class Optimizer:
@@ -71,8 +78,23 @@ class Optimizer:
 
     def clip_(self) -> None:
         """optax.clip_by_global_norm: g * max_norm / ||g|| when ||g|| >= max_norm."""
-        grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        pairs = [(p, p.grad) for p in self.params if p.grad is not None]
+        grads = [g for _, g in pairs]
+        norms = torch.stack([torch.linalg.vector_norm(g) for g in grads])
+        if not any(shard_of(p) is not None for p, _ in pairs):
+            norm = torch.linalg.vector_norm(norms)
+        else:  # replicated leaves once, each shard's squares summed over its axis
+            total, by_axis = norms.new_zeros(()), {}
+            for (p, _), n in zip(pairs, norms):
+                s = shard_of(p)
+                if s is None:
+                    total = total + n * n
+                else:
+                    by_axis.setdefault(s.axis, (s.group, []))[1].append(n * n)
+            for group, squares in by_axis.values():  # the same order on every rank
+                t = torch.stack(squares).sum().reshape(1)
+                total = total + group(t)[0]
+            norm = torch.sqrt(total)
         factor = torch.where(norm < self.grad_clip_norm, torch.ones_like(norm),
                              self.grad_clip_norm / norm)
         for g in grads:

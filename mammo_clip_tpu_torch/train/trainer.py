@@ -270,7 +270,8 @@ class Trainer:
                             if prof_left == 0:
                                 stop_profile()
                         shape = batch["images"].shape  # this rank's; every rank's alike
-                        n_imgs += (shape[0] * shape[1] if K > 1 else shape[0]) * mesh.world_size()
+                        # once a data group: a model group's ranks hold the same rows
+                        n_imgs += (shape[0] * shape[1] if K > 1 else shape[0]) * mesh.data_size()
                         if mesh.any_rank(preempted["flag"], self.device):
                             if prof is not None:
                                 stop_profile()

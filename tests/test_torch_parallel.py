@@ -1,11 +1,12 @@
-"""Data parallelism of the port (``core/mesh.py``, ``parallel/``) against one
-process and against the JAX package's data mesh.
+"""Data and tensor parallelism of the port (``core/mesh.py``, ``parallel/``)
+against one process and against the JAX package's meshes.
 
 Four gloo CPU ranks are spawned once for the file
-(``parallel/dryrun.py::run_ranks``, with a timeout on the spawn and on
-``init_process_group``); each runs ``tests/torch_parallel_ranks.py::parity``
-and returns its numbers here, while this process computes the JAX side on the
-conftest's virtual CPU devices. What the ranks run:
+(``parallel/dryrun.py::run_ranks``, with a timeout on the spawn, about twice
+what the file's ranks take, and on ``init_process_group``); each runs
+``tests/torch_parallel_ranks.py::parity`` and returns its numbers here, while
+this process computes the JAX side on the conftest's virtual CPU devices and
+the port's one-process steps. What the ranks run:
 
 * the tiny CLIP (b0 at 64x64, 2-layer BERT, fp32, fused route on: its plain
   version with the cross-rank hook) at 2 rows a rank, from the JAX package's
@@ -29,7 +30,19 @@ conftest's virtual CPU devices. What the ranks run:
 * the fused block's plain version in both forms on a 2-rank group, against
   the whole-batch call (out, stats, dx and the ranks' summed parameter
   gradients, 1e-5);
-* the augmentation and drop-connect draws of each rank's step 0.
+* the augmentation and drop-connect draws of each rank's step 0;
+* then laid out as (data 2, model 2), on the first 4 rows: the same step and
+  K=2 call with the state placed by ``shard_train_state(fsdp=True)`` (BERT's
+  heads and FFN and the eligible MBConv blocks split over ``model``, the
+  large leaves left ZeRO-3 over ``data``), and with whole parameters (2 data
+  ranks, each model group's ranks replicas: fault 3.5's layout), both held
+  to the port's one-process step on those 4 rows (``dryrun.compare``), to
+  JAX's TP + FSDP step on a (2, 2) mesh (``shard_train_state(..., fsdp=True)``
+  and ``make_train_step``, as ``tests/test_parallel.py`` builds it) and to
+  JAX's two steps on a 2-device data mesh: loss and post-update |params|
+  within JAX's own 1e-4 (``__graft_entry__.py:192-196``), the K=2 call
+  against JAX's second step; the draws of the ranks of a model group; and a
+  TP + FSDP checkpoint written by rank 0 and restored.
 """
 
 import dataclasses
@@ -67,6 +80,7 @@ from mammo_clip_tpu_torch.parallel import dryrun
 from mammo_clip_tpu_torch.train.step import step_seed
 
 RANKS, B, SEED = 4, 2, 0
+RANKS_TIMEOUT_S = 300.0  # about twice what the file takes under the suite's load
 WORKERS = str(Path(__file__).with_name("torch_parallel_ranks.py"))
 
 
@@ -130,21 +144,28 @@ class _NoDropout:
         jax_clip.bert_config_from_model_config = self.orig
 
 
-def _jax_state(host):
-    """The JAX package's tiny CLIP, its train state on a 4-device data mesh and
-    the step's pieces."""
+def _jax_state(host, data=RANKS, model=1):
+    """The JAX package's tiny CLIP, its train state on a (data, model) mesh of
+    the conftest's devices and the step's pieces."""
     cfg = _jax_cfg()
     with _NoDropout():
-        model = jax_build_model(cfg.model.to_dict())
+        net = jax_build_model(cfg.model.to_dict())
     tx = jax_build_optimizer(cfg.optimizer.to_dict(), jax_schedule(1e-3, 100, 0))
-    ctx = JaxMeshContext.create(data=RANKS, devices=jax.devices()[:RANKS])
+    ctx = JaxMeshContext.create(data=data, model=model, devices=jax.devices()[:data * model])
     batch = ctx.shard_host_batch(host[0])
-    state = jax_create_train_state(model, batch, tx, jax.random.PRNGKey(0), ema_decay=0.9)
-    return cfg, model, ctx, batch, state
+    state = jax_create_train_state(net, batch, tx, jax.random.PRNGKey(0), ema_decay=0.9)
+    return cfg, net, ctx, batch, state
 
 
-def _jax_step(cfg, model, ctx, batch, state):
-    """One JAX step (Flax route) on the data mesh: its losses and the state after it."""
+def _jax_steps(cfg, model, ctx, batch, state, fsdp=False, second=None, restart=None):
+    """One JAX step (Flax route) on the mesh, the state placed by
+    ``shard_train_state`` (with ``fsdp``: JAX's TP + ZeRO-3 placement): its
+    losses, the state after it (as numpy) and that state; with ``second`` (a
+    host batch) also the losses and the post-update |params| of a second step
+    on it, taken from the state after this step or from ``restart`` (another
+    mesh's state after its first step, placed on this mesh)."""
+    import optax
+
     mean, std = cfg.data.mean, cfg.data.std
 
     def normalize(b, rng):
@@ -156,19 +177,31 @@ def _jax_step(cfg, model, ctx, batch, state):
     with _NoDropout():
         step = jax_make_train_step(model, jax_build_loss(cfg.loss.to_dict()),
                                    preprocess=normalize, donate=False)
-        new, losses = step(shard_train_state(state, ctx.mesh), batch, jax.random.PRNGKey(1))
+        new, losses = step(shard_train_state(state, ctx.mesh, fsdp=fsdp), batch,
+                           jax.random.PRNGKey(1))
+        out = {"losses": {k: float(v) for k, v in losses.items()},
+               "norm": float(jax.jit(optax.global_norm)(new.params))}
+        if second is not None:
+            start = new if restart is None else shard_train_state(
+                jax.device_get(restart), ctx.mesh, fsdp=fsdp)
+            new2, losses2 = step(start, ctx.shard_host_batch(second), jax.random.PRNGKey(1))
+            out["second"] = {"losses": {k: float(v) for k, v in losses2.items()},
+                             "norm": float(jax.jit(optax.global_norm)(new2.params))}
     after = jax.tree_util.tree_map(np.asarray, {
         "params": new.params, "batch_stats": new.batch_stats, "ema": new.ema_params})
-    return after, {k: float(v) for k, v in losses.items()}
+    return after, out, new
 
 
 @pytest.fixture(scope="module")
-def ranks():
-    """The ranks' results, the one-process steps, the payload and the JAX step;
-    the JAX step and the one process run here while the ranks run."""
+def ranks(tmp_path_factory):
+    """The ranks' results, the one-process steps (on 8 rows and on 4), the
+    payload, and the JAX steps on the 4-device data mesh, the (2, 2) mesh and
+    the 2-device data mesh; the JAX steps and the one process run here while
+    the ranks run."""
     from concurrent.futures import ThreadPoolExecutor
 
     host = dryrun.host_batches(dryrun.tiny_dp_config(SEED), RANKS * B, SEED)
+    host4 = [{k: v[:2 * B] for k, v in b.items()} for b in host]
     jax_parts = _jax_state(host)
     state = jax_parts[-1]
     init = jax.tree_util.tree_map(np.asarray, {"params": state.params,
@@ -176,6 +209,9 @@ def ranks():
     cfg = dryrun.tiny_dp_config(SEED)
     steps = {"cfg": cfg.to_dict(), "batches": host, "sample": False,
              "init": {k: v.clone() for k, v in state_dict_from_jax(init).items()}}
+    mesh22 = {"data": 2, "model": 2}
+    steps4 = {**steps, "batches": host4}
+    tp = {**steps4, "mesh": mesh22, "shard": {"fsdp": True}}
     draw_cfg = dryrun.tiny_dp_config(SEED)
     draw_cfg.augment.update(affine_p=1.0, elastic_p=1.0)
     emb = _embeddings()
@@ -185,21 +221,34 @@ def ranks():
                "draws": {"cfg": draw_cfg.to_dict(), "seed": SEED,
                          "batch": {k: v[:2] for k, v in host[0].items()
                                    if k in ("images", "image_views")}},
-               "timeout_s": 120.0}
+               "tp": tp, "dp2": {**steps4, "mesh": mesh22},
+               "checkpoint": {"steps": tp, "dir": str(tmp_path_factory.mktemp("tp_ckpt"))},
+               "timeout_s": 60.0}
     with ThreadPoolExecutor(1) as pool:
         spawned = pool.submit(dryrun.run_ranks, RANKS, f"{WORKERS}:parity", payload,
-                              device="cpu", timeout_s=400.0)
-        jax_after = _jax_step(*jax_parts)
+                              device="cpu", timeout_s=RANKS_TIMEOUT_S)
+        jax_after = _jax_steps(*jax_parts, second=host[1])
+        ctx2 = JaxMeshContext.create(data=2, devices=jax.devices()[:2])
+        _, jax2, after2 = _jax_steps(jax_parts[0], jax_parts[1], ctx2,
+                                     ctx2.shard_host_batch(host4[0]), state, second=host4[1])
+        # the (2, 2) mesh's second step starts from the data mesh's first: R13
+        ctx22 = JaxMeshContext.create(data=2, model=2, devices=jax.devices()[:4])
+        jax22 = _jax_steps(jax_parts[0], jax_parts[1], ctx22, ctx22.shard_host_batch(host4[0]),
+                           state, fsdp=True, second=host4[1], restart=after2)[1]
         one = dryrun.steps_case(None, steps)
+        steps4_one = {**steps4, "two_steps": False}
+        one4 = dryrun.steps_case(None, steps4_one)
+        noise4 = dryrun.self_noise(steps4_one, one4)
         out = spawned.result()
-    return out, one, payload, jax_after
+    return (out, one, payload, (jax_after[0], jax_after[1]["losses"]), one4, jax22, jax_after[1],
+            jax2, noise4)
 
 
 def test_four_ranks_equal_one_process(ranks):
     """One step and one K=2 call on 4 ranks of 2 rows equal the one-process
     step and K=2 call on the global batch of 8 (the one process's K=2 call
     equal to its two single steps), the same bits on every rank."""
-    out, one, _, _ = ranks
+    out, one, *_ = ranks
     cmp = dryrun.compare([r["steps"] for r in out], one)
     assert cmp["same_bits_across_ranks"], cmp
     assert cmp["ok"], cmp
@@ -210,7 +259,7 @@ def test_four_ranks_equal_one_process(ranks):
 def test_dp_step_matches_the_jax_data_mesh_step(ranks):
     """Rank 0 after one DP step (fused route, plain version with the hook)
     against the JAX step on a 4-device data mesh (Flax route)."""
-    out, _, _, (after, losses) = ranks
+    out, _, _, (after, losses), *_ = ranks
     got = out[0]["steps"]["one"]
     for k, v in losses.items():
         np.testing.assert_allclose(got["losses"][k], v, rtol=1e-4, atol=1e-5, err_msg=k)
@@ -231,7 +280,7 @@ def test_gathered_loss_matches_shard_map_clip_loss(ranks):
     mesh, and its gradients over 4 (see the module docstring) equal JAX's with
     respect to the rank's rows; the single-pair (ConVIRT) loss likewise against
     JAX's ``contrastive_clip_loss`` over the global batch."""
-    out, _, payload, _ = ranks
+    out, _, payload, *_ = ranks
     p = payload["loss"]
     jmesh = JaxMeshContext.create(data=RANKS, devices=jax.devices()[:RANKS]).mesh
     keys = ("contrastive", "i2t", "t2i", "i2i", "t2t")
@@ -264,7 +313,7 @@ def test_fused_plain_version_on_two_ranks_equals_the_whole_batch(ranks, form):
     """The fused block's plain version on 2 ranks of 2 images with the
     cross-rank hook equals the call on all 4: out and dx row by row, the
     statistics on each rank, the ranks' parameter gradients summed."""
-    out, _, payload, _ = ranks
+    out, _, payload, *_ = ranks
     case = payload["fused"]["cases"][form]
     cls = MBConv6Params if form == "e6" else MBConvParams
     x = torch.tensor(case["x"], requires_grad=True)
@@ -328,7 +377,7 @@ def test_ranks_draw_differently_and_rank_zero_as_one_process(ranks):
     from mammo_clip_tpu_torch.ops.stochastic import drop_delta
     from mammo_clip_tpu_torch.train.trainer import make_clip_preprocess
 
-    out, _, payload, _ = ranks
+    out, _, payload, *_ = ranks
     d = [r["draws"] for r in out]
     for a in range(RANKS):
         for b in range(a + 1, RANKS):
@@ -420,18 +469,31 @@ def test_r11_the_jax_cli_batch_is_p_times_global_the_port_s_is_not():
 
 
 def test_mesh_axes_and_refusals():
-    """``make_mesh`` absorbs the ranks into ``data`` (``replica`` another batch
-    axis), refuses a mesh that does not cover them and ``model > 1`` (the next
-    slice); with no process group the context is one rank, no collective."""
+    """``make_mesh`` absorbs what ``model`` and ``replica`` leave into ``data``,
+    as JAX's does, and refuses a mesh that does not cover the ranks; the
+    ranks are laid out as JAX's devices, ``model`` fastest, and the global
+    batch counts the batch-carrying ranks only (JAX's ``global_batch_size``);
+    with no process group the context is one rank, no collective."""
     assert mesh.make_mesh(ranks=4) == {"replica": 1, "data": 4, "model": 1}
     assert mesh.make_mesh(replica=2, ranks=4) == {"replica": 2, "data": 2, "model": 1}
+    assert mesh.make_mesh(model=2, ranks=4) == {"replica": 1, "data": 2, "model": 2}
+    assert mesh.make_mesh(model=2, replica=2, ranks=8) == {"replica": 2, "data": 2, "model": 2}
     with pytest.raises(ValueError):
         mesh.make_mesh(data=3, ranks=4)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        mesh.make_mesh(model=2, ranks=4)
+    with pytest.raises(ValueError):
+        mesh.make_mesh(model=3, ranks=4)
+    jctx = JaxMeshContext.create(data=2, model=2, devices=jax.devices()[:4])
+    for r in range(4):
+        c = mesh.MeshContext(shape=mesh.make_mesh(model=2, ranks=4), rank=r,
+                             device=torch.device("cpu"))
+        where = np.argwhere(jctx.mesh.devices == jax.devices()[r])[0]
+        assert (c.data_index, c.model_index) == tuple(where)
+        assert c.global_batch_size(3) == jctx.global_batch_size(3) == 6
     ctx = mesh.MeshContext.create(device="cpu", env={})
     assert (ctx.rank, ctx.process_count, ctx.global_batch_size(3)) == (0, 1, 3)
-    assert mesh.data_sum() is None and mesh.is_master() and mesh.world_size() == 1
+    assert mesh.data_sum() is None and mesh.model_sum() is None and mesh.is_master()
+    assert (mesh.world_size(), mesh.data_size(), mesh.data_index(), mesh.model_size(),
+            mesh.model_index(), mesh.world_sum()) == (1, 1, 0, 1, 0, None)
     batch = ctx.shard_host_batch({"ids": np.arange(6, dtype=np.int32).reshape(3, 2)})
     assert batch["ids"].dtype == torch.int64 and batch["ids"].shape == (3, 2)
 
@@ -503,8 +565,9 @@ def test_dryrun_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
     """The dry run's entry point defaults to the card: with none it raises before
     it starts a rank. The device picks what it runs: the tiny CLIP on the CPU,
     the compat recipe at full width in fp32 and in its bf16 on the card (the
-    bf16 gradients not held, ``TOLERANCES``); ``compare`` skips a check whose
-    tolerance is None."""
+    bf16 gradients not held, ``TOLERANCES``), each in the data-parallel
+    layout and, with an even number of ranks, the TP + FSDP one; ``compare``
+    skips a check whose tolerance is None."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
     def no_ranks(*a, **k):
@@ -519,9 +582,142 @@ def test_dryrun_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
             for k, c in card.items()} == {"full_width": ("float32", 1520, 2),
                                           "full_width_bf16": ("bfloat16", 1520, 2)}
     assert all(dryrun.TOLERANCES[k]["grad"] is None for k in ["full_width_bf16"])
+    # the layouts: N data ranks; with an even N also data N/2 x model 2, TP + FSDP
+    cases = {n: dryrun.layout_cases(n, "cpu") for n in (1, 2, 4)}
+    assert list(cases[1]) == ["tiny"] and list(cases[4]) == ["tiny", "tiny_tp"]
+    assert cases[4]["tiny_tp"]["mesh"] == {"data": 2, "model": 2}
+    assert cases[2]["tiny_tp"]["mesh"] == {"data": 1, "model": 2}
+    assert cases[4]["tiny_tp"]["shard"] == {"fsdp": True}
+    assert [len(cases[4][k]["batches"][0]["images"]) for k in ("tiny", "tiny_tp")] == [8, 4]
     run = {"losses": {"total": 1.0}, "grads": {"w": np.ones(3, np.float32)},
            "params": {"w": np.zeros(3, np.float32)}, "buffers": {}, "ema": {}, "digest": "d"}
     bad_grads = {**run, "grads": {"w": np.full(3, 2.0, np.float32)}}
     ranks = [{"one": bad_grads, "k2": run}]
     assert not dryrun.compare(ranks, {"one": run, "k2": run}, "full_width")["ok"]
     assert dryrun.compare(ranks, {"one": run, "k2": run}, "full_width_bf16")["ok"]
+
+
+def _param_norm(run):
+    return float(np.sqrt(sum(float(np.dot(v.astype(np.float64), v)) for v in run["params"].values())))
+
+
+@pytest.mark.parametrize("case", ["tp", "dp2"])
+def test_data2_model2_ranks_equal_one_process(ranks, case):
+    """(data 2, model 2) on the first 4 rows: the TP + FSDP placement, and
+    whole parameters on 2 data ranks (fault 3.5's layout), each equal to the
+    port's one-process step and K=2 call on those rows (``dryrun.compare`` at
+    the tiny tolerances, or ``noise`` times one process's own noise in a
+    term on these 4 rows where that is larger), the same bits on every
+    rank."""
+    out, _, _, _, one4, *_, noise4 = ranks
+    cmp = dryrun.compare([r[case] for r in out], one4, noise=noise4)
+    assert cmp["same_bits_across_ranks"], cmp
+    assert cmp["ok"], cmp
+    times = dryrun.TOLERANCES["tiny"]["noise"]
+    assert cmp["limits"]["step"]["loss"] == max(1e-5, times * noise4["reversed"]["loss"])
+    assert cmp["limits"]["k2"]["loss"] == max(1e-5, times * noise4["reversed"]["k2"]["loss"])
+    assert out[0][case]["one"]["step"] == 1 and out[0][case]["k2"]["step"] == 2
+
+
+@pytest.mark.parametrize("case", ["tp", "dp2"])
+def test_data2_model2_steps_match_the_jax_2x2_tp_fsdp_step(ranks, case):
+    """Rank 0's step on (data 2, model 2) against JAX's TP + FSDP step on a
+    (2, 2) mesh: loss and post-update |params| within 1e-4 relative
+    (``__graft_entry__.py::dryrun_multichip``'s check), and its K=2 call
+    against that mesh's second step, taken from the 2-device data mesh's
+    first step (JAX's own first step on the (2, 2) mesh takes a wrong
+    gradient: R13, below); the step's and the K=2 call's loss against JAX's
+    two steps on the 2-device data mesh within 1e-5, their |params| 1e-4."""
+    out, _, _, _, _, jax22, _, jax2, _ = ranks
+    got = out[0][case]
+    for run, want in ((got["one"], jax22), (got["k2"], jax22["second"])):
+        np.testing.assert_allclose(run["losses"]["total"], want["losses"]["total"], rtol=1e-4)
+        np.testing.assert_allclose(_param_norm(run), want["norm"], rtol=1e-4)
+    for run, want in ((got["one"], jax2), (got["k2"], jax2["second"])):
+        np.testing.assert_allclose(run["losses"]["total"], want["losses"]["total"], rtol=1e-5)
+        np.testing.assert_allclose(_param_norm(run), want["norm"], rtol=1e-4)
+
+
+def test_tp_fsdp_leaves_are_shards_and_model_ranks_draw_alike(ranks):
+    """Under (data 2, model 2) the ranks of a model group draw the same
+    augmentation and drop-connect and the two data groups differ; the
+    checkpoint's rank held only its shards: half of a split kernel's expanded
+    dim, half of the ZeRO-3 head conv's largest dim."""
+    out, *_ = ranks
+    d = [r["draws_2x2"] for r in out]
+    for k in ("images", "views", "delta"):
+        assert np.array_equal(d[0][k], d[1][k]) and np.array_equal(d[2][k], d[3][k]), k
+        assert not np.array_equal(d[0][k], d[2][k]), k
+    held = out[0]["checkpoint"]["held"]
+    assert held["image_encoder.block_2.expand_conv.kernel"] == (72, 24, 1, 1)
+    assert held["image_encoder.head_conv.kernel"] == (640, 320, 1, 1)
+    assert held["text_encoder.layer_0.intermediate.kernel"] == (32, 32)
+    assert held["image_encoder.block_1.expand_conv.kernel"] == (96, 16, 1, 1)  # narrow: whole
+
+
+def test_tp_fsdp_checkpoint_has_one_process_files_and_restores(ranks):
+    """Rank 0 wrote the one-process files (every name and shape of the port's
+    model, loadable by ``eval/loading.py``), and restoring them into a fresh
+    TP + FSDP placement gives back, on every rank, the parameters, statistics,
+    EMA and AdamW moments that were saved."""
+    from mammo_clip_tpu_torch.core.config import Config
+    from mammo_clip_tpu_torch.eval.loading import load_clip_for_eval
+    from mammo_clip_tpu_torch.models import build_model
+    from mammo_clip_tpu_torch.train.checkpoint import latest_step
+
+    out, _, payload, *_ = ranks
+    ck = payload["checkpoint"]
+    for r in out:
+        assert r["checkpoint"]["restored"] == r["checkpoint"]["saved"] == out[0]["checkpoint"]["saved"]
+        assert r["checkpoint"]["step"] == 1
+    assert latest_step(ck["dir"]) == 1
+    sd = torch.load(Path(ck["dir"]) / "1" / "state.pt", weights_only=True)
+    whole = build_model(Config(ck["steps"]["cfg"]).model.to_dict(), device="cpu").state_dict()
+    assert {k: tuple(v.shape) for k, v in sd["model"].items()} == {
+        k: tuple(v.shape) for k, v in whole.items()}
+    for k in ("ema",):
+        assert {n: tuple(v.shape) for n, v in sd[k].items()} == {
+            n: tuple(whole[n].shape) for n in sd[k]}
+    model, _ = load_clip_for_eval(ck["dir"], device="cpu", use_ema=True)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, sd["ema"].get(k, sd["model"][k])), k
+
+
+def test_r13_jax_2x2_mesh_doubles_a_replicated_depthwise_kernel_gradient(ranks):
+    """Fault R13 of the reference's compiler: on a (data 2, model 2) mesh of
+    the conftest's CPU devices, with the batch split over ``data`` and the
+    kernel replicated, XLA's partitioned gradient of a depthwise convolution's
+    kernel is ``model`` times the one device's (so JAX's TP + FSDP step moves
+    b0 blocks 0 and 1's depthwise kernels, which no split covers, by a
+    doubled gradient, and its second step's loss is 3.5e-3 off); on a data
+    mesh it is right, and JAX's data meshes' second step (2 devices on 4
+    rows, 4 on 8) gives the port's one-process K=2 loss within 1e-5. The
+    port's ranks at (data 2, model 2) take those kernels' gradients as one
+    process does."""
+    from jax.sharding import Mesh, NamedSharding
+
+    rng = np.random.default_rng(2)
+    x, w = (rng.standard_normal((4, 8, 8, 16)).astype(np.float32) for _ in range(2))
+    k = rng.standard_normal((3, 3, 1, 16)).astype(np.float32)
+
+    def loss(k, x):
+        y = jax.lax.conv_general_dilated(x, k, (1, 1), "SAME", feature_group_count=16,
+                                         dimension_numbers=("NHWC", "HWIO", "NHWC"))
+        return jnp.sum(y * w)
+
+    grad = jax.jit(jax.grad(loss))
+    one = np.asarray(grad(k, x))
+    scale = {}
+    for shape in ((2, 1), (2, 2)):
+        m = Mesh(np.asarray(jax.devices()[:shape[0] * shape[1]]).reshape(shape), ("data", "model"))
+        g = np.asarray(grad(jax.device_put(k, NamedSharding(m, P())),
+                            jax.device_put(x, NamedSharding(m, P("data")))))
+        scale[shape] = float((g * one).sum() / (one * one).sum())
+    assert abs(scale[(2, 1)] - 1) < 1e-5 and abs(scale[(2, 2)] - 2) < 1e-5, scale
+    out, one, _, _, one4, _, jax8, jax2, _ = ranks
+    for port, want in ((one, jax8), (one4, jax2)):
+        np.testing.assert_allclose(port["k2"]["losses"]["total"],
+                                   want["second"]["losses"]["total"], rtol=1e-5)
+    rel = dryrun.grad_rel(out[0]["tp"]["one"]["grads"], one4["one"]["grads"])
+    for b in (0, 1):
+        assert rel[f"image_encoder.block_{b}.depthwise_conv.kernel"] <= 1e-4, rel

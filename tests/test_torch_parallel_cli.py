@@ -69,8 +69,9 @@ def ranks(tmp_path_factory):
         "train.dtype=float32", "train.log_every=1", "optimizer.eps=1e-3", "scheduler.epochs=2",
         "optimizer.ema_decay=0.9", "augment.hflip_p=0.0", "augment.vflip_p=0.0",
         "augment.affine_p=0.0", "augment.elastic_p=0.0"]
+    # the spawn's limit is about twice what the file takes under the suite's load
     out = run_ranks(RANKS, f"{WORKERS}:cli", {"tmp": str(tmp), "overrides": overrides,
-                                              "timeout_s": 120.0}, device="cpu", timeout_s=300.0)
+                                              "timeout_s": 60.0}, device="cpu", timeout_s=150.0)
     return tmp, out
 
 

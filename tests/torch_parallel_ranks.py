@@ -77,30 +77,75 @@ def fused_hook(ctx, payload) -> dict:
 def draws(ctx, payload) -> dict:
     """What this rank's step draws from its generator at step 0: the
     augmentation of a fixed batch and a drop-connect scale, after the train
-    step's reseed from (seed, step, rank)."""
+    step's reseed from (seed, step, data index)."""
     from mammo_clip_tpu_torch.core.config import Config
     from mammo_clip_tpu_torch.ops.stochastic import drop_delta
     from mammo_clip_tpu_torch.train.step import step_seed
     from mammo_clip_tpu_torch.train.trainer import make_clip_preprocess
 
     cfg = Config(payload["cfg"])
-    gen = torch.Generator().manual_seed(step_seed(payload["seed"], 0, mesh.rank()))
+    gen = torch.Generator().manual_seed(step_seed(payload["seed"], 0, mesh.data_index()))
     batch = make_clip_preprocess(cfg)({k: torch.tensor(v) for k, v in payload["batch"].items()},
                                       gen)
     return {"images": _np(batch["images"]), "views": _np(batch["image_views"]),
             "delta": _np(drop_delta(16, 0.5, gen, "cpu"))}
 
 
+def tp_checkpoint(ctx, payload) -> dict:
+    """A TP + FSDP state (``payload["steps"]``'s layout) after one step, saved
+    with ``save_checkpoint`` into ``payload["dir"]`` and restored into a fresh
+    placement of the initial state: the digests of the whole parameters,
+    buffers, EMA and moments before the save and after the restore, the step,
+    and the shapes this rank holds."""
+    from mammo_clip_tpu_torch.core.config import Config
+    from mammo_clip_tpu_torch.parallel import dryrun
+    from mammo_clip_tpu_torch.parallel.partitioning import full_like, full_tensors
+    from mammo_clip_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from mammo_clip_tpu_torch.train.step import make_train_step
+
+    steps = payload["steps"]
+    cfg = Config(steps["cfg"])
+    ctx = mesh.MeshContext.create(**steps["mesh"], device=ctx.device)
+
+    def digests(state):
+        params = state.model.named_parameters()
+        moments = {f"{n}.{k}": full_like(p, v) for n, p in params
+                   for k, v in state.optimizer.inner.state.get(p, {}).items() if v.dim()}
+        return {"model": dryrun._digest(full_tensors(dict(state.model.named_parameters()))),
+                "buffers": dryrun._digest(full_tensors(dict(state.model.named_buffers()))),
+                "ema": dryrun._digest(full_tensors(state.ema)),
+                "moments": dryrun._digest(moments)}
+
+    model, state, loss_fn, pre = dryrun._build(cfg, ctx.device, steps["init"], steps["shard"])
+    step = make_train_step(model, loss_fn, pre)
+    state, _ = step(state, dryrun._rows(ctx, steps["batches"][0], ctx.device),
+                    torch.Generator(), cfg.seed)
+    saved = digests(state)
+    save_checkpoint(payload["dir"], state, config=cfg.to_dict())
+    held = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    _, fresh, _, _ = dryrun._build(cfg, ctx.device, steps["init"], steps["shard"])
+    fresh, _, _ = restore_checkpoint(payload["dir"], fresh)
+    return {"saved": saved, "restored": digests(fresh), "step": fresh.step, "held": held}
+
+
 def parity(ctx, payload) -> dict:
-    """The DP parity file's ranks, spawned once: the train steps
+    """The parity file's ranks, spawned once: the data-parallel train steps
     (``dryrun.steps_case``), the gathered loss, the fused block's hook on a
-    2-rank group and the ranks' draws."""
+    2-rank group and the ranks' draws; then on (data 2, model 2) the TP + FSDP
+    steps, the data-parallel steps of 2 data ranks with whole parameters
+    (the model ranks replicas), the draws again and the TP + FSDP checkpoint
+    round trip."""
     from mammo_clip_tpu_torch.parallel.dryrun import steps_case
 
-    return {"steps": steps_case(ctx, payload["steps"]),
-            "loss": gathered_loss(ctx, payload["loss"]),
-            "fused": fused_hook(ctx, payload["fused"]),
-            "draws": draws(ctx, payload["draws"])}
+    out = {"steps": steps_case(ctx, payload["steps"]),
+           "loss": gathered_loss(ctx, payload["loss"]),
+           "fused": fused_hook(ctx, payload["fused"]),
+           "draws": draws(ctx, payload["draws"])}
+    out["tp"] = steps_case(ctx, payload["tp"])
+    out["dp2"] = steps_case(ctx, payload["dp2"])
+    out["draws_2x2"] = draws(ctx, payload["draws"])  # under dp2's (data 2, model 2) layout
+    out["checkpoint"] = tp_checkpoint(ctx, payload["checkpoint"])
+    return out
 
 
 def cli(ctx, payload) -> dict:
