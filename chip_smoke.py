@@ -308,6 +308,28 @@ Phases, each reported on its own lines:
      says so on its own line and (a) alone runs (``python -m
      mammo_clip_tpu_torch.parallel.dryrun --ranks 4 --layout tp`` runs (b)
      alone);
+ 19. sequence parallelism and the pipelined text tower (``[sp]`` and ``[pp]``
+     lines, each summary with the card's name and power limit): (a) on one
+     card, two model ranks as threads (a ``ThreadGroup`` each): a BERT-base
+     layer with its input on sequence shards (128 of 256 tokens a rank) and
+     the whole BERT-base encoder with ``seq_parallel`` (the embeddings
+     sharded, every layer on shards, the output gathered), each held to the
+     whole in the same dtype by phase 18's ``tp_hold`` (fp32 at
+     ``SP_FP32_TOLS``, bf16 at ``TP_ROW_SPLIT_BF16``), with a rank's forward
+     and backward ms and the card's peak; then BERT-base's 12 layers over 4
+     stages as threads (3 layers each; ``parallel/pipeline.py``), 8 rows in 4
+     microbatches at 256 tokens, against the sequential tower on the same
+     rows (``dryrun.compare_pp``: hidden 1e-4, JAX's, and gradients 1e-4, or
+     twice one process's own noise, whichever is larger), fp32 and bf16,
+     with each stage's seconds and the peak; (b) on four visible cards,
+     ``dryrun.dryrun(4, layouts=("sp", "pp"))``: the SP step (data 2 x model
+     2, FSDP, the compat step at full width) against one process at phase
+     17's tolerances beside its own noise, its loss against phase 18 (b)'s TP
+     step's, 14 + 14 fused calls a rank, the same bits on every rank; the
+     pipelined tower at pipe 4 x data 1 (data 2 x pipe 4 needs 8 cards: held
+     on the CPU only, and a line says so); with fewer cards (b) says so on
+     its own line (``python -m mammo_clip_tpu_torch.parallel.dryrun --ranks 4
+     --layout tp sp pp`` runs (b) alone, with the TP step beside it);
   8. the hand-written flash attention (csrc/flash_attention.cu): first a look
      into the built library, each flash kernel's registers, shared and local
      memory (``cuobjdump --dump-resource-usage``), spill stores (ptxas) and its
@@ -4096,15 +4118,16 @@ PHASE3_TOLS = {"float32": (1e-4, 1e-3, 2e-3, 1e-4), "bfloat16": (1e-2, 1e-2, 2e-
 TP_ROW_SPLIT_BF16 = (2e-2, 2e-2, 1e-1, 1e-2)
 
 
-def tp_hold(name, layer, prefix, run, dtype_name, tols):
+def tp_hold(name, layer, prefix, run, dtype_name, tols, tag="[tp] (a)"):
     """``run(module, dtype) -> (out, dx)`` on the whole ``layer`` and on
     ``TP_RANKS`` model ranks (threads, ``place``d on a ``ThreadGroup`` rank
-    each), both in ``dtype_name``: out and dx on every rank, the parameter
-    gradients and buffers put back together, each held to the whole layer's
-    (max relative error; limits ``tols``: out, dx, parameter gradients,
-    buffers). A parameter gradient's error is relative to its largest element
-    or 1e-2 of the layer's largest, whichever is more. Returns the rows and
-    the max abs errors of out and dx against the whole layer."""
+    each), both in ``dtype_name``: out and dx (None: no input gradient) on
+    every rank, the parameter gradients and buffers put back together, each
+    held to the whole layer's (max relative error; limits ``tols``: out, dx,
+    parameter gradients, buffers). A parameter gradient's error is relative
+    to its largest element or 1e-2 of the layer's largest, whichever is
+    more. Returns the rows, the max abs errors of out and dx against the
+    whole layer (dx's None without one) and the ranks' seconds in ``run``."""
     import copy
 
     import torch
@@ -4125,13 +4148,19 @@ def tp_hold(name, layer, prefix, run, dtype_name, tols):
     def rank(r):
         m = copy.deepcopy(layer)
         split = place(m, {"model": group.rank(r), "data": None}, prefix=prefix)
-        return tensors(m, *run(m, dtype)), split
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = tensors(m, *run(m, dtype))
+        torch.cuda.synchronize()
+        return got, split, time.perf_counter() - t
 
     res = group.run(rank)
     torch.cuda.synchronize()
     f = lambda t: t.detach().float()
     rows = []
     for i, what in enumerate(("out", "dx")):
+        if w[0][i] is None:
+            continue
         for r in range(TP_RANKS):
             rows.append((f"{what}{r}", max_rel(f(res[r][0][0][i]), f(w[0][i])), tols[i]))
     # a gradient is relative to the largest of the layer's, 1e-2 of it at least: the key
@@ -4149,17 +4178,18 @@ def tp_hold(name, layer, prefix, run, dtype_name, tols):
                       else "grad" if r[0].startswith("d.") else "stats")
     top = {k: max((r for r in rows if kind(r) == k), key=lambda r: r[1])
            for k in ("out", "dx", "grad", "stats") if any(kind(r) == k for r in rows)}
-    say(f"[tp] (a) {name} {dtype_name}, {TP_RANKS} model ranks on one card ({n_split} tensors "
+    say(f"{tag} {name} {dtype_name}, {TP_RANKS} model ranks on one card ({n_split} tensors "
         f"split; held to the whole layer in {dtype_name}): worst {worst[0]} {worst[1]:.2e} "
         f"(limit {worst[2]:.1e}); largest by kind: " + ", ".join(
             f"{k} {r[0]} {r[1]:.2e}/{r[2]:.0e}" for k, r in top.items()))
     bad = [r for r in rows if not (r[1] <= r[2])]
     if bad or not n_split:
-        raise SmokeFailure(f"[tp] {name} {dtype_name}: the split disagrees with the whole: "
+        raise SmokeFailure(f"{tag} {name} {dtype_name}: the split disagrees with the whole: "
                            f"{sorted(bad, key=lambda r: -r[1] / r[2])[:8]}, {n_split} tensors "
                            f"split")
-    err = lambda i: max(float((f(x[0][0][i]) - f(w[0][i])).abs().max()) for x in res)
-    return rows, err(0), err(1)
+    err = lambda i: None if w[0][i] is None else max(
+        float((f(x[0][0][i]) - f(w[0][i])).abs().max()) for x in res)
+    return rows, err(0), err(1), [x[2] for x in res]
 
 
 def tp_block_phase(seed):
@@ -4196,8 +4226,8 @@ def tp_block_phase(seed):
 
             tols = TP_ROW_SPLIT_BF16 if dt == "bfloat16" and not fused else PHASE3_TOLS[dt]
             launches.reset()
-            rows, e_out, e_dx = tp_hold(f"B5 block 4 {'fused' if fused else 'unfused'}", block,
-                                        "image_encoder.block_4", run, dt, tols)
+            rows, e_out, e_dx, _ = tp_hold(f"B5 block 4 {'fused' if fused else 'unfused'}",
+                                           block, "image_encoder.block_4", run, dt, tols)
             counts = dict(launches.counts)
             want = (1 + TP_RANKS,) * 2
             if fused and (counts["mbconv6.e6.forward"], counts["mbconv6.e6.backward"]) != want:
@@ -4239,8 +4269,8 @@ def tp_bert_phase(seed):
             return y, xr.grad
 
         tols = TP_ROW_SPLIT_BF16 if dt == "bfloat16" else (1e-4, 1e-4, 1e-3, 1e-4)
-        rows, e_out, e_dx = tp_hold("BERT-base layer", layer, "text_encoder.layer_0", run, dt,
-                                    tols)
+        rows, e_out, e_dx, _ = tp_hold("BERT-base layer", layer, "text_encoder.layer_0", run, dt,
+                                       tols)
         out[f"bert_layer.{dt}"] = dict(err_out=e_out, err_dx=e_dx,
                                        worst=max(r[1] / r[2] for r in rows))
     return out
@@ -4309,6 +4339,199 @@ def tp_phase(seed):
     seconds = time.perf_counter() - t
     say(f"[tp] phase 18: {seconds:.1f} s on {card_line()}")
     return dict(blocks=blocks, bert=bert, ranks=ranks, seconds=seconds)
+
+
+# --------------------------------------------------------------------------
+# phase 19: sequence parallelism and the pipelined text tower
+# --------------------------------------------------------------------------
+
+SP_SEQ = 256  # the compat recipe's tokens
+PP_ROWS = 8  # the pipelined tower's batch: 4 microbatches of 2 rows
+# phase 19 (a)'s limits: the SP layer and encoder as phase 18's BERT layer
+# (fp32) and row splits (bf16, TP_ROW_SPLIT_BF16); the pipelined tower at
+# dryrun.PP_TOLERANCES (hidden 1e-4, JAX's; gradients 1e-4 relative) or
+# twice one process's own noise (the tower on the pipeline's calls of 2 rows
+# one after another, and on its rows reversed), whichever is larger.
+SP_FP32_TOLS = (1e-4, 1e-4, 1e-3, 1e-4)
+
+
+def sp_inputs(cfg, seed):
+    """Token ids, ragged masks and output weights of 2 rows at SP_SEQ tokens."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.randint(1, cfg.vocab_size, (BATCH, SP_SEQ), generator=g, device="cuda")
+    mask = torch.arange(SP_SEQ, device="cuda")[None] < torch.tensor([[SP_SEQ], [97]],
+                                                                     device="cuda")
+    gy = torch.randn(BATCH, SP_SEQ, cfg.hidden_size, generator=g, device="cuda")
+    return ids, mask, gy
+
+
+def sp_phase(seed):
+    """Phase 19 (a), sequence parallelism on one card: a BERT-base layer
+    with its input on sequence shards, and the whole BERT-base encoder with
+    ``seq_parallel``, on two model ranks as threads against the whole, fp32
+    and bf16."""
+    import dataclasses
+
+    import torch
+
+    from mammo_clip_tpu_torch.models.bert import BertConfig, BertEncoder, BertLayer
+
+    cfg = dataclasses.replace(BertConfig(), dropout_rate=0.0, seq_parallel=True)
+    g = torch.Generator(device="cuda").manual_seed(seed + 20)
+    layer = BertLayer(cfg).cuda()
+    enc = BertEncoder(cfg).cuda()
+    for m in (layer, enc):
+        for p in m.parameters():
+            p.data = 0.05 * torch.randn(p.shape, generator=g, device="cuda")
+    ids, mask, gy = sp_inputs(cfg, seed + 21)
+    x = torch.randn(BATCH, SP_SEQ, cfg.hidden_size, generator=g, device="cuda")
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        def run_layer(m, dtype):
+            seq, n = m.tp, SP_SEQ // TP_RANKS
+            part = (lambda t: t) if seq is None else (lambda t: t.narrow(1, seq.index * n, n))
+            xr = part(x.to(dtype)).clone().requires_grad_()
+            y = m(xr, mask, True, None, seq)
+            y.backward(part(gy.to(dtype)))
+            whole = (lambda t: t) if seq is None else (lambda t: seq.gather(t, 1))
+            return whole(y.detach()), whole(xr.grad)
+
+        def run_encoder(m, dtype):
+            m.dtype = dtype
+            y = m(ids, mask, train=True)
+            y.backward(gy.to(dtype))
+            return y, None
+
+        tols = TP_ROW_SPLIT_BF16 if dt == "bfloat16" else SP_FP32_TOLS
+        for name, module, prefix, run in (
+                ("layer", layer, "text_encoder.layer_0", run_layer),
+                ("encoder", enc, "text_encoder", run_encoder)):
+            torch.cuda.reset_peak_memory_stats()
+            rows, e_out, e_dx, secs = tp_hold(f"BERT-base {name} with seq_parallel", module,
+                                              prefix, run, dt, tols, tag="[sp] (a)")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            say(f"[sp] (a) BERT-base {name} {dt} on sequence shards ({SP_SEQ // TP_RANKS} of "
+                f"{SP_SEQ} tokens a rank, 2 rows): max abs out {e_out:.3e}"
+                + (f", dx {e_dx:.3e}" if e_dx is not None else "")
+                + f"; forward + backward ms a rank {[round(1e3 * t, 2) for t in secs]} (threads "
+                f"on one card); peak {peak:.2f} GiB on the card (the whole and the ranks' "
+                f"copies); {card_line()}")
+            out[f"{name}.{dt}"] = dict(err_out=e_out, err_dx=e_dx, rank_ms=[1e3 * t for t in secs],
+                                       worst=max(r[1] / r[2] for r in rows), peak_gib=peak)
+    return out
+
+
+def pp_phase(seed):
+    """Phase 19 (a), the pipeline on one card: BERT-base's 12 layers over 4
+    stages as threads (3 layers each), 8 rows in 4 microbatches at SP_SEQ
+    tokens, against the sequential tower on the same rows, fp32 and bf16."""
+    import dataclasses
+
+    import torch
+
+    from mammo_clip_tpu_torch.models.bert import BertConfig
+    from mammo_clip_tpu_torch.parallel import dryrun
+    from mammo_clip_tpu_torch.parallel.tensor import ThreadGroup
+
+    bert = {k: v for k, v in dataclasses.asdict(BertConfig()).items()
+            if k in dryrun.TINY_PP_BERT}
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        payload = dryrun.pp_payload(bert, dt, PP_ROWS, SP_SEQ, dryrun.PP_STAGES, 1, seed=seed,
+                                    device="cuda")
+        one = dryrun.pp_one(payload)
+        group = ThreadGroup(dryrun.PP_STAGES)
+        torch.cuda.reset_peak_memory_stats()
+        ranks = group.run(lambda r: dryrun.pp_case(None, payload, (group.rank(r), None)))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        cmp = dryrun.compare_pp(ranks, one)
+        say(f"[pp] (a) BERT-base {dt}, {dryrun.PP_STAGES} stages as threads on one card (3 layers "
+            f"each), {PP_ROWS} rows in {dryrun.PP_MICROBATCHES} microbatches, {SP_SEQ} tokens, vs "
+            f"the sequential tower: hidden max abs {cmp['hidden']:.3e}, gradients rel "
+            f"{cmp['grad_rel']:.3e} (worst {cmp['grad_worst'][:2]}); limits {cmp['limits']}; one "
+            f"process's own noise {cmp['noise']}; every stage the same output and embedding "
+            f"gradients {cmp['same_bits_across_stages']}; forward + backward s a stage "
+            f"{[round(r['seconds'], 3) for r in ranks]} (the first run "
+            f"{[round(r['first_seconds'], 3) for r in ranks]}), the sequential tower "
+            f"{one['seconds']:.3f} s; peak {peak:.2f} GiB on the card (4 stages); {card_line()}")
+        if not cmp["ok"]:
+            raise SmokeFailure(f"[pp] the pipelined tower disagrees with the sequential one: {cmp}")
+        out[dt] = dict(cmp, stage_s=[r["seconds"] for r in ranks], one_s=one["seconds"],
+                       peak_gib=peak)
+    return out
+
+
+def sp_pp_ranks_phase(seed, tp=None):
+    """Phase 19 (b): the dry run's ``sp`` and ``pp`` layouts on four cards
+    (the SP step beside phase 18 (b)'s TP step), or a line saying why not."""
+    import torch
+
+    from mammo_clip_tpu_torch.parallel import dryrun
+
+    cards, card = torch.cuda.device_count(), card_line()
+    if cards < 4:
+        say(f"[sp] (b) the sp and pp dry runs need 4 cards (data 2 x model 2; pipe 4); {cards} "
+            f"visible: not run, (a) alone ran; {card}")
+        return None
+    t = time.perf_counter()
+    res = dryrun.dryrun(4, "cuda", seed, timeout_s=900.0, layouts=("sp", "pp"))
+    dry_s = time.perf_counter() - t
+    (OUT_DIR / "sp_pp_dryrun.json").write_text(json.dumps(res))
+    for name in ("full_width_sp", "full_width_bf16_sp"):
+        cmp = res[name]
+        tp_loss = (tp or {}).get(name.replace("_sp", "_tp"), {}).get("loss")
+        if tp_loss is not None:
+            cmp["vs_tp"] = abs(cmp["loss"] - tp_loss) / max(1.0, abs(tp_loss))
+            cmp["ok"] = cmp["ok"] and cmp["vs_tp"] <= cmp["limits"]["step"]["loss"]
+        say(f"[sp] (b) {name}: 4 ranks as data 2 x model 2, FSDP, seq_parallel (compat step at "
+            f"full width) vs one process on {2 * BATCH} rows: loss {cmp['loss']:.6f} vs "
+            f"{cmp['loss_one_process']:.6f}, vs phase 18's TP step {cmp.get('vs_tp')}; step "
+            f"{cmp['step']}, K=2 call {cmp['k2']}; gradients rel {cmp['grad_rel']:.2e}; same bits "
+            f"on every rank {cmp['same_bits_across_ranks']}; limits {cmp['limits']}; step s a "
+            f"rank {[round(x, 3) for x in cmp['rank_step_s']]}; peak GiB a rank "
+            f"{[round(b / 2**30, 2) for b in cmp['rank_peak_bytes']]}; fused calls a rank "
+            f"{_fused_pair(cmp['fused_per_rank'])}; ok {cmp['ok']}; {card}")
+    for name in ("full_width_pp", "full_width_bf16_pp"):
+        cmp = res[name]
+        say(f"[pp] (b) {name}: pipe {cmp['pipe']} x data {cmp['data']}, one stage a card (NCCL "
+            f"point-to-point): hidden {cmp['hidden']:.3e}, gradients rel {cmp['grad_rel']:.3e}; "
+            f"limits {cmp['limits']}; forward + backward s a rank "
+            f"{[round(x, 3) for x in cmp['rank_s']]} (the first run, which makes the channels, "
+            f"{[round(x, 3) for x in cmp['rank_first_s']]}), sequential "
+            f"{cmp['one_process_s']:.3f} s; "
+            f"peak GiB a rank {[round(b / 2**30, 2) for b in cmp['rank_peak_bytes']]}; ok "
+            f"{cmp['ok']}; {card}")
+    say("[pp] (b) data 2 x pipe 4 needs 8 cards: held on the CPU only "
+        "(tests/test_torch_pipeline.py, 8 thread ranks)")
+    say(f"[sp] (b) the sp and pp dry runs {dry_s:.1f} s")
+    bad = [n for n in ("full_width_sp", "full_width_bf16_sp", "full_width_pp",
+                       "full_width_bf16_pp") if not res[n]["ok"]]
+    if bad:
+        raise SmokeFailure(f"[sp] the dry run disagrees: {bad}: {res}")
+    for name in ("full_width_sp", "full_width_bf16_sp"):
+        if _fused_pair(res[name]["fused_per_rank"]) != (14, 14):
+            raise SmokeFailure(f"[sp] the {name} step launched {res[name]['fused_per_rank']}, "
+                               f"expected 14 + 14")
+    return dict(dryrun=res, seconds=dry_s)
+
+
+def sp_pp_phase(seed, tp=None):
+    """Phase 19: (a) sequence parallelism and the pipeline on one card as
+    threads, (b) the sp and pp dry runs on four cards."""
+    import torch
+
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    say(f"[sp] phase 19 on {card_line()}")
+    sp = sp_phase(seed)
+    pp = pp_phase(seed)
+    say(f"[sp] (a) {time.perf_counter() - t:.1f} s")
+    ranks = sp_pp_ranks_phase(seed, tp)
+    seconds = time.perf_counter() - t
+    say(f"[sp] phase 19: {seconds:.1f} s on {card_line()}")
+    return dict(sp=sp, pp=pp, ranks=ranks, seconds=seconds)
 
 
 # --------------------------------------------------------------------------
@@ -4916,10 +5139,12 @@ def main(argv=None) -> int:
     dp = dp_phase(args.seed)
     # 18. tensor parallelism and ZeRO-3: the splits on one card, the TP + FSDP step on four
     tp = tp_phase(args.seed)
+    # 19. sequence parallelism and the pipeline: threads on one card, the dry runs on four
+    sp_pp = sp_pp_phase(args.seed, (tp["ranks"] or {}).get("dryrun"))
     (OUT_DIR / "chip_smoke_steps.json").write_text(
         json.dumps(dict(slice=rows, cli=cli, serving=serving, classifier=clf, detector=det,
                         preprocess=pre, flagship=flag, families=fam, int8_export=int8, dp=dp,
-                        tp=tp), indent=1))
+                        tp=tp, sp_pp=sp_pp), indent=1))
 
     # 8. flash attention; 9. the probe kernels
     flash_rows = flash_phases(args.seed, earlier)

@@ -85,8 +85,12 @@ class RankSum:
     ``t`` over them in place and returns it; ``ranks`` is their number and
     ``index`` this rank's place among them (``None``: the world).
     ``gather(t, dim)`` concatenates every rank's ``t`` along ``dim`` in that
-    order, and ``scatter_sum(t, dim)`` returns this rank's slice along ``dim``
-    of the ranks' sum of ``t`` (a reduce-scatter)."""
+    order, ``scatter_sum(t, dim)`` returns this rank's slice along ``dim``
+    of the ranks' sum of ``t`` (a reduce-scatter), and ``shift(t)`` returns
+    the ``t`` of the rank before this one (zeros on the first; with
+    ``reverse``, of the rank after it, zeros on the last): one batch of
+    point-to-point sends and receives, which every rank of the group joins
+    (blocking pairs would deadlock)."""
 
     def __init__(self, group=None):
         self.group = group
@@ -108,6 +112,20 @@ class RankSum:
         parts = [c.contiguous() for c in t.chunk(self.ranks, dim)]
         out = torch.empty_like(parts[self.index])
         dist.reduce_scatter(out, parts, group=self.group)
+        return out
+
+    def shift(self, t: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+        t = t.contiguous()
+        out = torch.zeros_like(t)
+        step = -1 if reverse else 1
+        peer = lambda i: i if self.group is None else dist.get_global_rank(self.group, i)
+        ops = []
+        if 0 <= self.index + step < self.ranks:
+            ops.append(dist.P2POp(dist.isend, t, peer(self.index + step), self.group))
+        if 0 <= self.index - step < self.ranks:
+            ops.append(dist.P2POp(dist.irecv, out, peer(self.index - step), self.group))
+        for req in dist.batch_isend_irecv(ops) if ops else ():
+            req.wait()
         return out
 
 

@@ -7,13 +7,12 @@ the Flax tree (``layer_3.attention.query.kernel`` is (H, heads, head_dim)), so
 
 Mixed precision follows Flax's ``dtype``: parameters stay fp32 and are cast to
 the activation dtype at use; LayerNorm statistics and the attention softmax run
-in fp32. Dropout masks come from an explicit ``torch.Generator``. Attention is
-plain ``torch.matmul`` + softmax (``attention``; the JAX package runs it through
-XLA, not a Pallas kernel). ``fused_qkv`` computes Q/K/V as one (H, 3H) product
+in fp32 (in float64 for a float64 run). Dropout masks come from an explicit
+``torch.Generator``. Attention is plain ``torch.matmul`` + softmax
+(``attention``; the JAX package runs it through XLA, not a Pallas kernel). ``fused_qkv`` computes Q/K/V as one (H, 3H) product
 of the three kernels concatenated at run time (same parameter tree);
 ``amp_attn_scores`` stores the scores in the activation dtype with the softmax
-in fp32. ``seq_parallel`` (sequence-sharded activations over a tensor-parallel
-mesh) belongs to the distribution slice (ROADMAP queue 9) and raises.
+in fp32.
 
 Tensor parallelism (``parallel/partitioning.py``, Megatron-style over the
 mesh's ``model`` axis): a layer whose ``tp`` is set holds N / model heads of
@@ -28,6 +27,24 @@ and LayerNorms stay replicated. The ranks of a model group
 draw the same dropout (their step seeds are the data index's): the
 attention's mask is drawn for every head and each rank keeps its heads', so
 a split layer drops what the whole layer drops.
+
+Sequence parallelism (``seq_parallel``, Megatron's, over the same ``model``
+axis; JAX ``models/bert.py:170-181``, :214-215): when every layer is split
+and the ranks divide S, the encoder keeps this rank's S-slice of the
+embeddings after their dropout (``parallel/constraint.py::shard_seq``), so
+the LayerNorms, residuals and the two residual dropouts run on a (B, S /
+model, H) shard. The column-split products read the whole sequence through
+``gather_from_seq`` (backward: a reduce-scatter) in place of
+``copy_to_model``; the row-split products leave through
+``reduce_scatter_to_seq`` in place of ``reduce_from_model``'s all-reduce,
+the bias added once, on the shard. A parameter used on the shard (the
+LayerNorms', the two row-split biases) enters through ``copy_to_model``, so
+each rank's gradient for it sums every rank's tokens, as a replicated
+parameter's must. A residual dropout draws the whole (B, S, H) mask and
+keeps this rank's slice. The encoder ends by gathering S
+(``gather_from_model``: backward, the rank's own slice), so the pooling and
+the projection see (B, S, H). Without a split, or when S does not divide,
+``seq_parallel`` changes nothing.
 """
 
 from __future__ import annotations
@@ -40,7 +57,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..parallel.tensor import copy_to_model, reduce_from_model
+from ..parallel.constraint import seq_axis, shard_seq
+from ..parallel.tensor import (copy_to_model, gather_from_model, gather_from_seq,
+                               reduce_from_model, reduce_scatter_to_seq)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,18 +85,18 @@ class BertConfig:
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator], heads=None) -> torch.Tensor:
-    """Inverted dropout with a mask drawn from ``generator``. ``heads`` =
-    (index, ranks): x holds one model rank's heads (dim 1) of ``ranks``; the
-    mask of every head is drawn and this rank's slice kept, so the ranks
-    draw what one process draws."""
+            generator: Optional[torch.Generator], part=None) -> torch.Tensor:
+    """Inverted dropout with a mask drawn from ``generator``. ``part`` =
+    (index, ranks): x holds one model rank's part of dim 1 of ``ranks`` (its
+    heads, or its S-slice); the mask of the whole is drawn and this rank's
+    slice kept, so the ranks draw what one process draws."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
-    shape = x.shape if heads is None else (x.shape[0], x.shape[1] * heads[1], *x.shape[2:])
+    shape = x.shape if part is None else (x.shape[0], x.shape[1] * part[1], *x.shape[2:])
     mask = torch.rand(shape, generator=generator, device=x.device) < keep
-    if heads is not None:
-        mask = mask.narrow(1, heads[0] * x.shape[1], x.shape[1])
+    if part is not None:
+        mask = mask.narrow(1, part[0] * x.shape[1], x.shape[1])
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -104,6 +123,10 @@ class Dense(nn.Module):
         return y.reshape(*lead, *kernel.shape[n_in:])
 
 
+def _at_least_fp32(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
+
+
 class LayerNorm(nn.Module):
     def __init__(self, features: int, eps: float):
         super().__init__()
@@ -111,8 +134,11 @@ class LayerNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias, self.eps)
+    def forward(self, x: torch.Tensor, seq=None) -> torch.Tensor:
+        """``seq``: x is this rank's S-slice over that axis (sequence
+        parallelism); the scale and bias then enter through ``copy_to_model``."""
+        y = F.layer_norm(x.to(_at_least_fp32(x.dtype)), (x.shape[-1],),
+                         copy_to_model(self.scale, seq), copy_to_model(self.bias, seq), self.eps)
         return y.to(x.dtype)
 
 
@@ -131,17 +157,34 @@ def attention(q, k, v, mask, amp_scores: bool, dropout_rate: float = 0.0, train:
     the keys where the (B, S) bool ``mask`` holds; returns (B, N, S, D) in v's
     dtype. The scores are fp32, or with ``amp_scores`` and a non-fp32 dtype kept
     in that dtype (masked keys at its most negative value) with the softmax
-    itself in fp32 (JAX ``models/bert.py:133-151``)."""
+    itself in fp32 (JAX ``models/bert.py:133-151``); float64 stays float64."""
     logits = q @ k.transpose(-1, -2)
     keep = mask[:, None, None, :]
-    if amp_scores and q.dtype != torch.float32:
+    wide = _at_least_fp32(q.dtype)
+    if amp_scores and q.dtype != wide:
         logits = logits.masked_fill(~keep, torch.finfo(q.dtype).min)
-        probs = torch.softmax(logits.float(), dim=-1).to(v.dtype)
+        probs = torch.softmax(logits.to(wide), dim=-1).to(v.dtype)
     else:
-        logits = logits.float().masked_fill(~keep, torch.finfo(torch.float32).min)
+        logits = logits.to(wide).masked_fill(~keep, torch.finfo(wide).min)
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
     probs = dropout(probs, dropout_rate, train, generator, heads)
     return probs @ v
+
+
+def _enter(x, tp, seq):
+    """A column split's input: the whole sequence gathered from the S-slices
+    under sequence parallelism, else the replicated tensor."""
+    return gather_from_seq(x, seq) if seq is not None else copy_to_model(x, tp)
+
+
+def _leave(y, tp, seq):
+    """A row split's partial products summed: this rank's S-slice of the sum
+    under sequence parallelism, else the whole sum."""
+    return reduce_scatter_to_seq(y, seq) if seq is not None else reduce_from_model(y, tp)
+
+
+def _part(seq):
+    return None if seq is None else (seq.index, seq.ranks)
 
 
 class BertSelfAttention(nn.Module):
@@ -169,16 +212,18 @@ class BertSelfAttention(nn.Module):
         qkv = x @ w + b.to(x.dtype)
         return [t.reshape(*x.shape[:-1], *kernels[0].shape[1:]) for t in qkv.chunk(3, dim=-1)]
 
-    def forward(self, x, mask, train: bool, generator=None):
+    def forward(self, x, mask, train: bool, generator=None, seq=None):
+        """``seq``: x is this rank's S-slice over that axis (the model axis,
+        sequence parallelism), and so is the output."""
         cfg, tp = self.cfg, self.tp
         d = cfg.hidden_size // cfg.num_heads
-        q, k, v = self._qkv(copy_to_model(x, tp))
+        q, k, v = self._qkv(_enter(x, tp, seq))
         ctx = attention((q * d ** -0.5).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                         mask, cfg.amp_attn_scores, cfg.dropout_rate, train, generator,
                         None if tp is None else (tp.index, tp.ranks))
         # ctx (B, N, S, D)
-        y = reduce_from_model(self.output(ctx.transpose(1, 2), bias=False), tp)
-        return y + self.output.bias.to(y.dtype)
+        y = _leave(self.output(ctx.transpose(1, 2), bias=False), tp, seq)
+        return y + copy_to_model(self.output.bias, seq).to(y.dtype)
 
 
 class BertLayer(nn.Module):
@@ -193,14 +238,18 @@ class BertLayer(nn.Module):
         self.ffn_output = Dense((cfg.intermediate_size,), (cfg.hidden_size,))
         self.ffn_ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
-    def forward(self, x, mask, train: bool, generator=None):
-        rate = self.cfg.dropout_rate
-        attn = dropout(self.attention(x, mask, train, generator), rate, train, generator)
-        x = self.attention_ln(x + attn)
-        h = F.gelu(self.intermediate(copy_to_model(x, self.tp)), approximate="none")
-        h = reduce_from_model(self.ffn_output(h, bias=False), self.tp)
-        h = dropout(h + self.ffn_output.bias.to(h.dtype), rate, train, generator)
-        return self.ffn_ln(x + h)
+    def forward(self, x, mask, train: bool, generator=None, seq=None):
+        """``seq``: x is this rank's S-slice over that axis (the model axis,
+        sequence parallelism), and so is the output."""
+        rate, part = self.cfg.dropout_rate, _part(seq)
+        attn = dropout(self.attention(x, mask, train, generator, seq), rate, train, generator,
+                       part)
+        x = self.attention_ln(x + attn, seq)
+        h = F.gelu(self.intermediate(_enter(x, self.tp, seq)), approximate="none")
+        h = _leave(self.ffn_output(h, bias=False), self.tp, seq)
+        h = dropout(h + copy_to_model(self.ffn_output.bias, seq).to(h.dtype), rate, train,
+                    generator, part)
+        return self.ffn_ln(x + h, seq)
 
 
 class BertEncoder(nn.Module):
@@ -208,9 +257,6 @@ class BertEncoder(nn.Module):
 
     def __init__(self, cfg: BertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.seq_parallel:
-            raise NotImplementedError("text encoder option seq_parallel is not ported yet "
-                                      "(ROADMAP queue 9, distribution)")
         self.cfg, self.dtype = cfg, dtype
         self.word_embeddings = Embed(cfg.vocab_size, cfg.hidden_size)
         self.position_embeddings = Embed(cfg.max_position_embeddings, cfg.hidden_size)
@@ -223,24 +269,38 @@ class BertEncoder(nn.Module):
     def out_dim(self) -> int:
         return self.cfg.hidden_size
 
-    def forward(self, input_ids, attention_mask, token_type_ids=None, train: bool = False,
-                generator: Optional[torch.Generator] = None):
-        cfg, dt = self.cfg, self.dtype
+    def embed(self, input_ids, token_type_ids=None, dtype: Optional[torch.dtype] = None):
+        """The embeddings' sum after their LayerNorm (before the dropout)."""
+        dt = self.dtype if dtype is None else dtype
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
         x = (self.word_embeddings(input_ids, dt) + self.position_embeddings(pos, dt)
              + self.token_type_embeddings(token_type_ids, dt))
-        x = dropout(self.embeddings_ln(x), cfg.dropout_rate, train, generator)
+        return self.embeddings_ln(x)
+
+    def model_axis(self):
+        """The model axis every layer and its attention are split over, or
+        None when one is not split (``parallel/partitioning.py::place``)."""
+        axes = [m.tp for i in range(self.cfg.num_layers)
+                for m in (getattr(self, f"layer_{i}"), getattr(self, f"layer_{i}").attention)]
+        return axes[0] if axes and all(a is not None for a in axes) else None
+
+    def forward(self, input_ids, attention_mask, token_type_ids=None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        cfg = self.cfg
+        x = dropout(self.embed(input_ids, token_type_ids), cfg.dropout_rate, train, generator)
+        seq = seq_axis(x, self.model_axis()) if cfg.seq_parallel else None
+        x = shard_seq(x, seq)
         mask = attention_mask.bool()
         for i in range(cfg.num_layers):
             layer = getattr(self, f"layer_{i}")
             if cfg.remat and train:
-                x = torch.utils.checkpoint.checkpoint(layer, x, mask, train, generator,
+                x = torch.utils.checkpoint.checkpoint(layer, x, mask, train, generator, seq,
                                                       use_reentrant=False)
             else:
-                x = layer(x, mask, train, generator)
-        return x
+                x = layer(x, mask, train, generator, seq)
+        return x if seq is None else gather_from_model(x, 1, seq)
 
 
 def pool_text(hidden: torch.Tensor, attention_mask: torch.Tensor, pooling: str) -> torch.Tensor:

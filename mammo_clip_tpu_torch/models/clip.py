@@ -29,8 +29,8 @@ def bert_config_from_model_config(model_config: Dict) -> BertConfig:
     """The text encoder's options, as the JAX package's function of the same name
     reads them. One knob is the port's own: ``dropout_rate``, which the JAX
     function ignores (its BERT always uses ``BertConfig``'s 0.1); the parity
-    tests set it to compare without dropout. ``seq_parallel`` is carried over,
-    and ``BertEncoder`` raises for it."""
+    tests set it to compare without dropout. ``seq_parallel`` is carried over
+    (``models/bert.py``: sequence shards over a split encoder's model axis)."""
     t = model_config["text_encoder"]
     return BertConfig(
         vocab_size=t.get("vocab_size", 28996),

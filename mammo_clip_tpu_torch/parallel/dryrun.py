@@ -1,8 +1,8 @@
 """N ranks equal one process (port of ``__graft_entry__.py::dryrun_multichip``,
-:82-207, its data-parallel and its TP + FSDP parts).
+:82-260: its data-parallel, TP + FSDP, sequence-parallel and pipeline parts).
 
     python -m mammo_clip_tpu_torch.parallel.dryrun [--ranks N] [--device cuda|cpu]
-        [--timeout 600] [--layout dp tp]
+        [--timeout 600] [--layout dp tp sp pp] (dp tp by default)
 
 runs ``steps_case`` on N ranks, each a process of its own under ``python -m
 torch.distributed.run --standalone`` (``run_ranks``: NCCL with one card a
@@ -12,17 +12,22 @@ default), and again in this process on the same global batch, then compares
 and after one step and after one K=2 call (``make_train_multistep``, which
 the one process also checks against two single steps) every parameter, the
 BatchNorm running statistics and the EMA, every shard gathered whole; and
-that every rank ends with the same bits. Two layouts (``layout_cases``):
+that every rank ends with the same bits. Four layouts (``layout_cases``):
 ``dp``, N data ranks on N x B rows; ``tp``, the JAX dry run's data N/2 x
 model 2 with the state placed by ``parallel/partitioning.py::
 shard_train_state(fsdp=True)`` (Megatron splits of BERT and the eligible
 MBConv blocks over ``model``, ZeRO-3 over ``data``) on N/2 x B rows, for an
-even N. It prints one JSON line of the largest differences and exits 1 when
-one is over its tolerance. Any N >= 1 runs (the JAX dry run reshapes its
-devices to (2, 4) and crashes below 8: fault R1 of the reference, not
-inherited); with one rank no process group is made, no collective runs and
-no ``tp`` case is made. Sequence and pipeline parallelism are the next slice
-of the port.
+even N; ``sp``, the same with ``text_encoder.seq_parallel`` (JAX's r5 step:
+BERT's LayerNorm and residual regions on sequence shards over ``model``),
+also held to the ``tp`` case's loss when both run; ``pp`` (``pp_case``), the
+text tower pipelined over 4 stages (N / 4 data ranks when 4 divides N, else
+one pipe of N stages) against the sequential tower on the same rows, the
+hidden states and the gradients of every layer and of the embeddings. It
+prints one JSON line of the largest differences and exits 1 when one is
+over its tolerance. Any N >= 1 runs (the JAX dry run reshapes its devices
+to (2, 4) and crashes below 8: fault R1 of the reference, not inherited);
+with one rank no process group is made, no collective runs and no ``tp`` or
+``sp`` case is made.
 
 The stochastic parts are off on both sides (augmentation, drop-connect,
 dropout), since rank r folds r into its step seed (``train/step.py``), and
@@ -40,6 +45,7 @@ what one process differs from itself by.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import hashlib
 import importlib
@@ -513,20 +519,232 @@ def host_batches(cfg: Config, rows: int, seed: int = 0) -> List[Dict[str, np.nda
 
 
 def _rank_cases(ctx, payload) -> dict:
-    return {name: steps_case(ctx, p) for name, p in payload["cases"].items()}
+    return {name: (pp_case if p.get("kind") == "pp" else steps_case)(ctx, p)
+            for name, p in payload["cases"].items()}
 
 
-LAYOUTS = ("dp", "tp")
+# ----------------------------------------------------------------------------
+# the pipelined text tower
+# ----------------------------------------------------------------------------
+
+# The pipelined tower against the sequential one: the hidden states (max
+# absolute difference; JAX's 1e-4, ``__graft_entry__.py:258-259``) and each
+# tensor's gradient (``grad_rel``), each at the larger of its tolerance and
+# ``noise`` times what one process differs from itself by in that term
+# (``pp_one``: the tower with the rows reversed, and on the pipeline's calls
+# of ``mb / data`` rows one after another, whose sums round as the
+# pipeline's do).
+PP_TOLERANCES = {"hidden": 1e-4, "grad": 1e-4, "noise": 2.0}
+PP_STAGES, PP_MICROBATCHES = 4, 4
+
+
+def pp_bert(payload, device):
+    """The text tower of a ``pp`` payload on ``device``: its ``init`` state
+    dict, or seeded weights (the same on every rank), in the payload's dtype."""
+    from ..models.bert import BertConfig, BertEncoder
+
+    dtype = getattr(torch, payload["dtype"])
+    enc = BertEncoder(BertConfig(**payload["bert"]), dtype=dtype)
+    if payload.get("init") is not None:
+        enc.load_state_dict(payload["init"])
+    else:
+        gen = torch.Generator().manual_seed(payload["seed"])
+        std = 0.5 / payload["bert"]["hidden_size"] ** 0.5
+        with torch.no_grad():
+            for name, t in enc.named_parameters():
+                t.copy_(torch.randn(t.shape, generator=gen) * std + name.endswith(".scale"))
+    return enc.to(device)
+
+
+def _pp_inputs(payload, device):
+    return (torch.from_numpy(payload["input_ids"]).long().to(device),
+            torch.from_numpy(payload["attention_mask"]).long().to(device),
+            torch.from_numpy(payload["w"]).to(device))
+
+
+def _pp_grads(enc, sample):
+    return _snap({n: p.grad for n, p in enc.named_parameters() if p.grad is not None}, sample)
+
+
+def pp_case(ctx, payload, axes=None) -> dict:
+    """A rank of the pipelined tower: ``payload["pipe"]`` stages a pipe group
+    (``pipeline.pipe_axes``, or ``axes`` = (pipe, data or None), e.g.
+    ``ThreadGroup`` ranks; one rank alone runs the schedule with no group),
+    this data rank's rows of every microbatch. The loss is sum(h * w) over
+    its rows, run twice (the first run makes the point-to-point channels).
+    Returns its rows, their hidden states, the gradients this rank holds
+    (its stage's layers, the embeddings), a digest of the embeddings'
+    gradients (every stage of a data rank the same bits), the seconds of
+    each run's forward and backward and the peak device memory."""
+    from . import pipeline
+    from .tensor import ThreadGroup
+
+    device = ctx.device if ctx is not None else torch.device(payload.get("device", "cpu"))
+    if axes is not None:
+        pipe, data = axes
+    elif mesh.world_size() > 1:
+        pipe, data = pipeline.pipe_axes(payload["pipe"])
+    else:
+        pipe, data = ThreadGroup(1).rank(0), None
+    enc = pp_bert(payload, device)
+    ids, mask, w = _pp_inputs(payload, device)
+    m = payload["microbatches"]
+    rows = pipeline.pipeline_rows(ids.shape[0], m, getattr(data, "ranks", 1),
+                                  getattr(data, "index", 0)).to(device)
+    seconds = []
+    with full_fp32():
+        for _ in range(2):
+            enc.zero_grad(set_to_none=True)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+                torch.cuda.reset_peak_memory_stats(device)
+            t = time.perf_counter()
+            h = pipeline.pipelined_bert_hidden(enc, ids, mask, pipe, data, num_microbatches=m)
+            (h.float() * w[rows]).sum().backward()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            seconds.append(time.perf_counter() - t)
+    grads = {n: p.grad for n, p in enc.named_parameters() if p.grad is not None}
+    shared = {n: g for n, g in grads.items() if not n.startswith("layer_")}
+    return {"rank": pipe.index + pipe.ranks * getattr(data, "index", 0),
+            "pipe_index": pipe.index, "pipe": pipe.ranks,
+            "data_index": getattr(data, "index", 0), "rows": rows.cpu().numpy(),
+            "hidden": h.detach().float().cpu().numpy(),
+            "grads": _snap(grads, payload.get("sample", False)),
+            "shared_digest": _digest(shared), "seconds": seconds[-1],
+            "first_seconds": seconds[0],
+            "peak_bytes": torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else None}
+
+
+def _sequential(enc, ids, mask, w, chunk=None, order=None):
+    """The sequential tower's hidden states of every row (in the batch's
+    order) and its gradients of sum(h * w): on all rows in one call, in
+    calls of ``chunk`` rows, or on the rows in ``order``."""
+    enc.zero_grad(set_to_none=True)
+    idx = torch.arange(ids.shape[0], device=ids.device) if order is None else order
+    chunks = [idx] if chunk is None else list(idx.split(chunk))
+    out = torch.empty(ids.shape[0], ids.shape[1], enc.cfg.hidden_size, device=ids.device)
+    with full_fp32():
+        for c in chunks:
+            h = enc(ids[c], mask[c])
+            (h.float() * w[c]).sum().backward()
+            out[c] = h.detach().float()
+    return out
+
+
+def pp_one(payload) -> dict:
+    """The sequential tower in one process on the whole batch: the hidden
+    states and gradients, the seconds of its forward and backward, and its
+    own noise beside them (the rows reversed; the pipeline's calls of ``mb /
+    data`` rows one after another): the largest hidden difference and
+    ``grad_rel`` of each."""
+    device = torch.device(payload.get("device", "cpu"))
+    sample = payload.get("sample", False)
+    enc = pp_bert(payload, device)
+    ids, mask, w = _pp_inputs(payload, device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t = time.perf_counter()
+    hidden = _sequential(enc, ids, mask, w)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t
+    grads = _pp_grads(enc, sample)
+    b = ids.shape[0]
+    chunk = b // payload["microbatches"] // payload["data"]
+    noise = {}
+    for name, kw in (("reversed", {"order": torch.arange(b - 1, -1, -1, device=device)}),
+                     ("chunks", {"chunk": chunk})):
+        h = _sequential(enc, ids, mask, w, **kw)
+        noise[name] = {"hidden": float((h - hidden).abs().max()),
+                       "grad_rel": max(grad_rel(_pp_grads(enc, sample), grads).values())}
+    return {"hidden": hidden.cpu().numpy(), "grads": grads, "seconds": seconds, "noise": noise}
+
+
+def compare_pp(ranks: List[dict], one: dict, tol: Optional[dict] = None) -> dict:
+    """The ranks' pipelined tower against the one process's sequential one:
+    the hidden states of every row (put together from each data rank's
+    first stage; every stage of a data rank must hold the same bits), each
+    layer's gradient from the stage that holds it and the embeddings' from
+    each data rank's first stage, summed over the data ranks, each held to
+    its limit (``PP_TOLERANCES`` beside the one process's own noise)."""
+    tol = PP_TOLERANCES if tol is None else tol
+    pipe = ranks[0]["pipe"]
+    hidden = np.zeros_like(one["hidden"])
+    same = True
+    grads: Dict[str, np.ndarray] = {}
+    for r in ranks:
+        first = ranks[r["rank"] - r["pipe_index"]]
+        same = same and r["shared_digest"] == first["shared_digest"] and np.array_equal(
+            r["hidden"], first["hidden"])
+        if r["pipe_index"] == 0:
+            hidden[r["rows"]] = r["hidden"]
+        for k, g in r["grads"].items():
+            if k.startswith("layer_") or r["pipe_index"] == 0:
+                grads[k] = grads[k] + g if k in grads else g.copy()
+    rel = grad_rel(grads, one["grads"])
+    noise = one["noise"]
+    limits = {"hidden": max(tol["hidden"], tol["noise"] * max(n["hidden"] for n in noise.values())),
+              "grad": max(tol["grad"], tol["noise"] * max(n["grad_rel"] for n in noise.values()))}
+    d = {"hidden": float(np.max(np.abs(hidden - one["hidden"]))), "grad": max(rel.values())}
+    return {"ranks": len(ranks), "pipe": pipe, "data": len(ranks) // pipe,
+            "same_bits_across_stages": bool(same), "hidden": d["hidden"], "grad_rel": d["grad"],
+            "grad_worst": sorted(rel.items(), key=lambda kv: -kv[1])[:5], "limits": limits,
+            "noise": noise, "ok": bool(same and all(d[k] <= limits[k] for k in d))}
+
+
+def pp_payload(bert: dict, dtype: str, rows: int, seq: int, pipe: int, data: int,
+               microbatches: int = PP_MICROBATCHES, seed: int = 0, device: str = "cpu",
+               init: Optional[dict] = None) -> dict:
+    """A ``pp`` case: the tower's config (``BertConfig``'s fields, dropout
+    off), ``rows`` x ``seq`` seeded tokens with ragged masks and the loss's
+    weights, ``pipe`` stages and ``data`` data ranks."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(2, seq + 1, size=rows)
+    mask = (np.arange(seq)[None, :] < lengths[:, None]).astype(np.int32)
+    ids = rng.integers(1, bert["vocab_size"], size=(rows, seq)).astype(np.int32) * mask
+    w = rng.standard_normal((rows, seq, bert["hidden_size"])).astype(np.float32)
+    return {"kind": "pp", "bert": {**bert, "dropout_rate": 0.0}, "dtype": dtype, "seed": seed,
+            "input_ids": ids, "attention_mask": mask, "w": w, "pipe": pipe, "data": data,
+            "microbatches": microbatches, "device": device, "sample": device == "cuda",
+            "init": init}
+
+
+# the CPU's tower: JAX's pipeline test's (``tests/test_pipeline.py::_bert``)
+TINY_PP_BERT = dict(vocab_size=64, hidden_size=16, num_layers=4, num_heads=2,
+                    intermediate_size=32, max_position_embeddings=32)
+
+
+def pp_layout(n_ranks: int, num_layers: int, rows: int):
+    """(pipe, data) of the ``pp`` layout on ``n_ranks``: 4 stages and N / 4
+    data ranks when 4 divides N, else one pipe of N stages; None when the
+    stages do not divide the layers or the data ranks a microbatch."""
+    pipe = PP_STAGES if n_ranks % PP_STAGES == 0 else n_ranks
+    data = n_ranks // pipe
+    if num_layers % pipe or rows % PP_MICROBATCHES or (rows // PP_MICROBATCHES) % data:
+        return None
+    return pipe, data
+
+
+LAYOUTS = ("dp", "tp", "sp", "pp")
+DEFAULT_LAYOUTS = ("dp", "tp")  # what a call that names none runs
 
 
 def layout_cases(n_ranks: int, device: str, seed: int = 0,
-                 layouts=LAYOUTS) -> Dict[str, dict]:
-    """The payloads of ``steps_case``, by case name, for each of
-    ``dp_configs(device)``: ``dp``, the data-parallel step on every rank
+                 layouts=DEFAULT_LAYOUTS) -> Dict[str, dict]:
+    """The payloads of ``steps_case`` and ``pp_case``, by case name, for each
+    of ``dp_configs(device)``: ``dp``, the data-parallel step on every rank
     (``n_ranks`` x B rows); ``tp`` (``<name>_tp``, with an even ``n_ranks``),
     the JAX dry run's layout, ``data = n_ranks / 2`` and ``model = 2`` with
     the state placed by ``shard_train_state(fsdp=True)`` (Megatron splits and
-    ZeRO-3), on (n_ranks / 2) x B rows. A case's tolerances are its config's."""
+    ZeRO-3), on (n_ranks / 2) x B rows; ``sp`` (``<name>_sp``), the same
+    with ``text_encoder.seq_parallel`` on the same rows; ``pp``
+    (``<name>_pp``, ``pp_layout``), the config's text tower (the CPU's:
+    ``TINY_PP_BERT``, 16 tokens) pipelined, 8 rows in 4 microbatches. A
+    case's tolerances are its config's."""
+    from ..models.clip import bert_config_from_model_config
+
     cases = {}
     for name, cfg in dp_configs(device, seed).items():
         b = cfg.data.batch_size_per_device
@@ -539,19 +757,41 @@ def layout_cases(n_ranks: int, device: str, seed: int = 0,
             cases[f"{name}_tp"] = {**common, "batches": host_batches(cfg, n_ranks // 2 * b, seed),
                                    "mesh": {"data": n_ranks // 2, "model": 2},
                                    "shard": {"fsdp": True}}
+        if "sp" in layouts and n_ranks % 2 == 0:
+            sp = Config(cfg.to_dict())
+            sp.model.text_encoder.seq_parallel = True
+            cases[f"{name}_sp"] = {**common, "cfg": sp.to_dict(),
+                                   "batches": host_batches(cfg, n_ranks // 2 * b, seed),
+                                   "mesh": {"data": n_ranks // 2, "model": 2},
+                                   "shard": {"fsdp": True}}
+        if "pp" in layouts:
+            if device == "cpu":
+                bert, seq = dict(TINY_PP_BERT), 16
+            else:
+                bert = dataclasses.asdict(bert_config_from_model_config(cfg.model.to_dict()))
+                bert = {k: bert[k] for k in TINY_PP_BERT}
+                seq = cfg.data.text_max_length
+            layout = pp_layout(n_ranks, bert["num_layers"], 8)
+            if layout is not None:
+                cases[f"{name}_pp"] = pp_payload(bert, cfg.train.dtype, 8, seq, *layout,
+                                                 seed=seed, device=device)
     return cases
 
 
 def dryrun(n_ranks: int, device: str = "cuda", seed: int = 0,
-           timeout_s: float = 600.0, layouts=LAYOUTS) -> dict:
-    """``steps_case`` for each of ``layout_cases`` on ``n_ranks`` ranks and in
-    this process (while the ranks run), each held to its config's tolerances
-    by ``compare``, with ``self_noise`` beside it. Returns ``{name: compare's
-    dict with the ranks' and the one process's seconds a step and peak device
-    memory, the fused launches a rank and the self-noise}`` and ``ok``. With
-    one rank no process group is made and no collective runs (and no ``tp``
-    case): the ranks' sums are then exercised only by the tests' gloo ranks
-    and ``chip_smoke.py``'s phases 17 (a) and 18 (a)."""
+           timeout_s: float = 600.0, layouts=DEFAULT_LAYOUTS) -> dict:
+    """``steps_case`` (``pp_case`` for a ``pp`` case) for each of
+    ``layout_cases`` on ``n_ranks`` ranks and in this process (while the
+    ranks run), each held to its config's tolerances by ``compare``, with
+    ``self_noise`` beside it (an ``sp`` case shares its ``tp`` case's one
+    process, which takes no sequence split, and its loss is held to the
+    ``tp`` ranks' too), a ``pp`` case by ``compare_pp`` against ``pp_one``.
+    Returns ``{name: compare's dict with the ranks' and the one process's
+    seconds a step and peak device memory, the fused launches a rank and
+    the self-noise}`` and ``ok``. With one rank no process group is made and
+    no collective runs (and no ``tp`` or ``sp`` case): the ranks' sums are
+    then exercised only by the tests' gloo ranks and ``chip_smoke.py``'s
+    phases 17 (a), 18 (a) and 19 (a)."""
     from concurrent.futures import ThreadPoolExecutor
 
     if device == "cuda":
@@ -562,15 +802,42 @@ def dryrun(n_ranks: int, device: str = "cuda", seed: int = 0,
 
         cuda_lib.build()  # once, before the ranks would each build it
     cases = layout_cases(n_ranks, device, seed, layouts)
+    pp = {name: p for name, p in cases.items() if p.get("kind") == "pp"}
     with ThreadPoolExecutor(1) as pool:
         spawned = pool.submit(run_ranks, n_ranks, f"{__name__}:_rank_cases",
                               {"cases": cases, "timeout_s": timeout_s}, device, timeout_s)
-        ones = {name: steps_case(None, p) for name, p in cases.items()}
-        noise = {name: self_noise(p, ones[name]) for name, p in cases.items()}
+        ones, noise = {}, {}
+        for name, p in cases.items():
+            if name in pp:
+                continue
+            # the one process takes no sequence split: an sp case's is its tp case's
+            twin = name.replace("_sp", "_tp") if name.endswith("_sp") else None
+            if twin in ones:
+                ones[name], noise[name] = ones[twin], noise[twin]
+                continue
+            ones[name] = steps_case(None, p)
+            noise[name] = self_noise(p, ones[name])
+        pp_ones = {name: pp_one(p) for name, p in pp.items()}
         ranks = spawned.result()
     out = {"ranks": n_ranks, "device": device}
+    for name, one in pp_ones.items():
+        cmp = compare_pp([r[name] for r in ranks], one)
+        cmp.update(rank_s=[r[name]["seconds"] for r in ranks],
+                   rank_first_s=[r[name]["first_seconds"] for r in ranks],
+                   one_process_s=one["seconds"],
+                   rank_peak_bytes=[r[name]["peak_bytes"] for r in ranks],
+                   dtype=pp[name]["dtype"], rows=len(pp[name]["input_ids"]),
+                   microbatches=pp[name]["microbatches"], layers=pp[name]["bert"]["num_layers"])
+        out[name] = cmp
     for name, one in ones.items():
-        cmp = compare([r[name] for r in ranks], one, name.removesuffix("_tp"), noise[name])
+        size = name.removesuffix("_tp").removesuffix("_sp")
+        cmp = compare([r[name] for r in ranks], one, size, noise[name])
+        twin = name.replace("_sp", "_tp")
+        if name.endswith("_sp") and twin in ones:  # the sp step against the tp step
+            loss_tp = ranks[0][twin]["one"]["losses"]["total"]
+            cmp["loss_tp"] = loss_tp
+            cmp["vs_tp"] = abs(cmp["loss"] - loss_tp) / max(1.0, abs(loss_tp))
+            cmp["ok"] = cmp["ok"] and cmp["vs_tp"] <= cmp["limits"]["step"]["loss"]
         cmp.update(mesh=cases[name].get("mesh", {"data": n_ranks, "model": 1}),
                    rank_step_s=[r[name]["one"]["seconds"] for r in ranks],
                    one_process_step_s=one["one"]["seconds"],
@@ -578,7 +845,7 @@ def dryrun(n_ranks: int, device: str = "cuda", seed: int = 0,
                    one_process_peak_bytes=one["one"]["peak_bytes"],
                    fused_per_rank=ranks[0][name]["one"]["fused"], self_noise=noise[name])
         out[name] = cmp
-    out["ok"] = all(out[name]["ok"] for name in ones)
+    out["ok"] = all(out[name]["ok"] for name in [*ones, *pp_ones])
     return out
 
 
@@ -589,9 +856,10 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--timeout", type=float, default=600.0)
-    ap.add_argument("--layout", nargs="+", default=list(LAYOUTS), choices=LAYOUTS,
+    ap.add_argument("--layout", nargs="+", default=list(DEFAULT_LAYOUTS), choices=LAYOUTS,
                     help="dp: data parallelism on every rank; tp: data N/2 x model 2, "
-                    "Megatron splits and ZeRO-3 (an even N)")
+                    "Megatron splits and ZeRO-3 (an even N); sp: tp with BERT's sequence "
+                    "parallelism; pp: the text tower over 4 pipeline stages")
     ap.add_argument("--rank-worker", nargs=3, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.rank_worker:

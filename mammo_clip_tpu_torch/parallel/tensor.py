@@ -8,8 +8,9 @@ model axis, one rank of a ``ThreadGroup`` below; ``copy_to_model`` and
 split runs the same code). An axis sums a tensor over
 its ranks in place (``axis(t)``), concatenates their tensors
 (``axis.gather(t, dim)``), returns this rank's slice of their sum
-(``axis.scatter_sum(t, dim)``, ZeRO-3's; a ``ThreadGroup`` has none), and
-knows its ``ranks`` and this rank's ``index``.
+(``axis.scatter_sum(t, dim)``), passes a tensor one rank down the chain of
+its ranks (``axis.shift(t)``: rank i receives rank i - 1's, rank 0 zeros;
+the pipeline's), and knows its ``ranks`` and this rank's ``index``.
 
 Megatron's pair over ``model`` (``models/bert.py``, ``models/efficientnet.py``):
 
@@ -23,6 +24,33 @@ Megatron's pair over ``model`` (``models/bert.py``, ``models/efficientnet.py``):
   this rank's own slice of the cotangent, not a sum. Every rank computes the
   same replicated result from the gathered tensor, so each already holds the
   whole cotangent; a sum would count it ``ranks`` times.
+
+Megatron's sequence parallelism over ``model`` (``models/bert.py`` with
+``seq_parallel``; ``parallel/constraint.py``), on the sequence dim (1) of a
+(B, S, H) activation, each rank holding S / ranks of it between the split
+layers; each returns its input with no axis:
+
+* ``scatter_to_seq``: this rank's S-slice forward; backward the ranks'
+  cotangent slices gathered. A replicated tensor entering the sharded
+  region: every rank then holds the whole cotangent, as it holds the whole
+  tensor.
+* ``gather_from_seq``: the ranks' slices gathered forward; backward this
+  rank's slice of the cotangents' sum (a reduce-scatter). The sequence
+  entering column-split layers, whose every rank gives part of each token's
+  cotangent.
+* ``reduce_scatter_to_seq``: this rank's S-slice of the ranks' sum forward;
+  backward the cotangent slices gathered. A row split's partial products
+  leaving for the sharded region, in place of ``reduce_from_model``'s
+  all-reduce.
+* The encoder's output leaves the sharded region through
+  ``gather_from_model`` on dim 1 (above): every rank then holds the whole
+  output and its whole cotangent.
+
+The pipeline (``parallel/pipeline.py``):
+
+* ``shift_to_next``: rank i + 1 receives rank i's tensor forward (rank 0
+  zeros, the last rank's goes nowhere); backward the reverse, rank i
+  receiving rank i + 1's cotangent (the last rank zeros).
 
 ZeRO-3 over ``data`` (``parallel/partitioning.py``):
 
@@ -38,6 +66,12 @@ from __future__ import annotations
 import threading
 
 import torch
+
+
+def _slice(x: torch.Tensor, dim: int, axis) -> torch.Tensor:
+    """This rank's equal part of ``x`` along ``dim``."""
+    n = x.shape[dim] // axis.ranks
+    return x.narrow(dim, axis.index * n, n)
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -69,8 +103,51 @@ class _GatherFromModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        n = g.shape[ctx.dim] // ctx.axis.ranks
-        return g.narrow(ctx.dim, ctx.axis.index * n, n), None, None
+        return _slice(g, ctx.dim, ctx.axis), None, None
+
+
+class _ScatterToSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return _slice(x, dim, axis).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.gather(g.contiguous(), ctx.dim), None, None
+
+
+class _GatherFromSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return axis.gather(x.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.scatter_sum(g.contiguous(), ctx.dim), None, None
+
+
+class _ReduceScatterToSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return axis.scatter_sum(x.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.gather(g.contiguous(), ctx.dim), None, None
+
+
+class _ShiftToNext(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return axis.shift(x.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.shift(g.contiguous(), reverse=True), None
 
 
 class _GatherShards(torch.autograd.Function):
@@ -94,6 +171,24 @@ def reduce_from_model(x: torch.Tensor, axis) -> torch.Tensor:
 
 def gather_from_model(x: torch.Tensor, dim: int, axis) -> torch.Tensor:
     return _GatherFromModel.apply(x, dim, axis)
+
+
+def scatter_to_seq(x: torch.Tensor, axis, dim: int = 1) -> torch.Tensor:
+    return x if axis is None else _ScatterToSeq.apply(x, dim, axis)
+
+
+def gather_from_seq(x: torch.Tensor, axis, dim: int = 1) -> torch.Tensor:
+    return x if axis is None else _GatherFromSeq.apply(x, dim, axis)
+
+
+def reduce_scatter_to_seq(x: torch.Tensor, axis, dim: int = 1) -> torch.Tensor:
+    return x if axis is None else _ReduceScatterToSeq.apply(x, dim, axis)
+
+
+def shift_to_next(x: torch.Tensor, axis) -> torch.Tensor:
+    """``axis.shift`` with its reverse as the backward (a tensor that needs no
+    gradient is shifted outside autograd)."""
+    return _ShiftToNext.apply(x, axis) if x.requires_grad else axis.shift(x.contiguous())
 
 
 def gather_shards(x: torch.Tensor, dim: int, axis) -> torch.Tensor:
@@ -173,3 +268,18 @@ class _ThreadAxis:
 
     def gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         return self._exchange(t.contiguous(), lambda slots: torch.cat(slots, dim))
+
+    def scatter_sum(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        def part(slots):
+            n = slots[0].shape[dim] // self.ranks
+            s = slots[0].narrow(dim, self.index * n, n).clone()
+            for other in slots[1:]:
+                s += other.narrow(dim, self.index * n, n)
+            return s
+
+        return self._exchange(t.contiguous(), part)
+
+    def shift(self, t: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+        src = self.index + 1 if reverse else self.index - 1
+        return self._exchange(t.contiguous(), lambda slots: slots[src].clone()
+                              if 0 <= src < self.ranks else torch.zeros_like(t))

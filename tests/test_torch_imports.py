@@ -57,7 +57,8 @@ def test_port_imports_without_jax_and_host_extras():
                  "interpret.factor", "cli.factor", "ops.quant", "utils.export",
                  "utils.profiling", "cli.export", "examples", "examples.get_embeddings",
                  "examples.downstream_classifier", "core.mesh", "ops.batchnorm",
-                 "parallel", "parallel.shard_loss", "parallel.dryrun"):
+                 "parallel", "parallel.shard_loss", "parallel.dryrun", "parallel.constraint",
+                 "parallel.pipeline"):
         assert f"mammo_clip_tpu_torch.{name}" in mods
     assert len(mods) > 30
     code = textwrap.dedent(f"""
@@ -380,3 +381,50 @@ def test_preprocessing_runs_without_host_extras(tmp_path):
                          timeout=300, env=env, cwd=ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().splitlines()[-1].startswith("ok")
+
+
+def test_sequence_and_pipeline_parallelism_run_without_host_extras():
+    """The tiny BERT encoder with ``seq_parallel`` on two model ranks and the
+    GPipe tower on four stages (threads of one process, ``ThreadGroup``), each
+    against the whole encoder, with every module of BLOCKED unimportable."""
+    code = textwrap.dedent(f"""
+        import copy, sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import torch
+        from mammo_clip_tpu_torch.models.bert import BertConfig, BertEncoder
+        from mammo_clip_tpu_torch.parallel import pipelined_bert_hidden
+        from mammo_clip_tpu_torch.parallel.partitioning import place
+        from mammo_clip_tpu_torch.parallel.tensor import ThreadGroup
+
+        torch.manual_seed(0)
+        enc = BertEncoder(BertConfig(vocab_size=64, hidden_size=16, num_layers=4, num_heads=2,
+                                     intermediate_size=32, max_position_embeddings=32,
+                                     dropout_rate=0.0, seq_parallel=True))
+        for p in enc.parameters():
+            p.data = 0.3 * torch.randn(p.shape)
+        ids, mask = torch.randint(1, 64, (4, 8)), torch.ones(4, 8, dtype=torch.long)
+        want = enc(ids, mask)
+        sp = ThreadGroup(2)
+
+        def model_rank(r):
+            m = copy.deepcopy(enc)
+            place(m, {{"model": sp.rank(r), "data": None}}, prefix="text_encoder")
+            return m(ids, mask)
+
+        pipe = ThreadGroup(4)
+        stage = lambda r: pipelined_bert_hidden(copy.deepcopy(enc), ids, mask, pipe.rank(r),
+                                                num_microbatches=2)
+        for out in sp.run(model_rank) + pipe.run(stage):
+            torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
+                        and sys.modules[m] is not None)
+        assert not leaked, leaked
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env=env, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().splitlines()[-1] == "ok"

@@ -213,15 +213,22 @@ def test_bert_amp_scores_keep_masked_keys_out_in_bf16():
 
 
 def test_bert_seq_parallel_raises_and_options_follow_the_model_config():
+    """The options follow the model config; ``seq_parallel`` no longer raises
+    (queue 9 ported it): a CLIP built with it and without a model axis
+    encodes texts with the bits of one built without it."""
     from mammo_clip_tpu_torch.models.clip import bert_config_from_model_config
 
     mc = tiny_test_config().model.to_dict()
     for key in ("fused_qkv", "amp_attn_scores", "seq_parallel"):
         t = dict(mc["text_encoder"], **{key: True})
         assert getattr(bert_config_from_model_config(dict(mc, text_encoder=t)), key) is True
+    base = build_model(mc, device="cpu", generator=torch.Generator().manual_seed(0))
     mc["text_encoder"]["seq_parallel"] = True
-    with pytest.raises(NotImplementedError, match="queue 9"):
-        build_model(mc, device="cpu")
+    sp = build_model(mc, device="cpu", generator=torch.Generator().manual_seed(0))
+    assert sp.text_encoder.cfg.seq_parallel and not base.text_encoder.cfg.seq_parallel
+    ids = torch.randint(1, 128, (2, 16), generator=torch.Generator().manual_seed(1))
+    mask = torch.ones(2, 16, dtype=torch.long)
+    assert torch.equal(sp.text_encoder(ids, mask), base.text_encoder(ids, mask))
 
 
 def _clip_batch(cfg, n=4, seed=3):

@@ -42,7 +42,21 @@ the port's one-process steps. What the ranks run:
   JAX's two steps on a 2-device data mesh: loss and post-update |params|
   within JAX's own 1e-4 (``__graft_entry__.py:192-196``), the K=2 call
   against JAX's second step; the draws of the ranks of a model group; and a
-  TP + FSDP checkpoint written by rank 0 and restored.
+  TP + FSDP checkpoint written by rank 0 and restored;
+* on the same layout and rows, the TP + FSDP step with
+  ``text_encoder.seq_parallel`` (BERT's LayerNorm and residual regions on
+  sequence shards over ``model``): held to the one process as above, to the
+  TP step's loss, and to JAX's ``seq_parallel`` step on a (2, 2) mesh under
+  ``jax.set_mesh`` at ``tests/test_parallel.py``'s tolerances (loss 2e-5
+  relative; parameters 5e-4 relative and 1e-5 absolute), the batch
+  replicated there (with it split over ``data``, R13 below doubles blocks 0
+  and 1's depthwise gradients, and the clip spreads that over every tensor
+  at ~1.2e-5);
+* the tiny pipeline BERT of ``tests/test_pipeline.py`` (4 layers, hidden 16)
+  over 4 stages, one a rank, point-to-point over gloo (``dryrun.pp_case``):
+  held to the port's sequential tower (``dryrun.compare_pp``: hidden
+  states 1e-4, every gradient 1e-4 relative) and to JAX's
+  ``pipelined_bert_hidden`` on a 4-device pipe mesh (2e-5).
 """
 
 import dataclasses
@@ -192,6 +206,22 @@ def _jax_steps(cfg, model, ctx, batch, state, fsdp=False, second=None, restart=N
     return after, out, new
 
 
+def _pp_bert_config():
+    from mammo_clip_tpu.models.bert import BertConfig as JaxBertConfig
+
+    return JaxBertConfig(**dryrun.TINY_PP_BERT, dropout_rate=0.0)
+
+
+def _pp_init():
+    """The JAX package's initial weights of the tiny pipeline BERT, in the
+    port's names."""
+    from mammo_clip_tpu.models.bert import BertEncoder as JaxBertEncoder
+
+    ids = np.ones((2, 16), np.int32)
+    variables = JaxBertEncoder(_pp_bert_config()).init(jax.random.PRNGKey(SEED), ids, ids)
+    return state_dict_from_jax(jax.tree_util.tree_map(np.asarray, dict(variables)))
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """The ranks' results, the one-process steps (on 8 rows and on 4), the
@@ -212,6 +242,8 @@ def ranks(tmp_path_factory):
     mesh22 = {"data": 2, "model": 2}
     steps4 = {**steps, "batches": host4}
     tp = {**steps4, "mesh": mesh22, "shard": {"fsdp": True}}
+    sp_cfg = dryrun.tiny_dp_config(SEED)
+    sp_cfg.model.text_encoder.seq_parallel = True
     draw_cfg = dryrun.tiny_dp_config(SEED)
     draw_cfg.augment.update(affine_p=1.0, elastic_p=1.0)
     emb = _embeddings()
@@ -223,6 +255,9 @@ def ranks(tmp_path_factory):
                                    if k in ("images", "image_views")}},
                "tp": tp, "dp2": {**steps4, "mesh": mesh22},
                "checkpoint": {"steps": tp, "dir": str(tmp_path_factory.mktemp("tp_ckpt"))},
+               "sp": {**tp, "cfg": sp_cfg.to_dict()},
+               "pp": dryrun.pp_payload(dryrun.TINY_PP_BERT, "float32", 8, 16, 4, 1, seed=SEED,
+                                       init=_pp_init()),
                "timeout_s": 60.0}
     with ThreadPoolExecutor(1) as pool:
         spawned = pool.submit(dryrun.run_ranks, RANKS, f"{WORKERS}:parity", payload,
@@ -721,3 +756,82 @@ def test_r13_jax_2x2_mesh_doubles_a_replicated_depthwise_kernel_gradient(ranks):
     rel = dryrun.grad_rel(out[0]["tp"]["one"]["grads"], one4["one"]["grads"])
     for b in (0, 1):
         assert rel[f"image_encoder.block_{b}.depthwise_conv.kernel"] <= 1e-4, rel
+
+
+@pytest.fixture(scope="module")
+def jax_sp(ranks):
+    """JAX's ``seq_parallel`` TP + FSDP step on a (2, 2) mesh of the
+    conftest's devices under ``jax.set_mesh``, as ``tests/test_parallel.py``
+    builds it, on the first 4 rows (replicated over the mesh: R13): its
+    losses and the state after it."""
+    import copy
+
+    from jax.sharding import NamedSharding
+
+    _, _, payload, *_ = ranks
+    cfg, _, _, _, state = _jax_state(payload["steps"]["batches"])
+    host = payload["tp"]["batches"]
+    ctx22 = JaxMeshContext.create(data=2, model=2, devices=jax.devices()[:4])
+    model_cfg = copy.deepcopy(cfg.model.to_dict())
+    model_cfg["text_encoder"]["seq_parallel"] = True
+    with _NoDropout():
+        model = jax_build_model(model_cfg)
+    batch = {k: jax.device_put(v, NamedSharding(ctx22.mesh, P())) for k, v in host[0].items()}
+    with jax.set_mesh(ctx22.mesh):
+        after, out, _ = _jax_steps(cfg, model, ctx22, batch, state, fsdp=True)
+    return after, out
+
+
+def test_sp_ranks_equal_one_process_and_the_tp_step(ranks):
+    """(data 2, model 2) with ``seq_parallel`` on the first 4 rows: the text
+    tower ran on sequence shards (its row splits reduce-scattered over S),
+    and the step and K=2 call equal the port's one process on those rows
+    (``dryrun.compare``, as the TP case), the same bits on every rank, the
+    step's loss the TP step's within the loss tolerance."""
+    out, _, _, _, one4, *_, noise4 = ranks
+    assert all(r["sp"]["seq_scatters"] > 0 for r in out)
+    cmp = dryrun.compare([r["sp"] for r in out], one4, noise=noise4)
+    assert cmp["same_bits_across_ranks"], cmp
+    assert cmp["ok"], cmp
+    tp_loss = out[0]["tp"]["one"]["losses"]["total"]
+    assert abs(out[0]["sp"]["one"]["losses"]["total"] - tp_loss) <= 1e-5 * max(1.0, abs(tp_loss))
+
+
+def test_sp_step_matches_the_jax_seq_parallel_step(ranks, jax_sp):
+    """Rank 0's sequence-parallel step against JAX's ``seq_parallel`` step
+    on a (2, 2) mesh: the losses within 2e-5 relative, every parameter and
+    running statistic within 5e-4 relative and 1e-5 absolute
+    (``tests/test_parallel.py:394``, :399)."""
+    out, *_ = ranks
+    after, losses = jax_sp
+    got = out[0]["sp"]["one"]
+    for k, v in losses["losses"].items():
+        np.testing.assert_allclose(got["losses"][k], v, rtol=2e-5, err_msg=k)
+    want = {k: v.numpy().reshape(-1) for k, v in state_dict_from_jax(
+        {"params": after["params"], "batch_stats": after["batch_stats"]}).items()}
+    assert set(got["params"]) | set(got["buffers"]) == set(want)
+    for k, g in {**got["params"], **got["buffers"]}.items():
+        np.testing.assert_allclose(g, want[k], rtol=5e-4, atol=1e-5, err_msg=k)
+
+
+def test_pp_ranks_over_gloo_equal_the_sequential_tower_and_jax(ranks):
+    """The tiny pipeline BERT over 4 gloo ranks, one stage each (the shifts
+    point-to-point): the hidden states and every gradient equal the port's
+    sequential tower's (``dryrun.compare_pp``; every stage the same outputs
+    and embedding gradients), and the hidden states JAX's
+    ``pipelined_bert_hidden`` on a 4-device pipe mesh within 2e-5."""
+    from jax.sharding import Mesh
+
+    from mammo_clip_tpu.parallel.pipeline import pipelined_bert_hidden as jax_pipelined
+    from mammo_clip_tpu_torch.convert.from_jax import variables_from_state_dict
+
+    out, _, payload, *_ = ranks
+    p = payload["pp"]
+    cmp = dryrun.compare_pp([r["pp"] for r in out], dryrun.pp_one(p))
+    assert cmp["ok"] and cmp["pipe"] == 4 and cmp["data"] == 1, cmp
+    params = variables_from_state_dict(p["init"])["params"]
+    pipe = Mesh(np.asarray(jax.devices()[:4]), ("pipe",))
+    want = jax.jit(lambda v: jax_pipelined(v, _pp_bert_config(), p["input_ids"],
+                                           p["attention_mask"], pipe, num_stages=4,
+                                           num_microbatches=4))(params)
+    np.testing.assert_allclose(out[0]["pp"]["hidden"], np.asarray(want), rtol=2e-5, atol=2e-5)

@@ -128,14 +128,37 @@ def tp_checkpoint(ctx, payload) -> dict:
     return {"saved": saved, "restored": digests(fresh), "step": fresh.step, "held": held}
 
 
+def sp_steps(ctx, payload) -> dict:
+    """``dryrun.steps_case`` of the sequence-parallel layout, with the
+    row splits' reduce-scatters over the sequence counted (``seq_scatters``:
+    0 would mean the text tower never ran on sequence shards)."""
+    from mammo_clip_tpu_torch.models import bert
+    from mammo_clip_tpu_torch.parallel.dryrun import steps_case
+
+    real, calls = bert.reduce_scatter_to_seq, []
+
+    def counted(y, axis, dim=1):
+        calls.append(axis is not None)
+        return real(y, axis, dim)
+
+    bert.reduce_scatter_to_seq = counted
+    try:
+        out = steps_case(ctx, payload)
+    finally:
+        bert.reduce_scatter_to_seq = real
+    out["seq_scatters"] = sum(calls)
+    return out
+
+
 def parity(ctx, payload) -> dict:
     """The parity file's ranks, spawned once: the data-parallel train steps
     (``dryrun.steps_case``), the gathered loss, the fused block's hook on a
     2-rank group and the ranks' draws; then on (data 2, model 2) the TP + FSDP
     steps, the data-parallel steps of 2 data ranks with whole parameters
-    (the model ranks replicas), the draws again and the TP + FSDP checkpoint
-    round trip."""
-    from mammo_clip_tpu_torch.parallel.dryrun import steps_case
+    (the model ranks replicas), the draws again, the TP + FSDP checkpoint
+    round trip and the sequence-parallel steps; then the text tower
+    pipelined over 4 stages (``dryrun.pp_case``, point-to-point over gloo)."""
+    from mammo_clip_tpu_torch.parallel.dryrun import pp_case, steps_case
 
     out = {"steps": steps_case(ctx, payload["steps"]),
            "loss": gathered_loss(ctx, payload["loss"]),
@@ -145,6 +168,8 @@ def parity(ctx, payload) -> dict:
     out["dp2"] = steps_case(ctx, payload["dp2"])
     out["draws_2x2"] = draws(ctx, payload["draws"])  # under dp2's (data 2, model 2) layout
     out["checkpoint"] = tp_checkpoint(ctx, payload["checkpoint"])
+    out["sp"] = sp_steps(ctx, payload["sp"])
+    out["pp"] = pp_case(ctx, payload["pp"])
     return out
 
 
